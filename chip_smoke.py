@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``combblas_tpu_torch``) on one NVIDIA card.
+
+Run from the root of the repository, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (each prints one JSON line):
+  1. card: name and power limit (``nvidia-smi``), float32 matmul settings;
+  2. build: compiles every CUDA source of the port with ``nvcc``;
+  3. kernels: each kernel against its plain PyTorch version, all four
+     semiring kinds, at a small, a ragged and the main path's full shape;
+  4. main path: ``spgemm_auto`` through the mxu tier on an R-MAT scale-13
+     graph (n = 8192, edgefactor 16) for MIN_PLUS, MAX_MIN and PLUS_TIMES,
+     each result held exactly against the dense product recomputed with
+     the plain version, then timed;
+  5. times: the kernel per kind at the main path's shape, beside its bound,
+     its plain version and (plus_times) one ``torch.matmul``.
+Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; without a CUDA card it exits 1
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from combblas_tpu_torch import (
+    MAX_MIN,
+    MIN_PLUS,
+    PLUS_TIMES,
+    Grid,
+    SpParMat,
+    choose_spgemm_tier,
+    rmat_symmetric_coo_host,
+    semiring_matmul,
+    semiring_matmul_reference,
+    spgemm_auto,
+)
+from combblas_tpu_torch import _build
+from combblas_tpu_torch.ops.semiring_matmul import KINDS
+from combblas_tpu_torch.ops.spgemm import densify, sparsify_windowed
+from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
+
+SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
+FULL = 1 << SCALE  # the mxu tier's largest tile: 8192
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
+# cores, and HBM3 bandwidth
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+KERNEL_SOURCE = "combblas_tpu_torch/csrc/semiring_mm.cu"
+TPU_KERNEL = "combblas_tpu/ops/pallas_kernels.py:33"
+IDENTITY = {"min_plus": float("inf"), "max_plus": -float("inf"),
+            "max_min": -float("inf"), "plus_times": 0.0}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` calls, after one warm-up,
+    between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(m: int, k: int, n: int) -> tuple[float, str]:
+    """Least time for an m×k by k×n semiring product: 2mnk operations at
+    the float32 peak, or each operand read and the output written once."""
+    ops_ms = 2.0 * m * n * k / PEAK_F32_OPS * 1e3
+    bytes_ms = 4.0 * (m * k + k * n + m * n) / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    diff = torch.where(got == want, 0.0, (got - want).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def operands(kind: str, m: int, k: int, n: int, seed: int, dev):
+    """Integer-valued float32 operands from a numpy seed, a tenth of the
+    cells set to the fold's identity (as the densified tiles hold it)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((m, k), (k, n)):
+        x = rng.integers(-8, 9, shape).astype(np.float32)
+        x[rng.random(shape) < 0.1] = IDENTITY[kind]
+        out.append(torch.from_numpy(x).to(dev))
+    return out
+
+
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 must be False")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmul precision must be 'highest'")
+    emit({"phase": "card", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "allow_tf32": False,
+          "float32_matmul_precision": "highest"})
+    return card
+
+
+def phase_build() -> None:
+    report = _build.build(["semiring_mm"])
+    ptxas = [ln.strip() for ln in report["semiring_mm"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": {k: v["seconds"] for k, v in report.items()},
+          "ptxas": ptxas})
+
+
+def phase_kernels(dev) -> dict:
+    """Each kind at a small, a ragged and the full shape; exact equality.
+    Returns per kind the full-shape max error and plain-version time."""
+    full = {}
+    for kind in KINDS:
+        for shape in ((256, 256, 256), (1000, 777, 1234), (FULL, FULL, FULL)):
+            a, b = operands(kind, *shape, seed=sum(shape), dev=dev)
+            before = semiring_matmul.launches
+            got = semiring_matmul(kind, a, b)
+            torch.cuda.synchronize()
+            if semiring_matmul.launches != before + 1:
+                raise AssertionError(f"{kind}: the kernel did not launch")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = semiring_matmul_reference(kind, a, b)
+            end.record()
+            end.synchronize()
+            err = max_abs_err(got, want)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kind} {shape}: kernel != plain (max err {err})")
+            emit({"phase": "kernels", "kind": kind, "shape": shape, "equal": True,
+                  "max_abs_err": err})
+            if shape[0] == FULL:
+                full[kind] = {"max_abs_err": err, "plain_ms": start.elapsed_time(end)}
+            del a, b, got, want
+    torch.cuda.empty_cache()
+    return full
+
+
+def dense_plain_product(sr, r, c, v, n: int, dev) -> torch.Tensor:
+    """The graph's dense n×n matrix, duplicates folded with ``sr.add`` by a
+    scatter on the card, squared with the plain semiring product."""
+    zero = float(sr.zero_fn(torch.float32))
+    flat = torch.from_numpy(r * n + c).to(dev)
+    vals = torch.from_numpy(v).to(dev)
+    dense = torch.full((n * n,), zero, device=dev)
+    if sr.add_kind == "sum":
+        dense.index_add_(0, flat, vals)
+    else:
+        reduce = "amin" if sr.add_kind == "min" else "amax"
+        dense.scatter_reduce_(0, flat, vals, reduce=reduce, include_self=False)
+    dense = dense.view(n, n)
+    want = semiring_matmul_reference(_PALLAS_KINDS[sr.name], dense, dense)
+    if sr.add_kind == "sum" and float(want.abs().max()) >= 2**24:
+        # exactness in any summation order needs every partial sum < 2**24
+        raise AssertionError("plus_times sums reach 2**24; exact comparison void")
+    return want
+
+
+def phase_main_path(dev) -> dict:
+    """The counted run: spgemm_auto for each semiring with the launch
+    count set to 0 just before and read just after; then the checks and
+    the timed runs."""
+    r, c = rmat_symmetric_coo_host(GRAPH_SEED, SCALE, EDGEFACTOR)
+    v = np.random.default_rng(WEIGHT_SEED).integers(1, 16, r.shape[0]).astype(np.float32)
+    grid = Grid.make(1, 1, device=dev)
+    p = grid.pr
+    semirings = (MIN_PLUS, MAX_MIN, PLUS_TIMES)
+
+    semiring_matmul.launches = 0
+    runs = {}
+    for sr in semirings:
+        before = semiring_matmul.launches
+        t0 = time.perf_counter()
+        A = SpParMat.from_global_coo(grid, r, c, v, FULL, FULL, dedup_sr=sr)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        tier = choose_spgemm_tier(sr, A, A)
+        C = spgemm_auto(sr, A, A)
+        torch.cuda.synchronize()
+        runs[sr.name] = (A, C, tier, semiring_matmul.launches - before, load_s)
+    launches = semiring_matmul.launches
+
+    per_kind = {}
+    for sr in semirings:
+        A, C, tier, n_launch, load_s = runs[sr.name]
+        if tier != "mxu":
+            raise AssertionError(f"{sr.name}: routed to {tier}, not mxu")
+        nnz = int(C.getnnz())
+        cap0 = 1 << (max(A.capacity, 64) - 1).bit_length()
+        attempts = 1 if int(C.nnz.max()) <= cap0 else 2
+        if sr.name != "plus_times" and n_launch != attempts * p**3:
+            raise AssertionError(
+                f"{sr.name}: {n_launch} kernel launches for {attempts} attempts"
+            )
+        # exact check against the dense plain product
+        zero = float(sr.zero_fn(torch.float32))
+        want = dense_plain_product(sr, r, c, v, FULL, dev)
+        wr, wc = torch.nonzero(want != zero, as_tuple=True)
+        if nnz != wr.numel():
+            raise AssertionError(f"{sr.name}: nnz {nnz} != plain {wr.numel()}")
+        t = C.local_tile(0, 0)
+        for got, exp, name in ((t.rows[:nnz], wr, "rows"), (t.cols[:nnz], wc, "cols"),
+                               (t.vals[:nnz], want[wr, wc], "vals")):
+            if not torch.equal(got.to(exp.dtype), exp):
+                raise AssertionError(f"{sr.name}: {name} differ from the plain product")
+        if not bool(torch.isfinite(t.vals[:nnz]).all()):
+            raise AssertionError(f"{sr.name}: non-finite output values")
+        del want, wr, wc
+        torch.cuda.empty_cache()
+        # timed runs (the counted run above was the warm-up)
+        torch.cuda.reset_peak_memory_stats()
+        reps = 3
+        t0 = time.perf_counter()
+        ms = time_cuda_ms(lambda: spgemm_auto(sr, A, A), reps)
+        host_s = (time.perf_counter() - t0) / (reps + 1)
+        per_kind[sr.name] = {
+            "tier": tier, "nnz_in": int(A.getnnz()), "load_s": load_s, "nnz_out": nnz,
+            "attempts": attempts, "kernel_launches": n_launch,
+            "out_capacity": C.capacity, "ms": ms, "host_s_per_call": host_s,
+            "nnz_out_per_s": nnz / (ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "layers_ms": layer_times(sr, A, C.capacity),
+        }
+        emit({"phase": "main_path", "semiring": sr.name, "exact": True,
+              **per_kind[sr.name]})
+    return {"launches": launches, "per_kind": per_kind}
+
+
+def layer_times(sr, A: SpParMat, out_capacity: int) -> dict:
+    """CUDA-event times of the mxu tier's layers at the main path's shapes
+    (one tile, one stage): densify, stage product, fold, extraction."""
+    kind = _PALLAS_KINDS[sr.name]
+    zero = float(sr.zero_fn(A.dtype))
+    pm = _pad128(A.local_rows)
+    tile = A.local_tile(0, 0)
+    da = densify(tile, pm, pm, zero)
+
+    def product():
+        if kind == "plus_times":
+            return _mxu_dot(da, da, "f32", da.dtype)
+        return semiring_matmul(kind, da, da)
+
+    prod = product()
+    acc = torch.full_like(prod, zero)
+    counted = semiring_matmul.launches
+    out = {
+        "densify": time_cuda_ms(lambda: densify(tile, pm, pm, zero), 5),
+        "stage_product": time_cuda_ms(product, 3),
+        "fold": time_cuda_ms(lambda: sr.add(acc, prod), 5),
+        "extract": time_cuda_ms(
+            lambda: sparsify_windowed(prod, zero, A.local_rows, A.local_cols, out_capacity), 5
+        ),
+    }
+    semiring_matmul.launches = counted  # timing launches are not the path's
+    return out
+
+
+def phase_times(dev, full: dict) -> dict:
+    """The kernel per kind at the main path's shape: time, bound, plain
+    version and (plus_times) the library call."""
+    m = k = n = FULL
+    b_ms, b_by = bound(m, k, n)
+    out = {}
+    for kind in KINDS:
+        a, b = operands(kind, m, k, n, seed=1, dev=dev)
+        counted = semiring_matmul.launches
+        ms = time_cuda_ms(lambda: semiring_matmul(kind, a, b), 5)
+        semiring_matmul.launches = counted
+        lib = None
+        if kind == "plus_times":
+            lib = time_cuda_ms(lambda: torch.matmul(a, b), 5)
+        out[kind] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "share_of_bound": b_ms / ms, "plain_ms": full[kind]["plain_ms"],
+                     "library_ms": lib, "max_abs_err": full[kind]["max_abs_err"],
+                     "shape": [m, k, n]}
+        emit({"phase": "times", "kind": kind, **out[kind]})
+        del a, b
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a card",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    phase_card()
+    phase_build()
+    full = phase_kernels(dev)
+    path = phase_main_path(dev)
+    times = phase_times(dev, full)
+    kernels = []
+    for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
+        kind = _PALLAS_KINDS[sr.name]
+        t = times[kind]
+        kernels.append({
+            "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": TPU_KERNEL, "launches": path["per_kind"][sr.name]["kernel_launches"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    if sum(k["launches"] for k in kernels) != path["launches"]:
+        raise AssertionError("launch counts do not add up")
+    for entry in kernels:
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']} never launched on the main path")
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
