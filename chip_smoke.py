@@ -7,16 +7,29 @@ Run from the root of the repository, on a machine with one CUDA card:
 
 Phases (each prints one JSON line):
   1. card: name and power limit (``nvidia-smi``), float32 matmul settings;
-  2. build: compiles every CUDA source of the port with ``nvcc``;
-  3. kernels: each kernel against its plain PyTorch version, all four
-     semiring kinds, at a small, a ragged and the main path's full shape;
-  4. main path: ``spgemm_auto`` through the mxu tier on an R-MAT scale-13
+  2. build: compiles every CUDA source of the port with ``nvcc``, one
+     process per source, all started together;
+  3. kernels: the semiring GEMM (K1) against its plain PyTorch version, all
+     four semiring kinds, at a small, a ragged and the main path's full
+     shape;
+  4. compaction: the dense -> sparse compaction kernel (K2) against its
+     plain version at a small, a ragged and a multi-panel shape, on a case
+     where the greedy placement drops a panel, over a density sweep at
+     8192 x 8192 and at 16384 x 16384;
+  5. main path: ``spgemm_auto`` through the mxu tier on an R-MAT scale-13
      graph (n = 8192, edgefactor 16) for MIN_PLUS, MAX_MIN and PLUS_TIMES,
      each result held exactly against the dense product recomputed with
      the plain version, then timed;
-  5. times: the kernel per kind at the main path's shape, beside its bound,
-     its plain version and (plus_times) one ``torch.matmul``.
-Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+  6. K2 path: the mxu tier's dense accumulator for the same products
+     (densify, stage product, fold), sized with ``dense_support_nnz`` and
+     extracted with ``dense_to_sptuples``; the live entries held exactly
+     against ``sparsify_windowed``, ``sparsify`` and the main path's
+     result, then the extraction layers timed;
+  7. times: K1 per kind at the main path's shape, beside its bound, its
+     plain version and (plus_times) one ``torch.matmul``.
+Each path runs with every launch count set to 0 just before it and read
+just after. Then the ``kernels`` line and, last,
+``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
 """
@@ -38,14 +51,22 @@ from combblas_tpu_torch import (
     Grid,
     SpParMat,
     choose_spgemm_tier,
+    dense_support_nnz,
+    dense_to_sptuples,
+    expand_ranges,
+    flat_to_tuples_arrays,
+    flat_to_tuples_arrays_reference,
     rmat_symmetric_coo_host,
     semiring_matmul,
     semiring_matmul_reference,
+    sparsify,
+    sparsify_windowed,
     spgemm_auto,
 )
 from combblas_tpu_torch import _build
+from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS
-from combblas_tpu_torch.ops.spgemm import densify, sparsify_windowed
+from combblas_tpu_torch.ops.spgemm import densify
 from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
@@ -56,6 +77,9 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_SOURCE = "combblas_tpu_torch/csrc/semiring_mm.cu"
 TPU_KERNEL = "combblas_tpu/ops/pallas_kernels.py:33"
+K2_SOURCE = "combblas_tpu_torch/csrc/dense_to_tuples.cu"
+K2_TPU_KERNEL = "combblas_tpu/ops/pallas_sparsify.py:109"
+SOURCES = ["semiring_mm", "dense_to_tuples"]
 IDENTITY = {"min_plus": float("inf"), "max_plus": -float("inf"),
             "max_min": -float("inf"), "plus_times": 0.0}
 
@@ -88,7 +112,8 @@ def bound(m: int, k: int, n: int) -> tuple[float, str]:
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    diff = torch.where(got == want, 0.0, (got - want).abs())
+    same = (got == want) | (got.isnan() & want.isnan())
+    diff = torch.where(same, 0.0, (got - want).abs())
     return float(diff.max()) if diff.numel() else 0.0
 
 
@@ -123,9 +148,9 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    report = _build.build(["semiring_mm"])
-    ptxas = [ln.strip() for ln in report["semiring_mm"]["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    report = _build.build(SOURCES)
+    ptxas = {name: [ln.strip() for ln in report[name]["log"].splitlines()
+                    if "registers" in ln or "spill" in ln] for name in SOURCES}
     emit({"phase": "build", "seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": ptxas})
 
@@ -160,6 +185,87 @@ def phase_kernels(dev) -> dict:
     return full
 
 
+def k2_bound(cells: int, slots: int) -> tuple[float, str]:
+    """Least time for K2: each input cell read once (4 bytes) and each
+    output slot written once (index and value, 8 bytes); it does no
+    arithmetic to speak of, so bytes bound it."""
+    return (4.0 * cells + 8.0 * slots) / PEAK_BYTES * 1e3, "bytes"
+
+
+def random_dense(shape, density: float, seed: int, dev) -> torch.Tensor:
+    """float32 cells in 1..99 with probability ``density``, else 0, from a
+    seeded generator on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keep = torch.rand(shape, generator=g, device=dev) < density
+    vals = torch.randint(1, 100, shape, generator=g, device=dev).to(torch.float32)
+    return torch.where(keep, vals, 0.0)
+
+
+def greedy_case(dev) -> torch.Tensor:
+    """Four panels of 32 flat rows with 3000 / 100 / 3000 / 100 nonzeros:
+    at capacity 64 the greedy placement writes panels 0, 1 and 3."""
+    rng = np.random.default_rng(11)
+    flat = np.zeros(4 * 4096, np.float32)
+    for p, k in enumerate((3000, 100, 3000, 100)):
+        flat[p * 4096 + rng.choice(4096, size=k, replace=False)] = rng.integers(1, 100, k)
+    return torch.from_numpy(flat.reshape(128, 128)).to(dev)
+
+
+def check_k2(case: str, xf: torch.Tensor, *, zero: float = 0.0, capacity: int,
+             panel_rows: int = _PANEL_ROWS, reps: int = 0) -> dict:
+    """K2 against its plain version on one input: equal total and end_row,
+    and equal idx and vals (as bits, so that NaN compares) below
+    end_row * 128. With ``reps``, also its time beside its bound."""
+    kw = dict(zero=zero, capacity=capacity, panel_rows=panel_rows)
+    before = flat_to_tuples_arrays.launches
+    gi, gv, gt, ge = flat_to_tuples_arrays(xf, **kw)
+    torch.cuda.synchronize()
+    if flat_to_tuples_arrays.launches != before + 1:
+        raise AssertionError(f"K2 {case}: the kernel did not launch")
+    wi, wv, wt, we = flat_to_tuples_arrays_reference(xf, **kw)
+    end = int(we) * 128
+    if not (int(gt) == int(wt) and int(ge) == int(we) and torch.equal(gi[:end], wi[:end])
+            and torch.equal(gv[:end].view(torch.int32), wv[:end].view(torch.int32))):
+        raise AssertionError(f"K2 {case}: kernel != plain")
+    out = {"phase": "compaction", "case": case, "shape": list(xf.shape),
+           "capacity": capacity, "panel_rows": panel_rows, "total": int(wt),
+           "end_row": int(we), "live": int((wi[:end] >= 0).sum()), "equal": True,
+           "max_abs_err": max_abs_err(gv[:end], wv[:end])}
+    if reps:
+        out["ms"] = time_cuda_ms(lambda: flat_to_tuples_arrays(xf, **kw), reps)
+        out["bound_ms"], out["bound_by"] = k2_bound(xf.numel(), gi.numel())
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    flat_to_tuples_arrays.launches = before  # checks are not a path's launches
+    emit(out)
+    return out
+
+
+def phase_compaction(dev) -> None:
+    """K2 at a small (with NaN and -0.0 cells), a ragged (panels of
+    gcd(8000, 8192) = 64 rows) and a multi-panel shape, on the greedy-drop
+    case, over a density sweep at 8192 x 8192 and at 16384 x 16384 (5%).
+    Each capacity is the exact count, except where the case says."""
+    small = random_dense((64, 128), 0.3, 1, dev)
+    small[0, :8] = torch.tensor([float("nan"), -0.0] * 4)
+    check_k2("small", small, capacity=3000)
+    check_k2("ragged", random_dense((8000, 128), 0.3, 2, dev), capacity=400_000)
+    multi = random_dense((8 * 8192, 128), 0.2, 3, dev)
+    check_k2("multi-panel", multi, capacity=int((multi != 0).sum()))
+    check_k2("multi-panel-half-capacity", multi, capacity=int((multi != 0).sum()) // 2)
+    greedy = greedy_case(dev)
+    for cap in (64, 3100):
+        check_k2(f"greedy-cap{cap}", greedy, capacity=cap, panel_rows=32)
+    del small, multi, greedy
+    for pct in (0.0, 0.1, 5.0, 50.0, 100.0):
+        x = random_dense((FULL, FULL), pct / 100, 4, dev).view(-1, 128)
+        check_k2(f"sweep-{FULL}-{pct}%", x, capacity=int((x != 0).sum()), reps=10)
+        del x
+    x = random_dense((2 * FULL, 2 * FULL), 0.05, 5, dev).view(-1, 128)
+    check_k2(f"{2 * FULL}-5.0%", x, capacity=int((x != 0).sum()), reps=5)
+    del x
+    torch.cuda.empty_cache()
+
+
 def dense_plain_product(sr, r, c, v, n: int, dev) -> torch.Tensor:
     """The graph's dense n×n matrix, duplicates folded with ``sr.add`` by a
     scatter on the card, squared with the plain semiring product."""
@@ -191,6 +297,7 @@ def phase_main_path(dev) -> dict:
     semirings = (MIN_PLUS, MAX_MIN, PLUS_TIMES)
 
     semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
     runs = {}
     for sr in semirings:
         before = semiring_matmul.launches
@@ -247,22 +354,125 @@ def phase_main_path(dev) -> dict:
         }
         emit({"phase": "main_path", "semiring": sr.name, "exact": True,
               **per_kind[sr.name]})
+    mats = {name: (run[0], run[1]) for name, run in runs.items()}
+    return {"launches": launches, "per_kind": per_kind, "mats": mats}
+
+
+def stage_product(sr, da: torch.Tensor) -> torch.Tensor:
+    """The mxu tier's stage product ``da ⊗ da``: K1 for the tropical
+    kinds, ``torch.matmul`` for plus_times, as ``summa_spgemm_mxu``."""
+    kind = _PALLAS_KINDS[sr.name]
+    if kind == "plus_times":
+        return _mxu_dot(da, da, "f32", da.dtype)
+    return semiring_matmul(kind, da, da)
+
+
+def mxu_accumulator(sr, A: SpParMat) -> torch.Tensor:
+    """The mxu tier's dense accumulator for A·A on a 1×1 grid, built as
+    ``summa_spgemm_mxu`` builds it: densify, stage product, fold."""
+    zero = float(sr.zero_fn(A.dtype))
+    pm = _pad128(A.local_rows)
+    prod = stage_product(sr, densify(A.local_tile(0, 0), pm, pm, zero))
+    return sr.add(torch.full_like(prod, zero), prod)
+
+
+def nonzero_gather(x: torch.Tensor, zero: float):
+    """The nearest PyTorch call to K2: ``torch.nonzero`` of the mask plus
+    the value gather (int64 indices, no panel layout)."""
+    flat = x.view(-1)
+    nz = torch.nonzero(flat != zero).squeeze(1)
+    return nz, flat[nz]
+
+
+def phase_k2_path(mats: dict) -> dict:
+    """The counted run: for each semiring, the mxu accumulator, its exact
+    support count (``dense_support_nnz``) as the capacity, and
+    ``dense_to_sptuples`` (K2), with every launch count set to 0 just
+    before and read just after. Then the checks: the live entries, in slot
+    order, equal ``sparsify_windowed``'s and ``sparsify``'s prefixes and
+    the main path's ``spgemm_auto`` result. Then the timed layers."""
+    semirings = (MIN_PLUS, MAX_MIN, PLUS_TIMES)
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    runs = {}
+    for sr in semirings:
+        A, _ = mats[sr.name]
+        zero = float(sr.zero_fn(A.dtype))
+        acc = mxu_accumulator(sr, A)
+        cap = int(dense_support_nnz(acc, zero, A.local_rows, A.local_cols))
+        t, total = dense_to_sptuples(acc, A.local_rows, A.local_cols, zero=zero, capacity=cap)
+        torch.cuda.synchronize()
+        runs[sr.name] = (acc, zero, cap, t, total)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+
+    per_kind = {}
+    for sr in semirings:
+        A, C = mats[sr.name]
+        acc, zero, cap, t, total = runs.pop(sr.name)
+        n_r, n_c = A.local_rows, A.local_cols
+        live = t.valid_mask()
+        got = (t.rows[live], t.cols[live], t.vals[live])
+        if not (int(total) == cap == got[0].numel() == int(t.nnz)):
+            raise AssertionError(f"K2 path {sr.name}: total {int(total)}, nnz "
+                                 f"{int(t.nnz)}, live {got[0].numel()}, capacity {cap}")
+        w, w_total = sparsify_windowed(acc, zero, n_r, n_c, cap)
+        s, s_total = sparsify(acc, zero, n_r, n_c, cap)
+        c = C.local_tile(0, 0)
+        nnz_c = int(C.getnnz())
+        for other, o_total, name in ((w, w_total, "sparsify_windowed"),
+                                     (s, s_total, "sparsify"), (c, C.nnz.sum(), "spgemm_auto")):
+            k = min(cap, other.capacity)
+            want = (other.rows[:k], other.cols[:k], other.vals[:k])
+            if int(o_total) != cap or k != cap or not all(
+                torch.equal(g, x) for g, x in zip(got, want)
+            ):
+                raise AssertionError(f"K2 path {sr.name}: entries differ from {name}")
+        if not bool(torch.isfinite(got[2]).all()):
+            raise AssertionError(f"K2 path {sr.name}: non-finite values")
+        del w, s, got, t, live
+        xf = acc.view(-1, 128)
+        k2 = check_k2(f"k2-path-{sr.name}", xf, zero=zero, capacity=cap, reps=20)
+        rowcnt = (acc[:n_r, :n_c] != zero).sum(1, dtype=torch.int32)
+        ramp = torch.arange(cap, dtype=torch.int32, device=acc.device)
+        counted = flat_to_tuples_arrays.launches
+        out = {
+            "nnz": cap, "nnz_spgemm_auto": nnz_c, "k2_ms": k2["ms"],
+            "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+            "max_abs_err": k2["max_abs_err"],
+            "support_nnz_ms": time_cuda_ms(
+                lambda: dense_support_nnz(acc, zero, n_r, n_c), 10),
+            "dense_to_sptuples_ms": time_cuda_ms(
+                lambda: dense_to_sptuples(acc, n_r, n_c, zero=zero, capacity=cap), 10),
+            "sparsify_windowed_ms": time_cuda_ms(
+                lambda: sparsify_windowed(acc, zero, n_r, n_c, cap), 5),
+            "sparsify_ms": time_cuda_ms(lambda: sparsify(acc, zero, n_r, n_c, cap), 3),
+            # sparsify's owner map, and one of its two cummax scans alone
+            "expand_ranges_ms": time_cuda_ms(lambda: expand_ranges(rowcnt, cap), 3),
+            "cummax_ms": time_cuda_ms(lambda: torch.cummax(ramp, 0), 3),
+            "plain_ms": time_cuda_ms(
+                lambda: flat_to_tuples_arrays_reference(xf, zero=zero, capacity=cap), 2),
+            "library_ms": time_cuda_ms(lambda: nonzero_gather(acc, zero), 10),
+            "library_call": "torch.nonzero(x.view(-1) != zero) + value gather "
+                            "(int64 indices, no panel layout)",
+        }
+        flat_to_tuples_arrays.launches = counted
+        per_kind[sr.name] = out
+        emit({"phase": "k2_path", "semiring": sr.name, "exact": True, **out})
+        del acc, xf, rowcnt, ramp
+        torch.cuda.empty_cache()
     return {"launches": launches, "per_kind": per_kind}
 
 
 def layer_times(sr, A: SpParMat, out_capacity: int) -> dict:
     """CUDA-event times of the mxu tier's layers at the main path's shapes
     (one tile, one stage): densify, stage product, fold, extraction."""
-    kind = _PALLAS_KINDS[sr.name]
     zero = float(sr.zero_fn(A.dtype))
     pm = _pad128(A.local_rows)
     tile = A.local_tile(0, 0)
     da = densify(tile, pm, pm, zero)
 
     def product():
-        if kind == "plus_times":
-            return _mxu_dot(da, da, "f32", da.dtype)
-        return semiring_matmul(kind, da, da)
+        return stage_product(sr, da)
 
     prod = product()
     acc = torch.full_like(prod, zero)
@@ -312,7 +522,9 @@ def main() -> int:
     phase_card()
     phase_build()
     full = phase_kernels(dev)
+    phase_compaction(dev)
     path = phase_main_path(dev)
+    k2_path = phase_k2_path(path.pop("mats"))
     times = phase_times(dev, full)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
@@ -326,7 +538,18 @@ def main() -> int:
             "library_ms": t["library_ms"],
         })
     if sum(k["launches"] for k in kernels) != path["launches"]:
-        raise AssertionError("launch counts do not add up")
+        raise AssertionError("K1's launch counts do not add up on the main path")
+    k2 = k2_path["per_kind"]["min_plus"]
+    kernels.append({
+        "name": "dense_to_tuples_f32", "route": "cuda", "source": K2_SOURCE,
+        "replaces": K2_TPU_KERNEL, "launches": k2_path["launches"]["k2"],
+        "max_abs_err": max(v["max_abs_err"] for v in k2_path["per_kind"].values()),
+        "ms": k2["k2_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+    })
+    # one extraction per semiring; K1 builds the tropical accumulators
+    if k2_path["launches"] != {"k1": 2, "k2": 3}:
+        raise AssertionError(f"K2 path launches {k2_path['launches']}, want k1 2, k2 3")
     for entry in kernels:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']} never launched on the main path")

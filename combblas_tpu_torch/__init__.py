@@ -2,18 +2,29 @@
 
 Semiring sparse linear algebra over a pr×pc grid of tiles on one CUDA
 card, with hand-written Hopper kernels where the JAX package had Pallas
-ones. This slice covers the tropical SpGEMM path: ``spgemm_auto`` -> the
-dense (mxu) tier -> the semiring GEMM kernel (``csrc/semiring_mm.cu``).
+ones. Ported so far: the tropical SpGEMM path (``spgemm_auto`` -> the
+dense (mxu) tier -> the semiring GEMM kernel, ``csrc/semiring_mm.cu``) and
+the dense -> sparse extraction (``dense_to_sptuples`` -> the compaction
+kernel, ``csrc/dense_to_tuples.cu``), beside the plain extractions
+``sparsify`` and ``sparsify_windowed``.
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 """
 
 from .convert import spparmat_from_arrays
+from .ops.dense_to_tuples import (
+    dense_to_sptuples,
+    dense_to_tuples_arrays,
+    flat_to_tuples_arrays,
+    flat_to_tuples_arrays_reference,
+)
 from .ops.semiring_matmul import (
     min_plus_matmul,
     semiring_matmul,
     semiring_matmul_reference,
 )
+from .ops.segment import expand_ranges
+from .ops.spgemm import dense_support_nnz, sparsify, sparsify_windowed
 from .ops.tuples import SpTuples
 from .parallel.grid import Grid, HostGrid
 from .parallel.spgemm import (
@@ -52,10 +63,18 @@ __all__ = [
     "SpTuples",
     "choose_spgemm_tier",
     "coo_has_duplicates",
+    "dense_support_nnz",
+    "dense_to_sptuples",
+    "dense_to_tuples_arrays",
+    "expand_ranges",
+    "flat_to_tuples_arrays",
+    "flat_to_tuples_arrays_reference",
     "min_plus_matmul",
     "rmat_symmetric_coo_host",
     "semiring_matmul",
     "semiring_matmul_reference",
+    "sparsify",
+    "sparsify_windowed",
     "spgemm_auto",
     "spparmat_from_arrays",
     "summa_spgemm_mxu",

@@ -3,6 +3,8 @@
 Combine values that share a key with the semiring's ``add``, for the
 monoids torch can scatter-combine natively (``sum``, ``min``, ``max``).
 Out-of-range ids (>= num_segments, the padding slots) are dropped.
+``expand_ranges`` maps static-capacity slots back to variable-length
+ranges.
 """
 
 from __future__ import annotations
@@ -37,3 +39,36 @@ def segment_reduce(
     # untouched one keeps the semiring zero
     out.scatter_reduce_(0, sink, vals, reduce=reduce, include_self=False)
     return out[:num_segments]
+
+
+def expand_ranges(
+    lens: torch.Tensor, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flatten variable-length ranges into ``capacity`` slots.
+
+    Source ``i`` contributes ``lens[i]`` items. Returns, per slot ``f``,
+    ``(owner[f], offset[f])`` such that slot ``f`` is item ``offset[f]`` of
+    source ``owner[f]``, the mask ``f < sum(lens)`` and ``sum(lens)``, all
+    int32 (``valid`` bool). The owner map is a scatter-max of each source's
+    index at its start, then a cummax; zero-length sources resolve to the
+    highest index, as ``searchsorted(side='right') - 1`` would. Starts at or
+    past ``capacity`` go to a sink slot that is cut off.
+    """
+    dev = lens.device
+    lens = lens.to(torch.int32)
+    n = lens.shape[0]
+    starts = torch.cat(
+        [torch.zeros(1, dtype=torch.int32, device=dev), torch.cumsum(lens, 0, dtype=torch.int32)]
+    )
+    total = starts[-1]
+    pos = starts[:-1]
+    sink = torch.clamp(pos, max=capacity).long()
+    seed = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
+    seed.scatter_reduce_(0, sink, torch.arange(n, dtype=torch.int32, device=dev), "amax")
+    owner = torch.clamp(torch.cummax(seed[:capacity], 0).values, 0, n - 1)
+    # base[f] = starts[owner[f]], by the same construction (starts ascend)
+    base = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
+    base.scatter_reduce_(0, sink, pos, "amax")
+    base = torch.cummax(base[:capacity], 0).values
+    f = torch.arange(capacity, dtype=torch.int32, device=dev)
+    return owner, f - base, f < total, total

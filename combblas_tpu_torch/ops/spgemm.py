@@ -1,6 +1,8 @@
 """Local SpGEMM building blocks — counterpart of the parts of
 ``combblas_tpu/ops/spgemm.py`` that the dense (mxu) tier uses: tile
-densification, dense-to-sparse extraction and the COO duplicate check.
+densification, dense-to-sparse extraction (``sparsify_windowed``,
+``sparsify``) with its exact sizing (``dense_support_nnz``) and the COO
+duplicate check.
 """
 
 from __future__ import annotations
@@ -8,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..semiring import Semiring
+from .segment import expand_ranges
 from .tuples import SpTuples
 
 #: Semiring add-monoid -> the torch scatter combiner implementing it.
@@ -35,6 +38,57 @@ def densify(t: SpTuples, pad_rows: int, pad_cols: int, zero) -> torch.Tensor:
     return dense[:ncell].view(pad_rows, pad_cols)
 
 
+def _support_mask(dense: torch.Tensor, zero, nrows: int, ncols: int) -> torch.Tensor:
+    """``dense != zero`` restricted to the first ``nrows x ncols`` cells."""
+    R, C = dense.shape
+    mask = dense != zero
+    if C != ncols:
+        mask = mask & (torch.arange(C, device=dense.device) < ncols)[None, :]
+    if R != nrows:
+        mask = mask & (torch.arange(R, device=dense.device) < nrows)[:, None]
+    return mask
+
+
+def dense_support_nnz(dense: torch.Tensor, zero, nrows: int, ncols: int) -> torch.Tensor:
+    """Exact count (int32, 0-dim, on the device) of the cells ``!= zero`` in
+    the first ``nrows x ncols`` of a (possibly padded) dense block: sizes
+    an extraction's capacity exactly instead of guessing and retrying."""
+    return _support_mask(dense, zero, nrows, ncols).sum().to(torch.int32)
+
+
+def sparsify(
+    dense: torch.Tensor, zero, nrows: int, ncols: int, capacity: int
+) -> tuple[SpTuples, torch.Tensor]:
+    """Dense ``[R, C]`` -> (row-major SpTuples of ``capacity`` slots, exact
+    nonzero count), row by row: per-row counts feed ``expand_ranges``, and
+    each slot finds its column by a binary search over its own row's
+    prefix counts. Padding slots hold ``(nrows, ncols)`` and value 0."""
+    R, C = dense.shape
+    m32 = _support_mask(dense, zero, nrows, ncols).to(torch.int32)
+    rowcnt = m32.sum(1, dtype=torch.int32)
+    rowcum = torch.cumsum(m32, 1, dtype=torch.int32).reshape(-1)
+    owner, offset, valid, total = expand_ranges(rowcnt, capacity)
+    # the smallest c with rowcum[owner, c] >= offset + 1
+    want = offset + 1
+    lo = torch.zeros(capacity, dtype=torch.int32, device=dense.device)
+    hi = torch.full((capacity,), C - 1, dtype=torch.int32, device=dense.device)
+    base = owner.long() * C
+    for _ in range(max((max(C, 2) - 1).bit_length(), 1)):  # ceil(log2(C)) steps
+        mid = (lo + hi) >> 1
+        below = rowcum[base + mid] < want
+        lo = torch.where(below, mid + 1, lo)
+        hi = torch.where(below, hi, mid)
+    out = SpTuples(
+        rows=torch.where(valid, owner, nrows).to(torch.int32),
+        cols=torch.where(valid, hi, ncols).to(torch.int32),
+        vals=torch.where(valid, dense.reshape(-1)[base + hi], 0),
+        nnz=torch.clamp(total, max=capacity).to(torch.int32),
+        nrows=nrows,
+        ncols=ncols,
+    )
+    return out, total
+
+
 def sparsify_windowed(
     dense: torch.Tensor, zero, nrows: int, ncols: int, capacity: int
 ) -> tuple[SpTuples, torch.Tensor]:
@@ -50,12 +104,7 @@ def sparsify_windowed(
     """
     R, C = dense.shape
     dev = dense.device
-    mask = dense != zero
-    if C != ncols:
-        mask = mask & (torch.arange(C, device=dev) < ncols)[None, :]
-    if R != nrows:
-        mask = mask & (torch.arange(R, device=dev) < nrows)[:, None]
-    mask = mask.reshape(-1)
+    mask = _support_mask(dense, zero, nrows, ncols).reshape(-1)
     rank = torch.cumsum(mask, 0)  # inclusive, int64
     total = rank[-1] if rank.numel() else rank.new_zeros(())
     slot = torch.where(mask & (rank <= capacity), rank - 1, capacity)

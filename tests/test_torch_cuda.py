@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
-plain PyTorch version, and the mxu SpGEMM path on the card against the same
-path on the CPU. Marked ``cuda``; they skip where there is no card.
+plain PyTorch version, the mxu SpGEMM path and the dense -> sparse
+extraction on the card against the same calls on the CPU. Marked ``cuda``; they skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch (``tests/conftest.py`` imports JAX, hence
@@ -8,9 +8,10 @@ that has only PyTorch (``tests/conftest.py`` imports JAX, hence
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
-Comparisons are exact (``torch.equal``): min/max folds do not depend on
-order, and integer-valued float32 inputs keep every ``plus_times`` sum
-below 2**24.
+Comparisons are exact (``torch.equal``, or equal bits where a NaN may
+appear): min/max folds do not depend on order, integer-valued float32
+inputs keep every ``plus_times`` sum below 2**24, and the compaction
+copies values without arithmetic.
 """
 
 import numpy as np
@@ -23,6 +24,9 @@ from combblas_tpu_torch import (
     PLUS_TIMES,
     Grid,
     SpParMat,
+    dense_to_sptuples,
+    flat_to_tuples_arrays,
+    flat_to_tuples_arrays_reference,
     rmat_symmetric_coo_host,
     semiring_matmul,
     semiring_matmul_reference,
@@ -87,3 +91,88 @@ def test_spgemm_auto_on_card_matches_cpu(p, cuda_device):
             assert semiring_matmul.launches > launches
         for field in ("rows", "cols", "vals", "nnz"):
             assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+def _sparse_flat(rng, rows, density, dev):
+    """A flat ``[rows, 128]`` float32 view, ``density`` of it nonzero."""
+    x = np.where(rng.random((rows, 128)) < density, rng.integers(1, 100, (rows, 128)), 0)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _greedy_flat(dev):
+    """Four panels of 32 rows with 3000 / 100 / 3000 / 100 nonzeros."""
+    rng = np.random.default_rng(11)
+    flat = np.zeros(4 * 4096, np.float32)
+    for p, k in enumerate((3000, 100, 3000, 100)):
+        flat[p * 4096 + rng.choice(4096, size=k, replace=False)] = rng.integers(1, 100, k)
+    return torch.from_numpy(flat.reshape(128, 128)).to(dev)
+
+
+def _assert_same_pack(got, want):
+    gi, gv, gt, ge = got
+    wi, wv, wt, we = want
+    assert (int(gt), int(ge)) == (int(wt), int(we))
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))  # NaN-safe
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        "greedy-cap64",
+        "greedy-cap3100",
+        "ragged-gcd",
+        "many-panels",
+        "tall-panel",
+        "nan-and-signed-zero",
+        "inf-zero",
+    ],
+)
+def test_compaction_kernel_matches_plain_version(case, cuda_device):
+    rng = np.random.default_rng(len(case))
+    zero, panel_rows = 0.0, 8192
+    if case.startswith("greedy"):
+        xf, capacity, panel_rows = _greedy_flat(cuda_device), int(case[10:]), 32
+    elif case == "ragged-gcd":  # R = 8000: panels of gcd(8000, 8192) = 64 rows
+        xf, capacity = _sparse_flat(rng, 8000, 0.3, cuda_device), 200_000
+    elif case == "many-panels":  # 1500 panels of 16 rows, the later ones in part dropped
+        xf, capacity, panel_rows = _sparse_flat(rng, 24000, 0.5, cuda_device), 200_000, 16
+    elif case == "tall-panel":  # one panel of 4096 tiles
+        xf, capacity, panel_rows = _sparse_flat(rng, 32768, 0.1, cuda_device), 500_000, 1 << 15
+    elif case == "nan-and-signed-zero":
+        xf, capacity = _sparse_flat(rng, 64, 0.5, cuda_device), 8192
+        xf[0, :8] = torch.tensor([float("nan"), -0.0] * 4)
+    else:
+        xf = _sparse_flat(rng, 256, 0.4, cuda_device)
+        xf[xf == 0] = float("inf")
+        zero, capacity = float("inf"), 10_000
+    kw = dict(zero=zero, capacity=capacity, panel_rows=panel_rows)
+    launches = flat_to_tuples_arrays.launches
+    got = flat_to_tuples_arrays(xf, **kw)
+    torch.cuda.synchronize()
+    assert flat_to_tuples_arrays.launches == launches + 1
+    _assert_same_pack(got, flat_to_tuples_arrays_reference(xf, **kw))
+
+
+def test_dense_to_sptuples_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    x = np.where(rng.random((1000, 1024)) < 0.2, rng.integers(1, 9, (1000, 1024)), 0)
+    x = torch.from_numpy(x.astype(np.float32))
+    for capacity in (1000, 300_000):  # panels dropped; every panel written
+        want = dense_to_sptuples(x, 1000, 1024, capacity=capacity, panel_rows=64)
+        got = dense_to_sptuples(x.to(cuda_device), 1000, 1024, capacity=capacity, panel_rows=64)
+        for field in ("rows", "cols", "vals", "nnz"):
+            assert torch.equal(getattr(got[0], field).cpu(), getattr(want[0], field)), field
+        assert int(got[1]) == int(want[1])
+
+
+def test_compaction_kernel_raises_on_what_it_does_not_take(cuda_device):
+    x = torch.zeros((64, 128), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        flat_to_tuples_arrays(x.double(), capacity=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flat_to_tuples_arrays(torch.zeros((128, 64), device=cuda_device).t(), capacity=16)
+    launches = flat_to_tuples_arrays.launches
+    for _ in range(3):
+        flat_to_tuples_arrays(x, capacity=16)
+    assert flat_to_tuples_arrays.launches == launches + 3
