@@ -8,10 +8,19 @@ Run from the root of the repository, on a machine with one CUDA card:
 Phases (each prints one JSON line):
   1. card: name and power limit (``nvidia-smi``), float32 matmul settings;
   2. build: compiles every CUDA source of the port with ``nvcc``, one
-     process per source, all started together;
+     process per source, all started together; per K1 kind, the FFMA /
+     FADD / FMNMX / LDS counts of the kernel's main loop from
+     ``cuobjdump -sass`` of the built library;
   3. kernels: the semiring GEMM (K1) against its plain PyTorch version, all
      four semiring kinds, at a small, a ragged and the main path's full
-     shape;
+     shape, and on either side of its 128 x 128 x 16 tiles so that both
+     instantiations (tiled, edge) run; per kind a case with NaN, -0.0,
+     +0.0, +inf and -inf cells (NaN cells compared by position, the rest
+     by their bits); plus_times exact on integers of 12 significant bits
+     times {-1, 0, 1}, which a product at TF32 or bf16 precision would
+     round; and plus_times on uniform [-1, 1] data at 4096^3 against a
+     float64 product, within K * 2^-24 * sum|a||b| per cell, both
+     instantiations bit-equal;
   4. compaction: the dense -> sparse compaction kernel (K2) against its
      plain version at a small, a ragged and a multi-panel shape, on a case
      where the greedy placement drops a panel, over a density sweep at
@@ -26,7 +35,9 @@ Phases (each prints one JSON line):
      against ``sparsify_windowed``, ``sparsify`` and the main path's
      result, then the extraction layers timed;
   7. times: K1 per kind at the main path's shape, beside its bound, its
-     plain version and (plus_times) one ``torch.matmul``.
+     instruction-issue floor (``floor_ms``, at the SM clock ``nvidia-smi``
+     reads at the end of the timed loop), its plain version and
+     (plus_times) one ``torch.matmul``.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -37,6 +48,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -65,7 +77,7 @@ from combblas_tpu_torch import (
 )
 from combblas_tpu_torch import _build
 from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS
-from combblas_tpu_torch.ops.semiring_matmul import KINDS
+from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
 from combblas_tpu_torch.ops.spgemm import densify
 from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
 
@@ -82,6 +94,19 @@ K2_TPU_KERNEL = "combblas_tpu/ops/pallas_sparsify.py:109"
 SOURCES = ["semiring_mm", "dense_to_tuples"]
 IDENTITY = {"min_plus": float("inf"), "max_plus": -float("inf"),
             "max_min": -float("inf"), "plus_times": 0.0}
+# K1's exact cases: a small, a ragged and the full shape, then shapes on
+# either side of its tiles
+K1_SHAPES = ((256, 256, 256), (1000, 777, 1234), (FULL, FULL, FULL), (128, 128, 128),
+             (129, 8, 127), (1024, 777, 1024), (FULL, FULL - 1, FULL))
+K1_SPECIAL_SHAPES = ((256, 256, 256), (200, 136, 72))
+# plus_times' wide-integer cases (tiled, edge): k <= 4096 keeps every sum
+# of |a| <= 4095 times {-1, 0, 1} below 2^24, so any order is exact
+K1_WIDE_INT_SHAPES = ((4096, 4096, 4096), (1000, 4095, 1234))
+# cell values of the special cases and their odds (NaN rare enough that
+# most outputs stay finite)
+SPECIALS = (float("nan"), 0.0, -0.0, float("inf"), -float("inf"), 1.0, -1.0, 2.5, 3.0)
+SPECIAL_ODDS = (0.002, 0.15, 0.15, 0.01, 0.01, 0.17, 0.17, 0.17, 0.168)
+LANES_PER_SM_CLOCK = 4 * 32  # four schedulers, one 32-lane warp instruction each
 
 
 def emit(obj) -> None:
@@ -103,12 +128,49 @@ def time_cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_with_clock(fn, reps: int, tail_ms: float = 1500.0) -> tuple[float, dict]:
+    """``time_cuda_ms`` of ``fn``, and the SM clock, power draw and
+    temperature ``nvidia-smi`` reads at the end of the timed loop, while
+    about ``tail_ms`` more of the same calls (not timed) keep the card
+    busy."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()  # warm-up, and the length of one call
+    end.record()
+    end.synchronize()
+    tail = max(1, math.ceil(tail_ms / max(start.elapsed_time(end), 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    for _ in range(tail):
+        fn()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    torch.cuda.synchronize()
+    clock, power, temp = (float(x) for x in smi.stdout.splitlines()[0].split(","))
+    return start.elapsed_time(end) / reps, {
+        "sm_clock_mhz": clock, "power_draw_w": power, "temperature_c": temp}
+
+
 def bound(m: int, k: int, n: int) -> tuple[float, str]:
     """Least time for an m×k by k×n semiring product: 2mnk operations at
     the float32 peak, or each operand read and the output written once."""
     ops_ms = 2.0 * m * n * k / PEAK_F32_OPS * 1e3
     bytes_ms = 4.0 * (m * k + k * n + m * n) / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def issue_floor_ms(m: int, k: int, n: int, insns_per_step: float, clock_mhz: float) -> float:
+    """Least time to issue m·n·k semiring steps at ``insns_per_step`` warp
+    instructions each (the kernel's main loop, from its machine code), one
+    per scheduler a clock on every SM at ``clock_mhz``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return m * n * k * insns_per_step / (sms * LANES_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -129,6 +191,44 @@ def operands(kind: str, m: int, k: int, n: int, seed: int, dev):
     return out
 
 
+def special_operands(m: int, k: int, n: int, seed: int, dev):
+    """float32 operands drawn from ``SPECIALS`` with ``SPECIAL_ODDS``."""
+    rng = np.random.default_rng(seed)
+    odds = np.array(SPECIAL_ODDS) / sum(SPECIAL_ODDS)
+    values = np.array(SPECIALS, np.float32)
+    return [torch.from_numpy(rng.choice(values, size=shape, p=odds)).to(dev)
+            for shape in ((m, k), (k, n))]
+
+
+def wide_int_operands(m: int, k: int, n: int, seed: int, dev):
+    """A with integers in [-4095, 4095] (up to 12 significant bits, more
+    than TF32's 11 or bf16's 8 keep), B in {-1, 0, 1}."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-4095, 4096, (m, k)).astype(np.float32)
+    b = rng.integers(-1, 2, (k, n)).astype(np.float32)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def offset_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` one element into its buffer, so that its
+    address is not 16-byte aligned."""
+    store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = store[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def launch_k1(kind: str, a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, str]:
+    """One K1 launch through its wrapper; the result and the instantiation
+    that ran."""
+    before = semiring_matmul.launches
+    got = semiring_matmul(kind, a, b)
+    torch.cuda.synchronize()
+    if semiring_matmul.launches != before + 1:
+        raise AssertionError(f"{kind}: the kernel did not launch")
+    return got, semiring_matmul.last_variant
+
+
 def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -147,26 +247,34 @@ def phase_card() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every source; then K1's main-loop instruction counts per kind
+    and instantiation, which ``phase_times`` turns into ``floor_ms``."""
     report = _build.build(SOURCES)
     ptxas = {name: [ln.strip() for ln in report[name]["log"].splitlines()
                     if "registers" in ln or "spill" in ln] for name in SOURCES}
     emit({"phase": "build", "seconds": {k: v["seconds"] for k, v in report.items()},
           "ptxas": ptxas})
+    loops = main_loop_counts()
+    for kind in KINDS:
+        if set(loops.get(kind, ())) != {"tiled", "edge"}:
+            raise AssertionError(f"K1 {kind}: main loops not found in the machine code")
+        emit({"phase": "build", "kernel": f"semiring_mm_{kind}", "tile": TILE,
+              "main_loop": loops[kind]})
+    return loops
 
 
 def phase_kernels(dev) -> dict:
-    """Each kind at a small, a ragged and the full shape; exact equality.
-    Returns per kind the full-shape max error and plain-version time."""
+    """Each kind at ``K1_SHAPES`` with exact equality, and on special
+    values; then plus_times on non-integer data. Returns per kind the
+    full-shape max error and plain-version time."""
     full = {}
     for kind in KINDS:
-        for shape in ((256, 256, 256), (1000, 777, 1234), (FULL, FULL, FULL)):
+        variants = set()
+        for shape in K1_SHAPES:
             a, b = operands(kind, *shape, seed=sum(shape), dev=dev)
-            before = semiring_matmul.launches
-            got = semiring_matmul(kind, a, b)
-            torch.cuda.synchronize()
-            if semiring_matmul.launches != before + 1:
-                raise AssertionError(f"{kind}: the kernel did not launch")
+            got, variant = launch_k1(kind, a, b)
+            variants.add(variant)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -176,13 +284,75 @@ def phase_kernels(dev) -> dict:
             err = max_abs_err(got, want)
             if not torch.equal(got, want):
                 raise AssertionError(f"{kind} {shape}: kernel != plain (max err {err})")
-            emit({"phase": "kernels", "kind": kind, "shape": shape, "equal": True,
-                  "max_abs_err": err})
-            if shape[0] == FULL:
+            emit({"phase": "kernels", "kind": kind, "shape": shape, "variant": variant,
+                  "equal": True, "max_abs_err": err})
+            if shape == (FULL, FULL, FULL):
                 full[kind] = {"max_abs_err": err, "plain_ms": start.elapsed_time(end)}
             del a, b, got, want
+        for shape in K1_SPECIAL_SHAPES:
+            a, b = special_operands(*shape, seed=sum(shape) + KINDS.index(kind), dev=dev)
+            got, variant = launch_k1(kind, a, b)
+            variants.add(variant)
+            want = semiring_matmul_reference(kind, a, b)
+            nan = want.isnan()
+            if not (torch.equal(got.isnan(), nan) and torch.equal(
+                    got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])):
+                raise AssertionError(f"{kind} {shape} specials: kernel != plain")
+            emit({"phase": "kernels", "kind": kind, "case": "specials", "shape": shape,
+                  "variant": variant, "nan_cells": int(nan.sum()), "cells": nan.numel(),
+                  "equal": True, "max_abs_err": max_abs_err(got, want)})
+        if variants != {"tiled", "edge"}:
+            raise AssertionError(f"{kind}: instantiations run {variants}")
+    check_plus_times_wide_int(dev)
+    check_plus_times_float(dev)
     torch.cuda.empty_cache()
     return full
+
+
+def check_plus_times_wide_int(dev) -> None:
+    """plus_times on ``wide_int_operands``, equal to the plain version at a
+    tiled and an edge shape: rounding the inputs to TF32 or bf16 would
+    change the sums."""
+    for shape, expect in zip(K1_WIDE_INT_SHAPES, ("tiled", "edge")):
+        a, b = wide_int_operands(*shape, seed=sum(shape), dev=dev)
+        got, variant = launch_k1("plus_times", a, b)
+        if variant != expect:
+            raise AssertionError(f"plus_times wide integers {shape}: ran {variant}")
+        want = semiring_matmul_reference("plus_times", a, b)
+        if not torch.equal(got, want):
+            raise AssertionError(f"plus_times wide integers {shape}: kernel != plain "
+                                 f"(max err {max_abs_err(got, want)})")
+        emit({"phase": "kernels", "kind": "plus_times", "case": "wide integers",
+              "shape": shape, "variant": variant, "equal": True, "max_abs_err": 0.0,
+              "max_abs_out": float(want.abs().max())})
+        del a, b, got, want
+
+
+def check_plus_times_float(dev, size: int = 4096) -> None:
+    """plus_times on uniform [-1, 1] data against the float64 product:
+    every cell within K · 2^-24 · Σ|a||b| (the float32 rounding of a
+    K-term sum, whatever its order), and the tiled and edge instantiations
+    bit-equal (both fold k in order with one FMA chain)."""
+    m = k = n = size
+    rng = np.random.default_rng(17)
+    a, b = (torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+            for shape in ((m, k), (k, n)))
+    got, variant = launch_k1("plus_times", a, b)
+    got_edge, variant_edge = launch_k1("plus_times", offset_copy(a), offset_copy(b))
+    if (variant, variant_edge) != ("tiled", "edge"):
+        raise AssertionError(f"plus_times float: instantiations {variant}, {variant_edge}")
+    want = a.double() @ b.double()
+    tol = k * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    err = (got.double() - want).abs()
+    if not bool((err <= tol).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError("plus_times float: error above K * 2^-24 * sum|a||b|")
+    if not torch.equal(got, got_edge):
+        raise AssertionError("plus_times float: tiled and edge results differ")
+    emit({"phase": "kernels", "kind": "plus_times", "case": "uniform[-1,1] vs float64",
+          "shape": [m, k, n], "variants": [variant, variant_edge],
+          "tolerance": "K * 2^-24 * sum|a||b| per cell", "within_tolerance": True,
+          "max_abs_err": float(err.max()), "max_err_over_tolerance": float((err / tol).max()),
+          "tiled_equals_edge": True})
 
 
 def k2_bound(cells: int, slots: int) -> tuple[float, str]:
@@ -489,22 +659,28 @@ def layer_times(sr, A: SpParMat, out_capacity: int) -> dict:
     return out
 
 
-def phase_times(dev, full: dict) -> dict:
-    """The kernel per kind at the main path's shape: time, bound, plain
-    version and (plus_times) the library call."""
+def phase_times(dev, full: dict, loops: dict) -> dict:
+    """The kernel per kind at the main path's shape: time, bound, issue
+    floor at the clock read at the end of the timed loop, plain version
+    and (plus_times) the library call."""
     m = k = n = FULL
     b_ms, b_by = bound(m, k, n)
     out = {}
     for kind in KINDS:
         a, b = operands(kind, m, k, n, seed=1, dev=dev)
         counted = semiring_matmul.launches
-        ms = time_cuda_ms(lambda: semiring_matmul(kind, a, b), 5)
+        ms, card = time_with_clock(lambda: semiring_matmul(kind, a, b), 5)
+        variant = semiring_matmul.last_variant
         semiring_matmul.launches = counted
         lib = None
         if kind == "plus_times":
             lib = time_cuda_ms(lambda: torch.matmul(a, b), 5)
-        out[kind] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "share_of_bound": b_ms / ms, "plain_ms": full[kind]["plain_ms"],
+        ips = loops[kind][variant]["insns_per_step"]
+        floor_ms = issue_floor_ms(m, k, n, ips, card["sm_clock_mhz"])
+        out[kind] = {"ms": ms, "variant": variant, "bound_ms": b_ms, "bound_by": b_by,
+                     "share_of_bound": b_ms / ms, "floor_ms": floor_ms,
+                     "share_of_floor": floor_ms / ms, "insns_per_step": ips, **card,
+                     "plain_ms": full[kind]["plain_ms"],
                      "library_ms": lib, "max_abs_err": full[kind]["max_abs_err"],
                      "shape": [m, k, n]}
         emit({"phase": "times", "kind": kind, **out[kind]})
@@ -520,12 +696,12 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase_card()
-    phase_build()
+    loops = phase_build()
     full = phase_kernels(dev)
     phase_compaction(dev)
     path = phase_main_path(dev)
     k2_path = phase_k2_path(path.pop("mats"))
-    times = phase_times(dev, full)
+    times = phase_times(dev, full, loops)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
         kind = _PALLAS_KINDS[sr.name]
@@ -535,7 +711,7 @@ def main() -> int:
             "replaces": TPU_KERNEL, "launches": path["per_kind"][sr.name]["kernel_launches"],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "floor_ms": t["floor_ms"],
         })
     if sum(k["launches"] for k in kernels) != path["launches"]:
         raise AssertionError("K1's launch counts do not add up on the main path")
@@ -546,6 +722,7 @@ def main() -> int:
         "max_abs_err": max(v["max_abs_err"] for v in k2_path["per_kind"].values()),
         "ms": k2["k2_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+        "floor_ms": None,  # no instruction-issue floor is derived for K2
     })
     # one extraction per semiring; K1 builds the tropical accumulators
     if k2_path["launches"] != {"k1": 2, "k2": 3}:

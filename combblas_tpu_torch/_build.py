@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -28,15 +29,20 @@ NVCC_FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(tool: str) -> str:
+    """A CUDA toolkit program: on PATH, in $CUDA_HOME/bin, or (for
+    ``cuobjdump``) in the ``triton`` package's copy of the toolkit."""
+    found = shutil.which(tool)
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.is_file():
-        return str(candidate)
-    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+    dirs = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        dirs += [Path(d) / "backends" / "nvidia" / "bin" for d in spec.submodule_search_locations]
+    for d in dirs:
+        if (d / tool).is_file():
+            return str(d / tool)
+    raise RuntimeError(f"{tool} not found (looked on PATH, in {', '.join(map(str, dirs))})")
 
 
 def library_path(name: str) -> Path:
@@ -47,9 +53,9 @@ def library_path(name: str) -> Path:
 
 def build(names: list[str]) -> dict[str, dict]:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together. Returns, per name, the build
-    seconds (0.0 when it was already built) and the compiler's log
-    (``-Xptxas -v``: registers, shared memory, spills)."""
+    per source, all started together. Returns, per name, the build seconds
+    (0.0 when it was already built), the compiler's log (``-Xptxas -v``:
+    registers, shared memory, spills) and the library's path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     report = {}
@@ -59,7 +65,7 @@ def build(names: list[str]) -> dict[str, dict]:
             report[name] = {"seconds": 0.0, "log": "", "path": str(out)}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -85,3 +91,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def disassemble(path: str | Path) -> str:
+    """``cuobjdump -sass`` of a built library."""
+    proc = subprocess.run(
+        [_cuda_tool("cuobjdump"), "-sass", str(path)], capture_output=True, text=True,
+        timeout=300,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {path}:\n{proc.stderr}")
+    return proc.stdout

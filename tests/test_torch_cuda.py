@@ -11,7 +11,11 @@ that has only PyTorch (``tests/conftest.py`` imports JAX, hence
 Comparisons are exact (``torch.equal``, or equal bits where a NaN may
 appear): min/max folds do not depend on order, integer-valued float32
 inputs keep every ``plus_times`` sum below 2**24, and the compaction
-copies values without arithmetic.
+copies values without arithmetic. Two exceptions: where NaN cells occur
+in a semiring product they are compared by position (NaN payloads
+differ) and the other cells by their bits, and ``plus_times`` on
+non-integer data is held to the float64 product within
+K * 2**-24 * sum|a||b| per cell.
 """
 
 import numpy as np
@@ -32,7 +36,7 @@ from combblas_tpu_torch import (
     semiring_matmul_reference,
     spgemm_auto,
 )
-from combblas_tpu_torch.ops.semiring_matmul import KINDS
+from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, _kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +64,135 @@ def test_kernel_matches_plain_version(kind, shape, cuda_device):
     torch.cuda.synchronize()
     assert semiring_matmul.launches == launches + 1
     assert torch.equal(got, semiring_matmul_reference(kind, a, b))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize(
+    "shape, variant",
+    [
+        ((128, 128, 128), "tiled"),
+        ((256, 512, 384), "tiled"),
+        ((129, 8, 127), "edge"),
+        ((1024, 777, 1024), "edge"),
+        ((128, 0, 256), "tiled"),
+        ((130, 0, 3), "edge"),
+    ],
+)
+def test_kernel_variants_match_plain_version(kind, shape, variant, cuda_device):
+    """Shapes on either side of the kernel's tiles, each instantiation
+    (tiled, edge) for every kind; k == 0 gives the fold's identity."""
+    m, k, n = shape
+    rng = np.random.default_rng(m * 7 + k * 3 + n)
+    a = _int_valued(rng, (m, k), cuda_device)
+    b = _int_valued(rng, (k, n), cuda_device)
+    got = semiring_matmul(kind, a, b)
+    torch.cuda.synchronize()
+    assert semiring_matmul.last_variant == variant
+    assert torch.equal(got, semiring_matmul_reference(kind, a, b))
+
+
+_SPECIALS = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0, -1.0, 2.5, 3.0], np.float32)
+_SPECIAL_ODDS = np.array([0.002, 0.15, 0.15, 0.01, 0.01, 0.17, 0.17, 0.17, 0.168])
+
+
+def _offset_copy(x):
+    """A contiguous copy one element into its buffer: not 16-byte aligned."""
+    store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = store[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("shape", [(256, 256, 256), (200, 136, 72)])
+def test_kernel_specials_match_plain_version(kind, shape, cuda_device):
+    """NaN, -0.0, +0.0, +inf and -inf cells: NaN in the same cells, every
+    other cell equal bit for bit (so the sign of a zero counts)."""
+    rng = np.random.default_rng(sum(shape) + KINDS.index(kind))
+    a, b = (
+        torch.from_numpy(rng.choice(_SPECIALS, size=s, p=_SPECIAL_ODDS / _SPECIAL_ODDS.sum()))
+        .to(cuda_device)
+        for s in (shape[:2], shape[1:])
+    )
+    got = semiring_matmul(kind, a, b)
+    want = semiring_matmul_reference(kind, a, b)
+    nan = want.isnan()
+    assert 0 < int(nan.sum()) < nan.numel()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+
+
+@pytest.mark.parametrize(
+    "shape, variant", [((256, 4096, 384), "tiled"), ((300, 4095, 200), "edge")]
+)
+def test_plus_times_exact_on_wide_integers(shape, variant, cuda_device):
+    """A with integers in [-4095, 4095] (up to 12 significant bits), B in
+    {-1, 0, 1}, k <= 4096: every sum stays below 2**24, so the float32
+    product is exact in any order, while inputs rounded to TF32 (11 bits)
+    or bf16 (8 bits) would change it."""
+    m, k, n = shape
+    rng = np.random.default_rng(k + n)
+    a = torch.from_numpy(rng.integers(-4095, 4096, (m, k)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.integers(-1, 2, (k, n)).astype(np.float32)).to(cuda_device)
+    got = semiring_matmul("plus_times", a, b)
+    assert semiring_matmul.last_variant == variant
+    assert torch.equal(got, semiring_matmul_reference("plus_times", a, b))
+
+
+@pytest.mark.parametrize("shape", [(512, 1024, 384), (300, 1000, 200)])
+def test_plus_times_on_float_data_within_rounding(shape, cuda_device):
+    """Uniform [-1, 1] data: within K * 2**-24 * sum|a||b| of the float64
+    product per cell, and the two instantiations bit-equal (both fold k in
+    order with one FMA chain)."""
+    m, k, n = shape
+    rng = np.random.default_rng(k)
+    a, b = (
+        torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32)).to(cuda_device)
+        for s in ((m, k), (k, n))
+    )
+    got = semiring_matmul("plus_times", a, b)
+    first = semiring_matmul.last_variant
+    other = semiring_matmul("plus_times", _offset_copy(a), _offset_copy(b))
+    assert (first, semiring_matmul.last_variant) == (
+        "tiled" if m % TILE[0] == 0 and k % TILE[2] == 0 and n % TILE[1] == 0 else "edge",
+        "edge",
+    )
+    want = a.double() @ b.double()
+    tol = k * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    assert bool(((got.double() - want).abs() <= tol).all())
+    assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_unaligned_view_takes_edge_variant(kind, cuda_device):
+    """A view at offset 1 (contiguous, not 16-byte aligned) of an operand
+    whose shape fits the tiles runs the edge instantiation and gives the
+    tiled one's result."""
+    rng = np.random.default_rng(31)
+    a = _int_valued(rng, (256, 128), cuda_device)
+    b = _int_valued(rng, (128, 384), cuda_device)
+    want = semiring_matmul(kind, a, b)
+    assert semiring_matmul.last_variant == "tiled"
+    for x, y in ((_offset_copy(a), b), (a, _offset_copy(b))):
+        assert x.data_ptr() % 16 or y.data_ptr() % 16
+        got = semiring_matmul(kind, x, y)
+        assert semiring_matmul.last_variant == "edge"
+        assert torch.equal(got, want)
+    assert torch.equal(want, semiring_matmul_reference(kind, a, b))
+
+
+def test_tiled_launcher_refuses_what_it_does_not_take(cuda_device):
+    """Called directly, the tiled instantiation returns an error code for a
+    ragged shape or an unaligned pointer instead of computing."""
+    fn = _kernel("min_plus", "tiled")
+    a = torch.zeros((256, 256), device=cuda_device)
+    c = torch.empty_like(a)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(a.data_ptr(), a.data_ptr(), c.data_ptr(), 256, 256, 256, stream) == 0
+    assert fn(a.data_ptr(), a.data_ptr(), c.data_ptr(), 255, 256, 256, stream) != 0
+    assert fn(a.data_ptr(), a.data_ptr(), c.data_ptr(), 256, 256, 255, stream) != 0
+    assert fn(a.data_ptr() + 4, a.data_ptr(), c.data_ptr(), 128, 128, 128, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
