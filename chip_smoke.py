@@ -21,10 +21,13 @@ Phases (each prints one JSON line):
      round; and plus_times on uniform [-1, 1] data at 4096^3 against a
      float64 product, within K * 2^-24 * sum|a||b| per cell, both
      instantiations bit-equal;
-  4. compaction: the dense -> sparse compaction kernel (K2) against its
-     plain version at a small, a ragged and a multi-panel shape, on a case
-     where the greedy placement drops a panel, over a density sweep at
-     8192 x 8192 and at 16384 x 16384;
+  4. compaction: both instantiations of the dense -> sparse compaction
+     kernel (K2: single, two_pass) against its plain version, whole arrays,
+     at a small, a ragged and a multi-panel shape, on a case where the
+     greedy placement drops a panel, over a density sweep at 8192 x 8192,
+     with 8-row panels, with one panel of 2^15 rows and at 16384 x 16384;
+     at each timed case the two in turns (single, two_pass, two_pass,
+     single), each with its bound, share of it and achieved GB/s;
   5. main path: ``spgemm_auto`` through the mxu tier on an R-MAT scale-13
      graph (n = 8192, edgefactor 16) for MIN_PLUS, MAX_MIN and PLUS_TIMES,
      each result held exactly against the dense product recomputed with
@@ -33,7 +36,9 @@ Phases (each prints one JSON line):
      (densify, stage product, fold), sized with ``dense_support_nnz`` and
      extracted with ``dense_to_sptuples``; the live entries held exactly
      against ``sparsify_windowed``, ``sparsify`` and the main path's
-     result, then the extraction layers timed;
+     result, then the extraction layers timed (K2's instantiations in
+     turns), and for MIN_PLUS the device time of each operator and kernel
+     of ``dense_support_nnz`` and ``dense_to_sptuples`` (``torch.profiler``);
   7. times: K1 per kind at the main path's shape, beside its bound, its
      instruction-issue floor (``floor_ms``, at the SM clock ``nvidia-smi``
      reads at the end of the timed loop), its plain version and
@@ -76,7 +81,8 @@ from combblas_tpu_torch import (
     spgemm_auto,
 )
 from combblas_tpu_torch import _build
-from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS
+from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS, _panels
+from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS as K2_VARIANTS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
 from combblas_tpu_torch.ops.spgemm import densify
 from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
@@ -382,39 +388,73 @@ def greedy_case(dev) -> torch.Tensor:
 
 
 def check_k2(case: str, xf: torch.Tensor, *, zero: float = 0.0, capacity: int,
-             panel_rows: int = _PANEL_ROWS, reps: int = 0) -> dict:
-    """K2 against its plain version on one input: equal total and end_row,
-    and equal idx and vals (as bits, so that NaN compares) below
-    end_row * 128. With ``reps``, also its time beside its bound."""
+             panel_rows: int = _PANEL_ROWS) -> dict:
+    """Each instantiation of K2 against its plain version on one input: the
+    whole idx and vals arrays (vals as bits, so that NaN compares), total
+    and end_row equal."""
     kw = dict(zero=zero, capacity=capacity, panel_rows=panel_rows)
-    before = flat_to_tuples_arrays.launches
-    gi, gv, gt, ge = flat_to_tuples_arrays(xf, **kw)
-    torch.cuda.synchronize()
-    if flat_to_tuples_arrays.launches != before + 1:
-        raise AssertionError(f"K2 {case}: the kernel did not launch")
     wi, wv, wt, we = flat_to_tuples_arrays_reference(xf, **kw)
+    before = flat_to_tuples_arrays.launches
+    errs = []
+    for variant in K2_VARIANTS:
+        gi, gv, gt, ge = flat_to_tuples_arrays(xf, variant=variant, **kw)
+        torch.cuda.synchronize()
+        if flat_to_tuples_arrays.last_variant != variant:
+            raise AssertionError(f"K2 {case}: {variant} did not launch")
+        if not (int(gt) == int(wt) and int(ge) == int(we) and torch.equal(gi, wi)
+                and torch.equal(gv.view(torch.int32), wv.view(torch.int32))):
+            raise AssertionError(f"K2 {case} ({variant}): kernel != plain")
+        errs.append(max_abs_err(gv, wv))
+    if flat_to_tuples_arrays.launches != before + len(K2_VARIANTS):
+        raise AssertionError(f"K2 {case}: launch count off")
+    flat_to_tuples_arrays.launches = before  # checks are not a path's launches
     end = int(we) * 128
-    if not (int(gt) == int(wt) and int(ge) == int(we) and torch.equal(gi[:end], wi[:end])
-            and torch.equal(gv[:end].view(torch.int32), wv[:end].view(torch.int32))):
-        raise AssertionError(f"K2 {case}: kernel != plain")
     out = {"phase": "compaction", "case": case, "shape": list(xf.shape),
            "capacity": capacity, "panel_rows": panel_rows, "total": int(wt),
-           "end_row": int(we), "live": int((wi[:end] >= 0).sum()), "equal": True,
-           "max_abs_err": max_abs_err(gv[:end], wv[:end])}
-    if reps:
-        out["ms"] = time_cuda_ms(lambda: flat_to_tuples_arrays(xf, **kw), reps)
-        out["bound_ms"], out["bound_by"] = k2_bound(xf.numel(), gi.numel())
-        out["share_of_bound"] = out["bound_ms"] / out["ms"]
-    flat_to_tuples_arrays.launches = before  # checks are not a path's launches
+           "end_row": int(we), "live": int((wi[:end] >= 0).sum()),
+           "variants": list(K2_VARIANTS), "equal": True, "max_abs_err": max(errs)}
     emit(out)
     return out
 
 
+def time_k2(case: str, xf: torch.Tensor, *, reps: int, zero: float = 0.0, capacity: int,
+            panel_rows: int = _PANEL_ROWS) -> dict:
+    """K2's instantiations timed in turns (single, two_pass, two_pass,
+    single; ``reps`` calls each), one line per instantiation with its time,
+    bound, share of the bound and achieved rate (the bound's bytes over the
+    time). Returns ``{variant: line}`` and the default choice under
+    ``"default"``."""
+    kw = dict(zero=zero, capacity=capacity, panel_rows=panel_rows)
+    before = flat_to_tuples_arrays.launches
+    flat_to_tuples_arrays(xf, **kw)
+    default = flat_to_tuples_arrays.last_variant
+    turns = {v: [] for v in K2_VARIANTS}
+    for variant in (*K2_VARIANTS, *K2_VARIANTS[::-1]):
+        turns[variant].append(
+            time_cuda_ms(lambda: flat_to_tuples_arrays(xf, variant=variant, **kw), reps))
+    flat_to_tuples_arrays.launches = before  # timing launches are not a path's
+    slots = _panels(xf, capacity, panel_rows)[1] * 128  # every output slot is stored once
+    bound_ms, bound_by = k2_bound(xf.numel(), slots)
+    out = {"default": default}
+    for variant, times in turns.items():
+        ms = sum(times) / len(times)
+        out[variant] = {
+            "phase": "compaction", "case": case, "shape": list(xf.shape),
+            "panel_rows": panel_rows, "capacity": capacity, "variant": variant,
+            "default": variant == default, "ms": ms, "turns_ms": times,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "gb_per_s": (4.0 * xf.numel() + 8.0 * slots) / (ms / 1e3) / 1e9}
+        emit(out[variant])
+    return out
+
+
 def phase_compaction(dev) -> None:
-    """K2 at a small (with NaN and -0.0 cells), a ragged (panels of
-    gcd(8000, 8192) = 64 rows) and a multi-panel shape, on the greedy-drop
-    case, over a density sweep at 8192 x 8192 and at 16384 x 16384 (5%).
-    Each capacity is the exact count, except where the case says."""
+    """K2's instantiations against the plain version at a small (with NaN
+    and -0.0 cells), a ragged (panels of gcd(8000, 8192) = 64 rows) and a
+    multi-panel shape, and on the greedy-drop case; then both timed in
+    turns over a density sweep at 8192 x 8192, at 16384 x 16384 (5%), with
+    8-row panels and with one panel of 2^15 rows. Each capacity is the exact
+    count, except where the case says."""
     small = random_dense((64, 128), 0.3, 1, dev)
     small[0, :8] = torch.tensor([float("nan"), -0.0] * 4)
     check_k2("small", small, capacity=3000)
@@ -426,12 +466,21 @@ def phase_compaction(dev) -> None:
     for cap in (64, 3100):
         check_k2(f"greedy-cap{cap}", greedy, capacity=cap, panel_rows=32)
     del small, multi, greedy
-    for pct in (0.0, 0.1, 5.0, 50.0, 100.0):
+    for pct in (0.0, 0.1, 5.0, 20.0, 50.0, 100.0):
         x = random_dense((FULL, FULL), pct / 100, 4, dev).view(-1, 128)
-        check_k2(f"sweep-{FULL}-{pct}%", x, capacity=int((x != 0).sum()), reps=10)
+        cap = int((x != 0).sum())
+        check_k2(f"sweep-{FULL}-{pct}%", x, capacity=cap)
+        time_k2(f"sweep-{FULL}-{pct}%", x, capacity=cap, reps=10)
         del x
+    x = random_dense((FULL, FULL), 0.05, 6, dev).view(-1, 128)
+    cap = int((x != 0).sum())
+    for case, rows in (("pr8", 8), ("tall-panel", 1 << 15)):
+        check_k2(f"{case}-{FULL}-5.0%", x, capacity=cap, panel_rows=rows)
+        time_k2(f"{case}-{FULL}-5.0%", x, capacity=cap, panel_rows=rows, reps=5)
     x = random_dense((2 * FULL, 2 * FULL), 0.05, 5, dev).view(-1, 128)
-    check_k2(f"{2 * FULL}-5.0%", x, capacity=int((x != 0).sum()), reps=5)
+    cap = int((x != 0).sum())
+    check_k2(f"{2 * FULL}-5.0%", x, capacity=cap)
+    time_k2(f"{2 * FULL}-5.0%", x, capacity=cap, reps=5)
     del x
     torch.cuda.empty_cache()
 
@@ -554,6 +603,43 @@ def nonzero_gather(x: torch.Tensor, zero: float):
     return nz, flat[nz]
 
 
+def op_breakdown(fn, reps: int = 5) -> dict:
+    """Device time per call of each operator and of each kernel of ``fn``,
+    from a ``torch.profiler`` trace of ``reps`` calls after a warm-up
+    (``key_averages``' own device time: an ``aten::`` operator's is that of
+    the kernels it launched; the kernel list counts the same time again,
+    by kernel, and also holds the kernels launched outside PyTorch's
+    operators, such as K2's). Where the profiler reports no device time,
+    each call is timed whole with CUDA events instead and the line says
+    so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops, kernels = [], []
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", None)
+        if own is None:
+            own = getattr(e, "self_cuda_time_total", 0.0)
+        if own <= 0 or e.key.startswith("Activity Buffer"):  # the tracer's own entries
+            continue
+        row = {"calls": e.count / reps, "device_ms": own / 1e3 / reps}
+        if e.key.startswith("aten::"):
+            ops.append({"op": e.key, **row})
+        else:
+            kernels.append({"kernel": e.key[:120], **row})
+    if not kernels:
+        return {"profiler_device_time": False, "events_ms": time_cuda_ms(fn, reps)}
+    ops.sort(key=lambda r: -r["device_ms"])
+    kernels.sort(key=lambda r: -r["device_ms"])
+    return {"profiler_device_time": True, "ops": ops, "kernels": kernels,
+            "kernels_ms": sum(k["device_ms"] for k in kernels)}
+
+
 def phase_k2_path(mats: dict) -> dict:
     """The counted run: for each semiring, the mxu accumulator, its exact
     support count (``dense_support_nnz``) as the capacity, and
@@ -572,13 +658,13 @@ def phase_k2_path(mats: dict) -> dict:
         cap = int(dense_support_nnz(acc, zero, A.local_rows, A.local_cols))
         t, total = dense_to_sptuples(acc, A.local_rows, A.local_cols, zero=zero, capacity=cap)
         torch.cuda.synchronize()
-        runs[sr.name] = (acc, zero, cap, t, total)
+        runs[sr.name] = (acc, zero, cap, t, total, flat_to_tuples_arrays.last_variant)
     launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
 
     per_kind = {}
     for sr in semirings:
         A, C = mats[sr.name]
-        acc, zero, cap, t, total = runs.pop(sr.name)
+        acc, zero, cap, t, total, variant = runs.pop(sr.name)
         n_r, n_c = A.local_rows, A.local_cols
         live = t.valid_mask()
         got = (t.rows[live], t.cols[live], t.vals[live])
@@ -601,14 +687,17 @@ def phase_k2_path(mats: dict) -> dict:
             raise AssertionError(f"K2 path {sr.name}: non-finite values")
         del w, s, got, t, live
         xf = acc.view(-1, 128)
-        k2 = check_k2(f"k2-path-{sr.name}", xf, zero=zero, capacity=cap, reps=20)
+        chk = check_k2(f"k2-path-{sr.name}", xf, zero=zero, capacity=cap)
+        timed = time_k2(f"k2-path-{sr.name}", xf, zero=zero, capacity=cap, reps=20)
+        k2 = timed[variant]
         rowcnt = (acc[:n_r, :n_c] != zero).sum(1, dtype=torch.int32)
         ramp = torch.arange(cap, dtype=torch.int32, device=acc.device)
         counted = flat_to_tuples_arrays.launches
         out = {
-            "nnz": cap, "nnz_spgemm_auto": nnz_c, "k2_ms": k2["ms"],
+            "nnz": cap, "nnz_spgemm_auto": nnz_c, "k2_variant": variant, "k2_ms": k2["ms"],
+            "k2_ms_other_variant": timed[next(v for v in K2_VARIANTS if v != variant)]["ms"],
             "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-            "max_abs_err": k2["max_abs_err"],
+            "max_abs_err": chk["max_abs_err"],
             "support_nnz_ms": time_cuda_ms(
                 lambda: dense_support_nnz(acc, zero, n_r, n_c), 10),
             "dense_to_sptuples_ms": time_cuda_ms(
@@ -625,6 +714,10 @@ def phase_k2_path(mats: dict) -> dict:
             "library_call": "torch.nonzero(x.view(-1) != zero) + value gather "
                             "(int64 indices, no panel layout)",
         }
+        if sr is MIN_PLUS:  # where the extraction step's time goes, op by op
+            out["sizing_ops"] = op_breakdown(lambda: dense_support_nnz(acc, zero, n_r, n_c))
+            out["dense_to_sptuples_ops"] = op_breakdown(
+                lambda: dense_to_sptuples(acc, n_r, n_c, zero=zero, capacity=cap))
         flat_to_tuples_arrays.launches = counted
         per_kind[sr.name] = out
         emit({"phase": "k2_path", "semiring": sr.name, "exact": True, **out})
@@ -717,8 +810,8 @@ def main() -> int:
         raise AssertionError("K1's launch counts do not add up on the main path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({
-        "name": "dense_to_tuples_f32", "route": "cuda", "source": K2_SOURCE,
-        "replaces": K2_TPU_KERNEL, "launches": k2_path["launches"]["k2"],
+        "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",
+        "source": K2_SOURCE, "replaces": K2_TPU_KERNEL, "launches": k2_path["launches"]["k2"],
         "max_abs_err": max(v["max_abs_err"] for v in k2_path["per_kind"].values()),
         "ms": k2["k2_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],

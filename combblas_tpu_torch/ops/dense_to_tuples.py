@@ -30,13 +30,19 @@ The output contract is the reference's, slot for slot:
   NaN as a nonzero.
 
 Dispatch: tensors on the CPU take the plain version; CUDA tensors launch
-the kernel (float32 only) or raise. ``flat_to_tuples_arrays.launches``
-counts kernel launches.
+the kernel (float32 only) or raise. The kernel has two instantiations:
+"single" reads the input once, keeping each chunk in shared memory until
+its panel is placed, so a panel's chunks must fit in the blocks the card
+holds at once (its launcher refuses the rest); "two_pass" reads it twice
+and takes any panel height. ``kernel_variant`` picks one unless the caller
+names it. ``flat_to_tuples_arrays.launches`` counts kernel launches and
+``flat_to_tuples_arrays.last_variant`` names the instantiation that ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -46,6 +52,47 @@ from .tuples import SpTuples
 
 #: Flat-view panel height (x128 lanes = 1M elements per panel).
 _PANEL_ROWS = 8192
+#: The kernel's largest chunk, the rows one block compacts
+#: (``MAX_CHUNK_ROWS`` in ``csrc/dense_to_tuples.cu``).
+_MAX_CHUNK_ROWS = 64
+VARIANTS = ("single", "two_pass")
+#: cudaErrorInvalidConfiguration: the single-pass launcher's refusal
+_REFUSED = 9
+
+
+def chunk_rows(pr: int) -> int:
+    """Rows of the kernel's chunk for panels of ``pr`` rows: the largest of
+    64, 32, 16 and 8 that divides ``pr``, so that no chunk straddles two
+    panels."""
+    return 8 * math.gcd(pr // 8, _MAX_CHUNK_ROWS // 8)
+
+
+def kernel_variant(pr: int, resident_blocks: int) -> str:
+    """The instantiation for panels of ``pr`` rows (``pr`` comes from R and
+    ``panel_rows``, see ``_panels``) on a card that holds
+    ``resident_blocks`` blocks of the kernel at once: "single" when a
+    panel's chunks are no more than that, else "two_pass"."""
+    return "single" if pr // chunk_rows(pr) <= resident_blocks else "two_pass"
+
+
+_resident: dict[int, int] = {}
+
+
+def resident_blocks(device: torch.device) -> int:
+    """Blocks of the single-pass kernel that ``device`` holds at once (the
+    occupancy calculator times the SMs), read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _resident:
+        fn = _build.load("dense_to_tuples").dense_to_tuples_resident_blocks
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"dense_to_tuples occupancy query failed: CUDA error {err}")
+        _resident[index] = out.value
+    return _resident[index]
 
 
 def _panels(xf: torch.Tensor, capacity: int, panel_rows: int) -> tuple[int, int]:
@@ -95,17 +142,28 @@ def flat_to_tuples_arrays_reference(
 
 
 def flat_to_tuples_arrays(
-    xf: torch.Tensor, *, zero: float = 0.0, capacity: int, panel_rows: int = _PANEL_ROWS
+    xf: torch.Tensor,
+    *,
+    zero: float = 0.0,
+    capacity: int,
+    panel_rows: int = _PANEL_ROWS,
+    variant: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Compact the cells ``!= zero`` of the flat row-major view
     ``xf [R, 128]``: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors.
+
+    ``variant`` ("single" or "two_pass") names the kernel's instantiation;
+    by default ``kernel_variant`` picks it. A single-pass launch the card
+    cannot finish is refused and raises. Both give the same arrays.
 
     Returns ``(flat_idx int32 [cap_rows*128], vals [cap_rows*128], total
     int32, end_row int32)``, the last two 0-dim tensors on ``xf``'s device;
     see the module docstring for the layout.
     """
     pr, cap_rows = _panels(xf, capacity, panel_rows)
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if xf.device.type == "cpu":
         return flat_to_tuples_arrays_reference(
             xf, zero=zero, capacity=capacity, panel_rows=panel_rows
@@ -117,29 +175,41 @@ def flat_to_tuples_arrays(
     if not xf.is_contiguous() or xf.data_ptr() % 16:
         raise ValueError("flat_to_tuples_arrays needs a contiguous, 16-byte aligned view")
     R = xf.shape[0]
-    ntiles, npanels = R // 8, R // pr
+    rows = chunk_rows(pr)
+    if variant is None:
+        variant = kernel_variant(pr, resident_blocks(xf.device))
     flat_cap = cap_rows * 128
     idx = torch.empty(flat_cap, dtype=torch.int32, device=xf.device)
     vals = torch.empty(flat_cap, dtype=torch.float32, device=xf.device)
-    # tile counts, tile prefixes, panel totals, panel offsets, total, end_row
-    work = torch.empty(2 * ntiles + 2 * npanels + 2, dtype=torch.int32, device=xf.device)
+    # total, end_row, ticket, unused, a 64-bit status word a chunk, a 64-bit
+    # descriptor and a 64-bit counter a panel; the launcher clears it
+    work = torch.empty(4 + 2 * (R // rows) + 4 * (R // pr), dtype=torch.int32, device=xf.device)
     fn = _kernel()
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xf.data_ptr(), R, pr, cap_rows, zero, work.data_ptr(),
-                 idx.data_ptr(), vals.data_ptr(), stream)
+        err = fn(xf.data_ptr(), R, pr, rows, cap_rows, zero, variant == "single",
+                 work.data_ptr(), idx.data_ptr(), vals.data_ptr(), stream)
+    if err == _REFUSED and variant == "single":
+        raise RuntimeError(
+            f"dense_to_tuples (single) refused: a panel of {pr // rows} chunks exceeds the "
+            f"{resident_blocks(xf.device)} blocks the card holds at once; use two_pass"
+        )
     if err != 0:
-        raise RuntimeError(f"dense_to_tuples launch failed: CUDA error {err}")
+        raise RuntimeError(f"dense_to_tuples ({variant}) launch failed: CUDA error {err}")
     flat_to_tuples_arrays.launches += 1
-    return idx, vals, work[-2], work[-1]
+    flat_to_tuples_arrays.last_variant = variant
+    return idx, vals, work[0], work[1]
 
 
 flat_to_tuples_arrays.launches = 0
+flat_to_tuples_arrays.last_variant = None
 
 
+@functools.cache
 def _kernel():
     fn = _build.load("dense_to_tuples").dense_to_tuples_f32
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     return fn
 

@@ -36,6 +36,7 @@ from combblas_tpu_torch import (
     semiring_matmul_reference,
     spgemm_auto,
 )
+from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS, chunk_rows, resident_blocks
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, _kernel
 
 pytestmark = pytest.mark.cuda
@@ -249,41 +250,134 @@ def _assert_same_pack(got, want):
     assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))  # NaN-safe
 
 
-@pytest.mark.parametrize(
-    "case",
-    [
-        "greedy-cap64",
-        "greedy-cap3100",
-        "ragged-gcd",
-        "many-panels",
-        "tall-panel",
-        "nan-and-signed-zero",
-        "inf-zero",
-    ],
-)
-def test_compaction_kernel_matches_plain_version(case, cuda_device):
+def _panels_with_counts(counts, pr, seed, dev):
+    """Consecutive panels of ``pr`` flat rows holding ``counts[p]``
+    nonzeros each, as a flat ``[R, 128]`` view."""
+    rng = np.random.default_rng(seed)
+    cells = pr * 128
+    flat = np.zeros(len(counts) * cells, np.float32)
+    for p, k in enumerate(counts):
+        flat[p * cells + rng.choice(cells, size=k, replace=False)] = rng.integers(1, 100, k)
+    return torch.from_numpy(flat.reshape(-1, 128)).to(dev)
+
+
+def _compaction_case(case, dev):
+    """``(xf, kwargs)`` of one named compaction case."""
     rng = np.random.default_rng(len(case))
     zero, panel_rows = 0.0, 8192
     if case.startswith("greedy"):
-        xf, capacity, panel_rows = _greedy_flat(cuda_device), int(case[10:]), 32
+        xf, capacity, panel_rows = _greedy_flat(dev), int(case[10:]), 32
     elif case == "ragged-gcd":  # R = 8000: panels of gcd(8000, 8192) = 64 rows
-        xf, capacity = _sparse_flat(rng, 8000, 0.3, cuda_device), 200_000
+        xf, capacity = _sparse_flat(rng, 8000, 0.3, dev), 200_000
     elif case == "many-panels":  # 1500 panels of 16 rows, the later ones in part dropped
-        xf, capacity, panel_rows = _sparse_flat(rng, 24000, 0.5, cuda_device), 200_000, 16
+        xf, capacity, panel_rows = _sparse_flat(rng, 24000, 0.5, dev), 200_000, 16
     elif case == "tall-panel":  # one panel of 4096 tiles
-        xf, capacity, panel_rows = _sparse_flat(rng, 32768, 0.1, cuda_device), 500_000, 1 << 15
+        xf, capacity, panel_rows = _sparse_flat(rng, 32768, 0.1, dev), 500_000, 1 << 15
     elif case == "nan-and-signed-zero":
-        xf, capacity = _sparse_flat(rng, 64, 0.5, cuda_device), 8192
+        xf, capacity = _sparse_flat(rng, 64, 0.5, dev), 8192
         xf[0, :8] = torch.tensor([float("nan"), -0.0] * 4)
-    else:
-        xf = _sparse_flat(rng, 256, 0.4, cuda_device)
+    elif case == "inf-zero":
+        xf = _sparse_flat(rng, 256, 0.4, dev)
         xf[xf == 0] = float("inf")
         zero, capacity = float("inf"), 10_000
-    kw = dict(zero=zero, capacity=capacity, panel_rows=panel_rows)
+    elif case.startswith("used8-steps"):  # 1024 / 1025 / 1023 / 2048 nonzeros
+        xf, panel_rows = _panels_with_counts((1024, 1025, 1023, 2048), 16, 21, dev), 16
+        capacity = 5120 if case.endswith("exact") else 1024  # at 1024 the last is dropped
+    elif case == "first-overflows":  # the first panel (56 rows) does not fit in 40
+        xf, capacity, panel_rows = _panels_with_counts((7000, 100, 1500, 50), 64, 22, dev), 64, 64
+    elif case == "last-cell-only":
+        xf, capacity, panel_rows = torch.zeros((128, 128), device=dev), 1, 8
+        xf[-1, -1] = 7.0
+    elif case == "pr8-alternating":  # 64 panels of 8 rows, alternately empty and full
+        xf, panel_rows = _panels_with_counts((0, 1024) * 32, 8, 23, dev), 8
+        capacity = 32 * 1024
+    else:
+        raise ValueError(case)
+    return xf, dict(zero=zero, capacity=capacity, panel_rows=panel_rows)
+
+
+COMPACTION_CASES = [
+    "greedy-cap64",
+    "greedy-cap3100",
+    "ragged-gcd",
+    "many-panels",
+    "tall-panel",
+    "nan-and-signed-zero",
+    "inf-zero",
+    "used8-steps-exact",
+    "used8-steps-cap1024",
+    "first-overflows",
+    "last-cell-only",
+    "pr8-alternating",
+]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("case", COMPACTION_CASES)
+def test_compaction_kernel_matches_plain_version(case, variant, cuda_device):
+    """Each instantiation on each case: the whole idx and vals arrays (vals
+    as bits), ``total`` and ``end_row`` equal the plain version's."""
+    xf, kw = _compaction_case(case, cuda_device)
     launches = flat_to_tuples_arrays.launches
-    got = flat_to_tuples_arrays(xf, **kw)
+    got = flat_to_tuples_arrays(xf, variant=variant, **kw)
     torch.cuda.synchronize()
     assert flat_to_tuples_arrays.launches == launches + 1
+    assert flat_to_tuples_arrays.last_variant == variant
+    _assert_same_pack(got, flat_to_tuples_arrays_reference(xf, **kw))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_compaction_at_the_main_path_shape(variant, cuda_device):
+    """8192 x 8192 at 20% (the K2 path's accumulator size), exact capacity;
+    the default choice there is the single-pass instantiation."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    keep = torch.rand((8192, 8192), generator=g, device=cuda_device) < 0.2
+    x = torch.where(keep, torch.randint(1, 100, (8192, 8192), generator=g,
+                                        device=cuda_device).float(), 0.0)
+    xf = x.view(-1, 128)
+    capacity = int(keep.sum())
+    got = flat_to_tuples_arrays(xf, capacity=capacity, variant=variant)
+    _assert_same_pack(got, flat_to_tuples_arrays_reference(xf, capacity=capacity))
+    flat_to_tuples_arrays(xf, capacity=capacity)
+    assert flat_to_tuples_arrays.last_variant == "single"
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_compaction_chunk_prefixes_hit_every_residue(variant, cuda_device):
+    """One panel of eight 64-row chunks holding 1, 1, 1, 1, 2, 3, 5, 7
+    nonzeros: the chunks' runs start at every residue mod 4 (so each store
+    path, aligned quads with partial quads at either end, runs), and
+    another panel's runs start after a 7-entry panel."""
+    rows = chunk_rows(512)
+    counts = (1, 1, 1, 1, 2, 3, 5, 7)
+    prefixes = np.cumsum((0,) + counts[:-1])
+    assert rows == 64 and set(prefixes % 4) == {0, 1, 2, 3}
+    rng = np.random.default_rng(41)
+    flat = np.zeros(2 * 512 * 128, np.float32)
+    for c, k in enumerate(counts * 2):
+        cells = c * rows * 128 + rng.choice(rows * 128, size=k, replace=False)
+        flat[cells] = rng.integers(1, 100, k)
+    xf = torch.from_numpy(flat.reshape(-1, 128)).to(cuda_device)
+    kw = dict(capacity=2 * sum(counts), panel_rows=512)
+    got = flat_to_tuples_arrays(xf, variant=variant, **kw)
+    _assert_same_pack(got, flat_to_tuples_arrays_reference(xf, **kw))
+
+
+def test_single_pass_refuses_a_panel_larger_than_the_card_holds(cuda_device):
+    """A panel with one chunk more than the card holds blocks: the single
+    instantiation is refused and raises (nothing counted, nothing run in
+    its place); by default the two-pass one takes it."""
+    resident = resident_blocks(cuda_device)
+    R = 64 * (resident + 1)  # one panel of resident + 1 chunks of 64 rows
+    xf = _sparse_flat(np.random.default_rng(43), R, 0.05, cuda_device)
+    kw = dict(capacity=int((xf != 0).sum()), panel_rows=R)
+    assert R // chunk_rows(R) == resident + 1
+    launches, last = flat_to_tuples_arrays.launches, flat_to_tuples_arrays.last_variant
+    with pytest.raises(RuntimeError, match="single"):
+        flat_to_tuples_arrays(xf, variant="single", **kw)
+    assert (flat_to_tuples_arrays.launches, flat_to_tuples_arrays.last_variant) == (launches, last)
+    got = flat_to_tuples_arrays(xf, **kw)
+    assert flat_to_tuples_arrays.last_variant == "two_pass"
     _assert_same_pack(got, flat_to_tuples_arrays_reference(xf, **kw))
 
 

@@ -5,7 +5,10 @@ with the JAX package (``combblas_tpu``): ``dense_to_tuples_arrays`` /
 
 The inputs are every case of ``tests/test_pallas_sparsify.py``, built from
 the same seeds, plus a four-panel case that shows the greedy panel
-placement and a case with -0.0 and NaN cells. The JAX package runs its
+placement, a case with -0.0 and NaN cells, panels whose counts sit on the
+``rows_used8`` steps (1024 and 1025 nonzeros), a first panel that
+overflows while later ones are written, an input that is zero but for its
+last cell, and 8-row panels alternately empty and full. The JAX package runs its
 Pallas kernel in interpret mode, as its own tests do, once per case;
 the port runs on the CPU, where the kernel's plain PyTorch version runs.
 Every comparison is exact (tolerance 0).
@@ -35,6 +38,7 @@ from combblas_tpu_torch import (
     flat_to_tuples_arrays_reference,
     sparsify,
 )
+from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS, chunk_rows, kernel_variant
 
 INF = float(np.inf)
 
@@ -115,6 +119,50 @@ def _signed_zero_nan():
     return x, 16, 128, 0.0, 1024, 8
 
 
+def _panels_with_counts(counts, pr, seed):
+    """Consecutive panels of ``pr`` flat rows holding ``counts[p]``
+    nonzeros each (values 1..99 at random cells), as a ``[R/2, 256]``
+    matrix."""
+    rng = np.random.default_rng(seed)
+    cells = pr * 128
+    flat = np.zeros(len(counts) * cells, np.float32)
+    for p, k in enumerate(counts):
+        flat[p * cells + rng.choice(cells, size=k, replace=False)] = rng.integers(1, 100, k)
+    return flat.reshape(-1, 256)
+
+
+#: Panel counts on either side of the rows_used8 steps (8 rows per 1024).
+USED8_COUNTS = (1024, 1025, 1023, 2048)
+
+
+def _used8_steps(capacity):
+    """Four panels of 16 rows with 1024 / 1025 / 1023 / 2048 nonzeros (8,
+    16, 8 and 16 rows used). At the exact count all are written; at 1024
+    (40 output rows) the first three fill 32 rows and the last is dropped."""
+    x = _panels_with_counts(USED8_COUNTS, 16, 21)
+    return x, x.shape[0], x.shape[1], 0.0, capacity, 16
+
+
+def _first_overflows():
+    """Panels of 64 rows with 7000 / 100 / 1500 / 50 nonzeros at capacity
+    64 (40 output rows): the first (56 rows) is dropped, the rest written."""
+    x = _panels_with_counts((7000, 100, 1500, 50), 64, 22)
+    return x, x.shape[0], x.shape[1], 0.0, 64, 64
+
+
+def _last_cell_only():
+    """All zero but the last cell, panels of 8 rows (16 panels)."""
+    x = np.zeros((64, 256), np.float32)
+    x[-1, -1] = 7.0
+    return x, 64, 256, 0.0, 1, 8
+
+
+def _pr8_alternating():
+    """pr = 8 with 16 panels, alternately empty and full."""
+    x = _panels_with_counts((0, 1024) * 8, 8, 23)
+    return x, x.shape[0], x.shape[1], 0.0, int((x != 0).sum()), 8
+
+
 CASES = {
     **{
         f"nonzero-d{d}-pr{pr}": functools.partial(_pack_matches_nonzero, d, pr)
@@ -134,6 +182,11 @@ CASES = {
     "greedy-cap64": functools.partial(_greedy, 64),
     "greedy-cap3100": functools.partial(_greedy, 3100),
     "signed-zero-nan": _signed_zero_nan,
+    "used8-steps-exact": functools.partial(_used8_steps, sum(USED8_COUNTS)),
+    "used8-steps-cap1024": functools.partial(_used8_steps, 1024),
+    "first-overflows": _first_overflows,
+    "last-cell-only": _last_cell_only,
+    "pr8-alternating": _pr8_alternating,
 }
 
 
@@ -201,6 +254,65 @@ def test_greedy_placement_drops_only_the_panel_that_does_not_fit():
             assert sorted(set((live // 4096).tolist())) == list(kept)
             assert len(live) == sum(GREEDY_COUNTS[p] for p in kept)
             assert int(tot) == sum(GREEDY_COUNTS)
+
+
+@pytest.mark.parametrize(
+    "name, panel_cells, counts, kept",
+    [
+        ("used8-steps-exact", 2048, USED8_COUNTS, (0, 1, 2, 3)),
+        ("used8-steps-cap1024", 2048, USED8_COUNTS, (0, 1, 2)),
+        ("first-overflows", 8192, (7000, 100, 1500, 50), (1, 2, 3)),
+    ],
+)
+def test_greedy_cases_keep_the_expected_panels(name, panel_cells, counts, kept):
+    """The panels written (by the live indices' panel) and ``total``, in
+    both packages: a dropped panel is dropped whole and later ones are
+    still written."""
+    (fi, _, total, end_row), _ = _jax_results(name)
+    x, _, _, kw = _port_args(name)
+    gi, _, gtotal, gend = dense_to_tuples_arrays(x, **kw)
+    for idx, tot, end in ((fi, total, end_row), (gi.numpy(), gtotal, gend)):
+        live = idx[: int(end) * 128]
+        live = live[live >= 0]
+        assert sorted(set((live // panel_cells).tolist())) == list(kept)
+        assert len(live) == sum(counts[p] for p in kept)
+        assert int(tot) == sum(counts)
+
+
+@pytest.mark.parametrize(
+    "pr, resident, rows, variant",
+    [
+        (8192, 660, 64, "single"),  # the main path's panels: 128 chunks
+        (1 << 15, 660, 64, "single"),  # the tall panel: 512 chunks
+        (1 << 15, 396, 64, "two_pass"),  # the same on a card that holds fewer blocks
+        (1 << 16, 660, 64, "two_pass"),  # 1024 chunks
+        (64, 1, 64, "single"),  # gcd(8000, 8192): one chunk a panel
+        (8, 1, 8, "single"),
+        (24, 2, 8, "two_pass"),  # three chunks of 8 rows
+        (48, 3, 16, "single"),
+        (96, 3, 32, "single"),
+    ],
+)
+def test_kernel_variant_choice(pr, resident, rows, variant):
+    """The chunk is the largest of 64, 32, 16, 8 rows dividing the panel;
+    single-pass when the panel's chunks fit in the resident blocks."""
+    assert chunk_rows(pr) == rows
+    assert kernel_variant(pr, resident) == variant
+
+
+def test_cpu_path_takes_a_variant_and_checks_it():
+    """On CPU tensors either variant runs the plain version (no launch);
+    an unknown name raises."""
+    x, _, _, kw = _port_args("first-overflows")
+    want = flat_to_tuples_arrays_reference(x.reshape(-1, 128), **kw)
+    launches = flat_to_tuples_arrays.launches
+    for variant in VARIANTS:
+        got = flat_to_tuples_arrays(x.reshape(-1, 128), variant=variant, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert flat_to_tuples_arrays.launches == launches
+    with pytest.raises(ValueError, match="unknown variant"):
+        flat_to_tuples_arrays(x.reshape(-1, 128), variant="three_pass", **kw)
 
 
 def test_reference_shape_rules_raise():
