@@ -42,7 +42,23 @@ Phases (each prints one JSON line):
   7. times: K1 per kind at the main path's shape, beside its bound, its
      instruction-issue floor (``floor_ms``, at the SM clock ``nvidia-smi``
      reads at the end of the timed loop), its plain version and
-     (plus_times) one ``torch.matmul``.
+     (plus_times) one ``torch.matmul``;
+  8. BFS path: the Graph500 batched BFS at scale 20, edgefactor 16, 256
+     roots on a 1 x 1 grid. The host builds the graph and its search
+     structures (``build_graph``, ``build_structures``); after the upload
+     ``bfs_batch_compact`` + ``batch_traversed_edges`` run dense-only and
+     direction-optimised (CSC budgets n/8 columns and max(nnz/16, 2^20)
+     edges), a warm-up then timed calls (CUDA events and host clock
+     around the whole call, the edge counts' readback inside). Both modes
+     must agree on levels, parents and edge counts; ``validate_bfs_device``
+     on 4 lanes must report no violation, every root must reach an edge,
+     and a numpy BFS on the host from the same 4 roots must give the same
+     levels and max-id parents. Then, level by level, the dense and (where
+     the budgets hold) the sparse step timed on the same frontier, the
+     parents pass, each beside its bytes bound, and a sweep of the row
+     slicing's byte envelopes with peak memory. This path is PyTorch ops
+     only (the reference runs it in XLA ops, outside any Pallas kernel):
+     it launches no hand kernel, and the phase checks that.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -65,8 +81,15 @@ from combblas_tpu_torch import (
     MAX_MIN,
     MIN_PLUS,
     PLUS_TIMES,
+    DistMultiVec,
+    DistVec,
+    EllParMat,
     Grid,
     SpParMat,
+    batch_traversed_edges,
+    bfs_batch_compact,
+    build_graph,
+    build_structures,
     choose_spgemm_tier,
     dense_support_nnz,
     dense_to_sptuples,
@@ -79,12 +102,15 @@ from combblas_tpu_torch import (
     sparsify,
     sparsify_windowed,
     spgemm_auto,
+    upload_csc_companion,
+    validate_bfs_device,
 )
 from combblas_tpu_torch import _build
 from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS, _panels
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS as K2_VARIANTS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
 from combblas_tpu_torch.ops.spgemm import densify
+from combblas_tpu_torch.parallel import ellmat
 from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
@@ -113,6 +139,10 @@ K1_WIDE_INT_SHAPES = ((4096, 4096, 4096), (1000, 4095, 1234))
 SPECIALS = (float("nan"), 0.0, -0.0, float("inf"), -float("inf"), 1.0, -1.0, 2.5, 3.0)
 SPECIAL_ODDS = (0.002, 0.15, 0.15, 0.01, 0.01, 0.17, 0.17, 0.17, 0.168)
 LANES_PER_SM_CLOCK = 4 * 32  # four schedulers, one 32-lane warp instruction each
+# the BFS path: the defaults of the reference's benchmark script
+BFS_SCALE, BFS_EDGEFACTOR, BFS_NROOTS = 20, 16, 256
+BFS_CHECK_LANES = 4  # lanes validated on the device and against the host BFS
+BFS_REPS = 3
 
 
 def emit(obj) -> None:
@@ -781,6 +811,300 @@ def phase_times(dev, full: dict, loops: dict) -> dict:
     return out
 
 
+def timed_call(fn):
+    """One call of ``fn`` between two CUDA events and on the host clock,
+    synchronised after it: (result, device ms, host seconds)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def host_bfs_levels(indptr: np.ndarray, cols: np.ndarray, root: int) -> np.ndarray:
+    """Levels of a frontier-at-a-time BFS in numpy over a CSR graph (-1 =
+    unreached): the check that shares no code with the device path."""
+    level = np.full(len(indptr) - 1, -1, np.int32)
+    level[root] = 0
+    frontier = np.array([root], np.int64)
+    depth = 0
+    while len(frontier):
+        depth += 1
+        counts = indptr[frontier + 1] - indptr[frontier]
+        ends = np.cumsum(counts)
+        slot = np.arange(ends[-1]) - np.repeat(ends - counts, counts)
+        nbr = cols[np.repeat(indptr[frontier], counts) + slot]
+        frontier = np.unique(nbr[level[nbr] < 0]).astype(np.int64)
+        level[frontier] = depth
+    return level
+
+
+def host_max_parents(rows: np.ndarray, cols: np.ndarray, indptr: np.ndarray,
+                     level: np.ndarray, root: int) -> np.ndarray:
+    """Per vertex the maximum-id neighbour one level up (-1 where
+    unreached; the root is its own parent), from row-sorted COO."""
+    up = (level[rows] > 0) & (level[cols] == level[rows] - 1)
+    cand = np.where(up, cols, -1).astype(np.int64)
+    deg = indptr[1:] - indptr[:-1]
+    parent = np.full(len(level), -1, np.int64)
+    has = deg > 0
+    parent[has] = np.maximum.reduceat(cand, indptr[:-1][has])
+    parent[root] = root
+    return parent
+
+
+def step_bounds(E: EllParMat, n: int, W: int) -> dict:
+    """Bytes bounds (ms) of one dense level (M1) and of the parents pass
+    (M2) at W lanes: the structure read once (int32 column ids and row
+    ids), W bytes gathered per stored slot, and the state read and
+    written ([n, W] int8 frontier, undiscovered mask and result for M1;
+    [n, W] int8 levels twice and int32 parents for M2)."""
+    slots = sum(bc.numel() for bc, _, _ in E.buckets)
+    rows = sum(br.numel() for _, _, br in E.buckets)
+    structure = 4 * slots + 4 * rows
+    m1 = structure + slots * W + 3 * n * W
+    m2 = structure + slots * W + 2 * n * W + 4 * n * W
+    return {"slots": slots, "bucket_rows": rows,
+            "m1_bytes": m1, "m1_bound_ms": m1 / PEAK_BYTES * 1e3,
+            "m2_bytes": m2, "m2_bound_ms": m2 / PEAK_BYTES * 1e3}
+
+
+def sparse_step_bound_ms(n: int, W: int, cnt: int, edges: int) -> float:
+    """Bytes bound of one union-frontier level (M3) on this level's data:
+    the frontier read once to find its union ([n, W]), the column
+    pointers of the ``cnt`` active columns, one row id and W gathered
+    bytes per walked edge, the undiscovered mask read and the result
+    written ([n, W] each)."""
+    return (3 * n * W + 8 * cnt + 4 * edges + edges * W) / PEAK_BYTES * 1e3
+
+
+def bfs_level_breakdown(E, roots_dev, csc, fcap: int, ecap: int) -> tuple[list, dict]:
+    """The search's level loop driven by hand, each level's steps timed on
+    the same frontier: the dense sweep always, the sparse step where the
+    union frontier fits the budgets (the step the direction-optimised
+    call takes there), with its slots cut to the level's counts as the
+    search calls it and at the full budgets. Returns one record per level and the final state
+    (levels, and the widest frontier's operands for the envelope sweep)."""
+    grid, n = E.grid, E.nrows
+    W = roots_dev.numel()
+    gids = torch.arange(n, dtype=torch.int32, device=grid.device)[None, :, None]
+    at_root = gids == roots_dev[None, None, :]
+    levels = at_root.to(torch.int8) - 1
+    x = at_root.to(torch.int8)
+    coldeg = csc[0][0, 0, 1:] - csc[0][0, 0, :-1]
+    records, widest = [], None
+    level, active = 0, True
+    while active:
+        undisc = (levels < 0).to(torch.int8)
+        act = x.amax(dim=2) > 0
+        cnt, edges = int(act.sum()), int((coldeg * act[0]).sum())
+        if widest is None or edges > widest[0]:
+            widest = (edges, x, undisc)
+        rec = {"level": level + 1, "union_frontier": cnt, "union_edges": edges,
+               "frontier_cells": int(x.sum()),
+               "dense_ms": time_cuda_ms(lambda: ellmat._ell_levels_step(E, x, undisc), 2)}
+        sparse_ok = cnt <= fcap and edges <= ecap
+        rec["diropt_step"] = "sparse" if sparse_ok else "dense"
+        if sparse_ok:  # at this level's counts, as the search calls it; at the budgets
+            rec["sparse_ms"] = time_cuda_ms(
+                lambda: ellmat._ell_union_sparse_step(E, *csc, x, undisc, cnt, edges), 2)
+            rec["sparse_at_budgets_ms"] = time_cuda_ms(
+                lambda: ellmat._ell_union_sparse_step(E, *csc, x, undisc, fcap, ecap), 2)
+            rec["sparse_bound_ms"] = sparse_step_bound_ms(n, W, cnt, edges)
+        reached = ellmat._ell_levels_step(E, x, undisc)
+        new = reached > 0
+        level += 1
+        levels = levels.masked_fill(new, level)
+        x = reached
+        active = bool(new.any())
+        rec["discovered_cells"] = int(new.sum())
+        records.append(rec)
+    return records, {"levels": levels, "widest": widest[1:]}
+
+
+def envelope_sweep(E, state: dict) -> dict:
+    """One dense level (at the widest frontier) and the parents pass under
+    several byte envelopes of the row slicing: ms and peak device memory
+    each. The envelopes in use are restored afterwards."""
+    x, undisc = state["widest"]
+    levels = state["levels"]
+    out = {"levels_step": [], "parents_pass": []}
+    keep = (ellmat.LEVELS_BUDGET_BYTES, ellmat.PARENTS_BUDGET_BYTES)
+    try:
+        for name, key, budgets, fn in (
+            ("LEVELS_BUDGET_BYTES", "levels_step", (1 << 26, 1 << 28, 1 << 30, 1 << 32),
+             lambda: ellmat._ell_levels_step(E, x, undisc)),
+            ("PARENTS_BUDGET_BYTES", "parents_pass", (1 << 27, 1 << 29, 1 << 31, 1 << 32),
+             lambda: ellmat._ell_parents_from_levels(E, levels, levels)),
+        ):
+            for budget in budgets:
+                setattr(ellmat, name, budget)
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_cuda_ms(fn, 2)
+                out[key].append({"budget_bytes": budget, "ms": ms, "in_use": budget == keep[
+                    0 if key == "levels_step" else 1],
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    finally:
+        ellmat.LEVELS_BUDGET_BYTES, ellmat.PARENTS_BUDGET_BYTES = keep
+    return out
+
+
+def phase_bfs_path(dev, scale: int = BFS_SCALE, nroots: int = BFS_NROOTS) -> dict:
+    """The Graph500 batched BFS, host kernel 1 to validated trees (see the
+    module docstring, phase 8). Raises on any disagreement."""
+    n = 1 << scale
+    t0 = time.perf_counter()
+    g = build_graph(scale, BFS_EDGEFACTOR, nroots)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buckets, (indptr, rowidx) = build_structures(g["rows"], g["cols"], n)
+    structures_s = time.perf_counter() - t0
+    nnz = len(g["rows"])
+    slots = sum(bc.size for bc, _, _ in buckets)
+    structure_bytes = (sum(a.nbytes for b in buckets for a in b) + indptr.nbytes
+                       + rowidx.nbytes)
+    emit({"phase": "bfs_path", "step": "host_build", "scale": scale,
+          "edgefactor": BFS_EDGEFACTOR, "roots": nroots, "grid": "1x1", "n": n, "nnz": nnz,
+          "graph_s": graph_s, "structures_s": structures_s,
+          "bucket_classes_nb_x_kb": [[bc.shape[2], bc.shape[3]] for bc, _, _ in buckets],
+          "slots": slots, "slot_padding_ratio": slots / nnz,
+          "structure_bytes": structure_bytes})
+
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    t0 = time.perf_counter()
+    grid = Grid.make(1, 1, device=dev)
+    E = EllParMat.from_host_buckets(grid, buckets, n, n)
+    csc = upload_csc_companion(grid, indptr, rowidx)
+    deg_blocks = DistVec.from_global(grid, g["deg"], align="row").blocks
+    roots_dev = torch.from_numpy(g["roots"]).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    fcap, ecap = n // 8, max(nnz // 16, 1 << 20)
+    modes = {"dense": {}, "diropt": dict(csc=csc, frontier_capacity=fcap, edge_capacity=ecap)}
+
+    def search(kw):
+        """The timed unit: the search, the edge count and its readback."""
+        p, l, it = bfs_batch_compact(E, roots_dev, **kw)
+        te = batch_traversed_edges(deg_blocks, p).cpu().numpy()
+        return p, l, it, te, bfs_batch_compact.last_run
+
+    results, lines = {}, {}
+    for mode, kw in modes.items():
+        torch.cuda.reset_peak_memory_stats()
+        _, warm_ms, _ = timed_call(lambda: search(kw))
+        runs = [timed_call(lambda: search(kw)) for _ in range(BFS_REPS)]
+        p, l, it, te, run = runs[-1][0]
+        dev_ms = [r[1] for r in runs]
+        wall_s = [r[2] for r in runs]
+        dt = float(np.median(wall_s))
+        total_te = int(te.astype(np.int64).sum())
+        live = te[te > 0].astype(np.float64)
+        results[mode] = (p, l, it, te)
+        lines[mode] = {
+            "phase": "bfs_path", "step": "search", "mode": mode, "levels": it,
+            "steps": run["steps"], "host_readbacks_per_call": run["readbacks"] + 1,
+            "warmup_ms": warm_ms, "device_ms": dev_ms, "wall_s": wall_s,
+            "median_wall_s": dt, "total_traversed_edges": total_te,
+            "mteps": total_te / dt / 1e6,
+            "harmonic_mean_amortized_mteps": len(live) * len(te) / (dt * np.sum(1.0 / live)) / 1e6,
+            "reachable_roots": int((te > 0).sum()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        if lines[mode]["reachable_roots"] != nroots:
+            raise AssertionError(f"bfs {mode}: a root reached no edge")
+        emit(lines[mode])
+    hand_launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(hand_launches.values()):
+        raise AssertionError(f"the BFS path launched hand kernels: {hand_launches}")
+
+    # both modes agree
+    (pd_, ld, itd, ted), (ps, ls, its, tes) = results["dense"], results["diropt"]
+    if not (torch.equal(pd_.blocks, ps.blocks) and torch.equal(ld.blocks, ls.blocks)
+            and itd == its and np.array_equal(ted, tes)):
+        raise AssertionError("bfs: dense and direction-optimised results differ")
+    if "sparse" not in lines["diropt"]["steps"]:
+        raise AssertionError(f"bfs diropt never took the sparse step: {lines['diropt']['steps']}")
+
+    # the trees on the device, a lane subset (levels widened to int32)
+    lanes = lambda mv, dt_: DistMultiVec(
+        blocks=mv.blocks[:, :, :BFS_CHECK_LANES].to(dt_).contiguous(), length=mv.length,
+        align=mv.align, grid=mv.grid)
+    pv, lv = lanes(pd_, torch.int32), lanes(ld, torch.int32)
+    viol, validate_ms, _ = timed_call(lambda: validate_bfs_device(E, pv, lv).cpu().numpy())
+    if viol.shape != (4, BFS_CHECK_LANES) or viol.any():
+        raise AssertionError(f"bfs validation: violations {viol.tolist()}")
+
+    # the same lanes against a numpy BFS on the host
+    t0 = time.perf_counter()
+    rows64, cols64 = g["rows"].astype(np.int64), g["cols"].astype(np.int64)
+    row_ptr = np.searchsorted(rows64, np.arange(n + 1))
+    P = pd_.blocks[0, :, :BFS_CHECK_LANES].cpu().numpy()
+    L = ld.blocks[0, :, :BFS_CHECK_LANES].cpu().numpy()
+    for k in range(BFS_CHECK_LANES):
+        root = int(g["roots"][k])
+        want_l = host_bfs_levels(row_ptr, cols64, root)
+        if not np.array_equal(L[:, k], want_l):
+            raise AssertionError(f"bfs lane {k}: levels differ from the host BFS")
+        if not np.array_equal(P[:, k], host_max_parents(rows64, cols64, row_ptr, want_l, root)):
+            raise AssertionError(f"bfs lane {k}: parents are not the max-id neighbour one level up")
+        if int(ted[k]) != int(g["deg"][want_l >= 0].astype(np.int64).sum()) // 2:
+            raise AssertionError(f"bfs lane {k}: traversed edges differ from the host count")
+    host_check_s = time.perf_counter() - t0
+    emit({"phase": "bfs_path", "step": "checks", "modes_agree": True,
+          "validate_bfs_device": viol.tolist(), "validate_lanes": BFS_CHECK_LANES,
+          "validate_ms": validate_ms, "host_bfs_lanes_equal": BFS_CHECK_LANES,
+          "host_check_s": host_check_s, "finite_shapes": [list(pd_.blocks.shape),
+                                                          list(ld.blocks.shape)],
+          "hand_kernel_launches": hand_launches})
+
+    # where the time goes: level by level, the parents pass, the bounds
+    bounds = step_bounds(E, n, nroots)
+    records, state = bfs_level_breakdown(E, roots_dev, csc, fcap, ecap)
+    if not torch.equal(state["levels"], ld.blocks):
+        raise AssertionError("bfs: the level loop driven by hand gives other levels")
+    for rec in records:
+        emit({"phase": "bfs_path", "step": "level", **rec,
+              "dense_bound_ms": bounds["m1_bound_ms"]})
+    parents_ms = time_cuda_ms(
+        lambda: ellmat._ell_parents_from_levels(E, state["levels"], state["levels"]), 2)
+    te_ms = time_cuda_ms(lambda: batch_traversed_edges(deg_blocks, pd_), 3)
+    dense_ms = [r["dense_ms"] for r in records]
+    programs = {
+        "phase": "bfs_path", "step": "programs", **bounds, "upload_s": upload_s,
+        "m1_levels_step": {"ms_per_launch": sum(dense_ms) / len(dense_ms),
+                           "ms_min_max": [min(dense_ms), max(dense_ms)],
+                           "launches_per_call": {m: lines[m]["steps"].count("dense")
+                                                 for m in modes},
+                           "bound_ms": bounds["m1_bound_ms"], "bound_by": "bytes"},
+        "m2_parents_from_levels": {"ms_per_launch": parents_ms,
+                                   "launches_per_call": {m: 1 for m in modes},
+                                   "bound_ms": bounds["m2_bound_ms"], "bound_by": "bytes"},
+        "m3_union_sparse_step": {
+            "ms_per_launch": [r["sparse_ms"] for r in records if "sparse_ms" in r],
+            "bound_ms": [r["sparse_bound_ms"] for r in records if "sparse_ms" in r],
+            "bound_by": "bytes",
+            "launches_per_call": {m: lines[m]["steps"].count("sparse") for m in modes}},
+        "batch_traversed_edges_ms": te_ms,
+        # device time per operator at the widest frontier (torch.profiler)
+        "m1_ops": op_breakdown(lambda: ellmat._ell_levels_step(E, *state["widest"]), 2),
+        "m2_ops": op_breakdown(
+            lambda: ellmat._ell_parents_from_levels(E, state["levels"], state["levels"]), 2),
+        "envelopes_in_use": {"levels": ellmat.LEVELS_BUDGET_BYTES,
+                             "parents": ellmat.PARENTS_BUDGET_BYTES},
+    }
+    emit(programs)
+    sweep = envelope_sweep(E, state)
+    emit({"phase": "bfs_path", "step": "envelope_sweep", **sweep})
+    torch.cuda.empty_cache()
+    return {"lines": lines, "programs": programs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -795,6 +1119,7 @@ def main() -> int:
     path = phase_main_path(dev)
     k2_path = phase_k2_path(path.pop("mats"))
     times = phase_times(dev, full, loops)
+    phase_bfs_path(dev)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
         kind = _PALLAS_KINDS[sr.name]

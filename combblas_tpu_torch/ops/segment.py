@@ -49,10 +49,13 @@ def expand_ranges(
     Source ``i`` contributes ``lens[i]`` items. Returns, per slot ``f``,
     ``(owner[f], offset[f])`` such that slot ``f`` is item ``offset[f]`` of
     source ``owner[f]``, the mask ``f < sum(lens)`` and ``sum(lens)``, all
-    int32 (``valid`` bool). The owner map is a scatter-max of each source's
-    index at its start, then a cummax; zero-length sources resolve to the
-    highest index, as ``searchsorted(side='right') - 1`` would. Starts at or
-    past ``capacity`` go to a sink slot that is cut off.
+    int32 (``valid`` bool). ``owner[f]`` is the last source that starts at
+    or before ``f``: a binary search of the slot number in the sources'
+    starts (``searchsorted(side='right') - 1``), so zero-length sources
+    resolve to the highest index and slots past ``sum(lens)`` to the last
+    source. The reference gets the same map from a scatter-max at the
+    starts and a cumulative max, the cheap form on its hardware; on a CUDA
+    card the search is the cheap one (PERF.md, section 6).
     """
     dev = lens.device
     lens = lens.to(torch.int32)
@@ -61,14 +64,7 @@ def expand_ranges(
         [torch.zeros(1, dtype=torch.int32, device=dev), torch.cumsum(lens, 0, dtype=torch.int32)]
     )
     total = starts[-1]
-    pos = starts[:-1]
-    sink = torch.clamp(pos, max=capacity).long()
-    seed = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
-    seed.scatter_reduce_(0, sink, torch.arange(n, dtype=torch.int32, device=dev), "amax")
-    owner = torch.clamp(torch.cummax(seed[:capacity], 0).values, 0, n - 1)
-    # base[f] = starts[owner[f]], by the same construction (starts ascend)
-    base = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
-    base.scatter_reduce_(0, sink, pos, "amax")
-    base = torch.cummax(base[:capacity], 0).values
     f = torch.arange(capacity, dtype=torch.int32, device=dev)
-    return owner, f - base, f < total, total
+    owner = torch.searchsorted(starts[:-1], f, right=True, out_int32=True) - 1
+    owner = torch.clamp(owner, 0, n - 1)
+    return owner, f - starts.index_select(0, owner), f < total, total

@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
-plain PyTorch version, the mxu SpGEMM path and the dense -> sparse
-extraction on the card against the same calls on the CPU. Marked ``cuda``; they skip where there is no card.
+plain PyTorch version, the mxu SpGEMM path, the dense -> sparse
+extraction and the batched BFS on the card against the same calls on the CPU. Marked ``cuda``; they skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch (``tests/conftest.py`` imports JAX, hence
@@ -25,9 +25,17 @@ import torch
 from combblas_tpu_torch import (
     MAX_MIN,
     MIN_PLUS,
+    PAD_ROOT,
     PLUS_TIMES,
+    DistMultiVec,
+    DistVec,
+    EllParMat,
     Grid,
     SpParMat,
+    batch_traversed_edges,
+    bfs_batch_compact,
+    build_csc_companion,
+    build_graph,
     dense_to_sptuples,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
@@ -35,6 +43,7 @@ from combblas_tpu_torch import (
     semiring_matmul,
     semiring_matmul_reference,
     spgemm_auto,
+    validate_bfs_device,
 )
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS, chunk_rows, resident_blocks
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, _kernel
@@ -403,3 +412,42 @@ def test_compaction_kernel_raises_on_what_it_does_not_take(cuda_device):
     for _ in range(3):
         flat_to_tuples_arrays(x, capacity=16)
     assert flat_to_tuples_arrays.launches == launches + 3
+
+
+@pytest.mark.parametrize("shape, max_k", [((1, 1), None), ((2, 2), 8)],
+                         ids=["1x1", "2x2-split-rows"])
+def test_bfs_batch_compact_on_card_matches_cpu(shape, max_k, cuda_device):
+    """The batched BFS at scale 12 on the card and on the CPU: parents,
+    levels, level count, edge counts and validation identical, dense-only
+    and with the CSC budgets (a scatter or gather that diverged on CUDA
+    would show here)."""
+    scale = 12
+    n = 1 << scale
+    g = build_graph(scale, 16, nroots=32)
+    roots = g["roots"].copy()
+    roots[5] = PAD_ROOT
+    budgets = dict(frontier_capacity=n // 8, edge_capacity=len(g["rows"]) // 4)
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(*shape, device=dev)
+        E = EllParMat.from_host_coo(grid, g["rows"], g["cols"],
+                                    np.zeros(len(g["rows"]), np.int8), n, n, max_k=max_k)
+        csc = build_csc_companion(grid, g["rows"], g["cols"], n, n)
+        deg = DistVec.from_global(grid, g["deg"], align="row").blocks
+        dense = bfs_batch_compact(E, roots)
+        diropt = bfs_batch_compact(E, roots, csc=csc, **budgets)
+        steps = bfs_batch_compact.last_run["steps"]
+        assert {"sparse", "dense"} == set(steps)
+        for a, b in zip(dense[:2], diropt[:2]):
+            assert torch.equal(a.blocks, b.blocks)
+        assert dense[2] == diropt[2]
+        lanes = lambda mv: DistMultiVec(blocks=mv.blocks[:, :, :4].to(torch.int32), length=n,
+                                        align="row", grid=grid)
+        viol = validate_bfs_device(E, lanes(dense[0]), lanes(dense[1]))
+        assert not viol.any()
+        out.append((dense[0].blocks.cpu(), dense[1].blocks.cpu(), dense[2], steps,
+                         batch_traversed_edges(deg, dense[0]).cpu(), viol.cpu()))
+    cpu, card = out
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    assert (cpu[4] > 0).sum() == 31  # every live root reaches an edge

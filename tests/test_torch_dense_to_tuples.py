@@ -333,6 +333,10 @@ def test_reference_shape_rules_raise():
         ([4, 4, 4, 4], 10),  # the count exceeds the capacity
         ([0, 0, 7], 7),
         (list(range(40)), 900),
+        ([0, 0, 0], 5),  # nothing to place
+        ([0, 3, 0, 0, 9, 2, 0, 4], 8),  # starts at and past the capacity
+        ([1], 1),
+        (np.random.default_rng(0).integers(0, 4, 300).tolist(), 256),
     ],
 )
 def test_expand_ranges_matches_reference(lens, capacity):

@@ -11,6 +11,10 @@ import torch
 from combblas_tpu_torch import Grid, HostGrid
 
 REPO = Path(__file__).resolve().parent.parent
+# modules the walk below must reach (the Graph500 BFS path among them)
+MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "ops.segment",
+           "ops.spgemm", "ops.dense_to_tuples", "ops.semiring_matmul", "parallel.ellmat",
+           "parallel.vec", "parallel.spmat", "parallel.spgemm", "utils.graph500", "utils.rmat"}
 
 
 def test_import_pulls_in_no_jax():
@@ -20,8 +24,12 @@ def test_import_pulls_in_no_jax():
     prefix, so those names are matched exactly."""
     code = (
         "import sys, pkgutil, importlib, chip_smoke, combblas_tpu_torch as pkg\n"
+        "seen = set()\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    seen.add(m.name.split('.', 1)[1])\n"
+        f"missing = set({sorted(MODULES)!r}) - seen\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.startswith('jax')\n"
         "       or m == 'combblas_tpu' or m.startswith('combblas_tpu.')]\n"
         "assert not bad, bad\n"
