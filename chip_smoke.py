@@ -58,7 +58,22 @@ Phases (each prints one JSON line):
      parents pass, each beside its bytes bound, and a sweep of the row
      slicing's byte envelopes with peak memory. This path is PyTorch ops
      only (the reference runs it in XLA ops, outside any Pallas kernel):
-     it launches no hand kernel, and the phase checks that.
+     it launches no hand kernel, and the phase checks that. On the same
+     graph and structures, last: ``bfs_single`` with ``DEFAULT_SEQ_TIERS``
+     (the CSC arrays serve as the CSR companion, shown equal to the graph's
+     CSR arrays on this 1 x 1 grid), a warm-up root then the first 16 roots
+     one after another, each timed on the host clock around the search, the
+     edge count and its readback, with the step of each level, per-root
+     MTEPS and their harmonic mean; each root's parents, levels and edge
+     count must equal its lane of the dense batched search, two roots must
+     give the same with tiers "" (always dense), and the roots must take at
+     least one top-down and one bottom-up step. Then the first root's levels
+     driven by hand, each level's step and the dense sweep timed (CUDA
+     events) beside their bytes bounds; ``bfs_batch`` on the first 16 roots
+     (equal to those lanes; its SpMV ``dist_spmv_ell_masked_multi`` timed
+     a launch); ``sssp_batch`` on unit float32 weights (distances equal to
+     those lanes' levels, rounds the depth + 1; ``dist_spmv_ell_multi``
+     timed a launch). The elapsed time is printed before these steps.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -78,30 +93,39 @@ import numpy as np
 import torch
 
 from combblas_tpu_torch import (
+    DEFAULT_SEQ_TIERS,
     MAX_MIN,
     MIN_PLUS,
     PLUS_TIMES,
+    SELECT2ND_MAX,
     DistMultiVec,
     DistVec,
     EllParMat,
     Grid,
     SpParMat,
     batch_traversed_edges,
+    bfs_batch,
     bfs_batch_compact,
+    bfs_single,
     build_graph,
     build_structures,
     choose_spgemm_tier,
     dense_support_nnz,
     dense_to_sptuples,
+    dist_spmv_ell_masked_multi,
+    dist_spmv_ell_multi,
     expand_ranges,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
+    parse_tier_spec,
     rmat_symmetric_coo_host,
     semiring_matmul,
     semiring_matmul_reference,
+    single_traversed_edges,
     sparsify,
     sparsify_windowed,
     spgemm_auto,
+    sssp_batch,
     upload_csc_companion,
     validate_bfs_device,
 )
@@ -110,6 +134,7 @@ from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS, _panels
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS as K2_VARIANTS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
 from combblas_tpu_torch.ops.spgemm import densify
+from combblas_tpu_torch.models import bfs as bfs_mod
 from combblas_tpu_torch.parallel import ellmat
 from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
 
@@ -143,6 +168,8 @@ LANES_PER_SM_CLOCK = 4 * 32  # four schedulers, one 32-lane warp instruction eac
 BFS_SCALE, BFS_EDGEFACTOR, BFS_NROOTS = 20, 16, 256
 BFS_CHECK_LANES = 4  # lanes validated on the device and against the host BFS
 BFS_REPS = 3
+SEQ_ROOTS = 16  # sequential roots, as the reference's benchmark script times them
+SEQ_DENSE_ROOTS = 2  # of those, also searched with tiers "" (always dense)
 
 
 def emit(obj) -> None:
@@ -954,8 +981,196 @@ def envelope_sweep(E, state: dict) -> dict:
     return out
 
 
-def phase_bfs_path(dev, scale: int = BFS_SCALE, nroots: int = BFS_NROOTS) -> dict:
-    """The Graph500 batched BFS, host kernel 1 to validated trees (see the
+def single_step_bound_ms(E: EllParMat, n: int, step: str, selected: int, entries: int) -> float:
+    """Bytes bound of one level of ``bfs_single``. The dense sweep: per
+    stored slot its int32 column id read and the int32 candidate gathered,
+    the bucket row ids read, the [n] frontier and undiscovered mask read and
+    the result written. A walk: per walked entry its int32 row (or column)
+    id read and one int32 candidate moved, per selected vertex its range
+    start and length."""
+    if step == "dense":
+        slots = sum(bc.numel() for bc, _, _ in E.buckets)
+        rows = sum(br.numel() for _, _, br in E.buckets)
+        return (8 * slots + 4 * rows + 9 * n) / PEAK_BYTES * 1e3
+    return (8 * entries + 8 * selected) / PEAK_BYTES * 1e3
+
+
+def device_time(fn, reps: int = 3) -> dict:
+    """Kernel launches a call of ``fn`` and their summed device ms
+    (``op_breakdown``'s kernel list): beside the CUDA-event time of the
+    same call, the share of it the card was busy."""
+    trace = op_breakdown(fn, reps)
+    if not trace["profiler_device_time"]:
+        return {"kernels_ms": None, "kernel_launches": None}
+    return {"kernels_ms": trace["kernels_ms"],
+            "kernel_launches": sum(k["calls"] for k in trace["kernels"])}
+
+
+def single_level_breakdown(E, csc, coldeg, rowdeg, tiers, root: int) -> tuple:
+    """``bfs_single``'s level loop for one root driven by hand: per level
+    the class counts (one readback), the step the rule picks, that step and
+    the dense sweep each timed on the same state (CUDA events), the counts'
+    and the step's kernel launches and device time (``torch.profiler``),
+    and the step's bytes bound. Returns the records, one a level, and the
+    parents and levels found."""
+    search = bfs_mod._SingleSearch(E, csc, csc, coldeg, rowdeg, tiers)
+    row_gids, col_gids = search.row_gids, search.col_gids
+    parents = torch.where(row_gids == root, root, -1).to(torch.int32)
+    levels = torch.where(row_gids == root, 0, -1).to(torch.int32)
+    x = torch.where(col_gids == root, root, -1).to(torch.int32)
+    n, new, level, records = E.nrows, None, 0, []
+    while True:
+        undisc = parents < 0
+        counts_ms = time_cuda_ms(lambda: search.counts(x, undisc, new), 3)
+        counts = search.counts(x, undisc, new)
+        if not counts["active"]:
+            break
+        step = search.select(counts)
+        kind = step[:2]
+        selected = entries = 0
+        if kind != "de":  # the walk's selected vertices and entries (1x1: one tile)
+            selected, entries = sum(counts[kind][0]), sum(counts[kind][1])
+        rec = {"level": level + 1, "branch": step, "counts_ms": counts_ms,
+               "active_columns": sum(counts["fc"]), "undiscovered_rows": sum(counts["uc"]),
+               "selected": selected, "walked_entries": entries,
+               "step_ms": time_cuda_ms(lambda: search.step(step, x, undisc, counts), 3),
+               "step_bound_ms": single_step_bound_ms(E, n, step, selected, entries),
+               "dense_ms": time_cuda_ms(lambda: search.dense(x, undisc), 3),
+               "dense_bound_ms": single_step_bound_ms(E, n, "dense", 0, 0),
+               "counts_device": device_time(lambda: search.counts(x, undisc, new)),
+               "step_device": device_time(lambda: search.step(step, x, undisc, counts))}
+        y = search.step(step, x, undisc, counts)
+        new = (y >= 0) & undisc & (row_gids >= 0)
+        parents = torch.where(new, y, parents)
+        level += 1
+        levels = torch.where(new, level, levels)
+        x = DistVec(blocks=torch.where(new, row_gids, -1), length=n, align="row",
+                    grid=E.grid).realign("col").blocks
+        rec["discovered"] = int(new.sum())
+        records.append(rec)
+    return records, parents, levels
+
+
+def phase_bfs_single(g: dict, E: EllParMat, csc, indptr: np.ndarray, rowidx: np.ndarray,
+                     deg_blocks, batch: tuple) -> dict:
+    """The single-root search and the ELL SpMV family on the batched path's
+    graph (module docstring, phase 8, its last four steps). ``batch``: the
+    dense batched search's parents, levels and edge counts."""
+    pd_, ld, ted = batch
+    grid, n = E.grid, E.nrows
+    # csr=csc: valid only on a 1x1 grid for a symmetric matrix; shown here by
+    # the CSC arrays being equal to the graph's CSR arrays
+    rows64 = g["rows"].astype(np.int64)
+    if (grid.pr, grid.pc) != (1, 1) or not (
+            np.array_equal(indptr[0, 0], np.searchsorted(rows64, np.arange(n + 1)))
+            and np.array_equal(rowidx[0, 0], g["cols"])):
+        raise AssertionError("bfs_single: csr=csc needs a 1x1 grid and a symmetric graph")
+    tiers = parse_tier_spec(DEFAULT_SEQ_TIERS)
+    coldeg = DistVec.from_global(grid, g["deg"], align="col").blocks
+    kw = dict(csr=csc, coldeg=coldeg, rowdeg=deg_blocks)
+    roots = [int(v) for v in g["roots"][:SEQ_ROOTS]]
+
+    def one_root(root, spec):
+        """The timed unit: the search, the edge count and its readback."""
+        t0 = time.perf_counter()
+        p, lv, it = bfs_single(E, root, csc, tiers=spec, **kw)
+        te = int(single_traversed_edges(deg_blocks, p))
+        return p, lv, it, te, time.perf_counter() - t0, bfs_single.last_run
+
+    one_root(roots[0], tiers)  # warm-up
+    lines, mteps = [], []
+    for k, root in enumerate(roots):
+        p, lv, it, te, dt, run = one_root(root, tiers)
+        if not (torch.equal(p.blocks[0], pd_.blocks[0, :, k])
+                and torch.equal(lv.blocks[0], ld.blocks[0, :, k].to(torch.int32))
+                and te == int(ted[k])):
+            raise AssertionError(f"bfs_single root {k}: differs from lane {k} of the batch")
+        if k < SEQ_DENSE_ROOTS:
+            pd1, ld1, it1, te1, _, _ = one_root(root, ())
+            if not (torch.equal(pd1.blocks, p.blocks) and torch.equal(ld1.blocks, lv.blocks)
+                    and (it1, te1) == (it, te)):
+                raise AssertionError(f"bfs_single root {k}: tiers '' give another result")
+        mteps.append(te / dt / 1e6)
+        lines.append({"root": root, "levels": it, "steps": run["steps"],
+                      "readbacks": run["readbacks"], "ms": dt * 1e3, "traversed_edges": te,
+                      "mteps": mteps[-1]})
+    kinds = {st[:2] for line in lines for st in line["steps"]}
+    if not {"td", "bu"} <= kinds:
+        raise AssertionError(f"bfs_single never took a td and a bu step: {sorted(kinds)}")
+    single = {"phase": "bfs_path", "step": "single", "tiers": DEFAULT_SEQ_TIERS,
+              "csr": "csc (1x1 grid, symmetric graph: the CSC arrays equal the CSR arrays)",
+              "degrees": "g['deg'] as rowdeg and coldeg", "roots": lines,
+              "harmonic_mean_mteps": len(mteps) / sum(1.0 / m for m in mteps),
+              "median_ms": float(np.median([line["ms"] for line in lines])),
+              "equal_to_batch_lanes": len(roots), "dense_tiers_equal_roots": SEQ_DENSE_ROOTS}
+    emit(single)
+
+    records, p0, l0 = single_level_breakdown(E, csc, coldeg, deg_blocks, tiers, roots[0])
+    if not (torch.equal(p0[0], pd_.blocks[0, :, 0])
+            and torch.equal(l0[0], ld.blocks[0, :, 0].to(torch.int32))):
+        raise AssertionError("bfs_single: the level loop driven by hand gives another tree")
+    for rec in records:
+        emit({"phase": "bfs_path", "step": "single_levels", "root": roots[0], **rec})
+
+    # the int32 batch (bfs_batch, M5 = dist_spmv_ell_masked_multi a level)
+    W = SEQ_ROOTS
+    roots_dev = torch.tensor(roots, dtype=torch.int32, device=grid.device)
+    bfs_batch(E, roots_dev)  # warm-up
+    runs = [timed_call(lambda: bfs_batch(E, roots_dev)) for _ in range(BFS_REPS)]
+    pb, lb, itb = runs[-1][0]
+    if not (torch.equal(pb.blocks, pd_.blocks[:, :, :W])
+            and torch.equal(lb.blocks, ld.blocks[:, :, :W].to(torch.int32))):
+        raise AssertionError("bfs_batch: differs from the first lanes of the batch")
+    slots = sum(bc.numel() for bc, _, _ in E.buckets)
+    rows = sum(br.numel() for _, _, br in E.buckets)
+    # the first level's operands; the step reads every slot whatever the frontier
+    xcol = torch.full((1, n, W), -1, dtype=torch.int32, device=grid.device)
+    xcol[0, roots_dev.long(), torch.arange(W, device=grid.device)] = roots_dev
+    undisc = DistMultiVec(blocks=xcol < 0, length=n, align="row", grid=grid)
+    xv = DistMultiVec(blocks=xcol, length=n, align="col", grid=grid)
+    m5_ms = time_cuda_ms(lambda: dist_spmv_ell_masked_multi(SELECT2ND_MAX, E, xv, undisc), 3)
+    # column ids and row ids read, W int32 lanes gathered a slot, the [n, W]
+    # frontier and mask read and the result written
+    m5_bound = (4 * slots + 4 * rows + 4 * W * slots + 9 * n * W) / PEAK_BYTES * 1e3
+    emit({"phase": "bfs_path", "step": "bfs_batch", "W": W, "levels": itb,
+          "readbacks_per_call": bfs_batch.last_run["readbacks"],
+          "ms_per_call": [r[1] for r in runs], "wall_s": [r[2] for r in runs],
+          "equal_to_batch_lanes": W,
+          "m5_dist_spmv_ell_masked_multi": {"ms_per_launch": m5_ms, "launches_per_call": itb,
+                                            "bound_ms": m5_bound, "bound_by": "bytes"}})
+
+    # the batched Bellman-Ford on unit weights (M6 = dist_spmv_ell_multi)
+    lc = E.local_cols
+    Ew = EllParMat(buckets=tuple((bc, torch.where(bc < lc, 1.0, 0.0), br)
+                                 for bc, _, br in E.buckets), nrows=n, ncols=n, grid=grid)
+    weight_bytes = sum(bv.numel() * bv.element_size() for _, bv, _ in Ew.buckets)
+    sssp_batch(Ew, roots_dev)  # warm-up
+    runs = [timed_call(lambda: sssp_batch(Ew, roots_dev)) for _ in range(BFS_REPS)]
+    d, its = runs[-1][0]
+    want = ld.blocks[:, :, :W].to(torch.float32)
+    if not torch.equal(d.blocks, torch.where(want >= 0, want, float("inf"))):
+        raise AssertionError("sssp_batch: unit-weight distances differ from the BFS levels")
+    if its != int(ld.blocks[:, :, :W].max()) + 1:
+        raise AssertionError(f"sssp_batch: {its} rounds, want the depth + 1")
+    dv = DistMultiVec(blocks=d.blocks, length=n, align="row", grid=grid)
+    m6_ms = time_cuda_ms(lambda: dist_spmv_ell_multi(MIN_PLUS, Ew, dv), 3)
+    # column ids, weights and row ids read, W float32 lanes gathered a
+    # slot, the [n, W] input read and the result written
+    m6_bound = (8 * slots + 4 * rows + 4 * W * slots + 8 * n * W) / PEAK_BYTES * 1e3
+    emit({"phase": "bfs_path", "step": "sssp_batch", "W": W, "weights": "1.0 (float32)",
+          "weight_bytes": weight_bytes, "rounds": its,
+          "readbacks_per_call": sssp_batch.last_run["readbacks"],
+          "ms_per_call": [r[1] for r in runs], "wall_s": [r[2] for r in runs],
+          "distances_equal_batch_levels": W,
+          "m6_dist_spmv_ell_multi": {"ms_per_launch": m6_ms, "launches_per_call": its,
+                                     "bound_ms": m6_bound, "bound_by": "bytes"}})
+    return {"single": single, "levels": records}
+
+
+def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
+                   nroots: int = BFS_NROOTS) -> dict:
+    """The Graph500 batched BFS, host kernel 1 to validated trees, then the
+    single-root search and the SpMV family on the same graph (see the
     module docstring, phase 8). Raises on any disagreement."""
     n = 1 << scale
     t0 = time.perf_counter()
@@ -1101,8 +1316,20 @@ def phase_bfs_path(dev, scale: int = BFS_SCALE, nroots: int = BFS_NROOTS) -> dic
     emit(programs)
     sweep = envelope_sweep(E, state)
     emit({"phase": "bfs_path", "step": "envelope_sweep", **sweep})
+    del state
     torch.cuda.empty_cache()
-    return {"lines": lines, "programs": programs}
+
+    emit({"phase": "bfs_path", "step": "elapsed", "total_s": time.perf_counter() - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    single = phase_bfs_single(g, E, csc, indptr, rowidx, deg_blocks, (pd_, ld, ted))
+    hand_launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(hand_launches.values()):
+        raise AssertionError(f"the single-root steps launched hand kernels: {hand_launches}")
+    emit({"phase": "bfs_path", "step": "single_checks", "hand_kernel_launches": hand_launches,
+          "total_s": time.perf_counter() - t_start})
+    torch.cuda.empty_cache()
+    return {"lines": lines, "programs": programs, "single": single}
 
 
 def main() -> int:
@@ -1119,7 +1346,7 @@ def main() -> int:
     path = phase_main_path(dev)
     k2_path = phase_k2_path(path.pop("mats"))
     times = phase_times(dev, full, loops)
-    phase_bfs_path(dev)
+    phase_bfs_path(dev, t_start)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
         kind = _PALLAS_KINDS[sr.name]

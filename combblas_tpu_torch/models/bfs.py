@@ -1,22 +1,33 @@
-"""Graph500 batched BFS — counterpart of the batched, level-compressed
-search in ``combblas_tpu/models/bfs.py``.
+"""Graph500 BFS — counterpart of the batched and the single-root searches
+in ``combblas_tpu/models/bfs.py``.
 
 ``bfs_batch_compact`` searches from W roots at once over an ``EllParMat``:
 int8 frontiers through the level loop, parents rebuilt in one pass after
 it (per vertex and root the max-id in-neighbour one level up, so the tree
-is deterministic). ``batch_traversed_edges`` counts the Graph500 kernel-2
-edges per root and ``validate_bfs_device`` checks the trees on the device.
-Every array is an integer or a bool: results equal the reference's bit for
-bit.
+is deterministic). ``bfs_batch`` is the int32 batch that carries parent
+candidates through ``dist_spmv_ell_masked_multi``. ``bfs_single`` is
+Graph500's sequential kernel 2: one root, each level a top-down or
+bottom-up walk classed by degree, or the dense sweep, whichever the tier
+budgets admit. ``batch_traversed_edges`` / ``single_traversed_edges``
+count the kernel-2 edges and ``validate_bfs_device`` checks the trees on
+the device. Every array is an integer or a bool: results equal the
+reference's bit for bit.
 
-The reference runs the level loop as one device program
-(``lax.while_loop``, ``lax.cond``); here it is a host loop that reads one
-flag per level back from the device (and, with the CSC budgets, the
-union frontier's column and edge counts). ``bfs_batch_compact.last_run``
-records those readbacks and the step each level took.
+The reference runs each level loop as one device program
+(``lax.while_loop``, ``lax.cond``, ``lax.switch``); here it is a host loop
+that reads back one small vector per level: the flag that ends the loop,
+and what chooses the level's step (the union frontier's column and edge
+counts of ``bfs_batch_compact`` with the CSC budgets; the class counts of
+``bfs_single``). Each function's ``last_run`` records those readbacks and
+the step each level took. Iteration counts come back as Python ints (the
+reference's are int32 arrays; the values are equal).
 
-Not ported yet: ``bfs``, ``bfs_diropt``, ``bfs_batch`` (ROADMAP queue 1,
-item 9), ``bfs_single`` and ``single_traversed_edges`` (item 7).
+Not ported: ``bfs``, ``bfs_diropt`` (ROADMAP queue 1, item 9). Nor are the
+reference's device-buffer caches (``_gid_blocks``, ``_iota_operand``, the
+``lru_cache`` of single-root programs, ``clear_bfs_caches`` and its cache
+gauges): they exist for the TPU's execution (closure-constant tables,
+one compiled program per tier spec); eager torch compiles nothing, so the
+port keeps no such cache. The ``obs`` gauges come with ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..ops.segment import expand_ranges
 from ..parallel.ellmat import (
     EllParMat,
     _ell_levels_step,
@@ -33,8 +45,11 @@ from ..parallel.ellmat import (
     _ell_union_sparse_step,
     _gather_rows,
     _scatter_rows_max,
+    dist_spmv_ell_masked_multi,
 )
-from ..parallel.vec import DistMultiVec
+from ..parallel.spmat import ones_i32
+from ..parallel.vec import DistMultiVec, DistVec
+from ..semiring import PLUS_TIMES, SELECT2ND_MAX, Semiring
 from . import PAD_ROOT
 
 MAX_LEVELS = 126  # levels are int8
@@ -147,6 +162,325 @@ def bfs_batch_compact(A: EllParMat, sources, max_iters: int | None = None,
 # what the last call's host loop did: device -> host readbacks, and the
 # step ("dense" | "sparse") of each level
 bfs_batch_compact.last_run = None
+
+
+def bfs_batch(A: EllParMat, sources, max_iters: int | None = None,
+              sr: Semiring = SELECT2ND_MAX, track_levels: bool = True):
+    """Multi-source BFS carrying int32 parent candidates: W trees at once,
+    one ``dist_spmv_ell_masked_multi`` a level (``sr`` picks among
+    frontier in-neighbours; the default keeps the max id).
+
+    ``sources``: [W] vertex ids (``PAD_ROOT`` lanes stay empty). Returns
+    ``(parents, levels, num_iters)``: row-aligned int32 DistMultiVecs
+    ``[n, W]`` (-1 where undiscovered, a root is its own parent) and the
+    number of levels run as an int (the reference returns an int32 array).
+    ``max_iters`` defaults to n. ``track_levels=False`` returns the
+    discovery indicator (0 discovered, -1 not) in place of levels.
+    """
+    grid = A.grid
+    n = A.nrows
+    lr, lc = grid.local_rows(n), grid.local_cols(A.ncols)
+    iters = max_iters if max_iters is not None else n
+    row_gids = _global_ids(grid, grid.pr, lr, n, "row")[:, :, None]
+    col_gids = _global_ids(grid, grid.pc, lc, A.ncols, "col")[:, :, None]
+    src = torch.as_tensor(sources).to(device=grid.device, dtype=torch.int32)[None, None, :]
+    live = src != PAD_ROOT
+    is_src = (row_gids == src) & live
+    parents = torch.where(is_src, src, -1)  # [pr, lr, W]
+    levels = torch.where(is_src, 0, -1).to(torch.int32) if track_levels else None
+    x = torch.where((col_gids == src) & live, src, -1)  # [pc, lc, W]
+
+    def mk(b, align="row"):
+        return DistMultiVec(blocks=b, length=n, align=align, grid=grid)
+
+    level, active, readbacks = 0, True, 0
+    while active and level < iters:
+        unvisited = parents < 0
+        y = dist_spmv_ell_masked_multi(sr, A, mk(x, "col"), mk(unvisited)).blocks
+        new = (y >= 0) & unvisited & (row_gids >= 0)
+        parents = torch.where(new, y, parents)
+        if track_levels:
+            levels = torch.where(new, level + 1, levels)
+        x = mk(torch.where(new, row_gids, -1)).realign("col").blocks
+        level += 1
+        active = bool(new.any())
+        readbacks += 1
+    if not track_levels:
+        levels = torch.where(parents >= 0, 0, -1).to(torch.int32)
+    bfs_batch.last_run = {"readbacks": readbacks}
+    return mk(parents), mk(levels), level
+
+
+# the last call's device -> host readbacks (one a level)
+bfs_batch.last_run = None
+
+
+#: Degree classes shared by every ``bfs_single`` tier: class c holds the
+#: vertices of degree in (LADDER[c-1], LADDER[c]]; a degree past the last
+#: rung admits only the dense sweep.
+BFS_CLASS_LADDER = (8, 64, 512, 4096, 32768, 131072)
+
+#: Default tier ladder of the sequential-root search at Graph500 scale
+#: about 20 (the reference's, sized from its level anatomy): a small
+#: top-down tier for the levels before the peak, two bottom-up tiers for
+#: those after it, the dense sweep at the peak.
+DEFAULT_SEQ_TIERS = (
+    "td:1024,1024,512,128,16,2"
+    "|bu:524288,16384,1024,0,0,0"
+    "|bu:1048576,32768,2048,128,0,0"
+)
+
+
+def parse_tier_spec(spec: str):
+    """``"td:1024,1024,512,128,16,2|bu:524288,16384,1024,0,0,0"`` →
+    ``bfs_single``'s tier tuple. An empty string gives () (always dense)."""
+    tiers = []
+    for part in spec.split("|"):
+        if not part:
+            continue
+        kind, _, budg = part.partition(":")
+        budgets = tuple(int(v) for v in budg.split(","))
+        if kind not in ("td", "bu") or len(budgets) != len(BFS_CLASS_LADDER):
+            raise ValueError(
+                f"bad tier spec {part!r}: want kind td|bu and "
+                f"{len(BFS_CLASS_LADDER)} budgets"
+            )
+        tiers.append((kind, budgets))
+    return tuple(tiers)
+
+
+def bfs_single(E: EllParMat, source, csc, *, tiers, csr=None, coldeg=None, rowdeg=None,
+               max_iters: int | None = None):
+    """Single-root BFS whose level cost follows the frontier (top-down) or
+    the undiscovered side (bottom-up), with the dense sweep for the heavy
+    levels — Graph500's sequential kernel 2.
+
+    ``csc`` / ``csr``: the per-tile companions (``build_csc_companion``,
+    ``build_csr_companion``; ``csr`` is needed by "bu" tiers only).
+    ``coldeg`` / ``rowdeg``: global degrees as [pc, lc] / [pr, lr] blocks;
+    missing, ``rowdeg`` is ``E.reduce(PLUS_TIMES, "cols", ones_i32)`` and
+    ``coldeg`` that vector realigned (as the reference does). ``tiers``:
+    ``parse_tier_spec``'s tuple; each level takes the first tier, in order,
+    whose side (active columns for "td", undiscovered rows for "bu") has
+    no vertex past the ladder and at most ``budgets[c]`` vertices in each
+    class c, else the dense sweep. The step changes the cost, never the
+    result: parents are the max-id frontier in-neighbour, levels the BFS
+    depth. One exception the reference shares: a walk covers at most
+    ``BFS_CLASS_LADDER[c]`` entries of a vertex's range, c its class by the
+    degree passed in, so degrees below the true ones cut the walk.
+
+    Returns ``(parents, levels, num_iters)``: row-aligned int32 DistVecs
+    and the number of levels run as an int (the reference returns an int32
+    array). ``max_iters`` defaults to n. ``bfs_single.last_run`` holds the
+    readbacks (one a level, plus the one that ends the loop) and the step
+    of each level ("td0", "bu1", ..., "dense"; the digit is the tier's
+    index).
+    """
+    if any(kind == "bu" for kind, _ in tiers) and csr is None:
+        raise ValueError(
+            "bu tiers need the row-major companion: "
+            "csr=build_csr_companion(grid, rows, cols, nrows, ncols)"
+        )
+    grid = E.grid
+    if rowdeg is None:
+        rowdeg = E.reduce(PLUS_TIMES, "cols", map_fn=ones_i32).blocks
+    if coldeg is None:
+        coldeg = DistVec(blocks=rowdeg, length=E.nrows, align="row", grid=grid) \
+            .realign("col").blocks
+    search = _SingleSearch(E, csc, csr, coldeg, rowdeg, tiers)
+    n = E.nrows
+    iters = max_iters if max_iters is not None else n
+    source = int(source)
+    row_gids, col_gids = search.row_gids, search.col_gids
+    parents = torch.where(row_gids == source, source, -1).to(torch.int32)  # [pr, lr]
+    levels = torch.where(row_gids == source, 0, -1).to(torch.int32)
+    # frontier: col-aligned int32 candidates, a column's own global id
+    x = torch.where(col_gids == source, source, -1).to(torch.int32)
+    new, counts = None, None
+    level, readbacks, steps = 0, 0, []
+    while level < iters:
+        undisc = parents < 0
+        if tiers:
+            counts = search.counts(x, undisc, new)
+            readbacks += 1
+            if not counts["active"]:
+                break
+            step = search.select(counts)
+        else:
+            if new is not None:
+                readbacks += 1
+                if not bool(new.any()):
+                    break
+            step = "dense"
+        y = search.step(step, x, undisc, counts)
+        steps.append(step)
+        new = (y >= 0) & undisc & (row_gids >= 0)
+        parents = torch.where(new, y, parents)
+        level += 1
+        levels = torch.where(new, level, levels)
+        x = DistVec(blocks=torch.where(new, row_gids, -1), length=n, align="row",
+                    grid=grid).realign("col").blocks
+    bfs_single.last_run = {"readbacks": readbacks, "steps": steps}
+
+    def mk(b):
+        return DistVec(blocks=b, length=n, align="row", grid=grid)
+
+    return mk(parents), mk(levels), level
+
+
+# what the last call's host loop did: device -> host readbacks, and the
+# step of each level
+bfs_single.last_run = None
+
+
+class _SingleSearch:
+    """The per-call tables and the level steps of ``bfs_single``.
+
+    The reference compacts the selected vertices of each class by
+    ``top_k`` into static ``[budget_c, K_c]`` rectangles (its backend needs
+    static shapes and runs no cumsum fast). Here the host has read the
+    exact counts: the selected vertices are compacted by ``expand_ranges``
+    over their indicator, and their ranges, each cut to ``K_c`` entries,
+    are walked by ``expand_ranges`` over exactly the entries the counts
+    give, so no slot of a walk is inert.
+    """
+
+    def __init__(self, E: EllParMat, csc, csr, coldeg, rowdeg, tiers):
+        grid = E.grid
+        self.E, self.tiers, self.csc, self.csr = E, tuple(tiers), csc, csr
+        n, dev = E.nrows, grid.device
+        self.lr, self.lc = E.local_rows, E.local_cols
+        self.row_gids = _global_ids(grid, grid.pr, self.lr, n, "row")
+        self.col_gids = _global_ids(grid, grid.pc, self.lc, E.ncols, "col")
+        ladder = torch.tensor(BFS_CLASS_LADDER, dtype=torch.int32, device=dev)
+        nc = len(BFS_CLASS_LADDER)
+        # class 0..nc-1 on the ladder, nc past it; K_c entries walked at most
+        self.ccls = torch.bucketize(coldeg.to(torch.int32), ladder, out_int32=True)
+        self.rcls = torch.bucketize(rowdeg.to(torch.int32), ladder, out_int32=True)
+        self.classes = torch.arange(nc + 1, dtype=torch.int32, device=dev)
+        kcap = torch.cat([ladder, ladder.new_zeros(1)])
+        kinds = {kind for kind, _ in self.tiers}
+
+        def walk_len(indptr, cls):
+            return torch.minimum(indptr[..., 1:] - indptr[..., :-1], kcap[cls.long()])
+
+        # entries walked per vertex and tile: [pr, pc, lc] / [pr, pc, lr]
+        self.td_len = walk_len(csc[0], self.ccls[None]) if "td" in kinds else None
+        self.bu_len = walk_len(csr[0], self.rcls[:, None]) if "bu" in kinds else None
+
+    def counts(self, x, undisc, new) -> dict:
+        """One readback: per class the active columns and the undiscovered
+        rows (index nc = past the ladder), whether the last level found a
+        vertex, and per tile the vertices and entries each walk would
+        take."""
+        nc = len(BFS_CLASS_LADDER)
+        act = x >= 0  # [pc, lc]
+        und = undisc & (self.row_gids >= 0)  # [pr, lr]
+
+        def per_class(mask, cls):
+            hit = (cls[..., None] == self.classes) & mask[..., None]
+            return hit.sum(dim=(0, 1))
+
+        parts = [per_class(act, self.ccls), per_class(und, self.rcls),
+                 (new.any() if new is not None else torch.ones((), dtype=torch.bool,
+                                                               device=x.device))[None]]
+        if self.td_len is not None:
+            parts += [act.sum(1), (self.td_len * act[None]).sum(2).reshape(-1)]
+        if self.bu_len is not None:
+            parts += [und.sum(1), (self.bu_len * und[:, None]).sum(2).reshape(-1)]
+        vals = torch.cat([p.to(torch.int64) for p in parts]).tolist()
+        pr, pc = self.E.grid.pr, self.E.grid.pc
+        out = {"fc": vals[:nc + 1], "uc": vals[nc + 1:2 * nc + 2], "active": bool(vals[2 * nc + 2])}
+        rest = vals[2 * nc + 3:]
+        if self.td_len is not None:
+            out["td"] = (rest[:pc], rest[pc:pc + pr * pc])
+            rest = rest[pc + pr * pc:]
+        if self.bu_len is not None:
+            out["bu"] = (rest[:pr], rest[pr:pr + pr * pc])
+        return out
+
+    def select(self, counts) -> str:
+        """The reference's rule: the first tier whose side has no vertex
+        past the ladder and every class count within its budget (budgets
+        not capped at the block length here), else the dense sweep."""
+        nc = len(BFS_CLASS_LADDER)
+        for t, (kind, budgets) in enumerate(self.tiers):
+            cnts = counts["fc"] if kind == "td" else counts["uc"]
+            if cnts[nc] == 0 and all(cnts[c] <= budgets[c] for c in range(nc)):
+                return f"{kind}{t}"
+        return "dense"
+
+    def step(self, step: str, x, undisc, counts):
+        """Parent candidates [pr, lr] (-1 where none) of one level."""
+        if step == "dense":
+            return self.dense(x, undisc)
+        return self.walk(step[:2], x, undisc, counts[step[:2]])
+
+    def dense(self, x, undisc):
+        """The dense sweep: a scalar gather-max over every ELL slot,
+        scattered into rows, masked by ``undisc``, combined over grid
+        columns by max."""
+        E, lr, lc = self.E, self.lr, self.lc
+        out = []
+        for i in range(E.grid.pr):
+            acc = None
+            for j in range(E.grid.pc):
+                xpad = torch.cat([x[j], x.new_full((1,), -1)])
+                y = x.new_full((lr + 1,), -1)  # lr: the sink row of padding bucket rows
+                for bc, _bv, br in E.buckets:
+                    bc = bc[i, j]
+                    g = xpad.index_select(0, torch.clamp(bc, max=lc).reshape(-1)).view(bc.shape)
+                    y.scatter_reduce_(0, br[i, j].long(), g.amax(dim=1), "amax")
+                y = torch.where(undisc[i], y[:lr], -1)
+                acc = y if acc is None else torch.maximum(acc, y)
+            out.append(acc)
+        return torch.stack(out)
+
+    def walk(self, kind: str, x, undisc, tile_counts):
+        """The class walk of every selected vertex over its local range,
+        cut to K_c entries. "td": the active columns' CSC ranges, each
+        column's id scatter-maxed into its rows. "bu": the undiscovered
+        rows' CSR ranges, the frontier candidates gathered at the
+        neighbours, folded per row (segment max), one row scatter."""
+        E, lr = self.E, self.lr
+        pr, pc = E.grid.pr, E.grid.pc
+        nsel, nent = tile_counts
+        indptr, idx = self.csc if kind == "td" else self.csr
+        walk_len = self.td_len if kind == "td" else self.bu_len
+        out = []
+        for i in range(pr):
+            acc = None
+            for j in range(pc):
+                F = nsel[j] if kind == "td" else nsel[i]
+                m = nent[i * pc + j]
+                y = x.new_full((lr,), -1)
+                if F and m:
+                    mask = x[j] >= 0 if kind == "td" else undisc[i] & (self.row_gids[i] >= 0)
+                    sel = expand_ranges(mask, F)[0]  # the selected local ids, ascending
+                    owner, offset, _, _ = expand_ranges(walk_len[i, j].index_select(0, sel), m)
+                    entry = indptr[i, j].index_select(0, sel).index_select(0, owner) + offset
+                    other = idx[i, j].index_select(0, entry)  # rows (td) / columns (bu)
+                    if kind == "td":
+                        cand = x[j].index_select(0, sel).index_select(0, owner)
+                        y.scatter_reduce_(0, other.long(), cand, "amax")
+                    else:
+                        yb = x.new_full((F,), -1)
+                        yb.scatter_reduce_(0, owner.long(), x[j].index_select(0, other), "amax")
+                        y.index_copy_(0, sel.long(), yb)
+                y = torch.where(undisc[i], y, -1)
+                acc = y if acc is None else torch.maximum(acc, y)
+            out.append(acc)
+        return torch.stack(out)
+
+
+def single_traversed_edges(deg_row_blocks: torch.Tensor, parents: DistVec) -> torch.Tensor:
+    """Graph500 kernel-2 edge count of one root, on the device: int32
+    (sum of degrees over discovered vertices) / 2. The reference sums in
+    uint32; here the sum is int64, halved, then cast to int32, equal for
+    every sum below 2**32."""
+    disc = parents.blocks >= 0  # [pr, lr]
+    te = torch.where(disc, deg_row_blocks, 0).sum(dtype=torch.int64)
+    return (te // 2).to(torch.int32)
 
 
 def batch_traversed_edges(deg_row_blocks: torch.Tensor, parents: DistMultiVec) -> torch.Tensor:

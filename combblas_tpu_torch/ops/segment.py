@@ -1,8 +1,9 @@
 """Monoid segment reductions — counterpart of ``combblas_tpu/ops/segment.py``.
 
-Combine values that share a key with the semiring's ``add``, for the
-monoids torch can scatter-combine natively (``sum``, ``min``, ``max``).
-Out-of-range ids (>= num_segments, the padding slots) are dropped.
+Combine values that share a key with the semiring's ``add``: the monoids
+torch can scatter-combine natively (``sum``, ``min``, ``max``) in one
+scatter, any other monoid by a sort and a segmented fold. Out-of-range ids
+(>= num_segments, the padding slots) are dropped.
 ``expand_ranges`` maps static-capacity slots back to variable-length
 ranges.
 """
@@ -19,25 +20,84 @@ _SCATTER_REDUCE = {"min": "amin", "max": "amax"}
 def segment_reduce(
     sr: Semiring, vals: torch.Tensor, ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
-    """``out[s] = sr.add``-fold of ``vals[ids == s]``; empty segments get
-    ``sr.zero``. ids >= num_segments are dropped."""
+    """``out[s] = sr.add``-fold of ``vals[ids == s]`` (``vals`` is ``[n]`` or
+    ``[n, F]``); empty segments get ``sr.zero``. ids >= num_segments are
+    dropped."""
     sink = torch.clamp(ids, max=num_segments).long()  # one drop slot at the end
     if sr.add_kind == "sum":
         # 0 is the identity of any '+'-monoid: empty segments need no patch
-        out = torch.zeros(num_segments + 1, dtype=vals.dtype, device=vals.device)
+        out = torch.zeros((num_segments + 1, *vals.shape[1:]), dtype=vals.dtype,
+                          device=vals.device)
         return out.index_add_(0, sink, vals)[:num_segments]
     reduce = _SCATTER_REDUCE.get(sr.add_kind)
     if reduce is None:
-        raise NotImplementedError(
-            f"segment_reduce for add_kind {sr.add_kind!r} is not ported yet "
-            "(ROADMAP queue 1, the SpMV layer)"
-        )
+        return _generic_segment_reduce(sr, vals, ids, num_segments)
     out = torch.full(
-        (num_segments + 1,), sr.zero(vals.dtype), dtype=vals.dtype, device=vals.device
+        (num_segments + 1, *vals.shape[1:]), sr.zero(vals.dtype), dtype=vals.dtype,
+        device=vals.device,
     )
     # include_self=False: a touched segment folds only its own values, an
     # untouched one keeps the semiring zero
-    out.scatter_reduce_(0, sink, vals, reduce=reduce, include_self=False)
+    index = sink.view(-1, *[1] * (vals.dim() - 1)).expand_as(vals)
+    out.scatter_reduce_(0, index, vals, reduce=reduce, include_self=False)
+    if out.is_floating_point():
+        ints = float_bits(out).dtype
+        bits = torch.full(out.shape, torch.iinfo(ints).max if sr.add_kind == "min"
+                          else torch.iinfo(ints).min, dtype=ints, device=out.device)
+        bits.scatter_reduce_(0, index, float_bits(vals), reduce=reduce)
+        out = fix_signed_zeros(out, bits, sr.add_kind)
+    return out[:num_segments]
+
+
+def float_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of float ``v`` as signed integers of its width."""
+    return v.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()])
+
+
+def fix_signed_zeros(out: torch.Tensor, folded_bits: torch.Tensor, kind: str) -> torch.Tensor:
+    """Give each zero of a float min/max result the sign the reference
+    gives it: its min is -0.0 where any -0.0 took part, its max +0.0 where
+    any +0.0 did. torch's ``amin``/``amax`` and ``scatter_reduce_`` keep
+    whichever of two equal zeros comes first.
+
+    ``folded_bits``: the operands' ``float_bits`` folded the same way (min
+    for "min", max for "max"). Where a min is a zero no operand is below
+    zero, so the folded patterns are the smallest integer (the pattern of
+    -0.0) exactly when a -0.0 took part; where a max is a zero no operand
+    is above it, and the folded patterns are 0 (+0.0) exactly when a +0.0
+    took part."""
+    hit = folded_bits == (torch.iinfo(folded_bits.dtype).min if kind == "min" else 0)
+    pref = out.new_tensor(-0.0 if kind == "min" else 0.0)
+    return torch.where(out == 0, torch.where(hit, pref, -pref), out)
+
+
+def _generic_segment_reduce(
+    sr: Semiring, vals: torch.Tensor, ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Any monoid: sort by id (stable), an inclusive segmented fold in
+    log2(n) doubling steps (slot i takes ``sr.add(slot i-d, slot i)`` where
+    both hold the same id; ids are sorted, so a run is contiguous), then
+    the last slot of each run scattered out. The reference folds with an
+    associative scan; for an associative monoid the results are equal."""
+    out = torch.full(
+        (num_segments + 1, *vals.shape[1:]), sr.zero(vals.dtype), dtype=vals.dtype,
+        device=vals.device,
+    )
+    n = ids.shape[0]
+    if n == 0:
+        return out[:num_segments]
+    ids, order = torch.sort(torch.clamp(ids, max=num_segments).long(), stable=True)
+    vals = vals.index_select(0, order)
+    lanes = [1] * (vals.dim() - 1)
+    d = 1
+    while d < n:
+        same = (ids[d:] == ids[:-d]).view(-1, *lanes)
+        vals = torch.cat([vals[:d], torch.where(same, sr.add(vals[:-d], vals[d:]), vals[d:])])
+        d *= 2
+    is_last = torch.ones(n, dtype=torch.bool, device=ids.device)
+    is_last[:-1] = ids[1:] != ids[:-1]
+    # one store per run (distinct targets); the other slots go to the sink
+    out.index_put_((torch.where(is_last, ids, num_segments),), vals)
     return out[:num_segments]
 
 

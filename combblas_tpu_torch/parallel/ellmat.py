@@ -7,19 +7,22 @@ with kb = ladder[b]. Every row's entries live in one bucket (a row wider
 than ``max_k`` spans several bucket rows of it), each bucket's fold is a
 dense reduction over its k axis, and the results combine by row id.
 
-Ported so far: the host build (numpy, byte-equal to the reference's), the
-CSC / CSR companions, and the three steps of the batched level-compressed
-BFS (``_ell_levels_step``, ``_ell_union_sparse_step``,
-``_ell_parents_from_levels``). The reference runs those steps as one
-program per device of a pr×pc mesh; here the tiles of a grid live on one
-device and are walked in a loop, with a running ``torch.maximum`` where the
-reference reduces over the grid's column axis. Every array on this path is
-an integer, so the results equal the reference's bit for bit.
+Ported: the host build (numpy, byte-equal to the reference's), the CSC /
+CSR companions, the SpMV family (``dist_spmv_ell``, ``dist_spmv_ell_masked``
+and their ``_multi`` forms over W stacked vectors, ``EllParMat.reduce``,
+``from_spmat``, the shared gather-contract kernel ``_ell_local_spmm``) and
+the three steps of the batched level-compressed BFS (``_ell_levels_step``,
+``_ell_union_sparse_step``, ``_ell_parents_from_levels``). The reference
+runs each of them as one program per device of a pr×pc mesh; here the
+tiles of a grid live on one device and are walked in a loop, and where the
+reference reduces over the grid's column axis a running ``sr.add`` combines
+the tiles of a grid row in column order 0..pc-1. Integer and min/max
+results equal the reference's bit for bit; a float ``plus_times`` sum may
+differ in its last bits (the order of ``index_add_`` on CUDA is not fixed).
 
 Scatters that the reference runs with ``mode="drop"`` (padding bucket rows
 hold row id ``local_rows``) go to a sink row ``local_rows`` that is cut
-off afterwards. The SpMV family (``dist_spmv_ell*``, ``EllParMat.reduce``,
-``from_spmat``) is not ported yet (ROADMAP queue 1, item 9).
+off afterwards.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.segment import expand_ranges
+from ..ops.segment import expand_ranges, fix_signed_zeros, float_bits, segment_reduce
+from ..semiring import Semiring, _maxval, _minval
 from .grid import Grid, HostGrid
 from .spmat import bucket_by_tile
+from .vec import DistMultiVec, DistVec
 
 # Byte envelopes of one gather intermediate ([rows, kb, W] int8) in the
 # level step and in the parents pass (whose int32 candidates take four
@@ -42,6 +47,9 @@ from .spmat import bucket_by_tile
 # search's peak memory halves.
 LEVELS_BUDGET_BYTES = 1 << 30
 PARENTS_BUDGET_BYTES = 1 << 29
+# The same envelope for the SpMV family's gather ([rows, kb, F] of the
+# input's dtype), at the level step's value; the reference's is 4 GB.
+SPMV_BUDGET_BYTES = 1 << 30
 
 
 def _put(grid: Grid, x) -> torch.Tensor:
@@ -186,6 +194,23 @@ class EllParMat:
             buckets.append((bc, bv, br))
         return buckets
 
+    @staticmethod
+    def from_spmat(A, max_k: int | None = None, ladder: str = "fine") -> "EllParMat":
+        """Convert a ``SpParMat`` (read back to the host, then
+        ``from_host_coo``)."""
+        r, c, v = A.to_global_coo()
+        return EllParMat.from_host_coo(
+            A.grid, r, c, v, A.nrows, A.ncols, max_k=max_k, ladder=ladder
+        )
+
+    def reduce(self, sr: Semiring, axis: str, map_fn=None) -> DistVec:
+        """Row-wise fold (``axis="cols"`` → a row-aligned DistVec), e.g.
+        degrees with ``map_fn=ones_i32``. Other axes raise: column folds
+        belong to the SpParMat the ELL was converted from."""
+        if axis != "cols":
+            raise ValueError(f"EllParMat.reduce supports axis='cols' only, got {axis!r}")
+        return _ell_reduce_rows(self, sr, map_fn)
+
     def to_host_coo(self):
         """Read the buckets back and rebuild the global COO sorted by
         (row, col): ``(rows, cols, vals)`` numpy arrays, independent of
@@ -289,14 +314,213 @@ def _companion_host(grid, rows, cols, nrows, ncols, *, major):
     return indptr, minidx
 
 
+# --- the SpMV family ---------------------------------------------------------
+
+
+def _tile_buckets(E: EllParMat, i: int, j: int):
+    return [(bc[i, j], bv[i, j], br[i, j]) for bc, bv, br in E.buckets]
+
+
+def _bucket_fold(sr: Semiring, prods: torch.Tensor) -> torch.Tensor:
+    """Fold ``prods`` over its axis 1 with ``sr.add``."""
+    kind = sr.add_kind
+    if kind == "sum":
+        return prods.sum(dim=1, dtype=prods.dtype)
+    if kind in ("min", "max"):
+        fold = torch.amin if kind == "min" else torch.amax
+        out = fold(prods, dim=1)
+        if out.is_floating_point():
+            out = fix_signed_zeros(out, fold(float_bits(prods), dim=1), kind)
+        return out
+    while prods.shape[1] > 1:  # any other monoid: a pairwise tree
+        if prods.shape[1] % 2:
+            pad = prods.new_full((prods.shape[0], 1, *prods.shape[2:]), sr.zero(prods.dtype))
+            prods = torch.cat([prods, pad], dim=1)
+        prods = sr.add(prods[:, 0::2], prods[:, 1::2])
+    return prods[:, 0]
+
+
+def _scatter_rows(sr: Semiring, y: torch.Tensor, rowids: torch.Tensor,
+                  yb: torch.Tensor) -> torch.Tensor:
+    """Combine bucket results ``yb`` into ``y`` (which carries the sink row)
+    by row id with ``sr.add``. Split hub rows repeat inside a bucket, so
+    every form combines repeated ids: ``index_add_``, ``scatter_reduce_``,
+    or, for any other monoid, a segment reduction added in."""
+    kind = sr.add_kind
+    if kind == "sum":
+        return y.index_add_(0, rowids.long(), yb)
+    if kind in ("min", "max"):
+        index = rowids.long().view(-1, *[1] * (yb.dim() - 1)).expand_as(yb)
+        reduce = "amin" if kind == "min" else "amax"
+        bits = None
+        if y.is_floating_point():
+            bits = float_bits(y).clone()
+            bits.scatter_reduce_(0, index, float_bits(yb), reduce)
+        y.scatter_reduce_(0, index, yb, reduce)
+        return y if bits is None else fix_signed_zeros(y, bits, kind)
+    return sr.add(y, segment_reduce(sr, yb, rowids, y.shape[0]))
+
+
+def _ell_local_spmm(sr: Semiring, buckets, x2: torch.Tensor, lr: int, lc: int,
+                    backend: str) -> torch.Tensor:
+    """[lr, F] semiring fold of one tile's buckets over a [lc, F] block:
+    the gather-contract kernel of the batched SpMV (W frontier lanes) and
+    of the SpMM (F feature lanes).
+
+    Per bucket one gather fetches each neighbour's whole row ([rows, kb,
+    F]), then the k axis contracts: backend ``"mxu_gather"`` (its callers
+    admit it for ``plus_times`` only) as a batched ``torch.bmm`` ([1, kb] ×
+    [kb, F] per bucket row; float32 stays exact with TF32 off, torch's
+    default), backend ``"scatter"`` as ``_bucket_fold`` + ``_scatter_rows``
+    (every semiring). Buckets are cut into row slices whose gather stays
+    under ``SPMV_BUDGET_BYTES`` at F × itemsize bytes a slot.
+    """
+    F = x2.shape[1]
+    zero = sr.zero(x2.dtype)
+    xpad = torch.cat([x2, x2.new_full((1, F), zero)])
+    payload = F * max(x2.element_size(), 1)
+    y = None
+    for bc, bv, br in buckets:
+        nb_, kb = bc.shape
+        for s0, s1 in _bucket_row_slices(nb_, kb, payload, SPMV_BUDGET_BYTES):
+            g = _gather_rows(xpad, torch.clamp(bc[s0:s1], max=lc))  # [rows, kb, F]
+            if backend == "mxu_gather":
+                # padding slots hold value 0 (host_build), so they drop out
+                out_dtype = torch.promote_types(bv.dtype, x2.dtype)
+                yb = torch.bmm(bv[s0:s1, None, :].to(out_dtype), g.to(out_dtype))[:, 0, :]
+            else:
+                yb = _bucket_fold(sr, sr.mul(bv[s0:s1, :, None], g))  # [rows, F]
+            if y is None:
+                y = torch.full((lr + 1, F), sr.zero(yb.dtype), dtype=yb.dtype,
+                               device=x2.device)
+            y = _scatter_rows(sr, y, br[s0:s1], yb.to(y.dtype))
+    if y is None:
+        return torch.full((lr, F), zero, dtype=x2.dtype, device=x2.device)
+    return y[:lr]
+
+
+def _ell_local_spmv(sr: Semiring, buckets, x: torch.Tensor, lr: int, lc: int) -> torch.Tensor:
+    """[lr] semiring row fold of one tile over a [lc] block."""
+    return _ell_local_spmm(sr, buckets, x[:, None], lr, lc, "scatter")[:, 0]
+
+
+def _ell_local_spmv_multi(sr: Semiring, buckets, x2: torch.Tensor, lr: int,
+                          lc: int) -> torch.Tensor:
+    """[lr, W] semiring row fold over a [lc, W] block: one gathered index
+    feeds all W lanes."""
+    return _ell_local_spmm(sr, buckets, x2, lr, lc, "scatter")
+
+
+def _fold_grid(sr: Semiring, E: EllParMat, local, x_blocks: torch.Tensor,
+               active: torch.Tensor | None = None) -> torch.Tensor:
+    """``local(tile buckets, x block j)`` for every tile, masked by the row
+    block ``active[i]`` where given, combined over each grid row in column
+    order: [pr, lr, ...] row-aligned blocks.
+
+    The combine is the reference's ``axis_reduce`` as it runs on the CPU:
+    a running sum, a running ``sr.add`` for a generic monoid, and for min
+    and max a pass from the dtype's extreme that takes a value only where
+    it is strictly better. So over two or more grid columns a NaN drops
+    out and the first of two equal zeros stays; over one column the value
+    passes as it is."""
+    kind = sr.add_kind
+    out = []
+    for i in range(E.grid.pr):
+        ys = []
+        for j in range(E.grid.pc):
+            y = local(_tile_buckets(E, i, j), x_blocks[j])
+            if active is not None:
+                y = torch.where(active[i], y, sr.zero(y.dtype))
+            ys.append(y)
+        acc = ys[0]
+        if kind in ("min", "max") and len(ys) > 1:
+            acc = torch.full_like(acc, (_maxval if kind == "min" else _minval)(acc.dtype))
+            for y in ys:
+                acc = torch.where(y < acc if kind == "min" else y > acc, y, acc)
+        else:
+            for y in ys[1:]:
+                acc = sr.add(acc, y)
+        out.append(acc)
+    return torch.stack(out)
+
+
+def _check_length(E: EllParMat, x) -> None:
+    if x.length != E.ncols:
+        raise ValueError(f"vector of length {x.length} for a matrix of {E.ncols} columns")
+
+
+def dist_spmv_ell(sr: Semiring, E: EllParMat, x: DistVec) -> DistVec:
+    """y = E ⊗ x: x is taken col-aligned, y comes back row-aligned."""
+    _check_length(E, x)
+    lr, lc = E.local_rows, E.local_cols
+    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv(sr, b, xb, lr, lc),
+                        x.realign("col").blocks)
+    return DistVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
+
+
+def dist_spmv_ell_masked(sr: Semiring, E: EllParMat, x: DistVec,
+                         row_active: DistVec) -> DistVec:
+    """y = E ⊗ x where ``row_active`` (bool) holds, ``sr.zero`` elsewhere;
+    the mask applies to each tile's fold before the combine over tiles."""
+    _check_length(E, x)
+    lr, lc = E.local_rows, E.local_cols
+    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv(sr, b, xb, lr, lc),
+                        x.realign("col").blocks, row_active.realign("row").blocks)
+    return DistVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
+
+
+def dist_spmv_ell_multi(sr: Semiring, E: EllParMat, X: DistMultiVec) -> DistMultiVec:
+    """Y = E ⊗ X for W stacked vectors (``sssp_batch``'s step)."""
+    _check_length(E, X)
+    lr, lc = E.local_rows, E.local_cols
+    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv_multi(sr, b, xb, lr, lc),
+                        X.realign("col").blocks)
+    return DistMultiVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
+
+
+def dist_spmv_ell_masked_multi(sr: Semiring, E: EllParMat, X: DistMultiVec,
+                               row_active: DistMultiVec) -> DistMultiVec:
+    """Y = E ⊗ X with a per-lane row mask (``bfs_batch``'s step)."""
+    _check_length(E, X)
+    lr, lc = E.local_rows, E.local_cols
+    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv_multi(sr, b, xb, lr, lc),
+                        X.realign("col").blocks, row_active.realign("row").blocks)
+    return DistMultiVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
+
+
+def _ell_reduce_rows(E: EllParMat, sr: Semiring, map_fn) -> DistVec:
+    """``EllParMat.reduce(sr, "cols", map_fn)``: each row's stored values
+    (mapped by ``map_fn``) folded with ``sr.add``."""
+    lr, lc = E.local_rows, E.local_cols
+
+    def local(buckets, _x):
+        y = None
+        for bc, bv, br in buckets:
+            v = map_fn(bv) if map_fn is not None else bv
+            zero = sr.zero(v.dtype)
+            yb = _bucket_fold(sr, torch.where(bc < lc, v, zero))
+            if y is None:
+                y = torch.full((lr + 1,), zero, dtype=v.dtype, device=v.device)
+            y = _scatter_rows(sr, y, br, yb)
+        if y is None:  # no bucket: the dtype map_fn gives
+            probe = torch.zeros((), dtype=E.dtype, device=E.grid.device)
+            dtype = (map_fn(probe) if map_fn is not None else probe).dtype
+            return torch.full((lr,), sr.zero(dtype), dtype=dtype, device=E.grid.device)
+        return y[:lr]
+
+    blocks = _fold_grid(sr, E, local, [None] * E.grid.pc)
+    return DistVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
+
+
 # --- the steps of the batched level-compressed BFS --------------------------
 
 
 def _bucket_row_slices(nb: int, kb: int, W: int, budget_bytes: int):
-    """Row-slice bounds that keep a [rows, kb, W] gather intermediate under
-    about ``budget_bytes`` of int8 payload. torch materialises the gather's
-    output (and the candidates made from it), so an unsliced hub bucket at
-    W = 256 would allocate gigabytes."""
+    """Row-slice bounds that keep a [rows, kb] gather intermediate of W
+    bytes a slot (W int8 lanes, or F lanes × itemsize) under about
+    ``budget_bytes``. torch materialises the gather's output (and the
+    candidates made from it), so an unsliced hub bucket at W = 256 would
+    allocate gigabytes."""
     rows_per = max(budget_bytes // max(kb * max(W, 1), 1), 1)
     return [(s0, min(s0 + rows_per, nb)) for s0 in range(0, nb, rows_per)]
 

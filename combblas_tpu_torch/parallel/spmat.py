@@ -187,3 +187,13 @@ def bucket_by_tile(
         raise ValueError(f"tile nnz {counts.max()} exceeds capacity {cap}")
     starts = np.concatenate([[0], np.cumsum(counts)])
     return rows, cols, order, counts, starts, cap, lr, lc
+
+
+def ones_i32(v: torch.Tensor) -> torch.Tensor:
+    """Structural-one map for ``reduce(map_fn=...)``: int32 ones of ``v``'s
+    shape (degrees as entry counts)."""
+    return torch.ones(v.shape, dtype=torch.int32, device=v.device)
+
+
+def ones_f32(v: torch.Tensor) -> torch.Tensor:
+    return torch.ones(v.shape, dtype=torch.float32, device=v.device)

@@ -25,7 +25,7 @@ import torch
 
 from .grid import Grid
 
-_LATER = "is not ported yet (ROADMAP queue 1, item 9: the SpMV layer)"
+_LATER = "is not ported yet (ROADMAP queue 1, item 9: the DistVec op pack)"
 
 
 def _nblocks(grid: Grid, align: str) -> int:

@@ -19,6 +19,8 @@ from typing import Any, Callable
 
 import torch
 
+from .operations import minimum as _ieee_minimum
+
 
 def _minval(dtype: torch.dtype) -> Any:
     if dtype.is_floating_point:
@@ -138,11 +140,12 @@ OR_AND = Semiring(
     add_kind="max",
 )
 
-#: (max, min): bottleneck / widest-path semiring.
+#: (max, min): bottleneck / widest-path semiring. Its product gives -0.0
+#: for (+0.0, -0.0) in either order, as the reference's does.
 MAX_MIN = Semiring(
     name="max_min",
     add=torch.maximum,
-    mul=torch.minimum,
+    mul=_ieee_minimum,
     zero_fn=_minval,
     one_fn=_maxval,
     add_kind="max",

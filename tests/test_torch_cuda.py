@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
 plain PyTorch version, the mxu SpGEMM path, the dense -> sparse
-extraction and the batched BFS on the card against the same calls on the CPU. Marked ``cuda``; they skip where there is no card.
+extraction, the batched and single-root BFS, the ELL SpMV family and the
+batched SSSP on the card against the same calls on the CPU. Marked
+``cuda``; they skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch (``tests/conftest.py`` imports JAX, hence
@@ -15,7 +17,9 @@ copies values without arithmetic. Two exceptions: where NaN cells occur
 in a semiring product they are compared by position (NaN payloads
 differ) and the other cells by their bits, and ``plus_times`` on
 non-integer data is held to the float64 product within
-K * 2**-24 * sum|a||b| per cell.
+K * 2**-24 * sum|a||b| per cell, and the SpMV's ``plus_times`` on
+non-integer data to the CPU's result within ``rtol=1e-5, atol=1e-6``
+(``index_add_`` on CUDA sums in no fixed order).
 """
 
 import numpy as np
@@ -23,26 +27,39 @@ import pytest
 import torch
 
 from combblas_tpu_torch import (
+    DEFAULT_SEQ_TIERS,
     MAX_MIN,
     MIN_PLUS,
     PAD_ROOT,
     PLUS_TIMES,
+    SELECT2ND_MAX,
     DistMultiVec,
     DistVec,
     EllParMat,
     Grid,
     SpParMat,
+    Semiring,
     batch_traversed_edges,
+    bfs_batch,
     bfs_batch_compact,
+    bfs_single,
     build_csc_companion,
+    build_csr_companion,
     build_graph,
     dense_to_sptuples,
+    dist_spmv_ell,
+    dist_spmv_ell_masked,
+    dist_spmv_ell_masked_multi,
+    dist_spmv_ell_multi,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
     rmat_symmetric_coo_host,
     semiring_matmul,
+    parse_tier_spec,
     semiring_matmul_reference,
+    single_traversed_edges,
     spgemm_auto,
+    sssp_batch,
     validate_bfs_device,
 )
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS, chunk_rows, resident_blocks
@@ -451,3 +468,124 @@ def test_bfs_batch_compact_on_card_matches_cpu(shape, max_k, cuda_device):
     for a, b in zip(cpu, card):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
     assert (cpu[4] > 0).sum() == 31  # every live root reaches an edge
+
+
+SINGLE_TIERS = {
+    "dense": "",
+    "mixed": "td:4,2,1,0,0,0|bu:2048,64,8,0,0,0|td:256,128,32,4,0,0",
+    "default": DEFAULT_SEQ_TIERS,
+}
+
+
+@pytest.mark.parametrize("tiers", list(SINGLE_TIERS))
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_bfs_single_on_card_matches_cpu(shape, tiers, cuda_device):
+    """The single-root search at scale 12, degree fallbacks on: parents,
+    levels, level count, the step of each level, the readbacks and the
+    edge count identical on the card and on the CPU."""
+    scale = 12
+    n = 1 << scale
+    g = build_graph(scale, 16, nroots=4)
+    spec = parse_tier_spec(SINGLE_TIERS[tiers])
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(*shape, device=dev)
+        E = EllParMat.from_host_coo(grid, g["rows"], g["cols"],
+                                    np.zeros(len(g["rows"]), np.int8), n, n)
+        csc = build_csc_companion(grid, g["rows"], g["cols"], n, n)
+        csr = build_csr_companion(grid, g["rows"], g["cols"], n, n)
+        deg = DistVec.from_global(grid, g["deg"], align="row").blocks
+        runs = []
+        for root in g["roots"]:
+            p, lv, it = bfs_single(E, int(root), csc, csr=csr, tiers=spec)
+            runs.append((p.blocks.cpu(), lv.blocks.cpu(), it, bfs_single.last_run,
+                         int(single_traversed_edges(deg, p))))
+        out.append(runs)
+    for cpu, card in zip(*out):
+        assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[1], card[1])
+        assert cpu[2:] == card[2:]
+    if tiers != "dense":  # walks ran, and more than one kind of step
+        kinds = {st[:2] for run in out[1] for st in run[3]["steps"]}
+        assert "td" in kinds and len(kinds) > 1, kinds
+
+
+@pytest.mark.parametrize("shape, max_k", [((1, 1), None), ((2, 2), 8)],
+                         ids=["1x1", "2x2-split-rows"])
+def test_bfs_batch_and_sssp_batch_on_card_match_cpu(shape, max_k, cuda_device):
+    """``bfs_batch`` (with and without levels) and ``sssp_batch`` at scale
+    12, with a PAD_ROOT lane: identical on the card and on the CPU, and the
+    batch's lanes equal to ``bfs_batch_compact``'s."""
+    scale = 12
+    n = 1 << scale
+    g = build_graph(scale, 16, nroots=16)
+    roots = g["roots"].copy()
+    roots[3] = PAD_ROOT
+    w = np.random.default_rng(1).integers(1, 10, len(g["rows"])).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(*shape, device=dev)
+        E = EllParMat.from_host_coo(grid, g["rows"], g["cols"],
+                                    np.zeros(len(g["rows"]), np.int8), n, n, max_k=max_k)
+        Ew = EllParMat.from_host_coo(grid, g["rows"], g["cols"], w, n, n, max_k=max_k)
+        p, lv, it = bfs_batch(E, roots)
+        cp, cl, cit = bfs_batch_compact(E, roots)
+        assert torch.equal(p.blocks, cp.blocks) and torch.equal(lv.blocks, cl.blocks.int())
+        assert it == cit
+        p2, ind, it2 = bfs_batch(E, roots, track_levels=False)
+        d, dit = sssp_batch(Ew, roots)
+        out.append([p.blocks.cpu(), lv.blocks.cpu(), it, p2.blocks.cpu(), ind.blocks.cpu(), it2,
+                    d.blocks.cpu(), dit])
+    for a, b in zip(*out):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+BOR = Semiring(name="bitor_and", add=torch.bitwise_or, mul=torch.bitwise_and,
+               zero_fn=lambda dt: 0, add_kind="generic")
+SPMV_CASES = [("plus_times-int", PLUS_TIMES), ("plus_times-float", PLUS_TIMES),
+              ("min_plus", MIN_PLUS), ("max_min", MAX_MIN), ("select2nd_max", SELECT2ND_MAX),
+              ("generic", BOR)]
+
+
+@pytest.mark.parametrize("case, sr", SPMV_CASES, ids=[c for c, _ in SPMV_CASES])
+def test_spmv_forms_on_card_match_cpu(case, sr, cuda_device):
+    """The four ``dist_spmv_ell*`` forms on a 2×2 grid with split rows:
+    exact on the card against the CPU, but ``plus_times`` on non-integer
+    data within ``rtol=1e-5, atol=1e-6``."""
+    n, W = 3000, 16
+    rng = np.random.default_rng(4)
+    r = rng.integers(0, n, 40000)
+    c = np.minimum(rng.zipf(1.6, 40000), n) - 1  # a few heavy columns
+    key = np.unique(r * n + c)
+    r, c = key // n, key % n
+    if case == "plus_times-float":
+        vals, x, X = (rng.uniform(-1, 1, s).astype(np.float32) for s in (len(r), n, (n, W)))
+    elif case == "select2nd_max":
+        vals = np.ones(len(r), np.float32)
+        x, X = (rng.integers(-1, n, s).astype(np.int32) for s in (n, (n, W)))
+    elif case == "generic":
+        vals, x, X = (rng.integers(0, 2**31 - 1, s).astype(np.int32)
+                      for s in (len(r), n, (n, W)))
+    else:
+        vals, x, X = (rng.integers(-8, 9, s).astype(np.float32) for s in (len(r), n, (n, W)))
+        if case != "plus_times-int":  # the identities and signed zeros too
+            x[rng.random(n) < 0.05] = np.inf if case == "min_plus" else -np.inf
+            x[rng.random(n) < 0.05] = -0.0
+    act, act2 = rng.random(n) < 0.7, rng.random((n, W)) < 0.7
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(2, 2, device=dev)
+        E = EllParMat.from_host_coo(grid, r, c, vals, n, n, max_k=16)
+        xv, av = DistVec.from_global(grid, x), DistVec.from_global(grid, act, align="row")
+        Xv = DistMultiVec.from_global(grid, X)
+        Av = DistMultiVec.from_global(grid, act2, align="row")
+        out.append([dist_spmv_ell(sr, E, xv).blocks.cpu(),
+                    dist_spmv_ell_masked(sr, E, xv, av).blocks.cpu(),
+                    dist_spmv_ell_multi(sr, E, Xv).blocks.cpu(),
+                    dist_spmv_ell_masked_multi(sr, E, Xv, Av).blocks.cpu()])
+    for a, b in zip(*out):
+        if case == "plus_times-float":
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+            if a.is_floating_point():
+                assert torch.equal(torch.signbit(a), torch.signbit(b))

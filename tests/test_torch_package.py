@@ -12,9 +12,10 @@ from combblas_tpu_torch import Grid, HostGrid
 
 REPO = Path(__file__).resolve().parent.parent
 # modules the walk below must reach (the Graph500 BFS path among them)
-MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "ops.segment",
-           "ops.spgemm", "ops.dense_to_tuples", "ops.semiring_matmul", "parallel.ellmat",
-           "parallel.vec", "parallel.spmat", "parallel.spgemm", "utils.graph500", "utils.rmat"}
+MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.sssp",
+           "ops.segment", "ops.spgemm", "ops.dense_to_tuples", "ops.semiring_matmul",
+           "parallel.ellmat", "parallel.vec", "parallel.spmat", "parallel.spgemm",
+           "utils.graph500", "utils.rmat"}
 
 
 def test_import_pulls_in_no_jax():
