@@ -74,6 +74,21 @@ Phases (each prints one JSON line):
      a launch); ``sssp_batch`` on unit float32 weights (distances equal to
      those lanes' levels, rounds the depth + 1; ``dist_spmv_ell_multi``
      timed a launch). The elapsed time is printed before these steps.
+  9. SpParMat path, on the same graph and the batch's results: the graph
+     as a COO ``SpParMat`` (host bucketing and upload timed), ``bfs``,
+     ``bfs_diropt`` (the budgets of phase 8) and ``bfs_diropt_auto`` from
+     the first root, each equal to lane 0 of the batch (parents, levels,
+     edge count), with at least one top-down and one bottom-up level;
+     ``sssp`` on unit float32 weights (distances equal to the levels,
+     rounds to bfs's levels); FastSV and LACC equal to each other and to
+     each scipy component's least vertex; ``pagerank`` within 1e-4 (L1) of
+     a float64 power iteration of as many rounds, ``pagerank_batch`` on the
+     column-normalised ELL (16 roots, two lanes held the same way); ``mis``
+     independent and maximal over the edge list; each timed a call on the
+     host clock (3 calls after a warm-up). Then ``dist_spmv`` per semiring
+     and ``dist_spmspv_masked`` at a top-down level, timed a launch (CUDA
+     events) beside their bytes bounds, with ``torch.profiler``'s operator
+     breakdown; K1 and K2 must not launch in these steps.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -90,6 +105,8 @@ import sys
 import time
 
 import numpy as np
+import scipy.sparse as sp
+import scipy.sparse.csgraph as csgraph
 import torch
 
 from combblas_tpu_torch import (
@@ -104,19 +121,32 @@ from combblas_tpu_torch import (
     Grid,
     SpParMat,
     batch_traversed_edges,
+    bfs,
     bfs_batch,
     bfs_batch_compact,
+    bfs_diropt,
+    bfs_diropt_auto,
     bfs_single,
     build_graph,
     build_structures,
     choose_spgemm_tier,
+    connected_components,
+    csc_tiles,
     dense_support_nnz,
     dense_to_sptuples,
+    dist_spmspv_masked,
+    dist_spmv,
     dist_spmv_ell_masked_multi,
     dist_spmv_ell_multi,
     expand_ranges,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
+    lacc,
+    mis,
+    num_components,
+    ones_f32,
+    pagerank,
+    pagerank_batch,
     parse_tier_spec,
     rmat_symmetric_coo_host,
     semiring_matmul,
@@ -125,7 +155,9 @@ from combblas_tpu_torch import (
     sparsify,
     sparsify_windowed,
     spgemm_auto,
+    sssp,
     sssp_batch,
+    traversed_edges,
     upload_csc_companion,
     validate_bfs_device,
 )
@@ -137,6 +169,7 @@ from combblas_tpu_torch.ops.spgemm import densify
 from combblas_tpu_torch.models import bfs as bfs_mod
 from combblas_tpu_torch.parallel import ellmat
 from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
+from combblas_tpu_torch.parallel.spmv import spmspv_counts
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
 FULL = 1 << SCALE  # the mxu tier's largest tile: 8192
@@ -170,6 +203,12 @@ BFS_CHECK_LANES = 4  # lanes validated on the device and against the host BFS
 BFS_REPS = 3
 SEQ_ROOTS = 16  # sequential roots, as the reference's benchmark script times them
 SEQ_DENSE_ROOTS = 2  # of those, also searched with tiers "" (always dense)
+# the SpParMat path: timed calls a search, PageRank's bound of its L1
+# distance to float64, the personalised lanes held against float64
+SPMAT_REPS = 3
+PAGERANK_L1_BOUND = 1e-4
+PAGERANK_W = 16
+PAGERANK_CHECK_LANES = 2
 
 
 def emit(obj) -> None:
@@ -668,12 +707,15 @@ def op_breakdown(fn, reps: int = 5) -> dict:
     by kernel, and also holds the kernels launched outside PyTorch's
     operators, such as K2's). Where the profiler reports no device time,
     each call is timed whole with CUDA events instead and the line says
-    so."""
+    so. ``events_ms`` is each call timed whole with CUDA events, and
+    ``coverage`` the share of it that the traced kernels account for: a
+    trace that lost device records shows as a coverage well below 1."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -693,8 +735,11 @@ def op_breakdown(fn, reps: int = 5) -> dict:
         return {"profiler_device_time": False, "events_ms": time_cuda_ms(fn, reps)}
     ops.sort(key=lambda r: -r["device_ms"])
     kernels.sort(key=lambda r: -r["device_ms"])
+    kernels_ms = sum(k["device_ms"] for k in kernels)
+    events_ms = time_cuda_ms(fn, reps)
     return {"profiler_device_time": True, "ops": ops, "kernels": kernels,
-            "kernels_ms": sum(k["device_ms"] for k in kernels)}
+            "kernels_ms": kernels_ms, "events_ms": events_ms,
+            "coverage": kernels_ms / events_ms}
 
 
 def phase_k2_path(mats: dict) -> dict:
@@ -1167,6 +1212,258 @@ def phase_bfs_single(g: dict, E: EllParMat, csc, indptr: np.ndarray, rowidx: np.
     return {"single": single, "levels": records}
 
 
+def host_pagerank(csr, iters: int, alpha: float = 0.85, e=None) -> np.ndarray:
+    """``iters`` rounds of the same power iteration in float64 with scipy:
+    the column-stochastic matrix of the symmetric ``csr`` (out-degree =
+    row degree), the dangling mass spread uniformly, or to ``e`` (a
+    personalised lane: teleport and dangling mass both go to its source)."""
+    n = csr.shape[0]
+    deg = np.diff(csr.indptr).astype(np.float64)
+    inv = np.divide(1.0, deg, out=np.zeros(n), where=deg > 0)
+    x = np.full(n, 1.0 / n) if e is None else e.copy()
+    for _ in range(iters):
+        spread = csr @ (x * inv)
+        dmass = x[deg == 0].sum()
+        if e is None:
+            x = alpha * spread + ((1 - alpha) + alpha * dmass) / n
+        else:
+            x = alpha * (spread + dmass * e) + (1 - alpha) * e
+    return x
+
+
+def spmv_bytes(nnz: int, n: int, reads_vals: bool) -> int:
+    """Bytes ``dist_spmv`` must move on one tile: the int32 row and column
+    id of every entry (and its 4-byte value where the product reads it),
+    the 4-byte x gathered at every entry, x read once and the [n] result
+    written once."""
+    return nnz * (12 + (4 if reads_vals else 0)) + 8 * n
+
+
+def phase_spmat_path(dev, g: dict, E: EllParMat, csr, batch: tuple) -> dict:
+    """The SpParMat path on the BFS path's graph (module docstring, phase
+    9): the COO matrix, bfs / bfs_diropt / bfs_diropt_auto, sssp, FastSV and
+    LACC, pagerank and pagerank_batch, mis, then the SpMV layer timed a
+    launch beside its bounds. ``E``: the BFS path's ELL buckets; ``csr``:
+    the graph as a scipy CSR matrix; ``batch``: the dense batched search's
+    parents, levels and edge counts. Raises on any disagreement."""
+    pd_, ld, ted = batch
+    n, nnz = len(g["deg"]), len(g["rows"])
+    root = int(g["roots"][0])
+    want_p, want_l = pd_.blocks[0, :, 0], ld.blocks[0, :, 0].to(torch.int32)
+    want_te = int(ted[0])
+
+    # spmat_build: the host bucketing on a CPU grid, then the upload
+    t0 = time.perf_counter()
+    host = SpParMat.from_global_coo(Grid.make(1, 1, device="cpu"), g["rows"], g["cols"],
+                                    np.ones(nnz, np.int32), n, n)
+    host_s = time.perf_counter() - t0
+    grid = Grid.make(1, 1, device=dev)
+    t0 = time.perf_counter()
+    A = SpParMat(rows=host.rows.to(dev), cols=host.cols.to(dev), vals=host.vals.to(dev),
+                 nnz=host.nnz.to(dev), nrows=n, ncols=n, grid=grid)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del host
+    tile_bytes = sum(t.numel() * t.element_size() for t in (A.rows, A.cols, A.vals, A.nnz))
+    emit({"phase": "spmat_path", "step": "spmat_build", "grid": "1x1", "n": n, "nnz": nnz,
+          "capacity": A.capacity, "host_s": host_s, "upload_s": upload_s,
+          "bytes": tile_bytes})
+
+    # spmat_bfs: three searches from the first root, each equal to lane 0
+    fcap, ecap = n // 8, max(nnz // 16, 1 << 20)
+    searches = {
+        "bfs": (lambda: bfs(A, root), bfs),
+        "bfs_diropt": (lambda: bfs_diropt(A, root, frontier_capacity=fcap,
+                                          exp_capacity=ecap), bfs_diropt),
+        "bfs_diropt_auto": (lambda: bfs_diropt_auto(A, root), bfs_diropt),
+    }
+    lines, kinds = {}, set()
+    for name, (call, fn) in searches.items():
+        def unit():
+            p, lv, it = call()
+            return p, lv, it, int(traversed_edges(A, p))
+
+        unit()  # warm-up
+        runs = [timed_call(unit) for _ in range(SPMAT_REPS)]
+        p, lv, it, te = runs[-1][0]
+        if not (torch.equal(p.blocks[0], want_p) and torch.equal(lv.blocks[0], want_l)
+                and te == want_te):
+            raise AssertionError(f"{name}: differs from lane 0 of the batch")
+        wall = [r[2] for r in runs]
+        lines[name] = {"phase": "spmat_path", "step": "spmat_bfs", "search": name,
+                       "niter": it, "readbacks": fn.last_run["readbacks"],
+                       "ms_per_call": [w * 1e3 for w in wall], "device_ms": [r[1] for r in runs],
+                       "traversed_edges": te, "mteps": te / float(np.median(wall)) / 1e6}
+        if fn is bfs_diropt:
+            lines[name]["steps"] = fn.last_run["steps"]
+            lines[name]["frontiers"] = fn.last_run["frontiers"]
+            kinds |= set(fn.last_run["steps"])
+        emit(lines[name])
+    if not {"td", "bu"} <= kinds:
+        raise AssertionError(f"bfs_diropt never took a td and a bu level: {sorted(kinds)}")
+    niter = lines["bfs"]["niter"]
+
+    # spmat_sssp: unit float32 weights, distances equal to the levels
+    Aw = A.apply(ones_f32)
+    sssp(Aw, root)  # warm-up
+    runs = [timed_call(lambda: sssp(Aw, root)) for _ in range(SPMAT_REPS)]
+    d, rounds = runs[-1][0]
+    wl = want_l.to(torch.float32)
+    if not torch.equal(d.blocks[0], torch.where(wl >= 0, wl, float("inf"))):
+        raise AssertionError("sssp: unit-weight distances differ from the BFS levels")
+    if rounds != niter:
+        raise AssertionError(f"sssp: {rounds} rounds, bfs ran {niter} levels")
+    emit({"phase": "spmat_path", "step": "spmat_sssp", "weights": "1.0 (float32)",
+          "rounds": rounds, "readbacks": sssp.last_run["readbacks"],
+          "ms_per_call": [r[2] * 1e3 for r in runs], "device_ms": [r[1] for r in runs],
+          "distances_equal_levels": True})
+
+    # spmat_cc: FastSV and LACC against scipy's components
+    t0 = time.perf_counter()
+    ncomp, comp = csgraph.connected_components(csr, directed=False)
+    first = np.full(ncomp, n, np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    scipy_s = time.perf_counter() - t0
+    cc_line = {"phase": "spmat_path", "step": "spmat_cc", "scipy_components": int(ncomp),
+               "scipy_s": scipy_s}
+    labels = {}
+    for name, fn in (("fastsv", connected_components), ("lacc", lacc)):
+        fn(A)  # warm-up
+        runs = [timed_call(lambda: fn(A)) for _ in range(SPMAT_REPS)]
+        lab, it = runs[-1][0]
+        labels[name] = lab.blocks
+        if num_components(lab) != ncomp:
+            raise AssertionError(f"{name}: {num_components(lab)} components, scipy {ncomp}")
+        if not np.array_equal(lab.to_global(), first[comp]):
+            raise AssertionError(f"{name}: labels are not each component's least vertex")
+        cc_line[name] = {"iterations": it, "readbacks": fn.last_run["readbacks"],
+                         "ms_per_call": [r[2] * 1e3 for r in runs],
+                         "device_ms": [r[1] for r in runs]}
+    if not torch.equal(labels["fastsv"], labels["lacc"]):
+        raise AssertionError("FastSV and LACC give different labels")
+    emit(cc_line)
+
+    # spmat_pagerank: against float64 power iterations of the same rounds
+    pagerank(A)  # warm-up
+    runs = [timed_call(lambda: pagerank(A, 0.85, 1e-6, 100)) for _ in range(SPMAT_REPS)]
+    x, it = runs[-1][0]
+    want = host_pagerank(csr, it)
+    got = x.to_global().astype(np.float64)
+    l1 = float(np.abs(got - want).sum())
+    if not np.isfinite(got).all() or l1 > PAGERANK_L1_BOUND:
+        raise AssertionError(f"pagerank: L1 distance {l1} to float64 above {PAGERANK_L1_BOUND}")
+    pr_line = {"phase": "spmat_path", "step": "spmat_pagerank", "iterations": it,
+               "readbacks": pagerank.last_run["readbacks"], "l1_to_float64": l1,
+               "sum": float(got.sum()), "bound": PAGERANK_L1_BOUND,
+               "ms_per_call": [r[2] * 1e3 for r in runs], "device_ms": [r[1] for r in runs]}
+    # the column-normalised ELL from the same COO: the BFS path's buckets
+    # with 1/deg(column) in every stored slot
+    lc = E.local_cols
+    inv = torch.from_numpy(np.divide(1.0, g["deg"], out=np.zeros(n), where=g["deg"] > 0)
+                           .astype(np.float32)).to(dev)
+    inv_pad = torch.cat([inv, inv.new_zeros(1)])
+    P_ell = EllParMat(buckets=tuple((bc, inv_pad[torch.clamp(bc, max=lc).long()], br)
+                                    for bc, _, br in E.buckets),
+                      nrows=n, ncols=n, grid=grid)
+    dang = DistVec.from_global(grid, (g["deg"] == 0).astype(np.float32), align="col")
+    srcs = torch.from_numpy(g["roots"][:PAGERANK_W].astype(np.int32)).to(dev)
+    pagerank_batch(P_ell, srcs, dang)  # warm-up
+    runs = [timed_call(lambda: pagerank_batch(P_ell, srcs, dang)) for _ in range(SPMAT_REPS)]
+    X, itb = runs[-1][0]
+    lanes = []
+    for k in range(PAGERANK_CHECK_LANES):
+        e = np.zeros(n)
+        e[int(g["roots"][k])] = 1.0
+        lane = X.blocks[0, :, k].cpu().numpy().astype(np.float64)
+        l1k = float(np.abs(lane - host_pagerank(csr, itb, e=e)).sum())
+        if not np.isfinite(lane).all() or l1k > PAGERANK_L1_BOUND:
+            raise AssertionError(f"pagerank_batch lane {k}: L1 {l1k} above {PAGERANK_L1_BOUND}")
+        lanes.append({"lane": k, "l1_to_float64": l1k, "sum": float(lane.sum())})
+    pr_line["batch"] = {"W": PAGERANK_W, "iterations": itb,
+                        "readbacks": pagerank_batch.last_run["readbacks"], "lanes": lanes,
+                        "ms_per_call": [r[2] * 1e3 for r in runs],
+                        "device_ms": [r[1] for r in runs]}
+    emit(pr_line)
+    del P_ell, X
+
+    # spmat_mis: independent and maximal over the edge list
+    gen = torch.Generator(device=dev)
+    mis(A, gen.manual_seed(1))  # warm-up
+    runs = [timed_call(lambda: mis(A, gen.manual_seed(1))) for _ in range(SPMAT_REPS)]
+    status, mrounds = runs[-1][0]
+    s_ = status.to_global()
+    rows64, cols64 = g["rows"].astype(np.int64), g["cols"].astype(np.int64)
+    member = s_ == 1
+    if (member[rows64] & member[cols64]).any():
+        raise AssertionError("mis: two members share an edge")
+    covered = np.zeros(n, bool)
+    covered[rows64[member[cols64]]] = True
+    if not (member | covered).all() or not set(np.unique(s_)) <= {1, -1}:
+        raise AssertionError("mis: a vertex is undecided or has no member beside it")
+    emit({"phase": "spmat_path", "step": "spmat_mis", "rounds": mrounds,
+          "readbacks": mis.last_run["readbacks"], "members": int(member.sum()),
+          "ms_per_call": [r[2] * 1e3 for r in runs], "device_ms": [r[1] for r in runs],
+          "independent": True, "maximal": True})
+
+    # spmat_layers: dist_spmv per semiring and one top-down level, a launch
+    rng = np.random.default_rng(11)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    x_ids = DistVec(blocks=torch.where(torch.from_numpy(rng.random(n) < 0.1).to(dev), ids, -1)
+                    [None], length=n, align="col", grid=grid)
+    x_f = DistVec(blocks=torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)[None],
+                  length=n, align="col", grid=grid)
+    layers = {}
+    for name, sr, M, x, reads_vals in (("select2nd_max_int32", SELECT2ND_MAX, A, x_ids, False),
+                                       ("min_plus_f32", MIN_PLUS, Aw, x_f, True),
+                                       ("plus_times_f32", PLUS_TIMES, Aw, x_f, True)):
+        ms = time_cuda_ms(lambda: dist_spmv(sr, M, x), 5)
+        b = spmv_bytes(nnz, n, reads_vals)
+        layers[name] = {"ms_per_launch": ms, "bytes": b, "bound_ms": b / PEAK_BYTES * 1e3,
+                        "bound_by": "bytes", "share": b / PEAK_BYTES * 1e3 / ms}
+    layers["min_plus_f32"]["ops"] = op_breakdown(lambda: dist_spmv(MIN_PLUS, Aw, x_f), 3)
+    layers["select2nd_max_int32"]["ops"] = op_breakdown(
+        lambda: dist_spmv(SELECT2ND_MAX, A, x_ids), 3)
+    # dist_spmspv_masked at the bfs_diropt run's first top-down level past
+    # the root: its frontier and undiscovered rows rebuilt from the levels
+    steps = lines["bfs_diropt"]["steps"]
+    k = next((i for i, st in enumerate(steps) if st == "td" and i > 0), 0)
+    frontier = want_l == k
+    csc = csc_tiles(A)
+    xk = DistVec(blocks=torch.where(frontier, ids, -1)[None], length=n, align="col",
+                 grid=grid)
+    ak = DistVec(blocks=frontier[None], length=n, align="col", grid=grid)
+    uk = DistVec(blocks=((want_l < 0) | (want_l > k))[None], length=n, align="row", grid=grid)
+    counts = spmspv_counts(csc, ak.blocks, fcap, ecap).tolist()
+    td_ms = time_cuda_ms(lambda: dist_spmspv_masked(
+        SELECT2ND_MAX, A, xk, ak, uk, frontier_capacity=fcap, exp_capacity=ecap, csc=csc,
+        counts=counts), 5)
+    cols_k, walked = counts[0], counts[1]
+    # per active column its two pointers and its x value, per walked entry
+    # its row id and the 4-byte candidate, the column and row masks read
+    # and the [n] result written
+    td_bytes = 8 * cols_k + 4 * cols_k + 8 * walked + 2 * n + 4 * n
+    layers["dist_spmspv_masked"] = {
+        "level": k + 1, "active_columns": cols_k, "walked_entries": walked,
+        "ms_per_launch": td_ms, "bytes": td_bytes, "bound_ms": td_bytes / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "share": td_bytes / PEAK_BYTES * 1e3 / td_ms,
+        "launches_per_call": {"bfs_diropt": steps.count("td"),
+                              "bfs_diropt_auto": lines["bfs_diropt_auto"]["steps"].count("td")},
+        "ops": op_breakdown(lambda: dist_spmspv_masked(
+            SELECT2ND_MAX, A, xk, ak, uk, frontier_capacity=fcap, exp_capacity=ecap, csc=csc,
+            counts=counts), 3)}
+    layers["select2nd_max_int32"]["launches_per_call"] = {
+        "bfs": niter, "bfs_diropt": steps.count("bu"),
+        "bfs_diropt_auto": lines["bfs_diropt_auto"]["steps"].count("bu"),
+        "fastsv": cc_line["fastsv"]["iterations"], "lacc": 2 * cc_line["lacc"]["iterations"],
+        "mis": 2 * mrounds}
+    layers["min_plus_f32"]["launches_per_call"] = {"sssp": rounds}
+    layers["plus_times_f32"]["launches_per_call"] = {"pagerank": it}
+    emit({"phase": "spmat_path", "step": "spmat_layers", **layers})
+    del A, Aw, csc
+    torch.cuda.empty_cache()
+    return {"lines": lines, "layers": layers}
+
+
 def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
                    nroots: int = BFS_NROOTS) -> dict:
     """The Graph500 batched BFS, host kernel 1 to validated trees, then the
@@ -1329,7 +1626,18 @@ def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
     emit({"phase": "bfs_path", "step": "single_checks", "hand_kernel_launches": hand_launches,
           "total_s": time.perf_counter() - t_start})
     torch.cuda.empty_cache()
-    return {"lines": lines, "programs": programs, "single": single}
+
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    csr = sp.csr_matrix((np.ones(len(rowidx[0, 0]), np.float64), rowidx[0, 0], indptr[0, 0]),
+                        shape=(n, n))  # the CSC arrays of a symmetric graph on one tile
+    spmat = phase_spmat_path(dev, g, E, csr, (pd_, ld, ted))
+    hand_launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(hand_launches.values()):
+        raise AssertionError(f"the SpParMat steps launched hand kernels: {hand_launches}")
+    emit({"phase": "spmat_path", "step": "spmat_checks", "hand_kernel_launches": hand_launches,
+          "total_s": time.perf_counter() - t_start})
+    return {"lines": lines, "programs": programs, "single": single, "spmat": spmat}
 
 
 def main() -> int:

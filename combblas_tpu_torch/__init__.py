@@ -13,7 +13,14 @@ at once and ``bfs_single`` from one root at a time,
 ``batch_traversed_edges``, ``single_traversed_edges`` and
 ``validate_bfs_device`` count and check) with the ELL SpMV family under it
 (``dist_spmv_ell*``, ``EllParMat.reduce``, ``bfs_batch``,
-``sssp_batch``), in PyTorch ops as the reference runs it in XLA ops.
+``sssp_batch``); and the SpMV layer on the COO-tiled ``SpParMat``
+(``dist_spmv``, ``dist_spmv_masked``, ``dist_spmspv``,
+``dist_spmspv_masked`` over the local ``ops.spmv`` kernels and ``CSC``
+tiles, the ``DistVec`` op pack, ``SpParMat.reduce`` / ``transpose`` /
+``dim_apply`` and the per-tile maps) with the applications on it: ``bfs``,
+``bfs_diropt``, ``sssp``, ``pagerank``, ``pagerank_batch``,
+``connected_components`` (FastSV), ``lacc`` and ``mis``. All of it is in
+PyTorch ops as the reference runs it in XLA ops.
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 """
@@ -30,15 +37,22 @@ from .models.bfs import (
     BFS_CLASS_LADDER,
     DEFAULT_SEQ_TIERS,
     batch_traversed_edges,
+    bfs,
     bfs_batch,
     bfs_batch_compact,
+    bfs_diropt,
+    bfs_diropt_auto,
     bfs_single,
     parse_tier_spec,
     single_traversed_edges,
+    traversed_edges,
     validate_bfs_device,
     validate_bfs_tree,
 )
-from .models.sssp import sssp_batch
+from .models.cc import connected_components, lacc, num_components
+from .models.mis import mis
+from .models.pagerank import pagerank, pagerank_batch
+from .models.sssp import sssp, sssp_batch
 from .ops.dense_to_tuples import (
     dense_to_sptuples,
     dense_to_tuples_arrays,
@@ -50,6 +64,7 @@ from .ops.semiring_matmul import (
     semiring_matmul,
     semiring_matmul_reference,
 )
+from .ops.compressed import CSC, CSR
 from .ops.segment import expand_ranges, segment_reduce
 from .ops.spgemm import dense_support_nnz, sparsify, sparsify_windowed
 from .ops.tuples import SpTuples
@@ -74,7 +89,14 @@ from .parallel.spgemm import (
     summa_spgemm_mxu,
 )
 from .parallel.spmat import SpParMat, ones_f32, ones_i32
-from .parallel.vec import DistMultiVec, DistVec
+from .parallel.spmv import (
+    csc_tiles,
+    dist_spmspv,
+    dist_spmspv_masked,
+    dist_spmv,
+    dist_spmv_masked,
+)
+from .parallel.vec import DistMultiVec, DistVec, concatenate
 from .semiring import (
     MAX_MIN,
     MIN_PLUS,
@@ -90,6 +112,8 @@ from .utils.rmat import rmat_symmetric_coo_host
 
 __all__ = [
     "BFS_CLASS_LADDER",
+    "CSC",
+    "CSR",
     "DEFAULT_SEQ_TIERS",
     "DistMultiVec",
     "DistVec",
@@ -109,8 +133,11 @@ __all__ = [
     "SpParMat",
     "SpTuples",
     "batch_traversed_edges",
+    "bfs",
     "bfs_batch",
     "bfs_batch_compact",
+    "bfs_diropt",
+    "bfs_diropt_auto",
     "bfs_single",
     "build_csc_companion",
     "build_csc_companion_host",
@@ -119,24 +146,36 @@ __all__ = [
     "build_graph",
     "build_structures",
     "choose_spgemm_tier",
+    "concatenate",
+    "connected_components",
     "coo_has_duplicates",
     "csc_companion_from_arrays",
+    "csc_tiles",
     "dense_support_nnz",
     "dense_to_sptuples",
     "dense_to_tuples_arrays",
+    "dist_spmspv",
+    "dist_spmspv_masked",
+    "dist_spmv",
     "dist_spmv_ell",
     "dist_spmv_ell_masked",
     "dist_spmv_ell_masked_multi",
     "dist_spmv_ell_multi",
+    "dist_spmv_masked",
     "distmultivec_from_arrays",
     "ellparmat_from_arrays",
     "expand_ranges",
     "flat_to_tuples_arrays",
     "flat_to_tuples_arrays_reference",
+    "lacc",
     "min_plus_matmul",
+    "mis",
+    "num_components",
     "ones_f32",
     "ones_i32",
     "operations",
+    "pagerank",
+    "pagerank_batch",
     "parse_tier_spec",
     "rmat_symmetric_coo_host",
     "segment_reduce",
@@ -147,8 +186,10 @@ __all__ = [
     "sparsify_windowed",
     "spgemm_auto",
     "spparmat_from_arrays",
+    "sssp",
     "sssp_batch",
     "summa_spgemm_mxu",
+    "traversed_edges",
     "upload_csc_companion",
     "validate_bfs_device",
     "validate_bfs_tree",

@@ -1,5 +1,12 @@
-"""Graph500 BFS — counterpart of the batched and the single-root searches
-in ``combblas_tpu/models/bfs.py``.
+"""BFS — counterpart of ``combblas_tpu/models/bfs.py``.
+
+``bfs`` is the level-synchronous search of ``TopDownBFS.cpp``: one masked
+semiring SpMV a level over an ``SpParMat`` (or an ``EllParMat``, through
+``dist_spmv_masked``'s dispatch). ``bfs_diropt`` is the
+direction-optimising search: a level whose frontier fits the budgets walks
+only the frontier's columns (``dist_spmspv_masked``, "td"), any other
+level runs the masked SpMV ("bu"). ``traversed_edges`` counts the kernel-2
+edges of its tree.
 
 ``bfs_batch_compact`` searches from W roots at once over an ``EllParMat``:
 int8 frontiers through the level loop, parents rebuilt in one pass after
@@ -22,12 +29,20 @@ counts of ``bfs_batch_compact`` with the CSC budgets; the class counts of
 the step each level took. Iteration counts come back as Python ints (the
 reference's are int32 arrays; the values are equal).
 
-Not ported: ``bfs``, ``bfs_diropt`` (ROADMAP queue 1, item 9). Nor are the
-reference's device-buffer caches (``_gid_blocks``, ``_iota_operand``, the
-``lru_cache`` of single-root programs, ``clear_bfs_caches`` and its cache
-gauges): they exist for the TPU's execution (closure-constant tables,
-one compiled program per tier spec); eager torch compiles nothing, so the
-port keeps no such cache. The ``obs`` gauges come with ROADMAP item 13.
+``bfs`` reads back ``any(new)`` once a level; ``bfs_diropt`` reads back,
+once a level, whether the last level found a vertex together with the
+frontier's statistics that choose the next step (column count, edge count
+accumulated in float32 as the reference does, and the walk's per-tile
+counts). Its levels reuse one ``CSC`` per tile, built at the start of the
+call (the reference builds them in every top-down step).
+
+Not ported: ``bfs_levels_instrumented``, which is built on ``obs`` spans
+(ROADMAP queue 1, item 13). Nor are the reference's device-buffer caches
+(``_gid_blocks``, ``_iota_operand``, the ``lru_cache`` of single-root
+programs, ``clear_bfs_caches`` and its cache gauges): they exist for the
+TPU's execution (closure-constant tables, one compiled program per tier
+spec); eager torch compiles nothing, so the port keeps no such cache.
+The ``obs`` gauges come with ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -47,7 +62,8 @@ from ..parallel.ellmat import (
     _scatter_rows_max,
     dist_spmv_ell_masked_multi,
 )
-from ..parallel.spmat import ones_i32
+from ..parallel.spmat import SpParMat, ones_i32
+from ..parallel.spmv import csc_tiles, dist_spmspv_masked, dist_spmv_masked, spmspv_counts
 from ..parallel.vec import DistMultiVec, DistVec
 from ..semiring import PLUS_TIMES, SELECT2ND_MAX, Semiring
 from . import PAD_ROOT
@@ -61,6 +77,148 @@ def _global_ids(grid, nblocks: int, block_len: int, length: int, align: str) -> 
         nblocks * block_len, dtype=torch.int32, device=grid.device
     ).reshape(nblocks, block_len)
     return torch.where(gids < length, gids, -1)
+
+
+def _root_state(A, source: int):
+    """A single-root search's start: row ids ``[pr, lr]`` (-1 in the
+    padding), parents and levels (the root its own parent at level 0, -1
+    elsewhere) and the col-aligned frontier of parent candidates."""
+    grid = A.grid
+    row_gids = _global_ids(grid, grid.pr, grid.local_rows(A.nrows), A.nrows, "row")
+    col_gids = _global_ids(grid, grid.pc, grid.local_cols(A.ncols), A.ncols, "col")
+    parents = torch.where(row_gids == source, source, -1).to(torch.int32)
+    levels = torch.where(row_gids == source, 0, -1).to(torch.int32)
+    x = torch.where(col_gids == source, source, -1).to(torch.int32)
+    return row_gids, parents, levels, x
+
+
+def _advance(A, y, parents, levels, row_gids, level: int):
+    """Take a level's parent candidates ``y`` ([pr, lr], -1 where none):
+    the newly discovered rows, the parents and levels with them, and the
+    next col-aligned frontier (each new vertex its own candidate)."""
+    new = (y >= 0) & (parents < 0) & (row_gids >= 0)
+    parents = torch.where(new, y, parents)
+    levels = torch.where(new, level + 1, levels)
+    x = DistVec(blocks=torch.where(new, row_gids, -1), length=A.nrows, align="row",
+                grid=A.grid).realign("col").blocks
+    return new, parents, levels, x
+
+
+def bfs(A, source, max_iters: int | None = None, sr: Semiring = SELECT2ND_MAX):
+    """Level-synchronous BFS from ``source`` over a select-style semiring
+    (default ``SELECT2ND_MAX``: the max-id frontier in-neighbour is the
+    parent). Entry (i, j) of A means edge j → i; symmetrise for undirected
+    graphs. ``A``: an ``SpParMat`` or an ``EllParMat``.
+
+    Returns ``(parents, levels, num_iters)``: row-aligned int32 DistVecs
+    (-1 where undiscovered) and the number of levels run as an int, the
+    terminal empty level included (the reference returns an int32 array).
+    ``bfs.last_run`` holds the readbacks (one a level).
+    """
+    grid = A.grid
+    n = A.nrows
+    iters = max_iters if max_iters is not None else n
+    row_gids, parents, levels, x = _root_state(A, int(source))
+
+    def mk(b):
+        return DistVec(blocks=b, length=n, align="row", grid=grid)
+
+    level, active = 0, True
+    while active and level < iters:
+        y = dist_spmv_masked(sr, A, DistVec(blocks=x, length=A.ncols, align="col", grid=grid),
+                             mk(parents < 0)).blocks
+        new, parents, levels, x = _advance(A, y, parents, levels, row_gids, level)
+        level += 1
+        active = bool(new.any())
+    bfs.last_run = {"readbacks": level}
+    return mk(parents), mk(levels), level
+
+
+# the last call's device -> host readbacks (one a level)
+bfs.last_run = None
+
+
+def bfs_diropt(A: SpParMat, source, *, frontier_capacity: int, exp_capacity: int,
+               max_iters: int | None = None):
+    """Direction-optimising BFS (≈ ``DirOptBFS.cpp``, Beamer). A level takes
+    the top-down walk ("td": ``dist_spmspv_masked`` over the frontier's
+    columns, work in proportion to their entries) when the frontier has at
+    most ``frontier_capacity`` columns and at most ``0.99 * exp_capacity``
+    out-edges (counted in float32, hence the 1% margin), else the masked
+    SpMV over every entry ("bu"). The step changes the cost, not the
+    result: parents and levels are ``bfs``'s.
+
+    Returns ``(parents, levels, num_iters)`` like ``bfs``.
+    ``bfs_diropt.last_run`` holds the readbacks (one a level, plus the one
+    that ends the loop), the step of each level and each level's frontier
+    statistics.
+    """
+    grid = A.grid
+    n = A.nrows
+    iters = max_iters if max_iters is not None else n
+    row_gids, parents, levels, x = _root_state(A, int(source))
+    # out-degree per column (structural), for the edge budget
+    deg = A.reduce(PLUS_TIMES, "rows", map_fn=ones_i32).blocks
+    csc = csc_tiles(A)
+
+    def mk(b):
+        return DistVec(blocks=b, length=n, align="row", grid=grid)
+
+    level, readbacks, steps, stats = 0, 0, [], []
+    found = None  # the last level's new vertices (0-dim, on the device)
+    while level < iters:
+        act = x >= 0
+        cnt = act.sum()
+        edges = torch.where(act, deg, 0).to(torch.float32).sum()
+        use_td = (cnt <= frontier_capacity) & (edges <= 0.99 * exp_capacity)
+        head = torch.stack([found if found is not None else cnt.new_ones(()), cnt,
+                            use_td.to(cnt.dtype)]).to(torch.float64)
+        vals = torch.cat([head, edges.to(torch.float64)[None],
+                          spmspv_counts(csc, act, frontier_capacity, exp_capacity)
+                          .to(torch.float64)]).tolist()
+        readbacks += 1
+        if not vals[0]:
+            break
+        stats.append({"cnt": int(vals[1]), "edges": vals[3]})
+        xv = DistVec(blocks=x, length=A.ncols, align="col", grid=grid)
+        unvisited = mk(parents < 0)
+        if vals[2]:
+            y = dist_spmspv_masked(
+                SELECT2ND_MAX, A, xv, DistVec(blocks=act, length=A.ncols, align="col", grid=grid),
+                unvisited, frontier_capacity=frontier_capacity, exp_capacity=exp_capacity,
+                csc=csc, counts=[int(v) for v in vals[4:]])
+        else:
+            y = dist_spmv_masked(SELECT2ND_MAX, A, xv, unvisited)
+        steps.append("td" if vals[2] else "bu")
+        new, parents, levels, x = _advance(A, y.blocks, parents, levels, row_gids, level)
+        found = new.sum()
+        level += 1
+    bfs_diropt.last_run = {"readbacks": readbacks, "steps": steps, "frontiers": stats}
+    return mk(parents), mk(levels), level
+
+
+# what the last call's host loop did: device -> host readbacks, the step
+# ("td" | "bu") and the frontier statistics of each level
+bfs_diropt.last_run = None
+
+
+def bfs_diropt_auto(A: SpParMat, source, max_iters: int | None = None):
+    """``bfs_diropt`` with the reference's default budgets: lc/8 frontier
+    columns and an eighth of the tile capacity in walked entries."""
+    lc = A.grid.local_cols(A.ncols)
+    cap = A.capacity
+    fc = min(max(64, lc // 8 + 1), lc)
+    ec = min(max(256, cap // 8 + 1), cap)
+    return bfs_diropt(A, source, frontier_capacity=fc, exp_capacity=ec, max_iters=max_iters)
+
+
+def traversed_edges(A, parents: DistVec) -> torch.Tensor:
+    """Graph500 kernel-2 edge count (0-dim int32): the structural degrees
+    of the discovered vertices, summed in int32 as the reference does, /
+    2 (each undirected edge is stored twice)."""
+    deg = A.reduce(PLUS_TIMES, "cols", map_fn=ones_i32).blocks
+    disc = parents.realign("row").blocks >= 0
+    return torch.where(disc, deg, 0).sum(dtype=torch.int32) // 2
 
 
 def bfs_batch_compact(A: EllParMat, sources, max_iters: int | None = None,
@@ -290,12 +448,7 @@ def bfs_single(E: EllParMat, source, csc, *, tiers, csr=None, coldeg=None, rowde
     search = _SingleSearch(E, csc, csr, coldeg, rowdeg, tiers)
     n = E.nrows
     iters = max_iters if max_iters is not None else n
-    source = int(source)
-    row_gids, col_gids = search.row_gids, search.col_gids
-    parents = torch.where(row_gids == source, source, -1).to(torch.int32)  # [pr, lr]
-    levels = torch.where(row_gids == source, 0, -1).to(torch.int32)
-    # frontier: col-aligned int32 candidates, a column's own global id
-    x = torch.where(col_gids == source, source, -1).to(torch.int32)
+    row_gids, parents, levels, x = _root_state(E, int(source))
     new, counts = None, None
     level, readbacks, steps = 0, 0, []
     while level < iters:
@@ -314,12 +467,8 @@ def bfs_single(E: EllParMat, source, csc, *, tiers, csr=None, coldeg=None, rowde
             step = "dense"
         y = search.step(step, x, undisc, counts)
         steps.append(step)
-        new = (y >= 0) & undisc & (row_gids >= 0)
-        parents = torch.where(new, y, parents)
+        new, parents, levels, x = _advance(E, y, parents, levels, row_gids, level)
         level += 1
-        levels = torch.where(new, level, levels)
-        x = DistVec(blocks=torch.where(new, row_gids, -1), length=n, align="row",
-                    grid=grid).realign("col").blocks
     bfs_single.last_run = {"readbacks": readbacks, "steps": steps}
 
     def mk(b):

@@ -1,11 +1,12 @@
-"""Batched single-source shortest paths — counterpart of ``sssp_batch`` in
-``combblas_tpu/models/sssp.py``: Bellman-Ford over MIN_PLUS from W sources
-at once, one ``dist_spmv_ell_multi`` an iteration.
+"""Single-source shortest paths — counterpart of
+``combblas_tpu/models/sssp.py``: Bellman-Ford over MIN_PLUS (≈
+``SSSP.cpp``). ``sssp`` relaxes every edge a round with one ``dist_spmv``;
+``sssp_batch`` runs W sources at once, one ``dist_spmv_ell_multi`` a round.
 
-The reference runs the loop as one device program (``lax.while_loop``);
-here it is a host loop that reads back one flag an iteration (did any
-distance improve). The single-source ``sssp`` runs on a ``SpParMat`` SpMV,
-which is not ported yet (ROADMAP queue 1, item 9).
+The reference runs each loop as one device program (``lax.while_loop``);
+here it is a host loop that reads back one flag a round (did any distance
+improve). Round counts come back as Python ints (the reference's are int32
+arrays; the values are equal).
 """
 
 from __future__ import annotations
@@ -14,9 +15,38 @@ import torch
 
 from ..operations import minimum
 from ..parallel.ellmat import EllParMat, dist_spmv_ell_multi
+from ..parallel.spmv import dist_spmv
 from ..parallel.vec import DistMultiVec, DistVec
 from ..semiring import MIN_PLUS
 from . import PAD_ROOT
+
+
+def sssp(A, source):
+    """Distances from ``source`` over a weighted matrix (entry (i, j) = w(j
+    → i), non-negative): ``(dist, num_iters)``, a row-aligned DistVec of
+    A's dtype (``+inf``, the integer maximum for integer weights, where
+    unreachable; MIN_PLUS's ``+`` saturates there) and the number of
+    rounds as an int, at most n. ``sssp.last_run`` holds the readbacks
+    (one a round)."""
+    grid = A.grid
+    n = A.nrows
+    gids = DistVec.iota(grid, n, torch.int32, align="row").blocks
+    d = torch.full(gids.shape, MIN_PLUS.zero(A.dtype), dtype=A.dtype,
+                   device=grid.device).masked_fill(gids == int(source), 0)
+    it, changed = 0, True
+    while changed and it < n:
+        relaxed = dist_spmv(MIN_PLUS, A, DistVec(blocks=d, length=n, align="row",
+                                                 grid=grid).realign("col")).blocks
+        nxt = minimum(d, relaxed)
+        changed = bool((nxt != d).any())
+        d = nxt
+        it += 1
+    sssp.last_run = {"readbacks": it}
+    return DistVec(blocks=d, length=n, align="row", grid=grid), it
+
+
+# the last call's device -> host readbacks (one a round)
+sssp.last_run = None
 
 
 def sssp_batch(E: EllParMat, sources):

@@ -3,7 +3,9 @@
 Combine values that share a key with the semiring's ``add``: the monoids
 torch can scatter-combine natively (``sum``, ``min``, ``max``) in one
 scatter, any other monoid by a sort and a segmented fold. Out-of-range ids
-(>= num_segments, the padding slots) are dropped.
+(>= num_segments, the padding slots) are dropped; ``spread_drops`` and
+``segment_reduce_dropping`` drop the slots of a mask over many sink
+segments.
 ``expand_ranges`` maps static-capacity slots back to variable-length
 ranges.
 """
@@ -15,6 +17,9 @@ import torch
 from ..semiring import Semiring
 
 _SCATTER_REDUCE = {"min": "amin", "max": "amax"}
+
+# sink segments of ``segment_reduce_dropping``, cycled over the dropped slots
+DROP_SPREAD = 4096
 
 
 def segment_reduce(
@@ -47,6 +52,24 @@ def segment_reduce(
         bits.scatter_reduce_(0, index, float_bits(vals), reduce=reduce)
         out = fix_signed_zeros(out, bits, sr.add_kind)
     return out[:num_segments]
+
+
+def spread_drops(ids: torch.Tensor, keep: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``ids`` where ``keep``; elsewhere one of ``DROP_SPREAD`` sink ids past
+    ``num_segments``, cycled along the last axis. Folded by
+    ``segment_reduce`` into ``num_segments + DROP_SPREAD`` segments, the
+    first ``num_segments`` are the fold of the kept slots: one sink would
+    serialise the atomics of every dropped slot on one address."""
+    sink = torch.arange(ids.shape[-1], dtype=ids.dtype, device=ids.device) % DROP_SPREAD
+    return torch.where(keep, ids, sink + num_segments)
+
+
+def segment_reduce_dropping(sr: Semiring, vals: torch.Tensor, ids: torch.Tensor,
+                            keep: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``segment_reduce`` of the slots where ``keep``; the others fold into
+    spread sinks (``spread_drops``) and are cut off."""
+    return segment_reduce(sr, vals, spread_drops(ids, keep, num_segments),
+                          num_segments + DROP_SPREAD)[:num_segments]
 
 
 def float_bits(v: torch.Tensor) -> torch.Tensor:

@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from ..ops.segment import expand_ranges, fix_signed_zeros, float_bits, segment_reduce
-from ..semiring import Semiring, _maxval, _minval
-from .grid import Grid, HostGrid
+from ..semiring import Semiring
+from .grid import Grid, HostGrid, check_length, fold_grid
 from .spmat import bucket_by_tile
 from .vec import DistMultiVec, DistVec
 
@@ -411,50 +411,18 @@ def _ell_local_spmv_multi(sr: Semiring, buckets, x2: torch.Tensor, lr: int,
     return _ell_local_spmm(sr, buckets, x2, lr, lc, "scatter")
 
 
-def _fold_grid(sr: Semiring, E: EllParMat, local, x_blocks: torch.Tensor,
-               active: torch.Tensor | None = None) -> torch.Tensor:
-    """``local(tile buckets, x block j)`` for every tile, masked by the row
-    block ``active[i]`` where given, combined over each grid row in column
-    order: [pr, lr, ...] row-aligned blocks.
-
-    The combine is the reference's ``axis_reduce`` as it runs on the CPU:
-    a running sum, a running ``sr.add`` for a generic monoid, and for min
-    and max a pass from the dtype's extreme that takes a value only where
-    it is strictly better. So over two or more grid columns a NaN drops
-    out and the first of two equal zeros stays; over one column the value
-    passes as it is."""
-    kind = sr.add_kind
-    out = []
-    for i in range(E.grid.pr):
-        ys = []
-        for j in range(E.grid.pc):
-            y = local(_tile_buckets(E, i, j), x_blocks[j])
-            if active is not None:
-                y = torch.where(active[i], y, sr.zero(y.dtype))
-            ys.append(y)
-        acc = ys[0]
-        if kind in ("min", "max") and len(ys) > 1:
-            acc = torch.full_like(acc, (_maxval if kind == "min" else _minval)(acc.dtype))
-            for y in ys:
-                acc = torch.where(y < acc if kind == "min" else y > acc, y, acc)
-        else:
-            for y in ys[1:]:
-                acc = sr.add(acc, y)
-        out.append(acc)
-    return torch.stack(out)
-
-
-def _check_length(E: EllParMat, x) -> None:
-    if x.length != E.ncols:
-        raise ValueError(f"vector of length {x.length} for a matrix of {E.ncols} columns")
+def _tile_fold(E: EllParMat, f, x_blocks):
+    """The ``local(i, j)`` that ``fold_grid`` takes: ``f(tile (i, j)'s
+    buckets, x_blocks[j])``."""
+    return lambda i, j: f(_tile_buckets(E, i, j), x_blocks[j])
 
 
 def dist_spmv_ell(sr: Semiring, E: EllParMat, x: DistVec) -> DistVec:
     """y = E ⊗ x: x is taken col-aligned, y comes back row-aligned."""
-    _check_length(E, x)
+    check_length(E, x)
     lr, lc = E.local_rows, E.local_cols
-    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv(sr, b, xb, lr, lc),
-                        x.realign("col").blocks)
+    blocks = fold_grid(sr, E.grid, _tile_fold(
+        E, lambda b, xb: _ell_local_spmv(sr, b, xb, lr, lc), x.realign("col").blocks))
     return DistVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
 
 
@@ -462,29 +430,31 @@ def dist_spmv_ell_masked(sr: Semiring, E: EllParMat, x: DistVec,
                          row_active: DistVec) -> DistVec:
     """y = E ⊗ x where ``row_active`` (bool) holds, ``sr.zero`` elsewhere;
     the mask applies to each tile's fold before the combine over tiles."""
-    _check_length(E, x)
+    check_length(E, x)
     lr, lc = E.local_rows, E.local_cols
-    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv(sr, b, xb, lr, lc),
-                        x.realign("col").blocks, row_active.realign("row").blocks)
+    blocks = fold_grid(sr, E.grid, _tile_fold(
+        E, lambda b, xb: _ell_local_spmv(sr, b, xb, lr, lc), x.realign("col").blocks),
+        row_active.realign("row").blocks)
     return DistVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
 
 
 def dist_spmv_ell_multi(sr: Semiring, E: EllParMat, X: DistMultiVec) -> DistMultiVec:
     """Y = E ⊗ X for W stacked vectors (``sssp_batch``'s step)."""
-    _check_length(E, X)
+    check_length(E, X)
     lr, lc = E.local_rows, E.local_cols
-    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv_multi(sr, b, xb, lr, lc),
-                        X.realign("col").blocks)
+    blocks = fold_grid(sr, E.grid, _tile_fold(
+        E, lambda b, xb: _ell_local_spmv_multi(sr, b, xb, lr, lc), X.realign("col").blocks))
     return DistMultiVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
 
 
 def dist_spmv_ell_masked_multi(sr: Semiring, E: EllParMat, X: DistMultiVec,
                                row_active: DistMultiVec) -> DistMultiVec:
     """Y = E ⊗ X with a per-lane row mask (``bfs_batch``'s step)."""
-    _check_length(E, X)
+    check_length(E, X)
     lr, lc = E.local_rows, E.local_cols
-    blocks = _fold_grid(sr, E, lambda b, xb: _ell_local_spmv_multi(sr, b, xb, lr, lc),
-                        X.realign("col").blocks, row_active.realign("row").blocks)
+    blocks = fold_grid(sr, E.grid, _tile_fold(
+        E, lambda b, xb: _ell_local_spmv_multi(sr, b, xb, lr, lc), X.realign("col").blocks),
+        row_active.realign("row").blocks)
     return DistMultiVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
 
 
@@ -493,9 +463,9 @@ def _ell_reduce_rows(E: EllParMat, sr: Semiring, map_fn) -> DistVec:
     (mapped by ``map_fn``) folded with ``sr.add``."""
     lr, lc = E.local_rows, E.local_cols
 
-    def local(buckets, _x):
+    def local(i, j):
         y = None
-        for bc, bv, br in buckets:
+        for bc, bv, br in _tile_buckets(E, i, j):
             v = map_fn(bv) if map_fn is not None else bv
             zero = sr.zero(v.dtype)
             yb = _bucket_fold(sr, torch.where(bc < lc, v, zero))
@@ -508,7 +478,7 @@ def _ell_reduce_rows(E: EllParMat, sr: Semiring, map_fn) -> DistVec:
             return torch.full((lr,), sr.zero(dtype), dtype=dtype, device=E.grid.device)
         return y[:lr]
 
-    blocks = _fold_grid(sr, E, local, [None] * E.grid.pc)
+    blocks = fold_grid(sr, E.grid, local)
     return DistVec(blocks=blocks, length=E.nrows, align="row", grid=E.grid)
 
 

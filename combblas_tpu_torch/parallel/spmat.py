@@ -2,19 +2,29 @@
 ``combblas_tpu/parallel/spmat.py``.
 
 Tiles are stacked as ``[pr, pc, cap]`` tensors on ``grid.device``, with
-tile-local indices: padding slots hold ``(local_rows, local_cols)``.
+tile-local indices: padding slots hold ``(local_rows, local_cols)``. Ported:
+construction and host access, the per-tile maps (``tile_map``,
+``tile_map_indexed``, ``apply``, ``prune``, ``keep_ij`` and its
+``tril`` / ``triu`` / ``remove_loops``), ``reduce``, ``transpose`` and
+``dim_apply``. The tiles are walked in a loop where the reference runs one
+program per device; ``reduce`` combines over the grid as the reference's
+collectives do on the CPU (``grid.fold_grid``). The elementwise, select
+and split families wait for ROADMAP queue 1, item 9.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..ops.segment import segment_reduce, spread_drops
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring
-from .grid import Grid, HostGrid
+from .grid import Grid, HostGrid, fold_grid
+from .vec import DistVec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +54,14 @@ class SpParMat:
     @property
     def dtype(self) -> torch.dtype:
         return self.vals.dtype
+
+    @functools.cached_property
+    def fold_rows(self) -> torch.Tensor:
+        """``rows`` with the padding slots spread over sink rows past
+        ``local_rows`` (``ops.segment.spread_drops``): the row each slot of
+        a local ``spmv`` folds into. Made on first use and kept, as the
+        matrix is never changed in place."""
+        return spread_drops(self.rows, self.rows < self.local_rows, self.local_rows)
 
     def getnnz(self) -> torch.Tensor:
         """Total nonzeros (a 0-dim device tensor)."""
@@ -87,6 +105,93 @@ class SpParMat:
             [fn(self.local_tile(i, j)) for j in range(self.grid.pc)]
             for i in range(self.grid.pr)
         ]
+        return SpParMat.from_tiles(tiles, self.nrows, self.ncols, self.grid)
+
+    def tile_map_indexed(self, fn) -> "SpParMat":
+        """Apply ``fn(tile, row_offset, col_offset) -> SpTuples`` to every
+        tile; the offsets are the tile's global origin."""
+        lr, lc = self.local_rows, self.local_cols
+        tiles = [
+            [fn(self.local_tile(i, j), i * lr, j * lc) for j in range(self.grid.pc)]
+            for i in range(self.grid.pr)
+        ]
+        return SpParMat.from_tiles(tiles, self.nrows, self.ncols, self.grid)
+
+    def keep_ij(self, pred) -> "SpParMat":
+        """Keep the entries where ``pred(global_row, global_col)`` holds.
+        Reference: ``SpParMat::PruneI``."""
+        return self.tile_map_indexed(
+            lambda t, ro, co: t.select_ij(lambda r, c: pred(r + ro, c + co)))
+
+    def tril(self, strict: bool = True) -> "SpParMat":
+        """The lower triangle (strict by default)."""
+        return self.keep_ij(_pred_tril_strict if strict else _pred_tril)
+
+    def triu(self, strict: bool = True) -> "SpParMat":
+        return self.keep_ij(_pred_triu_strict if strict else _pred_triu)
+
+    def remove_loops(self) -> "SpParMat":
+        """Drop the diagonal. Reference: ``SpParMat::RemoveLoops``."""
+        return self.keep_ij(_pred_offdiag)
+
+    def apply(self, fn) -> "SpParMat":
+        """``fn`` on every stored value. Reference: ``SpParMat::Apply``."""
+        return self.tile_map(lambda t: t.apply(fn))
+
+    def prune(self, pred) -> "SpParMat":
+        """Drop the entries where ``pred(val)``. Reference:
+        ``SpParMat::Prune``."""
+        return self.tile_map(lambda t: t.prune(pred))
+
+    def reduce(self, sr: Semiring, axis: str, map_fn=None) -> DistVec:
+        """Fold the entries with ``sr.add`` (values mapped by ``map_fn``
+        first): ``axis="rows"`` folds each column into a col-aligned vector
+        of ``ncols``, ``axis="cols"`` each row into a row-aligned vector of
+        ``nrows``. Reference: ``SpParMat::Reduce``."""
+        if axis not in ("rows", "cols"):
+            raise ValueError(f"axis must be 'rows' or 'cols', got {axis!r}")
+        by_col = axis == "rows"
+        seg_n = self.local_cols if by_col else self.local_rows
+
+        def local(i, j):
+            t = self.local_tile(i, j)
+            v = map_fn(t.vals) if map_fn is not None else t.vals
+            return segment_reduce(sr, v, t.cols if by_col else t.rows, seg_n)
+
+        return DistVec(blocks=fold_grid(sr, self.grid, local, down_cols=by_col),
+                       length=self.ncols if by_col else self.nrows,
+                       align="col" if by_col else "row", grid=self.grid)
+
+    def transpose(self) -> "SpParMat":
+        """Aᵀ: tile (i, j) moves to (j, i) and is transposed in place.
+        Square grids only, as in the reference. Reference:
+        ``SpParMat::Transpose``."""
+        if not self.grid.is_square:
+            raise ValueError("transpose requires a square grid")
+        tiles = [
+            [self.local_tile(j, i).transpose() for j in range(self.grid.pr)]
+            for i in range(self.grid.pc)
+        ]
+        return SpParMat.from_tiles(tiles, self.ncols, self.nrows, self.grid)
+
+    def dim_apply(self, vec: DistVec, fn, axis: str) -> "SpParMat":
+        """Scale the entries by a vector: ``axis="cols"``: entry (i, j) ←
+        ``fn(val, vec[j])``; ``axis="rows"``: ← ``fn(val, vec[i])``. A
+        padding slot's index is clamped to the block's end, where a 0 is
+        appended. Reference: ``SpParMat::DimApply``."""
+        if axis not in ("rows", "cols"):
+            raise ValueError(f"axis must be 'rows' or 'cols', got {axis!r}")
+        on_cols = axis == "cols"
+        blocks = vec.realign("col" if on_cols else "row").blocks
+
+        def scaled(t: SpTuples, v: torch.Tensor) -> SpTuples:
+            vpad = torch.cat([v, v.new_zeros(1)])
+            idx = torch.clamp(t.cols if on_cols else t.rows, max=v.shape[0])
+            new = torch.where(t.valid_mask(), fn(t.vals, vpad.index_select(0, idx)), t.vals)
+            return dataclasses.replace(t, vals=new)
+
+        tiles = [[scaled(self.local_tile(i, j), blocks[j] if on_cols else blocks[i])
+                  for j in range(self.grid.pc)] for i in range(self.grid.pr)]
         return SpParMat.from_tiles(tiles, self.nrows, self.ncols, self.grid)
 
     @staticmethod
@@ -187,6 +292,26 @@ def bucket_by_tile(
         raise ValueError(f"tile nnz {counts.max()} exceeds capacity {cap}")
     starts = np.concatenate([[0], np.cumsum(counts)])
     return rows, cols, order, counts, starts, cap, lr, lc
+
+
+def _pred_tril_strict(r, c):
+    return r > c
+
+
+def _pred_tril(r, c):
+    return r >= c
+
+
+def _pred_triu_strict(r, c):
+    return r < c
+
+
+def _pred_triu(r, c):
+    return r <= c
+
+
+def _pred_offdiag(r, c):
+    return r != c
 
 
 def ones_i32(v: torch.Tensor) -> torch.Tensor:

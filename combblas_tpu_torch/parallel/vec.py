@@ -14,6 +14,18 @@ on a square grid block i of one alignment is block i of the other, and
 on a rectangular grid the flattened blocks are zero-padded and cut anew.
 Padding slots (past ``length``) must hold values that are inert for the
 ops applied to them.
+
+The op pack (``apply`` … ``randperm``, ``concatenate``) works on the
+flattened blocks, as the reference's does on its global view. Every op but
+``randperm`` gives the reference's blocks bit for bit: ``sort`` and
+``uniq`` order floats as ``lax.sort`` does (-inf, …, ±0.0 as one value,
+…, +inf, then every NaN as one value) through an order-preserving integer
+key of their bits, and ties keep the slot order. ``randperm`` takes a
+``torch.Generator`` where the reference takes a JAX key, so its
+permutation is another one.
+Scatters that the reference runs with ``mode="drop"`` send the dropped
+slots to a spread of sink slots past the end, cut off afterwards
+(``segment_reduce_dropping``).
 """
 
 from __future__ import annotations
@@ -23,9 +35,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .grid import Grid
-
-_LATER = "is not ported yet (ROADMAP queue 1, item 9: the DistVec op pack)"
+from ..ops.segment import fix_signed_zeros, float_bits, segment_reduce_dropping
+from ..semiring import PLUS_TIMES, Semiring
+from .grid import Grid, combine_tiles
 
 
 def _nblocks(grid: Grid, align: str) -> int:
@@ -103,18 +115,194 @@ class DistVec:
             length=self.length, align=align, grid=self.grid,
         )
 
+    def _with(self, blocks: torch.Tensor) -> "DistVec":
+        return dataclasses.replace(self, blocks=blocks)
 
-def _later(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(f"DistVec.{name} {_LATER}")
+    def _gids(self) -> torch.Tensor:
+        return torch.arange(self.blocks.numel(), dtype=torch.int32, device=self.blocks.device)
 
-    stub.__name__ = name
-    return stub
+    # --- elementwise ------------------------------------------------------
+
+    def apply(self, fn) -> "DistVec":
+        """``fn`` on the blocks. Reference: ``FullyDistVec::Apply``."""
+        return self._with(fn(self.blocks))
+
+    def ewise(self, other: "DistVec", fn) -> "DistVec":
+        """``fn(self, other)`` blockwise; alignments and lengths must match."""
+        if (self.align, self.length) != (other.align, other.length):
+            raise ValueError(f"ewise of a {self.align} vector of {self.length} with a "
+                             f"{other.align} vector of {other.length}")
+        return self._with(fn(self.blocks, other.blocks))
+
+    def mask_padding(self, fill) -> "DistVec":
+        """Padding slots (global index >= length) set to ``fill``."""
+        gids = self._gids().view(self.blocks.shape)
+        return self._with(torch.where(gids < self.length, self.blocks, fill))
+
+    # --- indirect addressing ----------------------------------------------
+
+    def gather(self, idx: "DistVec") -> "DistVec":
+        """``out[k] = self[idx[k]]``, aligned like ``idx``. The index is
+        clipped to the padded blocks, so an index out of ``[0, length)`` (and
+        idx's own padding) reads some slot: callers mask those results."""
+        full = self.blocks.reshape(-1)
+        safe = torch.clamp(idx.blocks, 0, full.shape[0] - 1).long()
+        return DistVec(blocks=full[safe], length=idx.length, align=idx.align, grid=idx.grid)
+
+    def scatter_combine(self, sr: Semiring, idx: "DistVec", src: "DistVec") -> "DistVec":
+        """``out[p] = sr.add(self[p], ⊕{src[k] : idx[k] == p})``: the
+        padding slots of ``idx`` and ids outside ``[0, length)`` drop out,
+        untouched slots keep their value (their fold is ``sr.zero``).
+        Reference: ``FullyDistVec::ReduceAssign``."""
+        if (idx.align, idx.length) != (src.align, src.length):
+            raise ValueError("scatter_combine: idx and src must share alignment and length")
+        n = self.blocks.numel()
+        ids = idx.blocks.reshape(-1)
+        pos = torch.arange(ids.shape[0], device=ids.device)
+        keep = (pos < idx.length) & (ids >= 0) & (ids < self.length)
+        contrib = segment_reduce_dropping(sr, src.blocks.reshape(-1), ids, keep, n)
+        return self._with(sr.add(self.blocks.reshape(-1), contrib).view(self.blocks.shape))
+
+    def reduce(self, sr: Semiring) -> torch.Tensor:
+        """Fold of every slot with ``sr.add`` (a 0-dim tensor; padding must
+        hold the identity): each block folded, then the blocks combined in
+        order as the reference's cross-device reduction does on the CPU
+        (``grid.combine_tiles``: over two or more blocks a min or max drops
+        a NaN block result and keeps the first of equal zeros). Sums keep
+        the blocks' dtype (bool counts as int32); a block's float min or
+        max gives the reference's signed zeros. Reference:
+        ``FullyDistVec::Reduce``."""
+        b = self.blocks
+        if sr.add_kind == "sum":
+            parts = b.sum(dim=1, dtype=torch.int32 if b.dtype == torch.bool else b.dtype)
+        elif sr.add_kind in ("min", "max"):
+            fold = torch.amin if sr.add_kind == "min" else torch.amax
+            parts = fold(b, dim=1)
+            if parts.is_floating_point():
+                parts = fix_signed_zeros(parts, fold(float_bits(b), dim=1), sr.add_kind)
+        else:  # any other monoid: a pairwise tree over each block
+            parts = b
+            while parts.shape[1] > 1:
+                if parts.shape[1] % 2:
+                    parts = torch.cat([parts, parts.new_full((b.shape[0], 1), sr.zero(b.dtype))],
+                                      dim=1)
+                parts = sr.add(parts[:, 0::2], parts[:, 1::2])
+            parts = parts[:, 0]
+        return combine_tiles(sr, list(parts))
+
+    # --- the sort / find / permute family ---------------------------------
+
+    def sort(self) -> tuple["DistVec", "DistVec"]:
+        """Ascending sort: (sorted values, their original global indices);
+        padding slots go last whatever their value. Reference:
+        ``FullyDistVec::sort``."""
+        flat = self.blocks.reshape(-1)
+        gids = self._gids()
+        order = _lexsort([gids >= self.length, _order_key(flat)])
+        return self._with(flat[order].view(self.blocks.shape)), \
+            self._with(gids[order].view(self.blocks.shape))
+
+    def find_inds(self, pred) -> tuple["DistVec", torch.Tensor]:
+        """The global indices i < length (ascending) where ``pred(self[i])``,
+        in a vector of the same blocks whose tail holds ``length``, and
+        their count (0-dim int32). Reference: ``FullyDistVec::FindInds``."""
+        flat = self.blocks.reshape(-1)
+        mask = pred(flat) & (self._gids() < self.length)
+        hits = torch.nonzero(mask).squeeze(1).to(torch.int32)
+        out = torch.full_like(self._gids(), self.length)
+        out[: hits.shape[0]] = hits
+        return self._with(out.view(self.blocks.shape)), mask.sum(dtype=torch.int32)
+
+    def invert(self, active: "DistVec", out_length: int, sr: Semiring) -> "DistVec":
+        """``out[self[i]] = i`` for the active slots i; collisions resolve by
+        ``sr.add``; untouched outputs are -1. The output has ``out_length``
+        slots in blocks of ``ceil(out_length / pa)``. Reference:
+        ``FullyDistSpVec::Invert``."""
+        pa = self.blocks.shape[0]
+        n = pa * -(-out_length // pa)
+        flat = self.blocks.reshape(-1).to(torch.int32)
+        gids = self._gids()
+        ok = active.blocks.reshape(-1) & (gids < self.length)
+        keep = ok & (flat >= 0) & (flat < out_length)
+        contrib = segment_reduce_dropping(sr, gids, flat, keep, n)
+        touched = segment_reduce_dropping(PLUS_TIMES, keep.to(torch.int32), flat, keep, n) > 0
+        out = torch.where(touched, contrib, -1)
+        return DistVec(blocks=out.view(pa, -1), length=out_length, align=self.align,
+                       grid=self.grid)
+
+    def uniq(self, active: "DistVec") -> "DistVec":
+        """The active mask cut to the first occurrence of each value among
+        the active slots (by value, then index). Reference:
+        ``FullyDistSpVec::Uniq``; set difference is mask arithmetic,
+        ``a & ~b``."""
+        flat = self.blocks.reshape(-1)
+        gids = self._gids()
+        ok = active.blocks.reshape(-1) & (gids < self.length)
+        order = _lexsort([~ok, _order_key(flat)])
+        vals = flat[order]
+        first = torch.ones_like(ok)
+        first[1:] = vals[1:] != vals[:-1]
+        keep_sorted = first & (torch.arange(ok.shape[0], device=ok.device) < ok.sum())
+        keep = torch.zeros_like(ok)
+        keep[order] = keep_sorted
+        return active._with(keep.view(active.blocks.shape))
+
+    @staticmethod
+    def randperm(grid: Grid, length: int, generator: torch.Generator | None = None,
+                 align: str = "col") -> "DistVec":
+        """A uniform random permutation of ``[0, length)`` drawn from
+        ``generator`` on its own device (when None, from the default
+        generator of the grid's device), the padding slots after it in
+        order. Reference: ``FullyDistVec::RandPerm``, which takes a JAX key:
+        the permutation differs from the reference's."""
+        v = DistVec.iota(grid, length, torch.int32, align=align)
+        gen_dev = generator.device if generator is not None else v.blocks.device
+        head = torch.randperm(length, generator=generator, device=gen_dev)
+        flat = v.blocks.reshape(-1).clone()
+        flat[:length] = head.to(device=flat.device, dtype=flat.dtype)
+        return v._with(flat.view(v.blocks.shape))
 
 
-for _name in ("apply", "ewise", "mask_padding", "gather", "scatter_combine", "reduce",
-              "sort", "find_inds", "invert", "uniq", "randperm"):
-    setattr(DistVec, _name, _later(_name))
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is ``lax.sort``'s order of ``v``: integers as
+    they are; floats by their bits with the negative half flipped, after
+    the reference's canonicalisation (-0.0 sorts as +0.0, every NaN as one
+    value after +inf)."""
+    if not v.is_floating_point():
+        return v.long()
+    v = torch.where(v == 0, 0.0, v).to(v.dtype)
+    v = torch.where(v.isnan(), float("nan"), v).to(v.dtype)
+    bits = float_bits(v).long()
+    width = 8 * v.element_size()
+    key = torch.where(bits < 0, bits ^ ((1 << (width - 1)) - 1), bits)
+    return torch.where(v.isnan(), torch.iinfo(torch.int64).max, key)
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """The permutation that sorts by ``keys`` (most significant first),
+    ties in slot order: stable sorts from the least significant key up."""
+    order = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        order = order[torch.sort(k[order].to(torch.int64), stable=True).indices]
+    return order
+
+
+def concatenate(vecs, grid: Grid | None = None, align: str | None = None, fill=0) -> DistVec:
+    """The vectors one after another (``Concatenate``, ParFriends.h): each
+    one's blocks flattened and cut to its length, joined, padded with
+    ``fill`` and laid out on ``grid`` (default: the first vector's) in
+    ``align`` (default: the first vector's). Every grid lives on one device:
+    the result moves to the target grid's."""
+    if not vecs:
+        raise ValueError("concatenate needs at least one vector")
+    grid = grid or vecs[0].grid
+    align = align or vecs[0].align
+    pa = _nblocks(grid, align)
+    flat = torch.cat([v.blocks.reshape(-1)[: v.length].to(grid.device) for v in vecs])
+    total = flat.shape[0]
+    L = -(-total // pa)
+    flat = torch.cat([flat, flat.new_full((pa * L - total,), fill)])
+    return DistVec(blocks=flat.view(pa, L), length=total, align=align, grid=grid)
 
 
 @dataclasses.dataclass(frozen=True)

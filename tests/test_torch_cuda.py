@@ -1,7 +1,10 @@
 """Tests of the port that need an NVIDIA card: each CUDA kernel against its
 plain PyTorch version, the mxu SpGEMM path, the dense -> sparse
-extraction, the batched and single-root BFS, the ELL SpMV family and the
-batched SSSP on the card against the same calls on the CPU. Marked
+extraction, the batched and single-root BFS, the ELL SpMV family, the
+batched SSSP, and the SpParMat path (local and distributed SpMV forms,
+the DistVec op pack, the SpParMat operations, bfs, bfs_diropt, sssp,
+FastSV, LACC, mis, pagerank) on the card against the same calls on the
+CPU. Marked
 ``cuda``; they skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -62,7 +65,30 @@ from combblas_tpu_torch import (
     sssp_batch,
     validate_bfs_device,
 )
+from combblas_tpu_torch import (
+    CSC,
+    CSR,
+    SELECT2ND_MIN,
+    bfs,
+    bfs_diropt,
+    bfs_diropt_auto,
+    concatenate,
+    connected_components,
+    dist_spmspv,
+    dist_spmspv_masked,
+    dist_spmv,
+    dist_spmv_masked,
+    lacc,
+    mis,
+    ones_i32,
+    pagerank,
+    pagerank_batch,
+    sssp,
+    traversed_edges,
+)
+from combblas_tpu_torch.models import mis as mis_mod
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS, chunk_rows, resident_blocks
+from combblas_tpu_torch.ops.spmv import spmspv, spmspv_dense_out, spmv
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, _kernel
 
 pytestmark = pytest.mark.cuda
@@ -589,3 +615,231 @@ def test_spmv_forms_on_card_match_cpu(case, sr, cuda_device):
             assert a.dtype == b.dtype and torch.equal(a, b)
             if a.is_floating_point():
                 assert torch.equal(torch.signbit(a), torch.signbit(b))
+
+
+# --- the SpParMat path: SpMV layer, op pack, apps --------------------------
+
+def _graph_case(scale=11, seed=3):
+    """A symmetric R-MAT-like graph with hubs, sorted and without
+    duplicates or loops: (n, rows, cols)."""
+    g = build_graph(scale, 16, nroots=4)
+    return 1 << scale, g["rows"].astype(np.int64), g["cols"].astype(np.int64), g["roots"]
+
+
+def _same(a, b, tol=False):
+    a, b = a.cpu(), b.cpu()
+    if tol:
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+        return
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.is_floating_point():
+        assert torch.equal(a.isnan(), b.isnan())
+        keep = ~a.isnan()
+        assert torch.equal(a[keep], b[keep])
+        assert torch.equal(torch.signbit(a[keep]), torch.signbit(b[keep]))
+    else:
+        assert torch.equal(a, b)
+
+
+SP_CASES = [("plus_times-int", PLUS_TIMES), ("plus_times-float", PLUS_TIMES),
+            ("min_plus", MIN_PLUS), ("max_min", MAX_MIN), ("select2nd_max", SELECT2ND_MAX),
+            ("select2nd_min", SELECT2ND_MIN)]
+
+
+@pytest.mark.parametrize("case, sr", SP_CASES, ids=[c for c, _ in SP_CASES])
+def test_spparmat_spmv_layer_on_card_matches_cpu(case, sr, cuda_device):
+    """The local kernels and the four distributed forms over a 2×2 grid:
+    exact on the card against the CPU, but ``plus_times`` on non-integer
+    data: per row within 2 · len · 2**-24 · Σ|a||x| of each other (two
+    float32 sums of ``len`` terms in any order; rows here reach hundreds of
+    entries)."""
+    n, r, c, _ = _graph_case()
+    rng = np.random.default_rng(5)
+    if case == "plus_times-float":
+        vals, x = rng.uniform(-1, 1, len(r)).astype(np.float32), rng.uniform(-1, 1, n)
+        x = x.astype(np.float32)
+    elif case.startswith("select2nd"):
+        vals = np.ones(len(r), np.float32)
+        x = np.where(rng.random(n) < 0.3, np.arange(n), -1).astype(np.int32)
+    else:
+        vals = rng.integers(-8, 9, len(r)).astype(np.float32)
+        x = rng.integers(-8, 9, n).astype(np.float32)
+        if case != "plus_times-int":
+            x[rng.random(n) < 0.05] = -0.0
+    act, unv = rng.random(n) < 0.2, rng.random(n) < 0.7
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(2, 2, device=dev)
+        A = SpParMat.from_global_coo(grid, r, c, vals, n, n)
+        t = A.local_tile(0, 0)
+        csc = CSC.from_tuples(t)
+        xv = DistVec.from_global(grid, x)
+        av, uv = DistVec.from_global(grid, act), DistVec.from_global(grid, unv, align="row")
+        xb = xv.blocks[0]
+        sel = torch.nonzero(av.blocks[0]).squeeze(1).to(torch.int32)
+        y, ya, ynnz = dist_spmspv(sr, A, xv, av)
+        out.append([spmv(sr, t, xb), spmspv_dense_out(sr, csc, sel, xb[sel], exp_capacity=999),
+                    *spmspv(sr, csc, sel, xb[sel], torch.tensor(0), out_capacity=300)[:2],
+                    dist_spmv(sr, A, xv).blocks, dist_spmv_masked(sr, A, xv, uv).blocks,
+                    y.blocks, ya.blocks, ynnz,
+                    dist_spmspv_masked(sr, A, xv, av, uv, frontier_capacity=100,
+                                       exp_capacity=5000).blocks])
+    if case != "plus_times-float":
+        for a, b in zip(*out):
+            _same(a, b)
+        return
+    grid = Grid.make(2, 2, device="cpu")
+    A = SpParMat.from_global_coo(grid, r, c, np.abs(vals), n, n)
+    row_abs = dist_spmv(PLUS_TIMES, A, DistVec.from_global(grid, np.abs(x))).blocks
+    row_len = A.reduce(PLUS_TIMES, "cols", map_fn=ones_i32).blocks
+    tol = (2 * row_len * 2.0**-24 * row_abs).double()
+    for a, b in zip(*out):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if not a.is_floating_point():
+            assert torch.equal(a, b)
+            continue
+        bound = tol if a.shape == tol.shape else tol[0] if a.shape == tol[0].shape else tol.max()
+        assert ((a.double() - b.double()).abs() <= bound).all()
+
+
+def test_spparmat_ops_on_card_match_cpu(cuda_device):
+    """apply, prune, the triangles, reduce on both axes, transpose,
+    dim_apply, to_dense and CSC/CSR on a 2×2 grid: exact."""
+    n, r, c, _ = _graph_case(10)
+    v = np.random.default_rng(6).integers(-5, 6, len(r)).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(2, 2, device=dev)
+        A = SpParMat.from_global_coo(grid, r, c, v, n, n)
+        s = DistVec.from_global(grid, np.arange(n, dtype=np.float32) % 7, align="row")
+        mats = [A.apply(lambda x: x * 2), A.prune(lambda x: x < 0), A.tril(), A.triu(False),
+                A.remove_loops(), A.transpose(), A.dim_apply(s, torch.mul, "cols"),
+                A.dim_apply(s, torch.sub, "rows")]
+        vecs = [A.reduce(sr, ax, map_fn=f).blocks for sr in (PLUS_TIMES, MIN_PLUS, MAX_MIN)
+                for ax in ("rows", "cols") for f in (None, ones_i32)]
+        t = A.local_tile(1, 0)
+        comp = [CSC.from_tuples(t), CSR.from_tuples(t)]
+        out.append([x for m in mats for x in (m.rows, m.cols, m.vals, m.nnz)] + vecs
+                   + [t.to_dense(), t.to_dense(MIN_PLUS)]
+                   + [x for cm in comp for x in (cm.indptr, cm.indices, cm.vals)])
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_distvec_op_pack_on_card_matches_cpu(cuda_device):
+    """Every op of the pack but randperm exact on the card against the CPU
+    (a 2×4 grid, floats with ±0 and NaN); randperm a permutation with the
+    padding last, from a generator on the card."""
+    rng = np.random.default_rng(7)
+    n = 5000
+    f = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, -1.5, 2.5, 3.0], np.float32), n)
+    iv = rng.integers(-3, n + 3, n).astype(np.int32)
+    act = rng.random(n) < 0.6
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(2, 4, device=dev)
+        fv, ix = DistVec.from_global(grid, f), DistVec.from_global(grid, iv, align="row")
+        av = DistVec.from_global(grid, act)
+        base = DistVec.from_global(grid, np.full(n, 10**6, np.int32))
+        src = DistVec.from_global(grid, np.arange(n, dtype=np.int32), align="row")
+        sv, si = fv.sort()
+        inds, cnt = ix.find_inds(lambda b: b > 100)
+        out.append([fv.gather(ix).blocks, base.scatter_combine(SELECT2ND_MIN, ix, src).blocks,
+                    fv.reduce(MIN_PLUS), fv.reduce(MAX_MIN), ix.reduce(PLUS_TIMES), sv.blocks,
+                    si.blocks, inds.blocks, cnt, ix.invert(av.realign("row"), n, SELECT2ND_MIN)
+                    .blocks, fv.uniq(av).blocks, fv.mask_padding(7.0).blocks,
+                    concatenate([fv, DistVec.from_global(Grid.make(1, 1, device=dev), f[:9])])
+                    .blocks])
+    for a, b in zip(*out):
+        _same(a, b)
+    grid = Grid.make(2, 2, device=cuda_device)
+    p = DistVec.randperm(grid, 1001, torch.Generator(device=cuda_device).manual_seed(3))
+    flat = p.blocks.reshape(-1).cpu().numpy()
+    assert p.blocks.device.type == "cuda"
+    np.testing.assert_array_equal(np.sort(flat[:1001]), np.arange(1001))
+    np.testing.assert_array_equal(flat[1001:], np.arange(1001, flat.shape[0]))
+
+
+def test_default_generator_draws_on_the_card(cuda_device, monkeypatch):
+    """Without a generator, randperm and mis draw with the card's default
+    generator: every torch.randperm call they make is on the card, and so
+    is what they return."""
+    devices = []
+    randperm = torch.randperm
+
+    def spy(*args, **kwargs):
+        out = randperm(*args, **kwargs)
+        devices.append(out.device.type)
+        return out
+
+    monkeypatch.setattr(torch, "randperm", spy)
+    grid = Grid.make(2, 2, device=cuda_device)
+    p = DistVec.randperm(grid, 1001)
+    flat = p.blocks.reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(np.sort(flat[:1001]), np.arange(1001))
+    n, r, c, _ = _graph_case(9)
+    A = SpParMat.from_global_coo(grid, r, c, np.ones(len(r), np.float32), n, n)
+    st, rounds = mis(A)
+    sg = st.to_global()
+    members = np.flatnonzero(sg == 1)
+    assert rounds > 0 and not (np.isin(r, members) & np.isin(c, members)).any()
+    assert devices == ["cuda", "cuda"]
+    assert p.blocks.device.type == "cuda" and st.blocks.device.type == "cuda"
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_spparmat_apps_on_card_match_cpu(shape, cuda_device):
+    """bfs, bfs_diropt (both steps), bfs_diropt_auto, traversed_edges,
+    sssp, FastSV, LACC and mis's rounds (the same priorities) exact on the
+    card against the CPU; pagerank and pagerank_batch within float32
+    rounding, with equal rounds; the public mis independent and maximal."""
+    n, r, c, roots = _graph_case(11)
+    w = np.random.default_rng(8).integers(1, 10, len(r)).astype(np.float32)
+    rank_vals = None
+    out, ranks = [], []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(*shape, device=dev)
+        A = SpParMat.from_global_coo(grid, r, c, np.ones(len(r), np.float32), n, n)
+        Aw = SpParMat.from_global_coo(grid, r, c, w, n, n)
+        root = int(roots[0])
+        p, lv, it = bfs(A, root)
+        pd_, ld, itd = bfs_diropt(A, root, frontier_capacity=n // 16, exp_capacity=len(r) // 8)
+        steps = set(bfs_diropt.last_run["steps"])
+        pa, la, ita = bfs_diropt_auto(A, root)
+        d, dit = sssp(Aw, root)
+        f1, i1 = connected_components(A)
+        f2, i2 = lacc(A)
+        prio = torch.from_numpy(
+            np.random.default_rng(9).permutation(f1.blocks.numel()).astype(np.int32)
+        ).view(f1.blocks.shape).to(dev)
+        s, si = mis_mod._mis_rounds(A, prio)
+        out.append([p.blocks, lv.blocks, pd_.blocks, ld.blocks, pa.blocks, la.blocks,
+                    traversed_edges(A, p), d.blocks, f1.blocks, f2.blocks, s.blocks,
+                    (it, itd, ita, dit, i1, i2, si), steps])
+        if rank_vals is None:
+            outdeg = np.bincount(c, minlength=n).astype(np.float32)
+            rank_vals = (1.0 / outdeg[c]).astype(np.float32)
+        x, xi = pagerank(A)
+        E = EllParMat.from_host_coo(grid, r, c, rank_vals, n, n)
+        dang = DistVec.from_global(grid, np.zeros(n, np.float32))
+        X, Xi = pagerank_batch(E, np.array([root, PAD_ROOT, int(roots[1])], np.int32), dang)
+        ranks.append((x.blocks, xi, X.blocks, Xi))
+        st, _ = mis(A, torch.Generator(device=dev).manual_seed(4))
+        sg = st.to_global()
+        members = np.flatnonzero(sg == 1)
+        inside = np.isin(r, members) & np.isin(c, members)
+        assert not inside.any()  # independent
+        covered = np.zeros(n, bool)
+        covered[r[np.isin(c, members)]] = True
+        assert covered[sg == -1].all()  # maximal
+    for a, b in zip(*out):
+        if isinstance(a, torch.Tensor):
+            _same(a, b)
+        else:
+            assert a == b
+    assert {"td", "bu"} <= out[0][-1]
+    (x0, i0, X0, I0), (x1, i1, X1, I1) = ranks
+    assert i0 == i1 and I0 == I1
+    torch.testing.assert_close(x1.cpu(), x0, rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(X1.cpu(), X0, rtol=1e-4, atol=1e-7)

@@ -13,9 +13,11 @@ from combblas_tpu_torch import Grid, HostGrid
 REPO = Path(__file__).resolve().parent.parent
 # modules the walk below must reach (the Graph500 BFS path among them)
 MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.sssp",
+           "models.pagerank", "models.cc", "models.mis",
            "ops.segment", "ops.spgemm", "ops.dense_to_tuples", "ops.semiring_matmul",
+           "ops.tuples", "ops.compressed", "ops.spmv",
            "parallel.ellmat", "parallel.vec", "parallel.spmat", "parallel.spgemm",
-           "utils.graph500", "utils.rmat"}
+           "parallel.spmv", "utils.graph500", "utils.rmat"}
 
 
 def test_import_pulls_in_no_jax():
