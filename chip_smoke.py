@@ -89,6 +89,28 @@ Phases (each prints one JSON line):
      and ``dist_spmspv_masked`` at a top-down level, timed a launch (CUDA
      events) beside their bytes bounds, with ``torch.profiler``'s operator
      breakdown; K1 and K2 must not launch in these steps.
+ 10. spgemm_general, the general SpGEMM and what runs on it (each step a
+     warm-up call, whose result the checks read, and two calls timed with
+     CUDA events around the whole call; ms a call, output nonzeros per
+     second, peak memory): (1) on phase 5's scale-13 graph (1 x 1) the esc
+     tier, ``spgemm(merge="runs")`` and the scan tier give the mxu tier's
+     live entries bit for bit for min_plus, max_min and plus_times; (2) A·A
+     of an R-MAT scale-16 graph on a 4 x 4 grid of tiles per semiring
+     through ``spgemm`` (sort), ``spgemm(merge="runs")``, ``spgemm_scan``
+     and ``mem_efficient_spgemm(phases=4)``: 355,881,582 live entries each,
+     min_plus and max_min equal bit for bit across the four, plus_times
+     within float32 rounding of scipy's float64 product; the router's
+     answer (windowed, as the reference's) and ``spgemm_auto``'s refusal
+     of it; the bytes bound and ``torch.sparse.mm`` on CSR for plus_times;
+     (3) ``kselect(16)`` and ``prune_column`` on the min_plus A·A against
+     numpy; (4) ``subsref`` of a seeded half of the vertices against
+     scipy's slice; (5) triangles of the scale-15, 16 and 18 graphs
+     (6,708,365 / 15,684,546 / 82,878,317) by every kernel that fits;
+     (6) betweenness centrality of phase 8's graph from its first 16 roots,
+     ``bc_batch_dense`` on the ELL form against ``bc_batch`` on a 2 x 2
+     ``SpParMat``, the first two lanes against a float64 Brandes on the
+     host, the capacities of each product. K1 runs only in step 1's mxu
+     calls, K2 never.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -103,6 +125,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -126,6 +149,9 @@ from combblas_tpu_torch import (
     bfs_batch_compact,
     bfs_diropt,
     bfs_diropt_auto,
+    bc_batch,
+    bc_batch_dense,
+    bc_batch_dense_lanes,
     bfs_single,
     build_graph,
     build_structures,
@@ -138,10 +164,12 @@ from combblas_tpu_torch import (
     dist_spmv,
     dist_spmv_ell_masked_multi,
     dist_spmv_ell_multi,
+    estimate_flops,
     expand_ranges,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
     lacc,
+    mem_efficient_spgemm,
     mis,
     num_components,
     ones_f32,
@@ -154,10 +182,14 @@ from combblas_tpu_torch import (
     single_traversed_edges,
     sparsify,
     sparsify_windowed,
+    spgemm,
     spgemm_auto,
+    spgemm_scan,
     sssp,
     sssp_batch,
+    subsref,
     traversed_edges,
+    triangle_count,
     upload_csc_companion,
     validate_bfs_device,
 )
@@ -1420,6 +1452,18 @@ def phase_spmat_path(dev, g: dict, E: EllParMat, csr, batch: tuple) -> dict:
         b = spmv_bytes(nnz, n, reads_vals)
         layers[name] = {"ms_per_launch": ms, "bytes": b, "bound_ms": b / PEAK_BYTES * 1e3,
                         "bound_by": "bytes", "share": b / PEAK_BYTES * 1e3 / ms}
+    # the library's call for the plus_times SpMV: cuSPARSE's CSR × dense
+    # column (float32, the same values and x)
+    aw_r, aw_c, aw_v = Aw.to_global_coo()
+    lib = sp.csr_matrix((aw_v, (aw_r, aw_c)), shape=(n, n))
+    lib_csr = torch.sparse_csr_tensor(torch.from_numpy(lib.indptr.astype(np.int64)),
+                                      torch.from_numpy(lib.indices.astype(np.int64)),
+                                      torch.from_numpy(lib.data.astype(np.float32)),
+                                      size=(n, n), check_invariants=True).to(dev)
+    x_col = x_f.blocks.reshape(-1)[:n].reshape(n, 1).contiguous()
+    layers["plus_times_f32"]["library_ms"] = time_cuda_ms(lambda: torch.sparse.mm(lib_csr, x_col), 5)
+    layers["plus_times_f32"]["library_call"] = "torch.sparse.mm(csr, x)"
+    del lib, lib_csr
     layers["min_plus_f32"]["ops"] = op_breakdown(lambda: dist_spmv(MIN_PLUS, Aw, x_f), 3)
     layers["select2nd_max_int32"]["ops"] = op_breakdown(
         lambda: dist_spmv(SELECT2ND_MAX, A, x_ids), 3)
@@ -1637,7 +1681,450 @@ def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
         raise AssertionError(f"the SpParMat steps launched hand kernels: {hand_launches}")
     emit({"phase": "spmat_path", "step": "spmat_checks", "hand_kernel_launches": hand_launches,
           "total_s": time.perf_counter() - t_start})
-    return {"lines": lines, "programs": programs, "single": single, "spmat": spmat}
+    return {"lines": lines, "programs": programs, "single": single, "spmat": spmat, "g": g}
+
+
+# --- phase 10: the general SpGEMM, the elementwise layer, TC and BC ----------
+
+GEN_SCALE, GEN_GRID = 16, 4  # A·A of an R-MAT scale-16 graph on a 4×4 grid of tiles
+GEN_AA_NNZ = 355_881_582  # nnz(A·A), from scipy on the host
+TRIANGLES = {15: 6_708_365, 16: 15_684_546, 18: 82_878_317}
+KSELECT_K, KSELECT_SAMPLE = 16, 2048
+BC_ROOTS, BC_CHECK_LANES = 16, 2
+
+
+def step_times(fn, digest=None, reps: int = 2) -> tuple:
+    """The step's protocol: one warm-up call (its result, reduced by
+    ``digest`` and then dropped, is what the checks read), then ``reps``
+    calls timed together with CUDA events around the whole call. Returns
+    ``(digest(result), ms a call, peak GB)``, the peak over all the calls
+    (``max_memory_allocated``, reset first)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    out = digest(out) if digest is not None else out
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / reps, torch.cuda.max_memory_allocated() / 2**30
+
+
+def live_entries(C: SpParMat) -> tuple[torch.Tensor, torch.Tensor]:
+    """The live entries of C as (global key row * ncols + col, sorted; the
+    values in that order), on the card: comparable across tiers whatever
+    their capacities and slot order."""
+    lr, lc = C.local_rows, C.local_cols
+    keys, vals = [], []
+    for i in range(C.grid.pr):
+        for j in range(C.grid.pc):
+            t = C.local_tile(i, j)
+            m = t.valid_mask()
+            keys.append((t.rows[m].long() + i * lr) * C.ncols + t.cols[m].long() + j * lc)
+            vals.append(t.vals[m])
+    key, order = torch.sort(torch.cat(keys))
+    return key, torch.cat(vals)[order]
+
+
+def same_entries(a, b) -> bool:
+    """Equal keys and values bit for bit."""
+    return (a[0].shape == b[0].shape and torch.equal(a[0], b[0])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
+def weighted_rmat(scale: int, dev, grid: Grid, sr) -> tuple:
+    """``rmat_symmetric_coo_host(42, scale, 16)`` with ``default_rng(7)``
+    weights 1..15, duplicates folded with ``sr`` (phase 5's recipe)."""
+    r, c = rmat_symmetric_coo_host(GRAPH_SEED, scale, EDGEFACTOR)
+    v = np.random.default_rng(WEIGHT_SEED).integers(1, 16, r.shape[0]).astype(np.float32)
+    n = 1 << scale
+    return r, c, v, SpParMat.from_global_coo(grid, r, c, v, n, n, dedup_sr=sr)
+
+
+def step_cross_tier(dev) -> dict:
+    """Step 1: on phase 5's scale-13 graph (1×1), ``spgemm_auto(tier="esc")``,
+    ``spgemm(merge="runs")`` and ``spgemm_auto(tier="scan")`` give the mxu
+    tier's live entries bit for bit."""
+    grid = Grid.make(1, 1, device=dev)
+    out = {}
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        _, _, _, A = weighted_rmat(SCALE, dev, grid, sr)
+        want = live_entries(spgemm_auto(sr, A, A, tier="mxu"))
+        line = {"phase": "spgemm_general", "step": "cross_tier", "semiring": sr.name,
+                "scale": SCALE, "grid": "1x1", "nnz_out": int(want[0].numel())}
+        for name, fn in (("esc", lambda: spgemm_auto(sr, A, A, tier="esc")),
+                         ("runs", lambda: spgemm(sr, A, A, merge="runs")),
+                         ("scan", lambda: spgemm_auto(sr, A, A, tier="scan"))):
+            got, ms, peak = step_times(fn, live_entries)
+            if not same_entries(got, want):
+                raise AssertionError(f"cross-tier {sr.name}: {name} differs from the mxu tier")
+            line[name] = {"ms": ms, "nnz_out_per_s": line["nnz_out"] / (ms / 1e3),
+                          "peak_mem_gb": peak}
+        emit(line)
+        out[sr.name] = line
+    return out
+
+
+def esc_bytes_bound_ms(nnz_a: int, nnz_c: int) -> float:
+    """Read A and B once (12 bytes an entry: int32 row, col, float32 value),
+    write C once, over the card's memory rate."""
+    return (2 * nnz_a + nnz_c) * 12 / PEAK_BYTES * 1e3
+
+
+def read_once_bound_ms(entries: int, out_bytes: int) -> float:
+    """Bytes bound of a function of one sparse matrix: its stored entries
+    read once (12 bytes each), its output written once, over the card's
+    memory rate. (Triangle counting's popcounts are integer ALU work, for
+    which the published peak table gives no rate, so bytes bound it.)"""
+    return (12 * entries + out_bytes) / PEAK_BYTES * 1e3
+
+
+def library_spgemm_ms(r, c, v, n: int, grid_p: int, dev) -> dict:
+    """``torch.sparse.mm`` on CSR (the library's SpGEMM) for the same
+    PLUS_TIMES product: the whole product if it fits, else one tile's stage
+    product A_00 · A_00, beside the port's ``spgemm`` of that product on a
+    1×1 grid (``esc_same_ms``)."""
+    import scipy.sparse as sp
+
+    csr = sp.csr_matrix((v.astype(np.float32), (r, c)), shape=(n, n))
+    csr.sum_duplicates()
+
+    def as_torch(m):
+        m = m.tocsr()
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)), torch.from_numpy(m.indices.astype(np.int64)),
+            torch.from_numpy(m.data), size=m.shape, check_invariants=True).to(dev)
+
+    for what, m in (("whole product", csr), ("one tile's stage product A_00 · A_00",
+                                             csr[: n // grid_p, : n // grid_p])):
+        X = as_torch(m)
+        try:
+            _, ms, peak = step_times(lambda: torch.sparse.mm(X, X))
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as e:  # cuSPARSE's buffers
+            emit({"phase": "spgemm_general", "step": "library", "timed": what,
+                  "refused": str(e)[:200]})
+            del X
+            torch.cuda.empty_cache()
+            continue
+        del X
+        torch.cuda.empty_cache()
+        out = {"library_ms": ms, "library_call": "torch.sparse.mm(csr, csr)",
+               "library_timed": what, "library_peak_mem_gb": peak}
+        if m is not csr:
+            # the port's own product, outside the try: its failure stops the smoke
+            mc = m.tocoo()
+            sub = SpParMat.from_global_coo(Grid.make(1, 1, device=dev), mc.row, mc.col,
+                                           mc.data, *m.shape)
+            _, out["esc_same_ms"], _ = step_times(lambda: spgemm(PLUS_TIMES, sub, sub))
+        return out
+    return {"library_ms": None, "library_timed": "neither fits"}
+
+
+def step_aa16(dev) -> dict:
+    """Step 2: A·A at scale 16 on a 4×4 grid of tiles, per semiring through
+    spgemm (sort), spgemm(merge="runs"), spgemm_scan and
+    mem_efficient_spgemm(phases=4): 355,881,582 live entries each, min_plus
+    and max_min equal bit for bit across the four, plus_times within float32
+    rounding of scipy's float64 product. The router's answer ("windowed",
+    as the reference's) and spgemm_auto's refusal of it."""
+    import scipy.sparse as sp
+
+    grid = Grid.make(GEN_GRID, GEN_GRID, device=dev)
+    n = 1 << GEN_SCALE
+    lines = {}
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        r, c, v, A = weighted_rmat(GEN_SCALE, dev, grid, sr)
+        nnz_a = int(A.getnnz())
+        tier = choose_spgemm_tier(sr, A, A)
+        if tier != "windowed":
+            raise AssertionError(f"A·A {sr.name}: routed to {tier}, the reference's rule "
+                                 "gives windowed")
+        try:
+            spgemm_auto(sr, A, A)
+            raise AssertionError("spgemm_auto served a windowed product")
+        except NotImplementedError as e:
+            refusal = str(e)
+        line = {"phase": "spgemm_general", "step": "aa16", "semiring": sr.name,
+                "scale": GEN_SCALE, "grid": f"{GEN_GRID}x{GEN_GRID}", "nnz_a": nnz_a,
+                "flops": estimate_flops(A, A), "router": tier, "spgemm_auto": refusal,
+                "bytes_bound_ms": esc_bytes_bound_ms(nnz_a, GEN_AA_NNZ)}
+        ref = None
+        for name, fn in (("sort", lambda: spgemm(sr, A, A)),
+                         ("runs", lambda: spgemm(sr, A, A, merge="runs")),
+                         ("scan", lambda: spgemm_scan(sr, A, A)),
+                         ("mem_efficient4", lambda: mem_efficient_spgemm(sr, A, A, 4))):
+            caps = {}
+
+            def digest(C):
+                caps.update(capacity=C.capacity, max_tile_nnz=int(C.nnz.max()))
+                if name == "scan":
+                    caps.update(spgemm_scan.last_run)
+                return live_entries(C)
+
+            got, ms, peak = step_times(fn, digest)
+            nnz = int(got[0].numel())
+            if nnz != GEN_AA_NNZ:
+                raise AssertionError(f"A·A {sr.name} {name}: {nnz} entries, want {GEN_AA_NNZ}")
+            if ref is None:
+                ref = got
+            elif sr.name != "plus_times" and not same_entries(got, ref):
+                raise AssertionError(f"A·A {sr.name}: {name} differs from sort")
+            if sr.name == "plus_times":
+                line.setdefault("max_rel_err", {})[name] = plus_times_check(got, r, c, v, n)
+            line[name] = {"ms": ms, "nnz_out_per_s": nnz / (ms / 1e3), "peak_mem_gb": peak,
+                          "sort_bound_share": line["bytes_bound_ms"] / ms, **caps}
+            del got
+            torch.cuda.empty_cache()
+        if sr.name == "plus_times":
+            line.update(library_spgemm_ms(r, c, v, n, GEN_GRID, dev))
+        if sr.name == "min_plus":  # where a sort-merge call's time goes, by operator
+            line["sort_ops"] = op_breakdown(lambda: spgemm(sr, A, A), 1)
+            for key in ("ops", "kernels"):
+                line["sort_ops"][key] = line["sort_ops"].get(key, [])[:12]
+        emit(line)
+        lines[sr.name] = line
+        del ref, A
+        torch.cuda.empty_cache()
+    return lines
+
+
+_SCIPY_AA = {}
+
+
+def plus_times_check(got, r, c, v, n: int) -> float:
+    """The largest relative error of got's values against scipy's float64
+    A·A, which must be at most ``k_max * 2^-24`` (a float32 sum of at most
+    k_max positive terms; k_max the largest row length)."""
+    import scipy.sparse as sp
+
+    if "C" not in _SCIPY_AA:
+        A = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=(n, n))
+        A.sum_duplicates()
+        C = (A @ A).tocoo()
+        key = C.row.astype(np.int64) * n + C.col
+        order = np.argsort(key)
+        _SCIPY_AA.update(C=(key[order], C.data[order]), kmax=int(np.diff(A.indptr).max()))
+    wkey, wval = _SCIPY_AA["C"]
+    gkey, gval = got[0].cpu().numpy(), got[1].cpu().numpy().astype(np.float64)
+    if not np.array_equal(gkey, wkey):
+        raise AssertionError("plus_times A·A: the pattern differs from scipy's")
+    rel = float(np.max(np.abs(gval - wval) / wval))
+    if rel > _SCIPY_AA["kmax"] * 2.0**-24:
+        raise AssertionError(f"plus_times A·A: relative error {rel} past float32 rounding")
+    return rel
+
+
+def step_kselect(C: SpParMat) -> dict:
+    """Step 3: ``kselect(16)`` and ``prune_column`` on the min_plus A·A;
+    the thresholds of a seeded sample of columns against numpy's 16th
+    largest, the pruned count against numpy's over every column."""
+    (th, ms, peak) = step_times(lambda: C.kselect(KSELECT_K))
+    (pruned, pms, ppeak) = step_times(lambda: C.prune_column(th, lambda x, t: x >= t),
+                                      lambda P: int(P.getnnz()))
+    key, val = live_entries(C)
+    key, val = key.cpu().numpy(), val.cpu().numpy()
+    col = key % C.ncols
+    thr = th.to_global()
+    kept = int((val >= thr[col]).sum())
+    if pruned != kept:
+        raise AssertionError(f"prune_column kept {pruned}, numpy {kept}")
+    sample = np.random.default_rng(13).choice(C.ncols, min(KSELECT_SAMPLE, C.ncols), replace=False)
+    in_sample = np.zeros(C.ncols, bool)
+    in_sample[sample] = True
+    pick = in_sample[col]
+    sc, sv = col[pick], val[pick]
+    order = np.lexsort((-sv, sc))  # by column, then value descending
+    sc, sv = sc[order], sv[order]
+    starts = np.searchsorted(sc, sample)
+    counts = np.searchsorted(sc, sample, side="right") - starts
+    kth = sv[np.minimum(starts + KSELECT_K - 1, len(sv) - 1)]
+    want = np.where(counts >= KSELECT_K, kth, -np.inf).astype(np.float32)
+    bad = np.flatnonzero(thr[sample] != want)
+    if bad.size:
+        j = sample[bad[0]]
+        raise AssertionError(f"kselect column {j}: {thr[j]}, numpy {want[bad[0]]}")
+    line = {"phase": "spgemm_general", "step": "kselect", "semiring": "min_plus",
+            "k": KSELECT_K, "kselect_ms": ms, "kselect_peak_mem_gb": peak,
+            "prune_column_ms": pms, "prune_column_peak_mem_gb": ppeak, "kept": kept,
+            "columns_checked": len(sample),
+            "columns_below_k": int((thr == -np.inf).sum())}
+    emit(line)
+    return line
+
+
+def step_subsref(A_host: tuple) -> dict:
+    """Step 4: ``subsref`` of a seeded random half of the vertices from the
+    4×4 min_plus A (duplicates folded by min), against scipy slicing."""
+    import scipy.sparse as sp
+
+    r, c, v, A = A_host
+    n = A.nrows
+    idx = np.random.default_rng(17).permutation(n)[: n // 2]
+    got, ms, peak = step_times(lambda: subsref(A, idx, idx), live_entries)
+    ar, ac, av = A.to_global_coo()
+    S = sp.csr_matrix((av.astype(np.float64), (ar, ac)), shape=(n, n))[idx][:, idx].tocoo()
+    key = S.row.astype(np.int64) * len(idx) + S.col
+    order = np.argsort(key)
+    if not (np.array_equal(got[0].cpu().numpy(), key[order])
+            and np.array_equal(got[1].cpu().numpy(), S.data[order].astype(np.float32))):
+        raise AssertionError("subsref differs from scipy's slice")
+    line = {"phase": "spgemm_general", "step": "subsref", "rows": len(idx), "cols": len(idx),
+            "nnz_out": int(got[0].numel()), "ms": ms, "peak_mem_gb": peak,
+            "nnz_out_per_s": int(got[0].numel()) / (ms / 1e3)}
+    emit(line)
+    return line
+
+
+def step_triangles(dev) -> list:
+    """Step 5: triangles of the scale-15, 16 and 18 graphs (``build_graph``'s
+    recipe) by every kernel that fits, each against the count scipy gives
+    on the host."""
+    runs = {15: [("auto", 1), ("dense", 1), ("edgeharvest", 1), ("edgeharvest_bf16", 1),
+                 ("sparse", 1)],
+            16: [("auto", 1), ("edgeharvest_bf16", 1), ("sparse", 1), ("sparse", 2)],
+            18: [("auto", 1), ("auto", 2)]}
+    lines = []
+    for scale, kernels in runs.items():
+        g = build_graph(scale, BFS_EDGEFACTOR, nroots=1)
+        n = 1 << scale
+        mats = {}
+        for kernel, p in kernels:
+            if p not in mats:
+                mats[p] = SpParMat.from_global_coo(Grid.make(p, p, device=dev), g["rows"],
+                                                   g["cols"], np.ones(len(g["rows"]), np.float32),
+                                                   n, n)
+            count, ms, peak = step_times(lambda: triangle_count(mats[p], kernel))
+            if count != TRIANGLES[scale]:
+                raise AssertionError(f"TC scale {scale} {kernel} {p}x{p}: {count}, want "
+                                     f"{TRIANGLES[scale]}")
+            line = {"phase": "spgemm_general", "step": "triangles", "scale": scale,
+                    "kernel": kernel, "grid": f"{p}x{p}", "triangles": count, "ms": ms,
+                    "peak_mem_gb": peak, "edges": len(g["rows"]) // 2,
+                    "edges_per_s": len(g["rows"]) / 2 / (ms / 1e3),
+                    "bytes_bound_ms": read_once_bound_ms(len(g["rows"]), 8)}
+            emit(line)
+            lines.append(line)
+        del mats
+        torch.cuda.empty_cache()
+    return lines
+
+
+def host_brandes(indptr, indices, n: int, source: int) -> np.ndarray:
+    """Float64 Brandes dependencies of one source on a symmetric graph,
+    level by level with scipy (the source's own entry zero)."""
+    import scipy.sparse as sp
+
+    adj = sp.csr_matrix((np.ones(len(indices)), indices, indptr), shape=(n, n))
+    lvl = np.full(n, -1)
+    sig = np.zeros(n)
+    lvl[source], sig[source] = 0, 1.0
+    d = 0
+    while True:
+        arriving = adj @ np.where(lvl == d, sig, 0)
+        new = (arriving > 0) & (lvl < 0)
+        if not new.any():
+            break
+        lvl[new], sig[new] = d + 1, arriving[new]
+        d += 1
+    delta = np.zeros(n)
+    for dd in range(d, 0, -1):
+        w = np.where(lvl == dd, (1 + delta) / np.maximum(sig, 1e-300), 0)
+        delta += np.where(lvl == dd - 1, (adj.T @ w) * sig, 0)
+    delta[source] = 0
+    return delta
+
+
+def step_bc(dev, g: dict) -> dict:
+    """Step 6: BC of the BFS path's scale-20 graph from its first 16 roots:
+    ``bc_batch_dense`` on the ELL form (1×1, float32 ones) and ``bc_batch``
+    on a 2×2 ``SpParMat``, equal within 1e-4 of the larger score plus 1e-6
+    of the largest; the first two lanes of ``bc_batch_dense_lanes`` against
+    a float64 Brandes on the host. ``g``: the BFS path's graph."""
+    n = len(g["deg"])
+    roots = g["roots"][:BC_ROOTS].astype(np.int32)
+    ones = np.ones(len(g["rows"]), np.float32)
+    t0 = time.perf_counter()
+    E = EllParMat.from_host_coo(Grid.make(1, 1, device=dev), g["rows"], g["cols"], ones, n, n)
+    A = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), g["rows"], g["cols"], ones, n, n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dense, dms, dpeak = step_times(lambda: bc_batch_dense(E, E, roots).to_global())
+    dense_run = dict(bc_batch_dense.last_run)
+    sparse, sms, speak = step_times(lambda: bc_batch(A, roots).to_global())
+    sparse_run = dict(bc_batch.last_run)
+    diff = np.abs(dense - sparse)
+    tol = 1e-4 * np.maximum(np.abs(dense), np.abs(sparse)) + 1e-6 * np.abs(dense).max()
+    if not (diff <= tol).all():
+        raise AssertionError(f"bc: dense and SpGEMM forms differ by {diff.max()}")
+    lanes = bc_batch_dense_lanes(E, E, roots).blocks[0, :n, :BC_CHECK_LANES].cpu().numpy()
+    indptr = np.searchsorted(g["rows"].astype(np.int64), np.arange(n + 1))
+    errs = []
+    for k in range(BC_CHECK_LANES):
+        want = host_brandes(indptr, g["cols"], n, int(roots[k]))
+        err = np.abs(lanes[:, k] - want)
+        if not (err <= 1e-4 * np.abs(want) + 1e-6 * np.abs(want).max()).all():
+            raise AssertionError(f"bc lane {k}: off the float64 Brandes by {err.max()}")
+        errs.append(float((err / np.maximum(np.abs(want), 1e-30)).max()))
+    line = {"phase": "spgemm_general", "step": "bc", "scale": BFS_SCALE, "roots": BC_ROOTS,
+            "build_s": build_s, "bc_batch_dense_ms": dms, "bc_batch_dense_peak_mem_gb": dpeak,
+            "bc_batch_dense_readbacks": dense_run["readbacks"],
+            "bc_batch_ms": sms, "bc_batch_peak_mem_gb": speak,
+            "bytes_bound_ms": read_once_bound_ms(len(g["rows"]), 4 * n),
+            "bc_batch_levels": sparse_run["levels"], "bc_batch_readbacks": sparse_run["readbacks"],
+            "bc_batch_forward_capacities": sparse_run["forward_capacities"],
+            "bc_batch_backward_capacities": sparse_run["backward_capacities"],
+            "max_abs_diff": float(diff.max()), "max_score": float(np.abs(dense).max()),
+            "lanes_max_rel_err_vs_float64": errs}
+    emit(line)
+    return line
+
+
+def phase_spgemm_general(dev, t_start: float, g: dict) -> dict:
+    """Phase 10 (module docstring): steps 1-6, with K1's and K2's launch
+    counts set to 0 just before and read just after; K1 runs only in step
+    1's three mxu calls (two attempts of one stage each for min_plus and
+    max_min, as phase 5 asserts), K2 never."""
+    emit({"phase": "spgemm_general", "step": "elapsed", "total_s": time.perf_counter() - t_start,
+          "allocated_gb": torch.cuda.memory_allocated() / 2**30})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        step_s[name] = time.perf_counter() - t0
+        return out
+
+    cross = timed("cross_tier", step_cross_tier, dev)
+    k1_step1 = semiring_matmul.launches
+    aa = timed("aa16", step_aa16, dev)
+
+    def select_and_slice():
+        A_min = weighted_rmat(GEN_SCALE, dev, Grid.make(GEN_GRID, GEN_GRID, device=dev),
+                              MIN_PLUS)
+        C = spgemm(MIN_PLUS, A_min[3], A_min[3])
+        ks = step_kselect(C)
+        del C
+        torch.cuda.empty_cache()
+        return ks, step_subsref(A_min)
+
+    ks, sub = timed("kselect_subsref", select_and_slice)
+    torch.cuda.empty_cache()
+    tri = timed("triangles", step_triangles, dev)
+    bc = timed("bc", step_bc, dev, g)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if launches != {"k1": 4, "k2": 0} or k1_step1 != 4:
+        raise AssertionError(f"spgemm_general launched {launches} (step 1: {k1_step1}); "
+                             "want k1 4, all in step 1, and k2 0")
+    emit({"phase": "spgemm_general", "step": "checks", "hand_kernel_launches": launches,
+          "step_s": step_s, "total_s": time.perf_counter() - t_start})
+    return {"cross": cross, "aa": aa, "kselect": ks, "subsref": sub,
+            "triangles": tri, "bc": bc}
 
 
 def main() -> int:
@@ -1647,6 +2134,8 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # torch.sparse.mm, timed as the library's call, is marked beta
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
     phase_card()
     loops = phase_build()
     full = phase_kernels(dev)
@@ -1654,7 +2143,9 @@ def main() -> int:
     path = phase_main_path(dev)
     k2_path = phase_k2_path(path.pop("mats"))
     times = phase_times(dev, full, loops)
-    phase_bfs_path(dev, t_start)
+    bfs_graph = phase_bfs_path(dev, t_start)["g"]
+    torch.cuda.empty_cache()
+    phase_spgemm_general(dev, t_start, bfs_graph)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
         kind = _PALLAS_KINDS[sr.name]

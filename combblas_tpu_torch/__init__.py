@@ -19,8 +19,21 @@ at once and ``bfs_single`` from one root at a time,
 tiles, the ``DistVec`` op pack, ``SpParMat.reduce`` / ``transpose`` /
 ``dim_apply`` and the per-tile maps) with the applications on it: ``bfs``,
 ``bfs_diropt``, ``sssp``, ``pagerank``, ``pagerank_batch``,
-``connected_components`` (FastSV), ``lacc`` and ``mis``. All of it is in
-PyTorch ops as the reference runs it in XLA ops.
+``connected_components`` (FastSV), ``lacc`` and ``mis``; and the general
+sparse SpGEMM: the ESC tier (``spgemm``, ``summa_spgemm``, merge by sort or
+by sorted runs, ring or all-gather stage order) and the scan tier
+(``spgemm_scan``) with their symbolic sizing (``summa_stage_flops``,
+``summa_capacities``), phased and blocked products
+(``mem_efficient_spgemm``, ``block_spgemm``), the router
+(``choose_spgemm_tier``; ``spgemm_auto`` runs esc, scan and mxu and raises
+for the windowed tiers, not ported yet), the bit-packed support oracle
+(``pack_support_bits``, ``popcount_pair_counts``,
+``spgemm_support_bits``), the sparse elementwise layer (``ops.ewise``, the
+elementwise, select and split methods of ``SpParMat``), ``subsref`` /
+``spasgn``, ``DenseParMat``, and on them ``triangle_count`` and
+betweenness centrality (``bc_batch``, ``betweenness_centrality``,
+``bc_batch_dense``). All of it is in PyTorch ops as the reference runs it
+in XLA ops.
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 """
@@ -28,11 +41,18 @@ to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 from . import operations
 from .convert import (
     csc_companion_from_arrays,
+    denseparmat_from_arrays,
     distmultivec_from_arrays,
     ellparmat_from_arrays,
     spparmat_from_arrays,
 )
 from .models import PAD_ROOT
+from .models.bc import (
+    bc_batch,
+    bc_batch_dense,
+    bc_batch_dense_lanes,
+    betweenness_centrality,
+)
 from .models.bfs import (
     BFS_CLASS_LADDER,
     DEFAULT_SEQ_TIERS,
@@ -53,6 +73,12 @@ from .models.cc import connected_components, lacc, num_components
 from .models.mis import mis
 from .models.pagerank import pagerank, pagerank_batch
 from .models.sssp import sssp, sssp_batch
+from .models.tc import (
+    DENSE_MAX_DIM,
+    EDGE_HARVEST_BITS_MAX_DIM,
+    EDGE_HARVEST_MAX_DIM,
+    triangle_count,
+)
 from .ops.dense_to_tuples import (
     dense_to_sptuples,
     dense_to_tuples_arrays,
@@ -65,8 +91,27 @@ from .ops.semiring_matmul import (
     semiring_matmul_reference,
 )
 from .ops.compressed import CSC, CSR
+from .ops.ewise import ewise_apply, ewise_mult, intersect_lookup
 from .ops.segment import expand_ranges, segment_reduce
-from .ops.spgemm import dense_support_nnz, sparsify, sparsify_windowed
+from .ops.spgemm import (
+    CHUNK_W,
+    combine_hilo,
+    dense_support_nnz,
+    expand,
+    expansion_slots,
+    flops,
+    flops_padded,
+    hilo_split,
+    local_spgemm,
+    mask_rows,
+    merge_sorted_runs,
+    pack_support_bits,
+    popcount32,
+    popcount_pair_counts,
+    sparsify,
+    sparsify_windowed,
+    spgemm_support_bits,
+)
 from .ops.tuples import SpTuples
 from .parallel.ellmat import (
     EllParMat,
@@ -80,15 +125,40 @@ from .parallel.ellmat import (
     dist_spmv_ell_multi,
     upload_csc_companion,
 )
+from .parallel.dense import DenseParMat
 from .parallel.grid import Grid, HostGrid
+from .parallel.indexing import col_selector, row_selector, spasgn, subsref
 from .parallel.spgemm import (
     MXU_MAX_TILE_DIM,
+    TIERS,
+    WINDOWED_MAX_CELLS_PER_FLOP,
+    WINDOWED_MAX_COL_WINDOWS,
+    WINDOWED_MAX_PANEL_CELLS,
+    WINDOWED_MAX_TILE_CELLS,
+    PhaseAdjustedWarning,
+    block_spgemm,
+    calculate_phases,
     choose_spgemm_tier,
+    choose_tier_from_counts,
     coo_has_duplicates,
+    dot_panel_feasible,
+    estimate_flops,
+    estimate_nnz_upper,
+    host_value,
+    mem_efficient_spgemm,
+    resolve_spgemm_backend,
+    spgemm,
     spgemm_auto,
+    spgemm_scan,
+    summa_capacities,
+    summa_capacities_host,
+    summa_spgemm,
     summa_spgemm_mxu,
+    summa_spgemm_scan,
+    summa_stage_flops,
+    summa_stage_flops_host,
 )
-from .parallel.spmat import SpParMat, ones_f32, ones_i32
+from .parallel.spmat import SpParMat, key_u32_to_val, monotone_key_u32, ones_f32, ones_i32
 from .parallel.spmv import (
     csc_tiles,
     dist_spmspv,
@@ -112,11 +182,16 @@ from .utils.rmat import rmat_symmetric_coo_host
 
 __all__ = [
     "BFS_CLASS_LADDER",
+    "CHUNK_W",
     "CSC",
     "CSR",
     "DEFAULT_SEQ_TIERS",
+    "DENSE_MAX_DIM",
+    "DenseParMat",
     "DistMultiVec",
     "DistVec",
+    "EDGE_HARVEST_BITS_MAX_DIM",
+    "EDGE_HARVEST_MAX_DIM",
     "EllParMat",
     "Grid",
     "HostGrid",
@@ -126,26 +201,41 @@ __all__ = [
     "OR_AND",
     "PAD_ROOT",
     "PLUS_TIMES",
+    "PhaseAdjustedWarning",
     "SELECT2ND_MAX",
     "SELECT2ND_MIN",
     "STANDARD_SEMIRINGS",
     "Semiring",
     "SpParMat",
     "SpTuples",
+    "TIERS",
+    "WINDOWED_MAX_CELLS_PER_FLOP",
+    "WINDOWED_MAX_COL_WINDOWS",
+    "WINDOWED_MAX_PANEL_CELLS",
+    "WINDOWED_MAX_TILE_CELLS",
     "batch_traversed_edges",
+    "bc_batch",
+    "bc_batch_dense",
+    "bc_batch_dense_lanes",
+    "betweenness_centrality",
     "bfs",
     "bfs_batch",
     "bfs_batch_compact",
     "bfs_diropt",
     "bfs_diropt_auto",
     "bfs_single",
+    "block_spgemm",
     "build_csc_companion",
     "build_csc_companion_host",
     "build_csr_companion",
     "build_csr_companion_host",
     "build_graph",
     "build_structures",
+    "calculate_phases",
     "choose_spgemm_tier",
+    "choose_tier_from_counts",
+    "col_selector",
+    "combine_hilo",
     "concatenate",
     "connected_components",
     "coo_has_duplicates",
@@ -154,6 +244,7 @@ __all__ = [
     "dense_support_nnz",
     "dense_to_sptuples",
     "dense_to_tuples_arrays",
+    "denseparmat_from_arrays",
     "dist_spmspv",
     "dist_spmspv_masked",
     "dist_spmv",
@@ -163,33 +254,68 @@ __all__ = [
     "dist_spmv_ell_multi",
     "dist_spmv_masked",
     "distmultivec_from_arrays",
+    "dot_panel_feasible",
     "ellparmat_from_arrays",
+    "estimate_flops",
+    "estimate_nnz_upper",
+    "ewise_apply",
+    "ewise_mult",
+    "expand",
     "expand_ranges",
+    "expansion_slots",
     "flat_to_tuples_arrays",
     "flat_to_tuples_arrays_reference",
+    "flops",
+    "flops_padded",
+    "hilo_split",
+    "host_value",
+    "intersect_lookup",
+    "key_u32_to_val",
     "lacc",
+    "local_spgemm",
+    "mask_rows",
+    "mem_efficient_spgemm",
+    "merge_sorted_runs",
     "min_plus_matmul",
     "mis",
+    "monotone_key_u32",
     "num_components",
     "ones_f32",
     "ones_i32",
     "operations",
+    "pack_support_bits",
     "pagerank",
     "pagerank_batch",
     "parse_tier_spec",
+    "popcount32",
+    "popcount_pair_counts",
+    "resolve_spgemm_backend",
     "rmat_symmetric_coo_host",
+    "row_selector",
     "segment_reduce",
     "semiring_matmul",
     "semiring_matmul_reference",
     "single_traversed_edges",
     "sparsify",
     "sparsify_windowed",
+    "spasgn",
+    "spgemm",
     "spgemm_auto",
+    "spgemm_scan",
+    "spgemm_support_bits",
     "spparmat_from_arrays",
     "sssp",
     "sssp_batch",
+    "subsref",
+    "summa_capacities",
+    "summa_capacities_host",
+    "summa_spgemm",
     "summa_spgemm_mxu",
+    "summa_spgemm_scan",
+    "summa_stage_flops",
+    "summa_stage_flops_host",
     "traversed_edges",
+    "triangle_count",
     "upload_csc_companion",
     "validate_bfs_device",
     "validate_bfs_tree",

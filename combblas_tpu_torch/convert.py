@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .parallel.dense import DenseParMat
 from .parallel.ellmat import EllParMat, upload_csc_companion
 from .parallel.grid import Grid
 from .parallel.spmat import SpParMat
@@ -79,3 +80,13 @@ def distmultivec_from_arrays(grid: Grid, blocks, length: int, align: str) -> Dis
         blocks=torch.from_numpy(np.array(blocks)).to(grid.device),  # a writable copy
         length=int(length), align=align, grid=grid,
     )
+
+
+def denseparmat_from_arrays(grid: Grid, blocks, nrows: int, ncols: int) -> DenseParMat:
+    """The port's ``DenseParMat`` from the reference's ``[pr, pc, lr, lc]``
+    blocks."""
+    blocks = _on_grid(grid, "blocks", blocks, 4)
+    if blocks.shape[2:] != (grid.local_rows(nrows), grid.local_cols(ncols)):
+        raise ValueError(f"blocks {blocks.shape} do not hold a {nrows}x{ncols} matrix")
+    return DenseParMat(blocks=torch.from_numpy(np.array(blocks)).to(grid.device),
+                       nrows=int(nrows), ncols=int(ncols), grid=grid)

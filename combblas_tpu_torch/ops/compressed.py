@@ -15,12 +15,8 @@ import dataclasses
 import torch
 
 from .segment import expand_ranges
+from .spgemm import pack_support_bits
 from .tuples import SpTuples
-
-_BITMASK_LATER = (
-    "needs pack_support_bits, which is not ported yet "
-    "(ROADMAP queue 1, item 10: the SpGEMM support oracle)"
-)
 
 
 def _indptr(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -69,8 +65,12 @@ class CSR:
                         cols=self.indices, vals=self.vals, nnz=self.nnz,
                         nrows=self.nrows, ncols=self.ncols)
 
-    def to_bitmask(self):
-        raise NotImplementedError(f"CSR.to_bitmask {_BITMASK_LATER}")
+    def to_bitmask(self) -> torch.Tensor:
+        """Packed ``[nrows, ceil(ncols / 32)]`` int32 support words
+        (``ops.spgemm.pack_support_bits``); entries are unique, so no
+        dedup pass."""
+        t = self.to_tuples()
+        return pack_support_bits(t.rows, t.cols, self.nrows, self.ncols, assume_unique=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,5 +104,8 @@ class CSC:
                         cols=_to_tuples(self.col_lens(), self.capacity, self.ncols),
                         vals=self.vals, nnz=self.nnz, nrows=self.nrows, ncols=self.ncols)
 
-    def to_bitmask(self):
-        raise NotImplementedError(f"CSC.to_bitmask {_BITMASK_LATER}")
+    def to_bitmask(self) -> torch.Tensor:
+        """Packed ``[ncols, ceil(nrows / 32)]`` int32 column-support words:
+        bit (j, i) is set iff entry (i, j) exists."""
+        t = self.to_tuples()
+        return pack_support_bits(t.cols, t.rows, self.ncols, self.nrows, assume_unique=True)

@@ -77,6 +77,28 @@ def float_bits(v: torch.Tensor) -> torch.Tensor:
     return v.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()])
 
 
+def fold_dim(sr: Semiring, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """``sr.add``-fold of ``b`` along ``dim``: a sum keeps ``b``'s dtype
+    (bool counts as int32); a float min or max gives the reference's signed
+    zeros (``fix_signed_zeros``); any other monoid folds by a pairwise
+    tree."""
+    if sr.add_kind == "sum":
+        return b.sum(dim=dim, dtype=torch.int32 if b.dtype == torch.bool else b.dtype)
+    if sr.add_kind in ("min", "max"):
+        fold = torch.amin if sr.add_kind == "min" else torch.amax
+        out = fold(b, dim=dim)
+        if out.is_floating_point():
+            out = fix_signed_zeros(out, fold(float_bits(b), dim=dim), sr.add_kind)
+        return out
+    parts = b.movedim(dim, -1)
+    while parts.shape[-1] > 1:
+        if parts.shape[-1] % 2:
+            parts = torch.cat([parts, parts.new_full((*parts.shape[:-1], 1), sr.zero(b.dtype))],
+                              dim=-1)
+        parts = sr.add(parts[..., 0::2], parts[..., 1::2])
+    return parts[..., 0]
+
+
 def fix_signed_zeros(out: torch.Tensor, folded_bits: torch.Tensor, kind: str) -> torch.Tensor:
     """Give each zero of a float min/max result the sign the reference
     gives it: its min is -0.0 where any -0.0 took part, its max +0.0 where

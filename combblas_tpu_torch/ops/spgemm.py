@@ -1,16 +1,25 @@
-"""Local SpGEMM building blocks — counterpart of the parts of
-``combblas_tpu/ops/spgemm.py`` that the dense (mxu) tier uses: tile
-densification, dense-to-sparse extraction (``sparsify_windowed``,
-``sparsify``) with its exact sizing (``dense_support_nnz``) and the COO
-duplicate check.
+"""Local SpGEMM building blocks — counterpart of
+``combblas_tpu/ops/spgemm.py``: the ESC kernel (expand, sort, compress:
+``flops``, ``flops_padded``, ``expand``, ``local_spgemm``, ``mask_rows``),
+the sorted-run merge (``merge_sorted_runs``), the bit-packed output-support
+oracle (``pack_support_bits``, ``popcount32``, ``popcount_pair_counts``,
+``combine_hilo``, ``spgemm_support_bits``), and what the dense (mxu) tier
+uses: tile densification, dense-to-sparse extraction
+(``sparsify_windowed``, ``sparsify``) with its exact sizing
+(``dense_support_nnz``) and the COO duplicate check.
+
+The windowed tier's ``accumulate_block_scatter``, ``densify_combine`` and
+``support_window_counts`` and the 3D fiber merge's ``hash_merge`` are not
+ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..semiring import Semiring
-from .segment import expand_ranges
+from .segment import DROP_SPREAD, expand_ranges, spread_drops
 from .tuples import SpTuples
 
 #: Semiring add-monoid -> the torch scatter combiner implementing it.
@@ -21,6 +30,105 @@ def scatter_combine_for(sr: Semiring) -> str | None:
     """``"add"``/``"min"``/``"max"`` for monoids with a native scatter
     combiner, None for generic monoids."""
     return _SCATTER_COMBINERS.get(sr.add_kind)
+
+
+def _row_lens_pad(b_csr) -> torch.Tensor:
+    """B's row lengths with one 0 appended: the length of padding row
+    ``nrows``."""
+    return torch.cat([b_csr.row_lens(), b_csr.indptr.new_zeros(1)])
+
+
+def _a_degrees(a: SpTuples, b_csr) -> torch.Tensor:
+    """Per slot of ``a``: the length of B's row at its column (0 on
+    padding slots)."""
+    if a.ncols != b_csr.nrows:
+        raise ValueError(f"dim mismatch {a.ncols} != {b_csr.nrows}")
+    k = torch.clamp(a.cols, max=b_csr.nrows)
+    return torch.where(a.valid_mask(), _row_lens_pad(b_csr)[k], 0)
+
+
+def flops(a: SpTuples, b_csr) -> torch.Tensor:
+    """Scalar multiplies of ``a · b`` (float32, 0-dim). The count is summed
+    exactly in int64 and rounded to float32 once; the reference sums in
+    float32, which can round its running sum past 2^24 (the capacities
+    derived from either agree: ``tests/test_torch_spgemm_esc.py``).
+    Reference: ``estimateFLOP``."""
+    return _a_degrees(a, b_csr).sum(dtype=torch.int64).to(torch.float32)
+
+
+#: Lanes of one expansion chunk: ``expand`` makes one virtual entry per
+#: (A entry, 32-wide chunk of B's row).
+CHUNK_W = 32
+
+
+def expansion_slots(a: SpTuples, b_csr, chunk_w: int = CHUNK_W) -> torch.Tensor:
+    """Slots of the chunked expansion, the slots ``expand`` fills: per A
+    entry ``ceil(deg_B(col) / W) * W``, summed exactly (int64, 0-dim)."""
+    return (-(-_a_degrees(a, b_csr) // chunk_w)).sum(dtype=torch.int64) * chunk_w
+
+
+def flops_padded(a: SpTuples, b_csr, chunk_w: int = CHUNK_W) -> torch.Tensor:
+    """``expansion_slots`` as the reference's float32 (0-dim): W is a power
+    of two, so rounding the product once equals the reference's rounded
+    chunk count times W."""
+    return expansion_slots(a, b_csr, chunk_w).to(torch.float32)
+
+
+def expand(sr: Semiring, a: SpTuples, b_csr, flop_capacity: int,
+           chunk_w: int = CHUNK_W) -> SpTuples:
+    """The EXPAND phase: the product tuples of ``a · b`` before combining
+    (duplicates kept), capacity ``ceil(flop_capacity / W) * W``; work past
+    it is cut off, so callers size it with ``flops_padded``.
+
+    One virtual entry per (A entry, W-chunk of B's row) in A's slot order,
+    each taking a contiguous W-window of B's column ids and values; lanes
+    past the row's end are padding. The slot order is the reference's, so
+    a later fold of equal keys sees the same operand order."""
+    W = chunk_w
+    dev = a.rows.device
+    v_capacity = -(-flop_capacity // W)
+    deg = _a_degrees(a, b_csr)
+    # one window of padding: a row's last chunk may reach past the data
+    b_indices = torch.cat([b_csr.indices, b_csr.indices.new_full((W,), b_csr.ncols)])
+    b_vals = torch.cat([b_csr.vals, b_csr.vals.new_zeros(W)])
+    lens_pad = _row_lens_pad(b_csr)
+    starts_pad = torch.cat([b_csr.indptr[:-1], b_csr.indptr.new_zeros(1)])
+    owner, chix, valid_v, _ = expand_ranges(-(-deg // W), v_capacity)
+    a_rows_v = a.rows[owner]
+    a_vals_v = a.vals[owner]
+    k_v = torch.clamp(a.cols[owner], max=b_csr.nrows)
+    deg_v = lens_pad[k_v]
+    b0 = torch.where(valid_v, starts_pad[k_v] + chix * W, 0).to(torch.int32)
+    lane = torch.arange(W, dtype=torch.int32, device=dev)
+    win = (b0[:, None] + lane[None, :]).reshape(-1)
+    bcols = b_indices.index_select(0, win).view(v_capacity, W)
+    bvals = b_vals.index_select(0, win).view(v_capacity, W)
+    lane_ok = valid_v[:, None] & (chix[:, None] * W + lane[None, :] < deg_v[:, None])
+    return SpTuples(
+        rows=torch.where(lane_ok, a_rows_v[:, None], a.nrows).reshape(-1).to(torch.int32),
+        cols=torch.where(lane_ok, bcols, b_csr.ncols).reshape(-1).to(torch.int32),
+        vals=sr.mul(a_vals_v[:, None], bvals).reshape(-1),
+        nnz=lane_ok.sum().to(torch.int32),
+        nrows=a.nrows,
+        ncols=b_csr.ncols,
+    )
+
+
+def local_spgemm(sr: Semiring, a: SpTuples, b_csr, *, flop_capacity: int,
+                 out_capacity: int) -> SpTuples:
+    """``C = a ⊗ b`` on one tile: expand, sort, compress. Reference:
+    ``LocalHybridSpGEMM`` with its hash/heap accumulator replaced by a
+    sort and a segmented fold."""
+    return expand(sr, a, b_csr, flop_capacity).compact(sr, capacity=out_capacity)
+
+
+def mask_rows(t: SpTuples, row_lo: int, row_hi: int) -> SpTuples:
+    """Entries with a row outside ``[row_lo, row_hi)`` become padding;
+    capacity unchanged, ``nnz`` recounted."""
+    keep = t.valid_mask() & (t.rows >= row_lo) & (t.rows < row_hi)
+    return SpTuples(rows=torch.where(keep, t.rows, t.nrows),
+                    cols=torch.where(keep, t.cols, t.ncols), vals=t.vals,
+                    nnz=keep.sum().to(torch.int32), nrows=t.nrows, ncols=t.ncols)
 
 
 def densify(t: SpTuples, pad_rows: int, pad_cols: int, zero) -> torch.Tensor:
@@ -133,3 +241,169 @@ def coo_sort_dedup(
     rows, cols = r1[order_r], c1[order_r]
     same = (rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])
     return rows, cols, torch.cat([same.new_zeros(1), same])
+
+
+# --- the merge of sorted runs ---------------------------------------------
+
+
+def _lex_key(r: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One int64 key per (row, col) that orders as the pair does (ids are
+    non-negative int32)."""
+    return (r.long() << 32) | c.long()
+
+
+def _lex_searchsorted(rs: torch.Tensor, cs: torch.Tensor, rq: torch.Tensor,
+                      cq: torch.Tensor, side: str = "left") -> torch.Tensor:
+    """For each query (rq, cq): the count of entries of the (row, col)-sorted
+    run (rs, cs) below it (``side="left"``) or at most it (``"right"``),
+    int32. The reference binary-searches the two keys; here one
+    ``searchsorted`` over the fused key gives the same counts."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    return torch.searchsorted(_lex_key(rs, cs), _lex_key(rq, cq), side=side, out_int32=True)
+
+
+def _merge_two_sorted(x: SpTuples, y: SpTuples) -> SpTuples:
+    """Merge two (row, col)-sorted tiles (padding at the tail) into one
+    sorted tile of capacity ``x.capacity + y.capacity``: ``x[i]`` goes to
+    ``i + |{y < x[i]}|``, ``y[j]`` to ``j + |{x <= y[j]}|``, so ties keep
+    x before y (the order of a concatenation) and padding stays a suffix."""
+    if (x.nrows, x.ncols) != (y.nrows, y.ncols):
+        raise ValueError("runs differ in shape")
+    mx, my = x.capacity, y.capacity
+    dev = x.rows.device
+    px = torch.arange(mx, device=dev) + _lex_searchsorted(y.rows, y.cols, x.rows, x.cols, "left")
+    py = torch.arange(my, device=dev) + _lex_searchsorted(x.rows, x.cols, y.rows, y.cols, "right")
+
+    def weave(ax, ay):
+        out = ax.new_zeros(mx + my)
+        out[px] = ax
+        out[py] = ay
+        return out
+
+    return SpTuples(rows=weave(x.rows, y.rows), cols=weave(x.cols, y.cols),
+                    vals=weave(x.vals, y.vals), nnz=x.nnz + y.nnz, nrows=x.nrows,
+                    ncols=x.ncols)
+
+
+def merge_sorted_runs(runs: list[SpTuples]) -> SpTuples:
+    """k-way merge of (row, col)-sorted tiles of one shape into one sorted
+    tile, duplicates kept and adjacent in run order: a pairwise tree of
+    ``_merge_two_sorted``. Equals ``SpTuples.concat(runs).sort_rowmajor()``
+    slot for slot."""
+    if not runs:
+        raise ValueError("merge_sorted_runs needs at least one run")
+    while len(runs) > 1:
+        nxt = [_merge_two_sorted(runs[i], runs[i + 1]) for i in range(0, len(runs) - 1, 2)]
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    return runs[0]
+
+
+# --- the bit-packed output-support oracle -----------------------------------
+
+
+def pack_support_bits(rows: torch.Tensor, cols: torch.Tensor, nrows: int, ncols: int, *,
+                      assume_unique: bool = False) -> torch.Tensor:
+    """COO support -> packed ``[nrows, ceil(ncols / 32)]`` int32 bitmask
+    (the reference's uint32 words, same bits): bit (i, j) is set iff some
+    entry (i, j) has ``i < nrows`` and ``j < ncols``. Packing adds
+    ``1 << (j & 31)`` into word (i, j >> 5); bit 31 adds -2^31, and a sum
+    of distinct bits never carries, so the int32 words hold the bitwise OR.
+    A repeated entry would carry, so the input is deduplicated first
+    (``coo_sort_dedup``) unless ``assume_unique``."""
+    nw = -(-ncols // 32)
+    if not assume_unique:
+        rows, cols, dup = coo_sort_dedup(rows, cols)
+        rows = torch.where(dup, nrows, rows)
+    keep = (rows < nrows) & (cols < ncols)
+    word = spread_drops(rows.long() * nw + (cols >> 5).long(), keep, nrows * nw)
+    bit = torch.ones_like(cols, dtype=torch.int32) << (cols.to(torch.int32) & 31)
+    bits = torch.zeros(nrows * nw + DROP_SPREAD, dtype=torch.int32, device=rows.device)
+    return bits.index_add_(0, word, bit)[: nrows * nw].view(nrows, nw)
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (int32 words, bit 31 included), int32:
+    the SWAR count over the low 31 bits, where no step overflows, plus bit
+    31 (the sign)."""
+    x = words & 0x7FFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return (x & 0x3F) + (words < 0).to(words.dtype)
+
+
+def popcount_pair_counts(bits_i: torch.Tensor, bits_j: torch.Tensor, ii: torch.Tensor,
+                         jj: torch.Tensor, weights: torch.Tensor, *,
+                         chunk: int = 8192) -> torch.Tensor:
+    """``Σ_pairs weights · popcount(bits_i[ii] & bits_j[jj])`` as the
+    reference's int32 ``[2]`` (hi, lo) 15-bit split (total = hi · 2^15 +
+    lo). Summed exactly in int64 inside; pairs of weight 0 are skipped, and
+    the rest are walked ``chunk`` at a time (two row gathers and a
+    popcount each)."""
+    live = weights != 0
+    ii, jj, weights = ii[live], jj[live], weights[live].to(torch.int64)
+    total = torch.zeros((), dtype=torch.int64, device=bits_i.device)
+    for lo in range(0, ii.shape[0], chunk):
+        gi = bits_i.index_select(0, ii[lo:lo + chunk])
+        gj = bits_j.index_select(0, jj[lo:lo + chunk])
+        cnt = popcount32(gi & gj).sum(1, dtype=torch.int64)
+        total = total + (cnt * weights[lo:lo + chunk]).sum()
+    return hilo_split(total)
+
+
+def hilo_split(total: torch.Tensor) -> torch.Tensor:
+    """A non-negative int64 count as the reference's int32 ``[2]`` (hi, lo)
+    15-bit split."""
+    return torch.stack([total >> 15, total & 0x7FFF]).to(torch.int32)
+
+
+def combine_hilo(hilo) -> int:
+    """The exact total of an int32 (hi, lo) 15-bit split."""
+    hilo = np.asarray(hilo.cpu() if isinstance(hilo, torch.Tensor) else hilo, np.int64)
+    return int((hilo[0] << 15) + hilo[1])
+
+
+def _pack_rows(live: torch.Tensor) -> torch.Tensor:
+    """Bool ``[R, 32 * nw]`` -> int32 words ``[R, nw]`` (bit l of word w is
+    column 32 w + l); distinct bits summed in int32 never carry."""
+    R, n = live.shape
+    lanes = torch.ones(32, dtype=torch.int32, device=live.device) << torch.arange(
+        32, dtype=torch.int32, device=live.device)
+    return (live.view(R, n // 32, 32).to(torch.int32) * lanes).sum(-1, dtype=torch.int32)
+
+
+def spgemm_support_bits(a: SpTuples, b: SpTuples, *,
+                        row_block: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """The output-support oracle: the pattern of ``a · b`` as packed
+    ``[a.nrows, ceil(b.ncols / 32)]`` int32 words and the exact per-row
+    nonzero counts. The pattern is a row-blocked counts product of the 0/1
+    supports in bf16 (the reference's inputs; only ``> 0`` is read, so
+    the bf16 product is enough), thresholded and packed block by block."""
+    if a.ncols != b.nrows:
+        raise ValueError(f"dim mismatch {a.ncols} != {b.nrows}")
+    m, k, n = a.nrows, a.ncols, b.ncols
+    kpad = -(-k // 128) * 128
+    npad = -(-n // 128) * 128
+    nw = -(-n // 32)
+
+    def support_dense(t: SpTuples, R: int, C: int) -> torch.Tensor:
+        flat = torch.where(t.valid_mask(), t.rows.long() * C + t.cols.long(), R * C)
+        d = torch.zeros(R * C + 1, dtype=torch.float32, device=t.rows.device)
+        d.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+        return torch.clamp(d[:R * C], max=1.0).view(R, C).to(torch.bfloat16)
+
+    nblocks = -(-m // row_block)
+    da = support_dense(a, nblocks * row_block, kpad)
+    db = support_dense(b, kpad, npad)
+    out_bits, out_cnt = [], []
+    for blk in range(nblocks):
+        lo = blk * row_block
+        live = torch.matmul(da[lo:lo + row_block], db)[:, :n] > 0
+        out_cnt.append(live.sum(1, dtype=torch.int32))
+        out_bits.append(_pack_rows(torch.nn.functional.pad(live, (0, nw * 32 - n))))
+    return torch.cat(out_bits)[:m], torch.cat(out_cnt)[:m]

@@ -35,7 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.segment import fix_signed_zeros, float_bits, segment_reduce_dropping
+from ..ops.segment import float_bits, fold_dim, segment_reduce_dropping
 from ..semiring import PLUS_TIMES, Semiring
 from .grid import Grid, combine_tiles
 
@@ -172,23 +172,7 @@ class DistVec:
         the blocks' dtype (bool counts as int32); a block's float min or
         max gives the reference's signed zeros. Reference:
         ``FullyDistVec::Reduce``."""
-        b = self.blocks
-        if sr.add_kind == "sum":
-            parts = b.sum(dim=1, dtype=torch.int32 if b.dtype == torch.bool else b.dtype)
-        elif sr.add_kind in ("min", "max"):
-            fold = torch.amin if sr.add_kind == "min" else torch.amax
-            parts = fold(b, dim=1)
-            if parts.is_floating_point():
-                parts = fix_signed_zeros(parts, fold(float_bits(b), dim=1), sr.add_kind)
-        else:  # any other monoid: a pairwise tree over each block
-            parts = b
-            while parts.shape[1] > 1:
-                if parts.shape[1] % 2:
-                    parts = torch.cat([parts, parts.new_full((b.shape[0], 1), sr.zero(b.dtype))],
-                                      dim=1)
-                parts = sr.add(parts[:, 0::2], parts[:, 1::2])
-            parts = parts[:, 0]
-        return combine_tiles(sr, list(parts))
+        return combine_tiles(sr, list(fold_dim(sr, self.blocks, 1)))
 
     # --- the sort / find / permute family ---------------------------------
 

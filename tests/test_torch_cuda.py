@@ -843,3 +843,215 @@ def test_spparmat_apps_on_card_match_cpu(shape, cuda_device):
     assert i0 == i1 and I0 == I1
     torch.testing.assert_close(x1.cpu(), x0, rtol=1e-4, atol=1e-7)
     torch.testing.assert_close(X1.cpu(), X0, rtol=1e-4, atol=1e-7)
+
+
+# --- the general SpGEMM, the elementwise layer, TC and BC -----------------------
+
+from combblas_tpu_torch import (  # noqa: E402
+    DenseParMat,
+    SpTuples,
+    bc_batch,
+    bc_batch_dense_lanes,
+    block_spgemm,
+    choose_spgemm_tier,
+    ewise_apply,
+    ewise_mult,
+    intersect_lookup,
+    mem_efficient_spgemm,
+    pack_support_bits,
+    popcount32,
+    popcount_pair_counts,
+    spasgn,
+    spgemm,
+    spgemm_scan,
+    spgemm_support_bits,
+    subsref,
+    summa_spgemm,
+    summa_stage_flops,
+    triangle_count,
+)
+from combblas_tpu_torch.models import tc as tc_mod  # noqa: E402
+from combblas_tpu_torch.parallel.spmat import monotone_key_u32  # noqa: E402
+
+
+def _mat_fields(M):
+    return [M.rows, M.cols, M.vals, M.nnz]
+
+
+def _esc_graph(seed=4):
+    """A scale-9 R-MAT graph, its COO with repeats, integer weights 1..15."""
+    r, c = rmat_symmetric_coo_host(seed, 9, 8)
+    v = np.random.default_rng(seed).integers(1, 16, len(r)).astype(np.float32)
+    return 1 << 9, r, c, v
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_esc_and_scan_tiers_on_card_match_cpu(p, cuda_device):
+    """The symbolic pass, spgemm (sort, runs, ring), spgemm_scan with a
+    retry, mem_efficient_spgemm and block_spgemm for min_plus, max_min and
+    plus_times on integer weights: exact on the card against the CPU."""
+    n, r, c, v = _esc_graph()
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(p, p, device=dev)
+        A = SpParMat.from_global_coo(grid, r, c, v, n, n)
+        res = [summa_stage_flops(A, A), summa_stage_flops(A, A, padded=False)]
+        for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+            res += _mat_fields(spgemm(sr, A, A))
+            fc, oc = spgemm.last_capacities
+            res += _mat_fields(summa_spgemm(sr, A, A, flop_capacity=fc, out_capacity=oc,
+                                            merge="runs", ring=True))
+            res += _mat_fields(spgemm_scan(sr, A, A, out_capacity=256))
+            res += _mat_fields(mem_efficient_spgemm(sr, A, A, 4))
+        for _, C in block_spgemm(MIN_PLUS, A, A, 2, 2):
+            res += _mat_fields(C)
+        res.append(choose_spgemm_tier(MIN_PLUS, A, A))
+        out.append(res)
+    for a, b in zip(*out):
+        if isinstance(a, torch.Tensor):
+            _same(a, b)
+        else:
+            assert a == b
+
+
+def test_ewise_layer_on_card_matches_cpu(cuda_device):
+    """ops.ewise and the SpParMat elementwise, select and split family on
+    a 2×2 grid, kselect on floats with ±0, NaN and ±inf: exact."""
+    rng = np.random.default_rng(5)
+    n = 96
+    da, db = rng.random((n, n)) < 0.2, rng.random((n, n)) < 0.2
+    ra, ca = np.nonzero(da)
+    rb, cb = np.nonzero(db)
+    va = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.0, 3.0],
+                             np.float32), len(ra))
+    vb = rng.integers(-5, 6, len(rb)).astype(np.float32)
+    kv = rng.integers(1, 6, n).astype(np.int32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        ta = SpTuples.from_coo(ra, ca, va, n, n, len(ra) + 3, device=dev)
+        tb = SpTuples.from_coo(rb, cb, vb, n, n, len(rb) + 5, device=dev)
+        res = list(intersect_lookup(ta, tb, -1.0))
+        for t in (ewise_mult(ta, tb, False, torch.add), ewise_mult(ta, tb, True),
+                  ewise_apply(ta, tb, torch.sub, allow_a_nulls=True, allow_b_nulls=True,
+                              a_null=2.0, b_null=-3.0)):
+            res += [t.rows, t.cols, t.vals, t.nnz]
+        grid = Grid.make(2, 2, device=dev)
+        A = SpParMat.from_global_coo(grid, ra, ca, va, n, n, capacity=900)
+        B = SpParMat.from_global_coo(grid, rb, cb, vb, n, n, capacity=900)
+        th = A.kselect(3)
+        for M in (A.ewise_mult(B), A.ewise_mult(B, negate=True), A.ewise_add(B, MIN_PLUS),
+                  A.ewise_apply(B, torch.mul, allow_b_nulls=True, b_null=4.0),
+                  A.add_loops(7.0), A.prune_column(th, lambda x, t: x >= t),
+                  A.prune_rowcol(DistVec.from_global(grid, kv.astype(np.float32), align="row"),
+                                 DistVec.from_global(grid, kv.astype(np.float32)),
+                                 lambda x, rr, cc: x > rr - cc),
+                  A.with_capacity(1000), A.shrink_to_fit(), *A.col_split(3), *A.row_split(2),
+                  SpParMat.col_concatenate(A.col_split(4))):
+            res += _mat_fields(M)
+        th2, act = A.kselect2(4)
+        res += [th.blocks, th2.blocks, act, A.nnz_per_column().blocks,
+                A.kselect(DistVec.from_global(grid, kv)).blocks,
+                monotone_key_u32(torch.from_numpy(va).to(dev))]
+        out.append(res)
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_popcount_and_support_bits_on_card_match_cpu(cuda_device):
+    """popcount32 on words with bit 31 set against numpy; the packed
+    support words, the pair counts (hi, lo) and the support oracle on the
+    card against the CPU."""
+    rng = np.random.default_rng(6)
+    w = rng.integers(-2**31, 2**31, 1 << 16, dtype=np.int64).astype(np.int32)
+    w[:3] = [-1, -2**31, 2**31 - 1]
+    want = np.array([bin(int(x) & 0xFFFFFFFF).count("1") for x in w], np.int32)
+    got = popcount32(torch.from_numpy(w).to(cuda_device))
+    assert got.device.type == cuda_device.type
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    n, r, c, v = _esc_graph(7)
+    ii = rng.integers(0, n, 20000).astype(np.int32)
+    jj = rng.integers(0, n, 20000).astype(np.int32)
+    ww = rng.integers(0, 3, 20000).astype(np.int32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        rt, ct = (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (r, c))
+        bits = pack_support_bits(rt, ct, n, n)
+        hilo = popcount_pair_counts(bits, bits, *(torch.from_numpy(x).to(dev)
+                                                  for x in (ii, jj, ww)))
+        a = SpTuples.from_coo(r[::2], c[::2], v[::2], n, n, device=dev)
+        b = SpTuples.from_coo(c[1::2], r[1::2], v[1::2], n, n, device=dev)
+        out.append([bits, hilo, *spgemm_support_bits(a, b, row_block=200)])
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_indexing_on_card_matches_cpu(cuda_device):
+    n, r, c, v = _esc_graph(8)
+    rng = np.random.default_rng(8)
+    ri, ci = rng.integers(0, n, 200), rng.permutation(n)[:150]
+    ri2 = rng.permutation(n)[:20]
+    out = []
+    for dev in ("cpu", cuda_device):
+        grid = Grid.make(2, 2, device=dev)
+        A = SpParMat.from_global_coo(grid, r, c, v, n, n, dedup_sr=PLUS_TIMES)
+        B = SpParMat.from_global_coo(grid, np.arange(20), np.arange(20) % 150,
+                                     np.full(20, 9.0, np.float32), 20, 150)
+        out.append(_mat_fields(subsref(A, ri, ci)) + _mat_fields(spasgn(A, ri2, ci, B)))
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_triangle_counting_on_card_matches_cpu(cuda_device):
+    """Every TC kernel's (hi, lo) split and count on the card against the
+    CPU: one tile (dense, bit and bf16 edge harvest, sparse) and 2×2
+    (distributed harvest, sparse), on a COO with repeats."""
+    g = build_graph(10, 16, nroots=1)
+    n, r, c = 1 << 10, g["rows"], g["cols"]
+    rr, cc = np.concatenate([r, r[:50]]), np.concatenate([c, c[:50]])  # repeats
+    out = []
+    for dev in ("cpu", cuda_device):
+        one = SpParMat.from_global_coo(Grid.make(1, 1, device=dev), rr, cc,
+                                       np.ones(len(rr), np.float32), n, n)
+        t = one.local_tile(0, 0)
+        uniq = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), r, c,
+                                        np.ones(len(r), np.float32), n, n)
+        two = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), rr, cc,
+                                       np.ones(len(rr), np.float32), n, n)
+        out.append([tc_mod._tc_dense(t.rows, t.cols, n), tc_mod._tc_edge_harvest(t.rows, t.cols, n),
+                    tc_mod._tc_edge_harvest_bits(t.rows, t.cols, n),
+                    tc_mod._tc_edge_harvest_dist(two), triangle_count(uniq, "sparse"),
+                    triangle_count(one, "edgeharvest"), triangle_count(two)])
+    for a, b in zip(*out):
+        if isinstance(a, torch.Tensor):
+            _same(a, b)
+        else:
+            assert a == b
+
+
+def test_betweenness_and_denseparmat_on_card_match_cpu(cuda_device):
+    """bc_batch on 2×2 and bc_batch_dense_lanes on 1×1 within rtol 1e-5
+    (float sums in another order); DenseParMat's ops exact."""
+    n, r, c, _ = _graph_case(9)
+    roots = np.array([0, 5, 17, PAD_ROOT], np.int32)
+    live = roots[roots != PAD_ROOT]
+    out, dense = [], []
+    for dev in ("cpu", cuda_device):
+        A = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), r, c,
+                                     np.ones(len(r), np.float32), n, n)
+        E = EllParMat.from_host_coo(Grid.make(1, 1, device=dev), r, c,
+                                    np.ones(len(r), np.float32), n, n)
+        out.append([bc_batch(A, live).blocks, bc_batch_dense_lanes(E, E, roots).blocks])
+        D = DenseParMat.from_global(Grid.make(2, 2, device=dev),
+                                    np.arange(n * 3, dtype=np.float32).reshape(n, 3) % 5)
+        S = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), r[:300] % n, c[:300] % 3,
+                                     np.ones(300, np.float32), n, 3)
+        dense += [D.add_spmat(S).blocks, D.add_spmat(S, torch.maximum).blocks,
+                  *_mat_fields(D.filter_spmat(S, lambda s, d: d < 2)),
+                  *_mat_fields(D.scale_spmat(S, torch.mul)),
+                  D.reduce(PLUS_TIMES, "rows").blocks, D.reduce(MIN_PLUS, "cols").blocks]
+    for a, b in zip(*out):
+        scale = float(a.abs().max())
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6 * scale)
+    half = len(dense) // 2
+    for a, b in zip(dense[:half], dense[half:]):
+        _same(a, b)

@@ -122,8 +122,9 @@ def test_forced_overflow_retries_to_the_same_capacity():
 
 
 def test_duplicates_and_unported_tiers():
-    """``coo_has_duplicates`` agrees with the reference; where the
-    reference leaves the mxu tier the port raises NotImplementedError."""
+    """``coo_has_duplicates`` agrees with the reference; where the reference
+    leaves the mxu tier the port routes as it does, runs the esc and scan
+    tiers and raises NotImplementedError for the windowed ones."""
     r, c, v = _graph()
     jD, tD = _both(1, r, c, v, None)  # symmetrized R-MAT keeps duplicates
     jU, tU = _both(1, r, c, v, SEMIRINGS[0])
@@ -131,18 +132,18 @@ def test_duplicates_and_unported_tiers():
     assert jax_has_dups(jU) is coo_has_duplicates(tU) is False
     # duplicate tiles: the reference falls back to windowed or scan
     assert jax_choose_tier(J_MIN_PLUS, jD, jD) in ("windowed", "scan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        choose_spgemm_tier(MIN_PLUS, tD, tD)
+    assert choose_spgemm_tier(MIN_PLUS, tD, tD) == jax_choose_tier(J_MIN_PLUS, jD, jD)
     assert choose_spgemm_tier(MIN_PLUS, tD, tD, assume_unique=True) == "mxu"
     # a semiring without a dense kernel
-    assert jax_choose_tier(J_SELECT2ND_MAX, jU, jU) != "mxu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spgemm_auto(SELECT2ND_MAX, tU, tU)
-    # forced tiers that are not ported
-    for tier in ("esc", "scan", "windowed", "windowed3d"):
+    tier = jax_choose_tier(J_SELECT2ND_MAX, jU, jU)
+    assert tier != "mxu" and choose_spgemm_tier(SELECT2ND_MAX, tU, tU) == tier
+    # forced tiers: esc and scan run; the windowed tiers are not ported
+    for tier in ("esc", "scan"):
+        _assert_same(jax_spgemm_auto(J_MIN_PLUS, jU, jU, tier=tier),
+                     spgemm_auto(MIN_PLUS, tU, tU, tier=tier))
+    for tier in ("windowed", "windowed3d"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spgemm_auto(MIN_PLUS, tU, tU, tier=tier)
-
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])

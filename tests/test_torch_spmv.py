@@ -205,8 +205,9 @@ def test_compressed_from_and_to_tuples(fmt):
     lens = tc.row_lens() if fmt == "csr" else tc.col_lens()
     assert_same(lens, jc.row_lens() if fmt == "csr" else jc.col_lens())
     assert_same_tuples(tc.to_tuples(), jc.to_tuples())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.to_bitmask()
+    # the support words: the reference's uint32 bits as int32
+    np.testing.assert_array_equal(tc.to_bitmask().numpy(),
+                                  np.asarray(jc.to_bitmask()).view(np.int32))
 
 
 # --- local kernels -----------------------------------------------------------
