@@ -100,8 +100,9 @@ Phases (each prints one JSON line):
      and ``mem_efficient_spgemm(phases=4)``: 355,881,582 live entries each,
      min_plus and max_min equal bit for bit across the four, plus_times
      within float32 rounding of scipy's float64 product; the router's
-     answer (windowed, as the reference's) and ``spgemm_auto``'s refusal
-     of it; the bytes bound and ``torch.sparse.mm`` on CSR for plus_times;
+     answer (windowed, as the reference's) and ``spgemm_auto``'s product on
+     it, equal to sort; the bytes bound and ``torch.sparse.mm`` on CSR for
+     plus_times;
      (3) ``kselect(16)`` and ``prune_column`` on the min_plus A·A against
      numpy; (4) ``subsref`` of a seeded half of the vertices against
      scipy's slice; (5) triangles of the scale-15, 16 and 18 graphs
@@ -111,6 +112,26 @@ Phases (each prints one JSON line):
      ``SpParMat``, the first two lanes against a float64 Brandes on the
      host, the capacities of each product. K1 runs only in step 1's mxu
      calls, K2 never.
+ 11. spgemm_windowed, the windowed SpGEMM tier and ``semantic.py`` (each
+     timed step a warm-up and two calls, CUDA events around the whole call):
+     (1) phase 10's A·A at scale 16 on 4 x 4 through plain ``spgemm_auto``:
+     the router answers windowed (also with backend="dot"), the scatter
+     backend's blocked form runs, equal to ``spgemm`` (sort) bit for bit for
+     min_plus and max_min, plus_times within float32 rounding of scipy's
+     float64 product (its largest sum passes 2^24), with the plan,
+     peak memory and a bytes bound (A and B read, the accumulators' cells
+     written and read, C written once) beside phase 10's sort time; (2)
+     R-MAT scale 15 on 2 x 2 (16384-wide tiles) through the dot backend:
+     equal to the scatter backend and to sort, K1 launched tiles × stages ×
+     live windows a call at [4096, 16384] x [16384, 8192], the carousel once
+     for min_plus, and that launch rebuilt from the path's operands held bit
+     for bit against the plain version; (3) phase 5's graph on 1 x 1 forced
+     to the windowed tier (scatter; dot with the oracle off and on, one K1
+     launch a tropical call), equal to phase 5's mxu result bit for bit;
+     (4) phase 9's matrix with a seeded attribute an edge (w[i] + w[j]):
+     ``filtered_bfs`` materialized and masked equal to each other and to a
+     numpy BFS over the passing edges, ``filtered_mis`` independent and
+     maximal over them. K1 runs as often as the plans say, K2 never.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -142,6 +163,7 @@ from combblas_tpu_torch import (
     DistVec,
     EllParMat,
     Grid,
+    SemanticGraph,
     SpParMat,
     batch_traversed_edges,
     bfs,
@@ -160,12 +182,15 @@ from combblas_tpu_torch import (
     csc_tiles,
     dense_support_nnz,
     dense_to_sptuples,
+    densify_combine,
     dist_spmspv_masked,
     dist_spmv,
     dist_spmv_ell_masked_multi,
     dist_spmv_ell_multi,
     estimate_flops,
     expand_ranges,
+    filtered_bfs,
+    filtered_mis,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
     lacc,
@@ -173,6 +198,8 @@ from combblas_tpu_torch import (
     mis,
     num_components,
     ones_f32,
+    packed_windows,
+    packed_windows_2d,
     pagerank,
     pagerank_batch,
     parse_tier_spec,
@@ -185,6 +212,7 @@ from combblas_tpu_torch import (
     spgemm,
     spgemm_auto,
     spgemm_scan,
+    spgemm_windowed,
     sssp,
     sssp_batch,
     subsref,
@@ -197,10 +225,17 @@ from combblas_tpu_torch import _build
 from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS, _panels
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS as K2_VARIANTS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
-from combblas_tpu_torch.ops.spgemm import densify
+from combblas_tpu_torch.ops.spgemm import densify, mask_rows
 from combblas_tpu_torch.models import bfs as bfs_mod
 from combblas_tpu_torch.parallel import ellmat
-from combblas_tpu_torch.parallel.spgemm import _PALLAS_KINDS, _mxu_dot, _pad128
+from combblas_tpu_torch.parallel.spgemm import (
+    _PALLAS_KINDS,
+    _colmajor_with_starts,
+    _dense_col_panel,
+    _mxu_dot,
+    _pad128,
+    _shift_rowblock,
+)
 from combblas_tpu_torch.parallel.spmv import spmspv_counts
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
@@ -1503,9 +1538,9 @@ def phase_spmat_path(dev, g: dict, E: EllParMat, csr, batch: tuple) -> dict:
     layers["min_plus_f32"]["launches_per_call"] = {"sssp": rounds}
     layers["plus_times_f32"]["launches_per_call"] = {"pagerank": it}
     emit({"phase": "spmat_path", "step": "spmat_layers", **layers})
-    del A, Aw, csc
+    del Aw, csc
     torch.cuda.empty_cache()
-    return {"lines": lines, "layers": layers}
+    return {"lines": lines, "layers": layers, "A": A}
 
 
 def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
@@ -1830,7 +1865,7 @@ def step_aa16(dev) -> dict:
     mem_efficient_spgemm(phases=4): 355,881,582 live entries each, min_plus
     and max_min equal bit for bit across the four, plus_times within float32
     rounding of scipy's float64 product. The router's answer ("windowed",
-    as the reference's) and spgemm_auto's refusal of it."""
+    as the reference's) and spgemm_auto's product on it, equal to sort."""
     import scipy.sparse as sp
 
     grid = Grid.make(GEN_GRID, GEN_GRID, device=dev)
@@ -1843,14 +1878,9 @@ def step_aa16(dev) -> dict:
         if tier != "windowed":
             raise AssertionError(f"A·A {sr.name}: routed to {tier}, the reference's rule "
                                  "gives windowed")
-        try:
-            spgemm_auto(sr, A, A)
-            raise AssertionError("spgemm_auto served a windowed product")
-        except NotImplementedError as e:
-            refusal = str(e)
         line = {"phase": "spgemm_general", "step": "aa16", "semiring": sr.name,
                 "scale": GEN_SCALE, "grid": f"{GEN_GRID}x{GEN_GRID}", "nnz_a": nnz_a,
-                "flops": estimate_flops(A, A), "router": tier, "spgemm_auto": refusal,
+                "flops": estimate_flops(A, A), "router": tier,
                 "bytes_bound_ms": esc_bytes_bound_ms(nnz_a, GEN_AA_NNZ)}
         ref = None
         for name, fn in (("sort", lambda: spgemm(sr, A, A)),
@@ -1879,6 +1909,17 @@ def step_aa16(dev) -> dict:
                           "sort_bound_share": line["bytes_bound_ms"] / ms, **caps}
             del got
             torch.cuda.empty_cache()
+        # the router's route: spgemm_auto serves it (phase 11 times it), equal to
+        # sort; plus_times within float32 rounding of scipy's product
+        auto = live_entries(spgemm_auto(sr, A, A))
+        if sr.name == "plus_times":
+            line["spgemm_auto"] = {"tier": tier, "max_rel_err": plus_times_check(auto, r, c, v, n)}
+        elif same_entries(auto, ref):
+            line["spgemm_auto"] = {"tier": tier, "equal_to_sort": True}
+        else:
+            raise AssertionError(f"A·A {sr.name}: spgemm_auto (windowed) differs from sort")
+        del auto
+        torch.cuda.empty_cache()
         if sr.name == "plus_times":
             line.update(library_spgemm_ms(r, c, v, n, GEN_GRID, dev))
         if sr.name == "min_plus":  # where a sort-merge call's time goes, by operator
@@ -2127,6 +2168,300 @@ def phase_spgemm_general(dev, t_start: float, g: dict) -> dict:
             "triangles": tri, "bc": bc}
 
 
+# --- phase 11: the windowed SpGEMM tier and semantic.py ------------------------
+
+WIN_DOT_SCALE, WIN_DOT_GRID = 15, 2  # 16384-wide tiles, as phase 10's: K1 at full shape
+WIN_REPS = 2  # timed calls after the warm-up
+SEMANTIC_SEED = 11
+
+
+def plan_summary(plan: dict) -> dict:
+    """The JSON-able part of ``spgemm_windowed.last_plan`` (no skip list)."""
+    return {k: v for k, v in plan.items() if k != "skip"}
+
+
+def accumulator_cells(plan: dict, A: SpParMat) -> int:
+    """Dense accumulator cells a windowed call of ``plan`` on A·A fills, over
+    all tiles: each live block's ``rb × pad128(lc)`` (scatter) or each live
+    window's ``pad(rb) × pad(block_cols)`` (dot)."""
+    lr, lc, br = A.local_rows, A.local_cols, plan["block_rows"]
+    if plan["backend"] == "scatter":
+        pc = -(-lc // 128) * 128
+        cells = sum(min(br, lr - g * br) * pc for g in packed_windows(plan["skip"]))
+    else:
+        pw = _pad128(plan["block_cols"])
+        cells = sum(_pad128(min(br, lr - g * br)) * pw
+                    for g, _ in packed_windows_2d(plan["skip"]))
+    return cells * A.grid.size
+
+
+def windowed_bound(plan: dict, A: SpParMat, nnz_c: int, launches: int) -> tuple[float, str]:
+    """Least time of a windowed A·A call: A and B read once (12 bytes an
+    entry), every dense accumulator cell written and read once (4 bytes
+    each way), C written once; for the dot backend also its ``launches``
+    stage products at the float32 peak (2 operations a multiply), the
+    larger of the two."""
+    nnz_a = int(A.getnnz())
+    bytes_ms = (2 * 12 * nnz_a + 8 * accumulator_cells(plan, A) + 12 * nnz_c) / PEAK_BYTES * 1e3
+    ops_ms = 0.0
+    if plan["backend"] == "dot" and launches:
+        br = min(plan["block_rows"], A.local_rows)
+        ops_ms = (launches * 2.0 * _pad128(br) * _pad128(A.local_rows)
+                  * _pad128(plan["block_cols"]) / PEAK_F32_OPS * 1e3)
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def step_windowed_aa16(dev, aa: dict) -> dict:
+    """Step 1: A·A at scale 16 on 4×4 through plain ``spgemm_auto``: the
+    router answers windowed (and windowed with backend="dot"), the scatter
+    backend's blocked form runs; min_plus and max_min equal ``spgemm``
+    (sort) bit for bit; plus_times within float32 rounding of scipy's
+    float64 product (duplicates fold by sum, so its largest sum passes 2^24
+    and the order of a sum shows)."""
+    grid = Grid.make(GEN_GRID, GEN_GRID, device=dev)
+    n = 1 << GEN_SCALE
+    lines = {}
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        r, c, v, A = weighted_rmat(GEN_SCALE, dev, grid, sr)
+        tier, dot_tier = choose_spgemm_tier(sr, A, A), choose_spgemm_tier(sr, A, A, backend="dot")
+        if (tier, dot_tier) != ("windowed", "windowed"):
+            raise AssertionError(f"A·A {sr.name}: routed to {tier} ({dot_tier} with dot)")
+        ref = live_entries(spgemm(sr, A, A))
+        got, ms, peak = step_times(lambda: spgemm_auto(sr, A, A), live_entries, WIN_REPS)
+        plan = spgemm_windowed.last_plan
+        if (plan["backend"], plan["form"]) != ("scatter", "blocked"):
+            raise AssertionError(f"A·A {sr.name}: ran {plan['backend']} {plan['form']}")
+        nnz = int(got[0].numel())
+        exact = sr is not PLUS_TIMES
+        if nnz != GEN_AA_NNZ or (exact and not same_entries(got, ref)):
+            raise AssertionError(f"A·A {sr.name}: windowed differs from spgemm (sort)")
+        if not bool(torch.isfinite(got[1]).all()):
+            raise AssertionError(f"A·A {sr.name}: non-finite values")
+        b_ms, b_by = windowed_bound(plan, A, nnz, 0)
+        line = {"phase": "spgemm_windowed", "step": "aa16", "semiring": sr.name,
+                "scale": GEN_SCALE, "grid": f"{GEN_GRID}x{GEN_GRID}", "router": tier,
+                "router_dot": dot_tier, "equal_to_sort": exact, "nnz_out": nnz, "ms": ms,
+                "nnz_out_per_s": nnz / (ms / 1e3), "peak_mem_gb": peak,
+                "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+                "product_bound_ms": esc_bytes_bound_ms(int(A.getnnz()), nnz),
+                "share_of_product_bound": esc_bytes_bound_ms(int(A.getnnz()), nnz) / ms,
+                "accumulator_cells": accumulator_cells(plan, A),
+                "esc_sort_ms": aa[sr.name]["sort"]["ms"], "plan": plan_summary(plan)}
+        if sr is PLUS_TIMES:
+            line["largest_sum"] = float(got[1].max())
+            line["max_rel_err"] = plus_times_check(got, r, c, v, n)
+        emit(line)
+        lines[sr.name] = line
+        del A, ref, got
+        torch.cuda.empty_cache()
+    return lines
+
+
+def k1_at_window_shape(sr, A: SpParMat, plan: dict) -> dict:
+    """The dot backend's first K1 launch of a call (tile (0, 0), stage 0,
+    block 0, window 0) rebuilt from the path's own operands, launched once
+    and held bit for bit against the plain version; both timed. The
+    launch is not counted."""
+    kind = _PALLAS_KINDS[sr.name]
+    a = A.local_tile(0, 0)
+    rb = min(plan["block_rows"], A.local_rows)
+    arows, pk, pwin = _pad128(rb), _pad128(A.local_rows), _pad128(plan["block_cols"])
+    da = densify_combine(sr, _shift_rowblock(mask_rows(a, 0, rb), 0, arows), arows, pk)
+    bs, starts = _colmajor_with_starts(a, plan["block_cols"])
+    panel = _dense_col_panel(sr, bs, starts, 0, plan["block_cols"], pk, pwin, plan["panel_cap"])
+    counted = semiring_matmul.launches
+    got, ms, _ = timed_call(lambda: semiring_matmul(kind, da, panel))
+    semiring_matmul.launches = counted
+    want, plain_ms, _ = timed_call(lambda: semiring_matmul_reference(kind, da, panel))
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"K1 {kind} at the window shape differs from its plain version")
+    return {"kind": kind, "shape": [arows, pk, pwin], "variant": semiring_matmul.last_variant,
+            "bit_equal": True, "max_abs_err": max_abs_err(got, want), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound(arows, pk, pwin)[0]}
+
+
+def step_windowed_dot(dev) -> tuple[dict, dict]:
+    """Step 2: R-MAT scale 15 on 2×2 (16384-wide tiles) through
+    ``spgemm_windowed(backend="dot")``: equal to the scatter backend and to
+    ``spgemm`` (sort); K1 launches equal to tiles × stages × live windows a
+    call; the carousel once for min_plus; K1 at the window shape held
+    against its plain version for min_plus and max_min. Returns (lines, K1
+    launches by kind)."""
+    grid = Grid.make(WIN_DOT_GRID, WIN_DOT_GRID, device=dev)
+    p = WIN_DOT_GRID
+    lines, k1 = {}, {}
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        _, _, _, A = weighted_rmat(WIN_DOT_SCALE, dev, grid, sr)
+        ref = live_entries(spgemm(sr, A, A))
+        if not same_entries(live_entries(spgemm_windowed(sr, A, A)), ref):
+            raise AssertionError(f"scale-15 {sr.name}: scatter backend differs from sort")
+        before = semiring_matmul.launches
+        got, ms, peak = step_times(lambda: spgemm_windowed(sr, A, A, backend="dot"),
+                                   live_entries, WIN_REPS)
+        launched = semiring_matmul.launches - before
+        plan = spgemm_windowed.last_plan
+        per_call = 0 if sr is PLUS_TIMES else p * p * p * plan["packed"]  # tiles × stages × windows
+        if launched != (1 + WIN_REPS) * per_call:
+            raise AssertionError(f"dot {sr.name}: {launched} K1 launches, the plan says "
+                                 f"{(1 + WIN_REPS) * per_call}")
+        if not same_entries(got, ref):
+            raise AssertionError(f"dot {sr.name}: differs from spgemm (sort)")
+        if sr is PLUS_TIMES and float(got[1].max()) >= 2**24:
+            raise AssertionError("plus_times sums reach 2^24: an exact comparison is void")
+        nnz = int(got[0].numel())
+        b_ms, b_by = windowed_bound(plan, A, nnz, per_call)
+        line = {"phase": "spgemm_windowed", "step": "dot", "semiring": sr.name,
+                "scale": WIN_DOT_SCALE, "grid": f"{p}x{p}", "mode": "f32", "nnz_out": nnz,
+                "largest_value": float(got[1].max()),
+                "equal_to_sort_and_scatter": True, "k1_launches_per_call": per_call,
+                "ms": ms, "nnz_out_per_s": nnz / (ms / 1e3), "peak_mem_gb": peak,
+                "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+                "plan": plan_summary(plan)}
+        if sr is MIN_PLUS:
+            before = semiring_matmul.launches
+            ring, ring_ms, _ = timed_call(lambda: live_entries(
+                spgemm_windowed(sr, A, A, backend="dot", ring=True)))
+            if semiring_matmul.launches - before != per_call or not same_entries(ring, got):
+                raise AssertionError("dot min_plus: the carousel differs from the gathered run")
+            line["ring"] = {"equal": True, "ms": ring_ms}
+            launched += per_call
+        if sr is not PLUS_TIMES:
+            line["k1_window_shape"] = k1_at_window_shape(sr, A, plan)
+            k1[sr.name] = launched
+        emit(line)
+        lines[sr.name] = line
+        del A, ref, got
+        torch.cuda.empty_cache()
+    return lines, k1
+
+
+def step_windowed_local(dev, mxu13: dict) -> tuple[dict, dict]:
+    """Step 3: phase 5's scale-13 graph on 1×1 through ``spgemm_auto(tier=
+    "windowed")``: the scatter backend, and the dot backend with the oracle
+    off and on (``local_spgemm_windowed``, one K1 launch a tropical call);
+    each equal to phase 5's mxu result bit for bit."""
+    grid = Grid.make(1, 1, device=dev)
+    lines, k1 = {}, {}
+    forms = (("scatter", {}), ("dot", {"backend": "dot"}),
+             ("dot_oracle", {"backend": "dot", "oracle": True}))
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        _, _, _, A = weighted_rmat(SCALE, dev, grid, sr)
+        line = {"phase": "spgemm_windowed", "step": "local", "semiring": sr.name,
+                "scale": SCALE, "grid": "1x1", "nnz_out": int(mxu13[sr.name][0].numel())}
+        for name, kw in forms:
+            before = semiring_matmul.launches
+            got, ms, peak = step_times(lambda: spgemm_auto(sr, A, A, tier="windowed", **kw),
+                                       live_entries, WIN_REPS)
+            launched = semiring_matmul.launches - before
+            plan = spgemm_windowed.last_plan
+            per_call = plan["packed"] if name != "scatter" and sr is not PLUS_TIMES else 0
+            if plan["form"] != "local" or launched != (1 + WIN_REPS) * per_call:
+                raise AssertionError(f"local {sr.name} {name}: {plan['form']}, {launched} K1")
+            if not same_entries(got, mxu13[sr.name]):
+                raise AssertionError(f"local {sr.name} {name}: differs from the mxu tier")
+            line[name] = {"ms": ms, "nnz_out_per_s": line["nnz_out"] / (ms / 1e3),
+                          "peak_mem_gb": peak, "k1_launches_per_call": per_call,
+                          "packed": plan["packed"], "packed_before_oracle":
+                              plan.get("packed_before_oracle"), "out_caps": plan["out_caps"]}
+            k1[sr.name] = k1.get(sr.name, 0) + launched
+        emit(line)
+        lines[sr.name] = line
+        del A
+    return lines, {k: v for k, v in k1.items() if k != "plus_times"}
+
+
+def step_semantic(dev, A: SpParMat, g: dict) -> dict:
+    """Step 4: phase 9's scale-20 ``SpParMat`` with one attribute, ``w[i] +
+    w[j]`` for a seeded uniform ``w`` a vertex (symmetric: about half the
+    edges pass ``< 1``). ``filtered_bfs`` materialized and masked from the
+    first root: equal parents and levels, equal to a numpy BFS over the
+    passing edges (max-id parents); ``filtered_mis`` independent and
+    maximal over them; each timed a call (host clock)."""
+    n = len(g["deg"])
+    rows, cols = g["rows"].astype(np.int64), g["cols"].astype(np.int64)
+    w = np.random.default_rng(SEMANTIC_SEED).random(n).astype(np.float32)
+    wpad = torch.from_numpy(np.append(w, np.float32(0))).to(dev)
+    t = A.local_tile(0, 0)
+    attr = wpad[torch.clamp(t.rows, max=n).long()] + wpad[torch.clamp(t.cols, max=n).long()]
+    G = SemanticGraph(structure=A, attrs={"w": attr.view(1, 1, -1)})
+
+    def keep(a):
+        return a["w"] < 1.0
+
+    passing = (w[rows] + w[cols]) < np.float32(1.0)
+    kr, kc = rows[passing], cols[passing]  # still sorted by row
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(kr, minlength=n))])
+    root = int(g["roots"][0])
+    want_l = host_bfs_levels(indptr, kc, root)
+    want_p = host_max_parents(kr, kc, indptr, want_l, root)
+    line = {"phase": "spgemm_windowed", "step": "semantic", "n": n, "nnz": len(rows),
+            "passing": int(passing.sum()), "root": root}
+    found = []
+    for materialize in (True, False):
+        def search():
+            return filtered_bfs(G, keep, root, materialize=materialize)
+
+        search()  # warm-up
+        runs = [timed_call(search) for _ in range(SPMAT_REPS)]
+        p_, l_, it = runs[-1][0]
+        found.append((p_.to_global(), l_.to_global()))
+        line["bfs_materialized" if materialize else "bfs_masked"] = {
+            "levels": it, "ms_per_call": [r[2] * 1e3 for r in runs],
+            "device_ms": [r[1] for r in runs]}
+    for p_, l_ in found:
+        if not (np.array_equal(l_, want_l) and np.array_equal(p_, want_p)):
+            raise AssertionError("filtered_bfs differs from the numpy BFS over passing edges")
+    gen = torch.Generator(device=dev)
+    filtered_mis(G, keep, gen.manual_seed(1))  # warm-up
+    runs = [timed_call(lambda: filtered_mis(G, keep, gen.manual_seed(1)))
+            for _ in range(SPMAT_REPS)]
+    status, rounds = runs[-1][0]
+    member = status.to_global() == 1
+    covered = np.zeros(n, bool)
+    covered[kr[member[kc]]] = True
+    if (member[kr] & member[kc]).any() or not (member | covered).all():
+        raise AssertionError("filtered_mis: not independent and maximal over passing edges")
+    line["mis"] = {"rounds": rounds, "members": int(member.sum()), "independent": True,
+                   "maximal": True, "ms_per_call": [r[2] * 1e3 for r in runs],
+                   "device_ms": [r[1] for r in runs]}
+    emit(line)
+    return line
+
+
+def phase_spgemm_windowed(dev, t_start: float, aa: dict, mxu13: dict, A20: SpParMat,
+                          g: dict) -> dict:
+    """Phase 11 (module docstring): steps 1-4 with K1's and K2's launch
+    counts set to 0 just before and read just after. K1 runs only in the
+    dot backend's tropical calls, and as often as their plans say: step 2
+    (warm-up and ``WIN_REPS`` timed calls, each tiles × stages × live
+    windows; min_plus once more in the carousel) plus step 3 (the same
+    three calls, one launch each, with the oracle off and on). K2 never."""
+    emit({"phase": "spgemm_windowed", "step": "elapsed", "total_s": time.perf_counter() - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        step_s[name] = time.perf_counter() - t0
+        return out
+
+    aa_w = timed("aa16", step_windowed_aa16, dev, aa)
+    if semiring_matmul.launches:
+        raise AssertionError("the scatter backend launched K1")
+    dot, k1_dot = timed("dot", step_windowed_dot, dev)
+    local, k1_local = timed("local", step_windowed_local, dev, mxu13)
+    sem = timed("semantic", step_semantic, dev, A20, g)
+    k1 = {kind: k1_dot[kind] + k1_local[kind] for kind in k1_dot}
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if launches != {"k1": sum(k1.values()), "k2": 0} or min(k1.values()) < 1:
+        raise AssertionError(f"spgemm_windowed launched {launches}; its plans say K1 {k1}, K2 0")
+    emit({"phase": "spgemm_windowed", "step": "checks", "hand_kernel_launches": launches,
+          "k1_by_semiring": k1, "step_s": step_s, "total_s": time.perf_counter() - t_start})
+    return {"aa16": aa_w, "dot": dot, "local": local, "semantic": sem, "k1": k1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2141,23 +2476,31 @@ def main() -> int:
     full = phase_kernels(dev)
     phase_compaction(dev)
     path = phase_main_path(dev)
+    # phase 5's products, as live entries, for phase 11's single-tile forms
+    mxu13 = {name: live_entries(C) for name, (_, C) in path["mats"].items()}
     k2_path = phase_k2_path(path.pop("mats"))
     times = phase_times(dev, full, loops)
-    bfs_graph = phase_bfs_path(dev, t_start)["g"]
+    bfs = phase_bfs_path(dev, t_start)
+    A20, bfs_graph = bfs["spmat"].pop("A"), bfs["g"]
     torch.cuda.empty_cache()
-    phase_spgemm_general(dev, t_start, bfs_graph)
+    general = phase_spgemm_general(dev, t_start, bfs_graph)
+    torch.cuda.empty_cache()
+    windowed = phase_spgemm_windowed(dev, t_start, general["aa"], mxu13, A20, bfs_graph)
     kernels = []
-    for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path launches
+    for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
         t = times[kind]
+        by_path = {"main_path": path["per_kind"][sr.name]["kernel_launches"],
+                   "spgemm_windowed": windowed["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_KERNEL, "launches": path["per_kind"][sr.name]["kernel_launches"],
+            "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "floor_ms": t["floor_ms"],
         })
-    if sum(k["launches"] for k in kernels) != path["launches"]:
+    if sum(k["launches_by_path"]["main_path"] for k in kernels) != path["launches"]:
         raise AssertionError("K1's launch counts do not add up on the main path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({

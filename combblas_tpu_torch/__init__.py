@@ -25,15 +25,19 @@ by sorted runs, ring or all-gather stage order) and the scan tier
 (``spgemm_scan``) with their symbolic sizing (``summa_stage_flops``,
 ``summa_capacities``), phased and blocked products
 (``mem_efficient_spgemm``, ``block_spgemm``), the router
-(``choose_spgemm_tier``; ``spgemm_auto`` runs esc, scan and mxu and raises
-for the windowed tiers, not ported yet), the bit-packed support oracle
+(``choose_spgemm_tier``, ``spgemm_auto``), the windowed tier
+(``spgemm_windowed``: dense row-block accumulators folded by the semiring's
+scatter or by dense window products, the semiring GEMM kernel's second
+caller; its fused, blocked and local forms, symbolic passes and plans; the
+3D tier above it is not ported yet), the bit-packed support oracle
 (``pack_support_bits``, ``popcount_pair_counts``,
 ``spgemm_support_bits``), the sparse elementwise layer (``ops.ewise``, the
 elementwise, select and split methods of ``SpParMat``), ``subsref`` /
 ``spasgn``, ``DenseParMat``, and on them ``triangle_count`` and
 betweenness centrality (``bc_batch``, ``betweenness_centrality``,
-``bc_batch_dense``). All of it is in PyTorch ops as the reference runs it
-in XLA ops.
+``bc_batch_dense``); and attributed-edge graphs with runtime filters
+(``SemanticGraph``, ``filtered_bfs``, ``filtered_mis``). All of it is in
+PyTorch ops as the reference runs it in XLA ops.
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 """
@@ -95,8 +99,10 @@ from .ops.ewise import ewise_apply, ewise_mult, intersect_lookup
 from .ops.segment import expand_ranges, segment_reduce
 from .ops.spgemm import (
     CHUNK_W,
+    accumulate_block_scatter,
     combine_hilo,
     dense_support_nnz,
+    densify_combine,
     expand,
     expansion_slots,
     flops,
@@ -111,6 +117,7 @@ from .ops.spgemm import (
     sparsify,
     sparsify_windowed,
     spgemm_support_bits,
+    support_window_counts,
 )
 from .ops.tuples import SpTuples
 from .parallel.ellmat import (
@@ -137,26 +144,45 @@ from .parallel.spgemm import (
     WINDOWED_MAX_TILE_CELLS,
     PhaseAdjustedWarning,
     block_spgemm,
+    bucket_plan_caps,
     calculate_phases,
     choose_spgemm_tier,
     choose_tier_from_counts,
     coo_has_duplicates,
+    default_block_cols,
+    default_block_rows,
     dot_panel_feasible,
     estimate_flops,
     estimate_nnz_upper,
     host_value,
+    local_spgemm_windowed,
     mem_efficient_spgemm,
+    packed_windows,
+    packed_windows_2d,
+    panel_cap_from_bnnz,
     resolve_spgemm_backend,
     spgemm,
     spgemm_auto,
     spgemm_scan,
+    spgemm_windowed,
     summa_capacities,
     summa_capacities_host,
+    summa_rowblock_flops,
+    summa_rowblock_flops_host,
+    summa_rowblock_flops_pair,
     summa_spgemm,
     summa_spgemm_mxu,
     summa_spgemm_scan,
+    summa_spgemm_windowed,
+    summa_spgemm_windowed_blocked,
     summa_stage_flops,
     summa_stage_flops_host,
+    summa_window_bnnz,
+    summa_window_bnnz_host,
+    summa_window_flops_host,
+    summa_window_flops_pair,
+    windowed_plan,
+    windowed_plan_2d,
 )
 from .parallel.spmat import SpParMat, key_u32_to_val, monotone_key_u32, ones_f32, ones_i32
 from .parallel.spmv import (
@@ -167,6 +193,7 @@ from .parallel.spmv import (
     dist_spmv_masked,
 )
 from .parallel.vec import DistMultiVec, DistVec, concatenate
+from .semantic import FILTERED_SELECT2ND_MAX, SemanticGraph, filtered_bfs, filtered_mis
 from .semiring import (
     MAX_MIN,
     MIN_PLUS,
@@ -193,6 +220,7 @@ __all__ = [
     "EDGE_HARVEST_BITS_MAX_DIM",
     "EDGE_HARVEST_MAX_DIM",
     "EllParMat",
+    "FILTERED_SELECT2ND_MAX",
     "Grid",
     "HostGrid",
     "MAX_MIN",
@@ -205,6 +233,7 @@ __all__ = [
     "SELECT2ND_MAX",
     "SELECT2ND_MIN",
     "STANDARD_SEMIRINGS",
+    "SemanticGraph",
     "Semiring",
     "SpParMat",
     "SpTuples",
@@ -213,6 +242,7 @@ __all__ = [
     "WINDOWED_MAX_COL_WINDOWS",
     "WINDOWED_MAX_PANEL_CELLS",
     "WINDOWED_MAX_TILE_CELLS",
+    "accumulate_block_scatter",
     "batch_traversed_edges",
     "bc_batch",
     "bc_batch_dense",
@@ -225,6 +255,7 @@ __all__ = [
     "bfs_diropt_auto",
     "bfs_single",
     "block_spgemm",
+    "bucket_plan_caps",
     "build_csc_companion",
     "build_csc_companion_host",
     "build_csr_companion",
@@ -241,10 +272,13 @@ __all__ = [
     "coo_has_duplicates",
     "csc_companion_from_arrays",
     "csc_tiles",
+    "default_block_cols",
+    "default_block_rows",
     "dense_support_nnz",
     "dense_to_sptuples",
     "dense_to_tuples_arrays",
     "denseparmat_from_arrays",
+    "densify_combine",
     "dist_spmspv",
     "dist_spmspv_masked",
     "dist_spmv",
@@ -263,6 +297,8 @@ __all__ = [
     "expand",
     "expand_ranges",
     "expansion_slots",
+    "filtered_bfs",
+    "filtered_mis",
     "flat_to_tuples_arrays",
     "flat_to_tuples_arrays_reference",
     "flops",
@@ -273,6 +309,7 @@ __all__ = [
     "key_u32_to_val",
     "lacc",
     "local_spgemm",
+    "local_spgemm_windowed",
     "mask_rows",
     "mem_efficient_spgemm",
     "merge_sorted_runs",
@@ -284,8 +321,11 @@ __all__ = [
     "ones_i32",
     "operations",
     "pack_support_bits",
+    "packed_windows",
+    "packed_windows_2d",
     "pagerank",
     "pagerank_batch",
+    "panel_cap_from_bnnz",
     "parse_tier_spec",
     "popcount32",
     "popcount_pair_counts",
@@ -303,20 +343,33 @@ __all__ = [
     "spgemm_auto",
     "spgemm_scan",
     "spgemm_support_bits",
+    "spgemm_windowed",
     "spparmat_from_arrays",
     "sssp",
     "sssp_batch",
     "subsref",
     "summa_capacities",
     "summa_capacities_host",
+    "summa_rowblock_flops",
+    "summa_rowblock_flops_host",
+    "summa_rowblock_flops_pair",
     "summa_spgemm",
     "summa_spgemm_mxu",
     "summa_spgemm_scan",
+    "summa_spgemm_windowed",
+    "summa_spgemm_windowed_blocked",
     "summa_stage_flops",
     "summa_stage_flops_host",
+    "summa_window_bnnz",
+    "summa_window_bnnz_host",
+    "summa_window_flops_host",
+    "summa_window_flops_pair",
+    "support_window_counts",
     "traversed_edges",
     "triangle_count",
     "upload_csc_companion",
     "validate_bfs_device",
     "validate_bfs_tree",
+    "windowed_plan",
+    "windowed_plan_2d",
 ]

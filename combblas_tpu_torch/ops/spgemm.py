@@ -6,11 +6,14 @@ oracle (``pack_support_bits``, ``popcount32``, ``popcount_pair_counts``,
 ``combine_hilo``, ``spgemm_support_bits``), and what the dense (mxu) tier
 uses: tile densification, dense-to-sparse extraction
 (``sparsify_windowed``, ``sparsify``) with its exact sizing
-(``dense_support_nnz``) and the COO duplicate check.
+(``dense_support_nnz``) and the COO duplicate check; and what the windowed
+tier adds: the dense fold of its scatter backend
+(``accumulate_block_scatter``), the duplicate-combining densify
+(``densify_combine``) and the per-window output counts of the support
+oracle (``support_window_counts``).
 
-The windowed tier's ``accumulate_block_scatter``, ``densify_combine`` and
-``support_window_counts`` and the 3D fiber merge's ``hash_merge`` are not
-ported yet (ROADMAP.md, queue 1).
+The 3D fiber merge's ``hash_merge`` is not ported yet (ROADMAP.md, queue
+1).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..semiring import Semiring
-from .segment import DROP_SPREAD, expand_ranges, spread_drops
+from .segment import DROP_SPREAD, expand_ranges, float_bits, spread_drops
 from .tuples import SpTuples
 
 #: Semiring add-monoid -> the torch scatter combiner implementing it.
@@ -131,6 +134,149 @@ def mask_rows(t: SpTuples, row_lo: int, row_hi: int) -> SpTuples:
                     nnz=keep.sum().to(torch.int32), nrows=t.nrows, ncols=t.ncols)
 
 
+# --- the dense fold of the windowed tier ---------------------------------------
+#
+# The reference folds into a dense block with one ``at[].{add,min,max}``
+# scatter. Its float min and max keep a NaN and give min -0.0 and max +0.0
+# for two equal zeros; torch's ``scatter_reduce_`` keeps whichever comes
+# first. So a float min or max is folded on integer keys that order as the
+# reference's fold (``fold_keys``), and turned back once at the end.
+
+
+def fold_keys(v: torch.Tensor, kind: str) -> torch.Tensor:
+    """Float values -> signed integer keys of their width whose order is
+    the reference's min/max fold: -0.0 below +0.0, and every NaN on the
+    side the fold keeps (the smallest key for ``"min"``, the largest for
+    ``"max"``). No non-NaN value maps to either extreme key."""
+    bits = float_bits(v)
+    info = torch.iinfo(bits.dtype)
+    key = torch.where(bits < 0, bits ^ info.max, bits)
+    return torch.where(torch.isnan(v), info.min if kind == "min" else info.max, key)
+
+
+def from_fold_keys(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``fold_keys`` (a NaN comes back as the quiet NaN)."""
+    info = torch.iinfo(key.dtype)
+    vals = torch.where(key < 0, key ^ info.max, key).view(dtype)
+    return torch.where((key == info.min) | (key == info.max), float("nan"), vals)
+
+
+def _keyed(sr: Semiring, dtype: torch.dtype) -> bool:
+    return sr.add_kind in ("min", "max") and dtype.is_floating_point
+
+
+def new_fold_buffer(sr: Semiring, cells: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A flat accumulator of ``cells`` cells holding ``sr.zero``, in the
+    domain ``fold_into_`` folds in, with ``DROP_SPREAD`` sink cells past
+    them for the slots a fold drops (``spread_drops``)."""
+    zero = torch.full((1,), sr.zero(dtype), dtype=dtype, device=device)
+    if _keyed(sr, dtype):
+        zero = fold_keys(zero, sr.add_kind)
+    elif dtype == torch.bool:
+        zero = zero.to(torch.uint8)
+    return zero.expand(cells + DROP_SPREAD).clone()
+
+
+def fold_into_(sr: Semiring, buf: torch.Tensor, idx: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    """``buf[idx] ⊕= vals`` in place, the reference's ``at[idx].{add,min,
+    max}``: a float min or max on ``fold_keys``, which is deterministic on
+    every device. A sum is ``index_add_``: in slot order on the CPU, but
+    with atomics on the card, so a float sum's order there is unordered
+    and may change from run to run, as the reference's TPU scatter does.
+    ``idx`` (int64) lies in the cells or the sink cells of a
+    ``new_fold_buffer``."""
+    comb = scatter_combine_for(sr)
+    if comb is None:
+        raise ValueError(f"semiring {sr.name} (add_kind={sr.add_kind}) has no scatter "
+                         "combiner")
+    if comb == "add":
+        return buf.index_add_(0, idx, vals)
+    if _keyed(sr, vals.dtype):
+        vals = fold_keys(vals, sr.add_kind)
+    elif vals.dtype == torch.bool:
+        vals = vals.to(torch.uint8)
+    return buf.scatter_reduce_(0, idx, vals, reduce="a" + comb, include_self=True)
+
+
+def fold_buffer_values(sr: Semiring, buf: torch.Tensor, cells: int,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The first ``cells`` cells of a fold buffer as values of ``dtype``
+    (flat)."""
+    out = buf[:cells]
+    if _keyed(sr, dtype):
+        return from_fold_keys(out, dtype)
+    return out.to(dtype)
+
+
+def fold_expansion_(sr: Semiring, buf: torch.Tensor, a: SpTuples, b_csr, *, row_lo: int,
+                    rb: int, pad_cols: int, flop_capacity: int, chunk_w: int) -> None:
+    """Fold the expansion of ``a · b`` (``expand`` at ``flop_capacity``)
+    for the output rows ``[row_lo, row_lo + rb)`` into the fold buffer
+    ``buf`` of ``rb * pad_cols`` cells; other slots drop."""
+    t = expand(sr, a, b_csr, flop_capacity, chunk_w=chunk_w)
+    ok = t.valid_mask() & (t.rows >= row_lo) & (t.rows < row_lo + rb)
+    flat = (t.rows.long() - row_lo) * pad_cols + t.cols.long()
+    fold_into_(sr, buf, spread_drops(flat, ok, rb * pad_cols), t.vals)
+
+
+def accumulate_block_scatter(sr: Semiring, acc: torch.Tensor, a: SpTuples, b_csr, *,
+                             row_lo: int, flop_capacity: int, chunk_w: int = 8) -> torch.Tensor:
+    """Fold one stage's expansion for the output rows ``[row_lo, row_lo +
+    Rb)`` into the dense block ``acc`` ``[Rb, pad_cols]`` with the
+    semiring's scatter combiner: the windowed tier's sort-free accumulate.
+    ``a`` is row-masked to the block (``mask_rows``); ``chunk_w`` is the
+    expansion's chunk width (8: the scatter pays per slot, so narrow chunks
+    keep the padding near 1.1x on R-MAT degree tails). Returns the new
+    block. The windowed kernels keep their block in the fold's domain
+    across stages (``fold_expansion_``)."""
+    rb, pad_cols = acc.shape
+    buf = new_fold_buffer(sr, rb * pad_cols, acc.dtype, acc.device)
+    cells = buf[: rb * pad_cols]
+    cells.copy_(fold_keys(acc.reshape(-1), sr.add_kind) if _keyed(sr, acc.dtype)
+                else acc.reshape(-1))
+    fold_expansion_(sr, buf, a, b_csr, row_lo=row_lo, rb=rb, pad_cols=pad_cols,
+                    flop_capacity=flop_capacity, chunk_w=chunk_w)
+    return fold_buffer_values(sr, buf, rb * pad_cols, acc.dtype).view(rb, pad_cols)
+
+
+def densify_combine(sr: Semiring, t: SpTuples, pad_rows: int, pad_cols: int) -> torch.Tensor:
+    """Tile tuples -> dense ``[pad_rows, pad_cols]`` with repeated (row,
+    col) slots combined by the semiring's scatter combiner: the
+    duplicate-safe twin of ``densify``, for semirings with one
+    (``scatter_combine_for``). Cells with no entry hold ``sr.zero``;
+    entries past the block drop."""
+    cells = pad_rows * pad_cols
+    ok = t.valid_mask() & (t.rows < pad_rows) & (t.cols < pad_cols)
+    flat = t.rows.long() * pad_cols + t.cols.long()
+    buf = new_fold_buffer(sr, cells, t.vals.dtype, t.vals.device)
+    fold_into_(sr, buf, spread_drops(flat, ok, cells), t.vals)
+    return fold_buffer_values(sr, buf, cells, t.vals.dtype).view(pad_rows, pad_cols)
+
+
+def support_window_counts(bits: torch.Tensor, block_rows: int, block_cols: int, nrows: int,
+                          ncols: int) -> torch.Tensor:
+    """Exact output count per (row block, column window), int32 ``[nblocks,
+    ncolwin]``, from packed support words (``spgemm_support_bits`` /
+    ``pack_support_bits``): what tightens the windowed tier's 2D plan.
+    ``block_cols`` must be a multiple of 32, so that each window covers
+    whole words; the packers set no bit past ``ncols``."""
+    if block_cols % 32:
+        raise ValueError(f"block_cols must be a multiple of 32, got {block_cols}")
+    m, nw = bits.shape
+    if m != nrows:
+        raise ValueError(f"bits hold {m} rows, want {nrows}")
+    dev = bits.device
+    nblocks = -(-nrows // block_rows)
+    ncw = -(-ncols // block_cols)
+    word_window = torch.arange(nw, device=dev) * 32 // block_cols
+    per_window = torch.zeros((m, ncw), dtype=torch.int32, device=dev).index_add_(
+        1, word_window, popcount32(bits))
+    row_block = torch.arange(m, device=dev) // block_rows
+    return torch.zeros((nblocks, ncw), dtype=torch.int32, device=dev).index_add_(
+        0, row_block, per_window)
+
+
 def densify(t: SpTuples, pad_rows: int, pad_cols: int, zero) -> torch.Tensor:
     """Tile tuples -> dense ``[pad_rows, pad_cols]``, other cells ``zero``.
 
@@ -207,8 +353,10 @@ def sparsify_windowed(
     One mask, one cumsum rank and one scatter of cell ids into a
     ``capacity``-slot buffer (plus a drop slot); ``total`` stays on the
     device. Padding slots hold ``(nrows, ncols)`` and value 0 — 0, not the
-    semiring zero, as in the reference. The reference narrowed windows to
-    suit a TPU's memory costs; that has no counterpart here.
+    semiring zero, as in the reference. A -0.0 cell comes out +0.0: the
+    reference reads each value as a lane sum with zeros. The reference
+    narrowed windows to suit a TPU's memory costs; that has no counterpart
+    here.
     """
     R, C = dense.shape
     dev = dense.device
@@ -222,12 +370,17 @@ def sparsify_windowed(
     out = SpTuples(
         rows=torch.where(valid, cell // C, nrows).to(torch.int32),
         cols=torch.where(valid, cell % C, ncols).to(torch.int32),
-        vals=torch.where(valid, dense.reshape(-1)[cell], 0),
+        vals=_plus_zero(torch.where(valid, dense.reshape(-1)[cell], 0)),
         nnz=torch.clamp(total, max=capacity).to(torch.int32),
         nrows=nrows,
         ncols=ncols,
     )
     return out, total
+
+
+def _plus_zero(v: torch.Tensor) -> torch.Tensor:
+    """``v + 0.0`` for floats (-0.0 becomes +0.0, the rest is unchanged)."""
+    return v + 0.0 if v.is_floating_point() else v
 
 
 def coo_sort_dedup(

@@ -1,5 +1,5 @@
 """Distributed SpGEMM — counterpart of ``combblas_tpu/parallel/spgemm.py``:
-SUMMA over the grid's tiles, ``C_ij = ⊕_s A_is ⊗ B_sj``, in three tiers.
+SUMMA over the grid's tiles, ``C_ij = ⊕_s A_is ⊗ B_sj``, in four tiers.
 
   * ESC (``summa_spgemm``, ``spgemm``): each stage's tile product is
     expanded (one slot a multiply, ``ops.spgemm.expand``); the stage chunks
@@ -12,12 +12,22 @@ SUMMA over the grid's tiles, ``C_ij = ⊕_s A_is ⊗ B_sj``, in three tiers.
   * mxu (``summa_spgemm_mxu``): dense stage products (``torch.matmul`` for
     plus_times, the hand-written semiring GEMM for min_plus and max_min),
     one extraction per output tile.
+  * windowed (``spgemm_windowed``): dense row-block accumulators, each
+    stage folded in by the semiring's scatter (``backend="scatter"``) or
+    by dense (row block × column window) stage products (``"dot"``:
+    ``torch.matmul``, or the semiring GEMM), then one extraction a block
+    or window; sized by a symbolic pass per row block
+    (``summa_rowblock_flops_pair``) or window (``summa_window_flops_pair``)
+    that also skips the empty ones. Forms: fused
+    (``summa_spgemm_windowed``, gathered or carousel stage order), blocked
+    (``summa_spgemm_windowed_blocked``) and local
+    (``local_spgemm_windowed``, one tile).
 
 The phased (``mem_efficient_spgemm``) and blocked (``block_spgemm``) forms
 run the ESC tier over column or row/column pieces. ``spgemm_auto`` routes
-through ``choose_spgemm_tier``, the reference's rule; its windowed tier
-(and the 3D one above it) is not ported yet, and a call routed or forced
-there raises ``NotImplementedError``; it is never rerouted.
+through ``choose_spgemm_tier``, the reference's rule; the 3D tier above it
+(``windowed3d``) is not ported yet, and a call forced there raises
+``NotImplementedError``.
 
 The tiles of a grid live on one device and are walked in loops, as the
 reference's all-gather (or, with ``ring=True``, its carousel of
@@ -30,6 +40,7 @@ included, with less memory.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -41,11 +52,18 @@ from ..ops.spgemm import (
     CHUNK_W,
     coo_sort_dedup,
     densify,
+    densify_combine,
     expand,
     expansion_slots,
+    fold_buffer_values,
+    fold_expansion_,
+    mask_rows,
     merge_sorted_runs,
+    new_fold_buffer,
     scatter_combine_for,
     sparsify_windowed,
+    spgemm_support_bits,
+    support_window_counts,
 )
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring
@@ -71,9 +89,8 @@ _PALLAS_KINDS = {
 }
 
 TIERS = ("mxu", "windowed", "scan", "esc", "windowed3d")
-_UNPORTED_TIERS = ("windowed", "windowed3d")
-_UNPORTED_NOTE = ("not ported yet (ROADMAP.md, queue 1, item 10: the windowed tier; "
-                  "the 3D tier with mesh3d.py, item 12)")
+_UNPORTED_TIERS = ("windowed3d",)
+_UNPORTED_NOTE = "not ported yet (ROADMAP.md, queue 1, item 12: the 3D tier with mesh3d.py)"
 
 
 def host_value(x: torch.Tensor) -> np.ndarray:
@@ -544,6 +561,789 @@ def spgemm_scan(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
 spgemm_scan.last_run = None
 
 
+# --- the windowed tier ----------------------------------------------------------
+
+#: Dense cells aimed at per row-block accumulator, and the most row blocks
+#: a tile is cut into.
+WINDOWED_BLOCK_CELLS = 1 << 26
+WINDOWED_MAX_BLOCKS = 32
+#: The scatter backend's expansion chunk width: the scatter pays per slot,
+#: so narrow chunks keep the padding near 1.1x on R-MAT degree tails.
+WINDOWED_CHUNK_W = 8
+
+
+def default_block_cols(local_rows_b: int, local_cols_b: int) -> int:
+    """Column-window width of the 2D ``dot`` backend: the widest multiple
+    of 512 whose dense B panel (padded k × window) stays within
+    ``WINDOWED_MAX_PANEL_CELLS``, raised so that at most
+    ``WINDOWED_MAX_COL_WINDOWS`` windows cover the tile (where the two
+    conflict the window count wins; the router never sends such products
+    here, ``dot_panel_feasible``)."""
+    pk = _pad128(local_rows_b)
+    bc = max((WINDOWED_MAX_PANEL_CELLS // pk) // 512 * 512, 512)
+    floor_bc = -(-local_cols_b // WINDOWED_MAX_COL_WINDOWS)
+    bc = max(bc, -(-floor_bc // 512) * 512)
+    return min(bc, max(local_cols_b, 1))
+
+
+def default_block_rows(local_rows: int, local_cols_b: int) -> int:
+    """Row-block height: about ``WINDOWED_BLOCK_CELLS`` cells a dense
+    accumulator, at most ``WINDOWED_MAX_BLOCKS`` blocks, a multiple of 8."""
+    pcols = max(-(-local_cols_b // 128) * 128, 1)
+    br = max(1, min(local_rows, WINDOWED_BLOCK_CELLS // pcols))
+    br = max(br, -(-local_rows // WINDOWED_MAX_BLOCKS))
+    return min(-(-br // 8) * 8, max(local_rows, 1))
+
+
+def _segment_count(ids: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 ``out[s] = Σ weights[ids == s]`` for ids in ``[0, n]``, the
+    last segment cut off."""
+    out = torch.zeros(n + 1, dtype=torch.int64, device=ids.device)
+    return out.index_add_(0, ids.long(), weights.long())[:n]
+
+
+def summa_rowblock_flops_pair(A: SpParMat, B: SpParMat, block_rows: int,
+                              chunk_w: int) -> torch.Tensor:
+    """float32 ``[2, nblocks, p, pr, pc]``: per A row block, stage and
+    output tile, the expansion slots of chunk width ``chunk_w`` (index 0)
+    and the true multiplies (index 1), from one symbolic pass. Sizes the
+    windowed tier's scatter backend and its skip list (a block with no
+    multiply has no output). Counted exactly in int64, rounded to float32
+    once."""
+    _check_compat(A, B)
+    p = A.grid.pr
+    lrA, lrB = A.local_rows, B.local_rows
+    nblocks = -(-lrA // block_rows)
+    out = torch.zeros((2, nblocks, p, p, p), dtype=torch.int64, device=A.grid.device)
+    for s in range(p):
+        padded_true = []
+        for j in range(p):
+            b = B.local_tile(s, j)
+            blens = _segment_count(torch.clamp(b.rows, max=lrB), b.rows < lrB, lrB + 1)
+            padded_true.append((-(-blens // chunk_w) * chunk_w, blens))
+        for i in range(p):
+            a = A.local_tile(i, s)
+            valid = a.rows < lrA
+            k = torch.clamp(a.cols, max=lrB).long()
+            g = torch.where(valid, a.rows // block_rows, nblocks)
+            for j in range(p):
+                for v, bl in enumerate(padded_true[j]):
+                    out[v, :, s, i, j] = _segment_count(g, torch.where(valid, bl[k], 0),
+                                                        nblocks)
+    return out.to(torch.float32)
+
+
+def summa_rowblock_flops(A: SpParMat, B: SpParMat, block_rows: int,
+                         chunk_w: int = 0) -> torch.Tensor:
+    """``[nblocks, p, pr, pc]`` of ``summa_rowblock_flops_pair``: the
+    expansion slots of chunk width ``chunk_w``, or with ``chunk_w == 0``
+    the true multiplies."""
+    pair = summa_rowblock_flops_pair(A, B, block_rows, chunk_w=max(chunk_w, 1))
+    return pair[0] if chunk_w else pair[1]
+
+
+def _host_counts(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int, ncols_a: int,
+                 ncols_b: int, block_rows: int, block_cols: int | None, chunk_w: int):
+    """The host symbolic pass's two count tables: ``countA[i, s, g, k]``
+    (A's entries of row block g and column k in tile (i, s)) and
+    ``countB[s, j, h, k]`` (B's entries of row k in column window h of tile
+    (s, j); one window when ``block_cols`` is None), B's padded to
+    ``chunk_w`` lanes when ``chunk_w``."""
+    if grid.pr != grid.pc:
+        raise ValueError("SUMMA requires a square grid")
+    p = grid.pr
+    lrA, lcA = grid.local_rows(nrows_a), grid.local_cols(ncols_a)
+    lrB, lcB = grid.local_rows(ncols_a), grid.local_cols(ncols_b)
+    if lcA != lrB:
+        raise ValueError("A col-blocking must equal B row-blocking")
+    nblocks = -(-lrA // block_rows)
+    ncw = 1 if block_cols is None else -(-lcB // block_cols)
+    rows_a, cols_a, rows_b, cols_b = (np.asarray(x, np.int64)
+                                      for x in (rows_a, cols_a, rows_b, cols_b))
+    ia, sa, ka = rows_a // lrA, cols_a // lcA, cols_a % lcA
+    g = (rows_a % lrA) // block_rows
+    count_a = np.bincount((((ia * p + sa) * nblocks) + g) * lcA + ka,
+                          minlength=p * p * nblocks * lcA).reshape(p, p, nblocks, lcA)
+    sb, jb, kb = rows_b // lrB, cols_b // lcB, rows_b % lrB
+    hb = 0 if block_cols is None else (cols_b % lcB) // block_cols
+    count_b = np.bincount((((sb * p + jb) * ncw) + hb) * lrB + kb,
+                          minlength=p * p * ncw * lrB).reshape(p, p, ncw, lrB)
+    if chunk_w:
+        count_b = -(-count_b // chunk_w) * chunk_w
+    return count_a, count_b
+
+
+def summa_rowblock_flops_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int,
+                              ncols_a: int, ncols_b: int, block_rows: int,
+                              chunk_w: int = 0) -> np.ndarray:
+    """``summa_rowblock_flops`` from global host COO arrays, with no device
+    work: float64 ``[nblocks, p, pr, pc]``, summed exactly in int64."""
+    count_a, count_b = _host_counts(grid, rows_a, cols_a, rows_b, cols_b, nrows_a, ncols_a,
+                                    ncols_b, block_rows, None, chunk_w)
+    # flops[g, s, i, j] = sum_k countA[i, s, g, k] * countB[s, j, k]
+    return np.einsum("isgk,sjk->gsij", count_a, count_b[:, :, 0]).astype(np.float64)
+
+
+def _window_stage_symbolic(a: SpTuples, b: SpTuples, lrA: int, lrB: int, block_rows: int,
+                           block_cols: int, nblocks: int, ncw: int,
+                           chunk_w: int) -> torch.Tensor:
+    """One stage's int64 ``[2, nblocks, ncw]`` windowed counts (index 0
+    padded to ``chunk_w`` lanes, index 1 true) of the tiles ``a`` and
+    ``b``."""
+    b_valid = b.rows < lrB
+    # invalid entries fall in the overflow window ncw
+    h = torch.where(b_valid, b.cols // block_cols, ncw).long()
+    key = h * (lrB + 1) + torch.clamp(b.rows, max=lrB).long()
+    blens2 = _segment_count(key, b_valid, (ncw + 1) * (lrB + 1)).view(ncw + 1, lrB + 1)
+    a_valid = a.rows < lrA
+    k = torch.clamp(a.cols, max=lrB).long()
+    g = torch.where(a_valid, a.rows // block_rows, nblocks).long()
+    both = []
+    for bl in (-(-blens2 // chunk_w) * chunk_w, blens2):
+        per_entry = torch.where(a_valid, bl[:ncw, k], 0)  # [ncw, capacity of a]
+        seg = torch.zeros((ncw, nblocks + 1), dtype=torch.int64, device=a.rows.device)
+        both.append(seg.index_add_(1, g, per_entry)[:, :nblocks].T)
+    return torch.stack(both)
+
+
+def summa_window_flops_pair(A: SpParMat, B: SpParMat, block_rows: int, block_cols: int,
+                            chunk_w: int = 1) -> torch.Tensor:
+    """float32 ``[2, nblocks, ncolwin, p, pr, pc]``: per (A row block, B
+    column window), stage and output tile, the counts padded to
+    ``chunk_w`` (index 0) and true (index 1). Sizes the 2D ``dot``
+    backend: per-window output bounds and the 2D skip list. Exact in int64,
+    rounded to float32 once."""
+    _check_compat(A, B)
+    p = A.grid.pr
+    lrA, lrB, lcB = A.local_rows, B.local_rows, B.local_cols
+    nblocks = -(-lrA // block_rows)
+    ncw = -(-lcB // block_cols)
+    out = torch.zeros((2, nblocks, ncw, p, p, p), dtype=torch.int64, device=A.grid.device)
+    for i in range(p):
+        for j in range(p):
+            for s in range(p):
+                out[..., s, i, j] = _window_stage_symbolic(
+                    A.local_tile(i, s), B.local_tile(s, j), lrA, lrB, block_rows,
+                    block_cols, nblocks, ncw, chunk_w)
+    return out.to(torch.float32)
+
+
+def summa_window_flops_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int,
+                            ncols_a: int, ncols_b: int, block_rows: int, block_cols: int,
+                            chunk_w: int = 0) -> np.ndarray:
+    """``summa_window_flops_pair`` (one ``chunk_w`` at a time, 0 for the
+    true counts) from global host COO arrays: float64 ``[nblocks, ncolwin,
+    p, pr, pc]``, summed exactly in int64."""
+    count_a, count_b = _host_counts(grid, rows_a, cols_a, rows_b, cols_b, nrows_a, ncols_a,
+                                    ncols_b, block_rows, block_cols, chunk_w)
+    # flops[g, h, s, i, j] = sum_k countA[i, s, g, k] * countB[s, j, h, k]
+    return np.einsum("isgk,sjhk->ghsij", count_a, count_b).astype(np.float64)
+
+
+def summa_window_bnnz(B: SpParMat, block_cols: int) -> torch.Tensor:
+    """int32 ``[pr, pc, ncolwin]``: B's entries per tile and column window,
+    whose maximum sizes the 2D ``dot`` backend's panel slices."""
+    lrB, lcB = B.local_rows, B.local_cols
+    ncw = -(-lcB // block_cols)
+    out = torch.zeros((B.grid.pr, B.grid.pc, ncw), dtype=torch.int32, device=B.grid.device)
+    for i in range(B.grid.pr):
+        for j in range(B.grid.pc):
+            t = B.local_tile(i, j)
+            valid = t.rows < lrB
+            h = torch.where(valid, t.cols // block_cols, ncw)
+            out[i, j] = _segment_count(h, valid, ncw).to(torch.int32)
+    return out
+
+
+def summa_window_bnnz_host(grid, rows_b, cols_b, ncols_a: int, ncols_b: int,
+                           block_cols: int) -> np.ndarray:
+    """``summa_window_bnnz`` from global host COO arrays."""
+    lrB, lcB = grid.local_rows(ncols_a), grid.local_cols(ncols_b)
+    ncw = -(-lcB // block_cols)
+    rows_b, cols_b = np.asarray(rows_b, np.int64), np.asarray(cols_b, np.int64)
+    sb, jb = rows_b // lrB, cols_b // lcB
+    hb = (cols_b % lcB) // block_cols
+    return np.bincount(((sb * grid.pc + jb) * ncw) + hb,
+                       minlength=grid.pr * grid.pc * ncw).reshape(grid.pr, grid.pc, ncw)
+
+
+def windowed_plan_2d(per_window_padded, per_window_true, block_rows: int, block_cols: int,
+                     local_rows: int, local_cols_b: int, slack: float = 1.02):
+    """The 2D plan: per (row block, column window) ``(flop_caps, out_caps,
+    skip)``, each a tuple of per-block tuples. An out cap is the window's
+    true multiplies (summed over stages, the largest tile), times
+    ``slack``, clamped to the window's cells; a window with none is
+    skipped. ``per_window_padded`` None (the ``dot`` backend, which does
+    no expansion) gives flop caps of 1."""
+    pt = np.asarray(per_window_true, np.float64)
+    pb = None if per_window_padded is None else np.asarray(per_window_padded, np.float64)
+    nblocks, ncw = pt.shape[0], pt.shape[1]
+    flop_caps, out_caps, skip = [], [], []
+    for g in range(nblocks):
+        rb = min(block_rows, local_rows - g * block_rows)
+        fr, orow, sk = [], [], []
+        for h in range(ncw):
+            cells = rb * min(block_cols, local_cols_b - h * block_cols)
+            tot = pt[g, h].sum(axis=0).max()
+            sk.append(bool(tot <= 0))
+            fr.append(1 if pb is None else max(int(pb[g, h].max() * slack) + 1, 1))
+            orow.append(max(min(int(tot * slack) + 1, cells), 1))
+        flop_caps.append(tuple(fr))
+        out_caps.append(tuple(orow))
+        skip.append(tuple(sk))
+    return tuple(flop_caps), tuple(out_caps), tuple(skip)
+
+
+def windowed_plan(per_block_padded, per_block_true, block_rows: int, local_rows: int,
+                  local_cols_b: int, slack: float = 1.02):
+    """The 1D plan from the two symbolic counts: per row block the
+    expansion capacity (the largest padded count over stages and tiles),
+    the output capacity (the largest tile's true multiplies clamped to the
+    block's cells), each times ``slack``, and the skip list (blocks with no
+    multiply)."""
+    pb = np.asarray(per_block_padded, np.float64)
+    pt = np.asarray(per_block_true, np.float64)
+    flop_caps, out_caps, skip = [], [], []
+    for g in range(pb.shape[0]):
+        cells = min(block_rows, local_rows - g * block_rows) * local_cols_b
+        tot = pt[g].sum(axis=0).max()
+        skip.append(bool(tot <= 0))
+        flop_caps.append(max(int(pb[g].max() * slack) + 1, 1))
+        out_caps.append(max(min(int(tot * slack) + 1, cells), 1))
+    return tuple(flop_caps), tuple(out_caps), tuple(skip)
+
+
+def packed_windows(skip) -> tuple[int, ...]:
+    """A 1D skip list -> the occupied row blocks in order: the launch list
+    the kernels walk."""
+    return tuple(g for g, s in enumerate(skip) if not s)
+
+
+def packed_windows_2d(skip) -> tuple[tuple[int, int], ...]:
+    """A 2D skip list -> the occupied (row block, column window) pairs,
+    block-major: the order of the output chunks."""
+    return tuple((g, h) for g, row in enumerate(skip) for h, s in enumerate(row) if not s)
+
+
+def _live_windows_by_block(skip) -> tuple:
+    """The 2D launch list grouped by row block, ``((g, (h, ...)), ...)``;
+    a block with no live window is absent."""
+    out = []
+    for g, row in enumerate(skip):
+        hs = tuple(h for h, s in enumerate(row) if not s)
+        if hs:
+            out.append((g, hs))
+    return tuple(out)
+
+
+def bucket_plan_caps(flop_caps, out_caps):
+    """A plan's capacities (1D tuples or the 2D nested form) rounded up to
+    powers of two. The reference does so to share compiled programs; the
+    port keeps it because the capacities are part of the output layout.
+    Callers clamp the out caps to the blocks' cells again."""
+    def walk(t):
+        return tuple(walk(x) if isinstance(x, tuple) else 1 << (max(int(x), 1) - 1).bit_length()
+                     for x in t)
+
+    return walk(flop_caps), walk(out_caps)
+
+
+def panel_cap_from_bnnz(bnnz, capacity: int) -> int:
+    """The panel slices' capacity: the largest per-(tile, window) B count
+    rounded up to a power of two, clamped to the tile capacity."""
+    m = int(np.asarray(bnnz).max())
+    return max(min(1 << max(m - 1, 1).bit_length(), capacity), 1)
+
+
+def _oracle_out_caps_2d(sr: Semiring, A: SpParMat, B: SpParMat, block_rows: int,
+                        block_cols: int, out_caps: tuple, skip: tuple) -> tuple[tuple, tuple]:
+    """Tighten a 2D plan with the support oracle (``spgemm_support_bits``
+    -> ``support_window_counts``): each out cap becomes the window's exact
+    output count, and a window with none is skipped. One tile, word-aligned
+    windows."""
+    if A.grid.size != 1 or block_cols % 32:
+        raise ValueError("the oracle plan needs a 1x1 grid and block_cols a multiple of 32")
+    bits, _ = spgemm_support_bits(A.local_tile(0, 0), B.local_tile(0, 0))
+    cnt = host_value(support_window_counts(bits, block_rows, block_cols, A.local_rows,
+                                           B.local_cols))
+    new_caps, new_skip = [], []
+    for g, row in enumerate(out_caps):
+        new_caps.append(tuple(max(min(oc, int(cnt[g, h])), 1) for h, oc in enumerate(row)))
+        new_skip.append(tuple(bool(skip[g][h] or cnt[g, h] == 0) for h in range(len(row))))
+    return tuple(new_caps), tuple(new_skip)
+
+
+def _extract_window_2d(acc, zero, lo: int, h: int, rb: int, block_cols: int, lrA: int,
+                       lcB: int, out_cap: int):
+    """One (row block, column window) extraction -> (the chunk in tile
+    coordinates, its count minus ``out_cap``)."""
+    wc = min(block_cols, lcB - h * block_cols)
+    t, total = sparsify_windowed(acc, zero, rb, wc, out_cap)
+    vm = t.valid_mask()
+    chunk = SpTuples(rows=torch.where(vm, t.rows + lo, lrA),
+                     cols=torch.where(vm, t.cols + h * block_cols, lcB),
+                     vals=t.vals, nnz=t.nnz, nrows=lrA, ncols=lcB)
+    return chunk, total - out_cap
+
+
+def _extract_block_1d(acc, zero, lo: int, rb: int, lrA: int, lcB: int, out_cap: int):
+    """One full-width row-block extraction -> (chunk, count minus
+    ``out_cap``)."""
+    t, total = sparsify_windowed(acc, zero, rb, lcB, out_cap)
+    chunk = SpTuples(rows=torch.where(t.valid_mask(), t.rows + lo, lrA), cols=t.cols,
+                     vals=t.vals, nnz=t.nnz, nrows=lrA, ncols=lcB)
+    return chunk, total - out_cap
+
+
+def _shift_rowblock(am: SpTuples, lo: int, arows: int) -> SpTuples:
+    """A row-masked tile in block coordinates: valid rows move down by
+    ``lo``, the others to the new padding row ``arows``."""
+    valid = am.valid_mask()
+    return dataclasses.replace(am, rows=torch.where(valid, am.rows - lo, arows), nrows=arows)
+
+
+def _dense_col_panel(sr: Semiring, bs: SpTuples, starts: torch.Tensor, h: int,
+                     block_cols: int, pk: int, pwin: int, panel_cap: int) -> torch.Tensor:
+    """Dense ``[pk, pwin]`` panel of B's column window ``h`` from the
+    column-sorted tile ``bs``: the window's entries are the slots
+    ``[starts[h], starts[h + 1])``, read through a ``panel_cap``-slot slice
+    and combined by the semiring's scatter (duplicates fold)."""
+    idx = starts[h] + torch.arange(panel_cap, dtype=torch.int32, device=bs.rows.device)
+    ii = torch.clamp(idx, max=bs.capacity - 1).long()
+    r, c = bs.rows[ii], bs.cols[ii]
+    ok = (idx < starts[h + 1]) & (r < bs.nrows)
+    window = SpTuples(rows=torch.where(ok, r, pk), cols=torch.where(ok, c - h * block_cols, pwin),
+                      vals=bs.vals[ii], nnz=ok.sum(), nrows=pk, ncols=pwin)
+    return densify_combine(sr, window, pk, pwin)
+
+
+def _window_stage_product(sr: Semiring, kind: str, da: torch.Tensor, panel: torch.Tensor,
+                          mode: str) -> torch.Tensor:
+    """One stage's dense window product: ``_mxu_dot`` for plus_times, the
+    semiring GEMM (K1 on the card) for min_plus and max_min."""
+    if kind == "plus_times":
+        return _mxu_dot(da, panel, mode, da.dtype)
+    return semiring_matmul(kind, da, panel)
+
+
+def _windowed_dims(backend: str, block_cols, lrB: int, lcB: int):
+    """The padded dims of the accumulate: ``(two_d, pcols, pk, pwin)``."""
+    two_d = backend == "dot" and block_cols is not None
+    if backend == "dot":
+        return two_d, _pad128(lcB), _pad128(lrB), _pad128(block_cols) if two_d else None
+    return two_d, -(-lcB // 128) * 128, None, None
+
+
+def _colmajor_with_starts(t: SpTuples, block_cols: int):
+    """The tile sorted by column, and the first slot of each column window
+    (``ncolwin + 1`` int32 starts): the 2D ``dot`` backend's panel
+    slicing."""
+    ts = t.sort_colmajor()
+    ncw = -(-t.ncols // block_cols)
+    bounds = torch.clamp(torch.arange(ncw + 1, dtype=torch.int32, device=t.rows.device)
+                         * block_cols, max=t.ncols)
+    return ts, torch.searchsorted(ts.cols, bounds, side="left", out_int32=True)
+
+
+def _windowed_stage_b_side(sr: Semiring, b: SpTuples, backend: str, two_d: bool, pk, pcols,
+                           block_cols):
+    """A stage's B operand: its CSR (scatter), its dense tile (1D dot), or
+    (column-sorted tile, window starts) (2D dot)."""
+    if backend == "scatter":
+        return CSR.from_tuples(b)
+    if not two_d:
+        return densify_combine(sr, b, pk, pcols)
+    return _colmajor_with_starts(b, block_cols)
+
+
+class _Windows:
+    """The static geometry of one windowed product and the per-block steps
+    both compute cores share."""
+
+    def __init__(self, sr: Semiring, *, lrA, lrB, lcB, block_rows, flop_caps, out_caps, skip,
+                 backend, mode, chunk_w, block_cols, panel_cap, zero, dtype, device):
+        self.sr, self.kind = sr, _PALLAS_KINDS.get(sr.name)
+        self.lrA, self.lcB, self.block_rows = lrA, lcB, block_rows
+        self.flop_caps, self.out_caps = flop_caps, out_caps
+        self.backend, self.mode, self.chunk_w = backend, mode, chunk_w
+        self.block_cols, self.panel_cap = block_cols, panel_cap
+        self.zero, self.dtype, self.device = zero, dtype, device
+        self.two_d, self.pcols, self.pk, self.pwin = _windowed_dims(backend, block_cols, lrB,
+                                                                    lcB)
+        self.live = _live_windows_by_block(skip) if self.two_d else packed_windows(skip)
+
+    def geom(self, g: int):
+        lo = g * self.block_rows
+        rb = min(self.block_rows, self.lrA - lo)
+        return lo, rb, _pad128(rb) if self.backend == "dot" else rb
+
+    def b_side(self, b: SpTuples):
+        return _windowed_stage_b_side(self.sr, b, self.backend, self.two_d, self.pk,
+                                      self.pcols, self.block_cols)
+
+    def new_acc(self, g: int):
+        """Block g's accumulator: a fold buffer (scatter) or a dense block
+        per column window (dot)."""
+        _, rb, arows = self.geom(g)
+        if self.backend == "scatter":
+            return new_fold_buffer(self.sr, rb * self.pcols, self.dtype, self.device)
+        hs = dict(self.live)[g] if self.two_d else (None,)
+        width = self.pwin if self.two_d else self.pcols
+        return {h: torch.full((arows, width), self.zero, dtype=self.dtype, device=self.device)
+                for h in hs}
+
+    def accumulate(self, g: int, acc, a: SpTuples, b_side) -> None:
+        """Fold stage operands ``a`` (the whole tile) and ``b_side`` into
+        block g's accumulator. The scatter backend expands at the plan's
+        capacity cut to the exact slot count read back (the same valid
+        slots in the same order)."""
+        lo, rb, arows = self.geom(g)
+        am = mask_rows(a, lo, lo + rb)
+        if self.backend == "scatter":
+            cap = max(self.flop_caps[g], self.chunk_w)
+            cap = min(-(-cap // self.chunk_w) * self.chunk_w,
+                      int(expansion_slots(am, b_side, self.chunk_w)))
+            if cap:
+                fold_expansion_(self.sr, acc, am, b_side, row_lo=lo, rb=rb,
+                                pad_cols=self.pcols, flop_capacity=cap, chunk_w=self.chunk_w)
+            return
+        da = densify_combine(self.sr, _shift_rowblock(am, lo, arows), arows, self.pk)
+        for h in acc:
+            if self.two_d:
+                bs, starts = b_side
+                panel = _dense_col_panel(self.sr, bs, starts, h, self.block_cols, self.pk,
+                                         self.pwin, self.panel_cap)
+            else:
+                panel = b_side
+            prod = _window_stage_product(self.sr, self.kind, da, panel, self.mode)
+            acc[h] = self.sr.add(acc[h], prod)
+
+    def extract(self, g: int, acc):
+        """Block g's chunks (one, or one a live window) and the largest
+        count over its cap."""
+        lo, rb, _ = self.geom(g)
+        if self.backend == "scatter":
+            dense = fold_buffer_values(self.sr, acc, rb * self.pcols, self.dtype)
+            return [_extract_block_1d(dense.view(rb, self.pcols), self.zero, lo, rb, self.lrA,
+                                      self.lcB, self.out_caps[g])]
+        if not self.two_d:
+            return [_extract_block_1d(acc[None], self.zero, lo, rb, self.lrA, self.lcB,
+                                      self.out_caps[g])]
+        return [_extract_window_2d(acc[h], self.zero, lo, h, rb, self.block_cols, self.lrA,
+                                   self.lcB, self.out_caps[g][h]) for h in acc]
+
+    def blocks(self):
+        return [g for g, _ in self.live] if self.two_d else list(self.live)
+
+
+def _collect(parts, worst):
+    chunks = []
+    for chunk, over in parts:
+        worst = torch.maximum(worst, over)
+        chunks.append(chunk)
+    return chunks, worst
+
+
+def _windowed_gathered_compute(win: _Windows, stages) -> tuple[list, torch.Tensor]:
+    """The gathered schedule on one output tile, block-outer: each occupied
+    block's accumulator lives through the stages ``stages`` ((A, B) tile
+    pairs in stage order), then is extracted. Returns (chunks, worst)."""
+    worst = torch.zeros((), dtype=torch.int64, device=win.device)
+    b_sides = [win.b_side(b) for _, b in stages]
+    chunks = []
+    for g in win.blocks():
+        acc = win.new_acc(g)
+        for (a, _), b_side in zip(stages, b_sides):
+            win.accumulate(g, acc, a, b_side)
+        more, worst = _collect(win.extract(g, acc), worst)
+        chunks += more
+    return chunks, worst
+
+
+def _windowed_carousel_compute(win: _Windows, stages) -> tuple[list, torch.Tensor]:
+    """The carousel schedule on one output tile, stage-outer: every
+    occupied block's accumulator lives across the stages (the reference's
+    two-slot rotation keeps O(2 tiles) of sparse operands a device), then
+    all are extracted in the launch list's order. Returns (chunks,
+    worst)."""
+    accs = {g: win.new_acc(g) for g in win.blocks()}
+    for a, b in stages:
+        b_side = win.b_side(b)
+        for g, acc in accs.items():
+            win.accumulate(g, acc, a, b_side)
+    worst = torch.zeros((), dtype=torch.int64, device=win.device)
+    chunks = []
+    for g, acc in accs.items():
+        more, worst = _collect(win.extract(g, acc), worst)
+        chunks += more
+    return chunks, worst
+
+
+def _check_dot_dtype(sr: Semiring, dtype: torch.dtype) -> None:
+    """The ``dot`` backend's tropical stage product is the semiring GEMM,
+    which takes float32 only (the reference passes any dtype to Pallas)."""
+    if _PALLAS_KINDS.get(sr.name, "plus_times") != "plus_times" and dtype != torch.float32:
+        raise TypeError(f"backend='dot' runs {sr.name} through the semiring GEMM kernel, "
+                        f"which takes float32 only, not {dtype} (ROADMAP.md §3: the "
+                        "kernel's float32-only gap); use backend='scatter'")
+
+
+def _windows(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows, flop_caps, out_caps, skip,
+             backend, mode, chunk_w, block_cols, panel_cap) -> _Windows:
+    """Check a windowed kernel's arguments and build its geometry."""
+    _check_compat(A, B)
+    lrA, lrB, lcB = A.local_rows, B.local_rows, B.local_cols
+    nblocks = -(-lrA // block_rows)
+    two_d = backend == "dot" and block_cols is not None
+    ncw = -(-lcB // block_cols) if two_d else 1
+    if skip is None:
+        skip = ((False,) * ncw,) * nblocks if two_d else (False,) * nblocks
+    if not len(flop_caps) == len(out_caps) == len(skip) == nblocks:
+        raise ValueError(f"the plan has {len(flop_caps)}, {len(out_caps)}, {len(skip)} "
+                         f"blocks; the tile has {nblocks}")
+    if backend not in ("dot", "scatter"):
+        raise ValueError(f"backend must be 'dot' or 'scatter', got {backend!r}")
+    if scatter_combine_for(sr) is None:
+        raise ValueError(f"semiring {sr.name} has no scatter combiner; use the esc or scan "
+                         "tier")
+    if backend == "dot":
+        if sr.name not in _PALLAS_KINDS:
+            raise ValueError(f"backend='dot' supports semirings {sorted(_PALLAS_KINDS)}; "
+                             f"got {sr.name}")
+        _check_dot_dtype(sr, A.dtype)
+        if two_d and (panel_cap is None or panel_cap < 1
+                      or any(len(row) != ncw for row in skip)):
+            raise ValueError(f"the 2D dot backend needs panel_cap >= 1 and {ncw} windows a "
+                             "block")
+    return _Windows(sr, lrA=lrA, lrB=lrB, lcB=lcB, block_rows=block_rows,
+                    flop_caps=flop_caps, out_caps=out_caps, skip=skip, backend=backend,
+                    mode=mode, chunk_w=chunk_w, block_cols=block_cols if two_d else None,
+                    panel_cap=panel_cap, zero=float(sr.zero_fn(A.dtype)), dtype=A.dtype,
+                    device=A.grid.device)
+
+
+def summa_spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int,
+                          flop_caps: tuple, out_caps: tuple, skip: tuple | None = None,
+                          backend: str = "scatter", mode: str = "f32", chunk_w: int = 8,
+                          block_cols: int | None = None, panel_cap: int | None = None,
+                          ring: bool = False,
+                          pipeline: bool = True) -> tuple[SpParMat, torch.Tensor]:
+    """Sort-free SUMMA over dense row-block accumulators, the fused form of
+    the windowed tier. Per output tile and occupied row block (the skip
+    list drops blocks with no multiply):
+
+      * ``backend="scatter"``: each stage's chunked expansion folded into a
+        dense ``[rb, pad128(lcB)]`` block by the semiring's scatter
+        (``accumulate_block_scatter``);
+      * ``backend="dot"``: densified stage operands (``densify_combine``:
+        duplicates fold) multiplied by ``_mxu_dot`` (plus_times) or the
+        semiring GEMM (K1 on the card; min_plus, max_min), folded by
+        ``sr.add``; with ``block_cols`` the output is cut into (row block ×
+        column window) windows and each stage densifies only B's column
+        panel (``_dense_col_panel``), without it B's whole tile;
+
+    then extracted once (``sparsify_windowed``) at the plan's out cap. In
+    2D form ``flop_caps`` / ``out_caps`` / ``skip`` are per-block tuples of
+    ``windowed_plan_2d`` and ``panel_cap`` bounds a window's B entries.
+
+    Returns ``(C, overflow)``: the largest count over its cap (0-dim; 0
+    with the symbolic caps). A tile's valid slots are a compacted prefix
+    per block (and per window within a block), block-major: not globally
+    row-sorted. ``ring=False`` walks the stages in gathered order, block by
+    block; ``ring=True`` in the carousel's order, stage by stage with every
+    block's accumulator live. ``pipeline`` changes no output: eager torch
+    has no rotation to overlap."""
+    del pipeline
+    win = _windows(sr, A, B, block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps,
+                   skip=skip, backend=backend, mode=mode, chunk_w=chunk_w,
+                   block_cols=block_cols, panel_cap=panel_cap)
+    compute = _windowed_carousel_compute if ring else _windowed_gathered_compute
+    worst = [torch.zeros((), dtype=torch.int64, device=A.grid.device)]
+
+    def tile(i, j):
+        chunks, over = compute(win, _stage_operands(A, B, i, j, ring))
+        worst[0] = torch.maximum(worst[0], over)
+        if not chunks:  # every block skipped
+            return SpTuples.empty(win.lrA, win.lcB, 1, A.dtype, device=A.grid.device)
+        return SpTuples.concat(chunks)
+
+    C = SpParMat.assemble(A.grid, A.nrows, B.ncols, tile)
+    return C, worst[0]
+
+
+def local_spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int,
+                          flop_caps: tuple, out_caps: tuple, skip: tuple, chunk_w: int = 8,
+                          backend: str = "scatter", block_cols: int | None = None,
+                          panel_cap: int | None = None,
+                          mode: str = "f32") -> tuple[SpParMat, torch.Tensor]:
+    """The windowed tier on a 1x1 grid: same plan, caps and return as
+    ``summa_spgemm_windowed``. The reference dispatches a small program a
+    row block here; in eager torch that is the fused form's gathered
+    schedule on the one tile (one stage: occupied blocks in order, each
+    block's live windows in order). ``backend="dot"`` takes the 2D plan,
+    ``block_cols`` and ``panel_cap``."""
+    if A.grid.size != 1 or B.grid.size != 1:
+        raise ValueError("local_spgemm_windowed runs on a 1x1 grid")
+    if backend == "dot" and (block_cols is None or panel_cap is None):
+        raise ValueError("backend='dot' needs block_cols and panel_cap")
+    return summa_spgemm_windowed(sr, A, B, block_rows=block_rows, flop_caps=flop_caps,
+                                 out_caps=out_caps, skip=skip, backend=backend, mode=mode,
+                                 chunk_w=chunk_w, block_cols=block_cols, panel_cap=panel_cap)
+
+
+def _windowed_block_dist(win: _Windows, A: SpParMat, B: SpParMat, g: int, out: list,
+                         off: int) -> torch.Tensor:
+    """Row block g of the blocked form on every tile (scatter backend,
+    stages in gathered order), each tile's chunk written into the slots
+    ``[off, off + cap)`` of the output arrays ``out`` (rows, cols, vals,
+    nnz). Returns the largest count over the cap."""
+    cap = win.out_caps[g]
+    worst = torch.zeros((), dtype=torch.int64, device=win.device)
+    for i in range(A.grid.pr):
+        for j in range(A.grid.pc):
+            acc = win.new_acc(g)
+            for a, b in _stage_operands(A, B, i, j, False):
+                win.accumulate(g, acc, a, win.b_side(b))
+            [(chunk, over)] = win.extract(g, acc)
+            for dst, x in zip(out, (chunk.rows, chunk.cols, chunk.vals)):
+                dst[i, j, off:off + cap] = x
+            out[3][i, j] += chunk.nnz
+            worst = torch.maximum(worst, over)
+    return worst
+
+
+def summa_spgemm_windowed_blocked(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int,
+                                  flop_caps: tuple, out_caps: tuple, skip: tuple,
+                                  chunk_w: int = 8) -> tuple[SpParMat, torch.Tensor]:
+    """The blocked form of the windowed tier (scatter backend): one
+    occupied row block at a time over every tile (the reference launches
+    a small program a block, so that one dense block a device is live),
+    each block's chunk written after the last into every tile. Same plan
+    and output layout as the fused form; with no occupied block, an empty
+    matrix of capacity 1, as the reference's."""
+    win = _windows(sr, A, B, block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps,
+                   skip=skip, backend="scatter", mode="f32", chunk_w=chunk_w, block_cols=None,
+                   panel_cap=None)
+    grid, dev = A.grid, A.grid.device
+    live = packed_windows(skip)
+    shape = (grid.pr, grid.pc, max(sum(out_caps[g] for g in live), 1))
+    out = [torch.full(shape, win.lrA, dtype=torch.int32, device=dev),
+           torch.full(shape, win.lcB, dtype=torch.int32, device=dev),
+           torch.zeros(shape, dtype=A.dtype, device=dev),
+           torch.zeros(shape[:2], dtype=torch.int32, device=dev)]
+    worst = torch.zeros((), dtype=torch.int64, device=dev)
+    off = 0
+    for g in live:
+        worst = torch.maximum(worst, _windowed_block_dist(win, A, B, g, out, off))
+        off += out_caps[g]
+    C = SpParMat(rows=out[0], cols=out[1], vals=out[2], nnz=out[3], nrows=A.nrows,
+                 ncols=B.ncols, grid=grid)
+    return C, worst
+
+
+def _clamp_out_caps_2d(out_caps, block_rows: int, block_cols: int, lrA: int, lcB: int):
+    return tuple(tuple(min(oc, max(min(block_rows, lrA - g * block_rows), 1)
+                           * max(min(block_cols, lcB - h * block_cols), 1))
+                       for h, oc in enumerate(row)) for g, row in enumerate(out_caps))
+
+
+def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int | None = None,
+                    block_cols: int | None = None, backend: str | None = None,
+                    mode: str = "f32", slack: float = 1.02, oracle: bool = False,
+                    ring: bool = False, pipeline: bool = True, dispatch: str | None = None,
+                    bucket: bool = True) -> SpParMat:
+    """The windowed tier's entry: the symbolic pass (one readback), the
+    plan (``windowed_plan`` for the scatter backend, ``windowed_plan_2d``
+    for dot), then the kernel.
+
+    ``backend``: ``resolve_spgemm_backend`` (default ``"scatter"``).
+    ``block_rows`` / ``block_cols``: ``default_block_rows`` /
+    ``default_block_cols``. ``bucket``: the capacities rounded up to
+    powers of two and clamped to the blocks' cells again (the reference's
+    default). ``oracle`` (dot, 1x1, tiles within ``MXU_MAX_TILE_DIM``,
+    ``block_cols`` a multiple of 32): the out caps become the support
+    oracle's exact window counts, and empty windows are skipped; elsewhere
+    it is ignored, as in the reference. ``dispatch`` (``"auto"``,
+    ``"fused"``, ``"blocked"``; default ``"auto"``): on a grid of more than
+    one tile the scatter backend runs the blocked form when more than one
+    block is occupied (``"auto"``) or when asked, unless ``ring`` (a
+    carousel is fused only); one tile runs ``local_spgemm_windowed``; dot
+    runs fused. ``ring``: the carousel's stage order. ``pipeline``:
+    accepted, no effect (eager torch has no rotation to overlap).
+    ``spgemm_windowed.last_plan`` records the last call's plan."""
+    backend = resolve_spgemm_backend(backend)
+    dispatch = "auto" if dispatch is None else dispatch
+    if dispatch not in ("auto", "fused", "blocked"):
+        raise ValueError(f"dispatch must be 'auto', 'fused' or 'blocked', got {dispatch!r}")
+    if backend == "dot":
+        _check_dot_dtype(sr, A.dtype)
+    lrA, lcB = A.local_rows, B.local_cols
+    if block_rows is None:
+        block_rows = default_block_rows(lrA, lcB)
+    chunk_w = WINDOWED_CHUNK_W
+    plan = {"backend": backend, "block_rows": block_rows}
+    if backend == "dot":
+        if block_cols is None:
+            block_cols = default_block_cols(B.local_rows, lcB)
+        pt = host_value(summa_window_flops_pair(A, B, block_rows, block_cols, chunk_w=1))[1]
+        flop_caps, out_caps, skip = windowed_plan_2d(None, pt, block_rows, block_cols, lrA, lcB,
+                                                     slack=slack)
+        plan["packed_before_oracle"] = len(packed_windows_2d(skip))
+        plan["oracle"] = bool(oracle and A.grid.size == 1 and block_cols % 32 == 0
+                              and max(lrA, B.local_rows, lcB) <= MXU_MAX_TILE_DIM)
+        if plan["oracle"]:
+            out_caps, skip = _oracle_out_caps_2d(sr, A, B, block_rows, block_cols, out_caps,
+                                                 skip)
+        if bucket:
+            flop_caps, out_caps = bucket_plan_caps(flop_caps, out_caps)
+            out_caps = _clamp_out_caps_2d(out_caps, block_rows, block_cols, lrA, lcB)
+        panel_cap = panel_cap_from_bnnz(host_value(summa_window_bnnz(B, block_cols)),
+                                        B.capacity)
+        form = "local" if A.grid.size == 1 else "fused"
+        plan.update(block_cols=block_cols, panel_cap=panel_cap, windows=len(skip[0]))
+        kw = dict(block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps, skip=skip,
+                  backend="dot", block_cols=block_cols, panel_cap=panel_cap, mode=mode)
+        if form == "local":
+            C, overflow = local_spgemm_windowed(sr, A, B, **kw)
+        else:
+            C, overflow = summa_spgemm_windowed(sr, A, B, chunk_w=chunk_w, ring=ring,
+                                                pipeline=pipeline, **kw)
+        packed = len(packed_windows_2d(skip))
+    else:
+        pair = host_value(summa_rowblock_flops_pair(A, B, block_rows, chunk_w=chunk_w))
+        flop_caps, out_caps, skip = windowed_plan(pair[0], pair[1], block_rows, lrA, lcB,
+                                                  slack=slack)
+        if bucket:
+            flop_caps, out_caps = bucket_plan_caps(flop_caps, out_caps)
+            out_caps = tuple(min(oc, max(min(block_rows, lrA - g * block_rows), 1) * lcB)
+                             for g, oc in enumerate(out_caps))
+        if ring and dispatch == "blocked":
+            dispatch = "fused"  # a carousel is fused only
+        packed = len(packed_windows(skip))
+        kw = dict(block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps, skip=skip,
+                  chunk_w=chunk_w)
+        if A.grid.size == 1:
+            form = "local"
+            C, overflow = local_spgemm_windowed(sr, A, B, **kw)
+        elif dispatch == "blocked" or (dispatch == "auto" and not ring and packed > 1):
+            form = "blocked"
+            C, overflow = summa_spgemm_windowed_blocked(sr, A, B, **kw)
+        else:
+            form = "fused"
+            C, overflow = summa_spgemm_windowed(sr, A, B, backend="scatter", mode=mode,
+                                                ring=ring, pipeline=pipeline, **kw)
+    plan.update(form=form, blocks=len(skip), packed=packed, flop_caps=flop_caps,
+                out_caps=out_caps, skip=skip)
+    spgemm_windowed.last_plan = plan
+    over = int(overflow)
+    if over > 0:  # the caps are symbolic upper bounds: an overflow is a fault
+        raise RuntimeError(f"windowed tier overflowed its symbolic bound by {over}")
+    return C
+
+
+spgemm_windowed.last_plan = None
+
+
 # --- the router --------------------------------------------------------------------
 
 
@@ -607,10 +1407,8 @@ def choose_spgemm_tier(sr: Semiring, A: SpParMat, B: SpParMat, *, backend: str |
                       (the symbolic pass counts the multiplies);
       ``"scan"``      everything else.
 
-    It returns ``"windowed"`` where the reference does, though that tier is
-    not ported yet (``spgemm_auto`` raises for it). The reference's upgrade
-    of ``windowed`` to ``windowed3d`` on a layered mesh waits for
-    ``mesh3d.py``."""
+    The reference's upgrade of ``windowed`` to ``windowed3d`` on a layered
+    mesh waits for ``mesh3d.py``."""
     return _choose_spgemm_tier_2d(sr, A, B, backend=backend, assume_unique=assume_unique)
 
 
@@ -642,25 +1440,31 @@ def _choose_spgemm_tier_2d(sr: Semiring, A: SpParMat, B: SpParMat, *,
 
 def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | None = None,
                 slack: float = 1.1, max_retries: int = 3, mode: str = "f32",
-                tier: str | None = None, backend: str | None = None,
-                assume_unique: bool = False, merge: str | None = None) -> SpParMat:
+                tier: str | None = None, block_rows: int | None = None,
+                block_cols: int | None = None, backend: str | None = None,
+                oracle: bool = False, assume_unique: bool = False, ring: bool | None = None,
+                pipeline: bool | None = None, dispatch: str | None = None,
+                merge: str | None = None) -> SpParMat:
     """Sparse-output SpGEMM ``C = A ⊗ B`` through the tier
     ``choose_spgemm_tier`` picks, or ``tier``:
 
-      ``"esc"``   ``spgemm`` (``merge``: sort or runs);
-      ``"scan"``  ``spgemm_scan`` (``out_capacity``, ``slack``,
-                  ``max_retries``);
-      ``"mxu"``   the dense tier: output capacity the next power of two of
-                  ``out_capacity`` (default ``max(A.capacity, B.capacity,
-                  64)``), rerun on overflow with the power of two above
-                  ``out_capacity + overflow``, at most ``max_retries``
-                  times; ``mode`` sets the plus_times precision. It needs
-                  tiles of unique entries, which the router checks unless
-                  ``assume_unique``.
+      ``"esc"``       ``spgemm`` (``merge``: sort or runs);
+      ``"scan"``      ``spgemm_scan`` (``out_capacity``, ``slack``,
+                      ``max_retries``);
+      ``"windowed"``  ``spgemm_windowed`` (``block_rows``, ``block_cols``,
+                      ``backend``, ``mode``, ``slack``, ``oracle``,
+                      ``ring``, ``pipeline``, ``dispatch``; ``ring`` None
+                      means False, ``pipeline`` None True);
+      ``"mxu"``       the dense tier: output capacity the next power of two
+                      of ``out_capacity`` (default ``max(A.capacity,
+                      B.capacity, 64)``), rerun on overflow with the power
+                      of two above ``out_capacity + overflow``, at most
+                      ``max_retries`` times; ``mode`` sets the plus_times
+                      precision. It needs tiles of unique entries, which
+                      the router checks unless ``assume_unique``.
 
-    ``"windowed"`` and ``"windowed3d"``, asked for or routed to, raise
-    ``NotImplementedError``: they are not ported yet. Env knobs and the
-    plan store wait for the port of ``tuner/``."""
+    ``"windowed3d"`` raises ``NotImplementedError``: it is not ported yet.
+    Env knobs and the plan store wait for the port of ``tuner/``."""
     if tier is None:
         tier = choose_spgemm_tier(sr, A, B, backend=backend, assume_unique=assume_unique)
     if tier in _UNPORTED_TIERS:
@@ -670,6 +1474,11 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
     if tier == "scan":
         return spgemm_scan(sr, A, B, out_capacity=out_capacity, slack=slack,
                            max_retries=max_retries)
+    if tier == "windowed":
+        return spgemm_windowed(sr, A, B, block_rows=block_rows, block_cols=block_cols,
+                               backend=backend, mode=mode, slack=slack, oracle=oracle,
+                               ring=bool(ring), pipeline=pipeline is None or bool(pipeline),
+                               dispatch=dispatch)
     if tier != "mxu":
         raise ValueError(f"unknown spgemm tier {tier!r}; expected one of {TIERS}")
     if out_capacity is None:

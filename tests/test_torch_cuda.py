@@ -1055,3 +1055,100 @@ def test_betweenness_and_denseparmat_on_card_match_cpu(cuda_device):
     half = len(dense) // 2
     for a, b in zip(dense[:half], dense[half:]):
         _same(a, b)
+
+
+# --- the windowed tier and semantic.py -------------------------------------------
+
+from combblas_tpu_torch import (  # noqa: E402
+    SemanticGraph,
+    densify_combine,
+    filtered_bfs,
+    spgemm_windowed,
+    summa_rowblock_flops_pair,
+    summa_window_flops_pair,
+    support_window_counts,
+)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_windowed_dot_on_card_matches_cpu(p, cuda_device):
+    """The dot backend on the card gives the CPU path's arrays for min_plus,
+    max_min and plus_times (gathered, and on 2×2 the carousel); K1 runs
+    once a tile, stage and live window, as the plan counts."""
+    n, r, c, v = _esc_graph()
+    kw = dict(backend="dot", block_rows=64, block_cols=128)
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        mats = [SpParMat.from_global_coo(Grid.make(p, p, device=dev), r, c, v, n, n)
+                for dev in ("cpu", cuda_device)]
+        for ring in ((False, True) if p == 2 else (False,)):
+            want = spgemm_windowed(sr, mats[0], mats[0], ring=ring, **kw)
+            before = semiring_matmul.launches
+            got = spgemm_windowed(sr, mats[1], mats[1], ring=ring, **kw)
+            packed = spgemm_windowed.last_plan["packed"]
+            launched = semiring_matmul.launches - before
+            assert launched == (0 if sr is PLUS_TIMES else p ** 3 * packed)
+            for a, b in zip(_mat_fields(want), _mat_fields(got)):
+                _same(a, b)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_windowed_scatter_on_card_matches_cpu_and_esc(p, cuda_device):
+    """The scatter backend on the card (local, blocked, fused, carousel)
+    gives the CPU path's arrays, and the ESC tier's live entries; K1 never
+    runs."""
+    n, r, c, v = _esc_graph(5)
+    forms = [{}] if p == 1 else [{}, {"dispatch": "fused"}, {"ring": True}]
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        mats = [SpParMat.from_global_coo(Grid.make(p, p, device=dev), r, c, v, n, n)
+                for dev in ("cpu", cuda_device)]
+        esc = spgemm(sr, mats[1], mats[1]).to_global_coo()
+        order = np.lexsort((esc[1], esc[0]))
+        for kw in forms:
+            want = spgemm_windowed(sr, mats[0], mats[0], block_rows=48, **kw)
+            before = semiring_matmul.launches
+            got = spgemm_windowed(sr, mats[1], mats[1], block_rows=48, **kw)
+            assert semiring_matmul.launches == before
+            for a, b in zip(_mat_fields(want), _mat_fields(got)):
+                _same(a, b)
+            gr, gc, gv = got.to_global_coo()
+            o = np.lexsort((gc, gr))
+            for x, y in zip((gr[o], gc[o], gv[o]), (esc[0][order], esc[1][order],
+                                                    esc[2][order])):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_windowed_folds_and_plans_on_card_match_cpu(cuda_device):
+    """densify_combine on ±0, NaN and ±inf (the scatter folds on integer
+    keys), the symbolic passes and the oracle's window counts: exact on
+    the card against the CPU."""
+    rng = np.random.default_rng(8)
+    n, r, c, v = _esc_graph(6)
+    vs = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.0], np.float32),
+                    len(r))
+    out = []
+    for dev in ("cpu", cuda_device):
+        t = SpTuples.from_coo(r, c, vs, n, n, len(r) + 9, device=dev)
+        res = [densify_combine(sr, t, n, n) for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES)]
+        A = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), r, c, v, n, n)
+        res += [summa_rowblock_flops_pair(A, A, 48, 8), summa_window_flops_pair(A, A, 48, 64, 8)]
+        bits, _ = spgemm_support_bits(t, t)
+        res.append(support_window_counts(bits, 48, 64, n, n))
+        out.append(res)
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_filtered_bfs_on_card_matches_cpu(cuda_device):
+    """filtered_bfs in both modes on a 2×2 grid: parents and levels exact."""
+    n, r, c, _ = _esc_graph(7)
+    attr = ((r * 131 + c * 17) % 100 + (c * 131 + r * 17) % 100).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        g = SemanticGraph.from_edges(Grid.make(2, 2, device=dev), r, c, {"w": attr}, n, n)
+        for materialize in (True, False):
+            p_, l_, it = filtered_bfs(g, lambda a: a["w"] < 100, 0, materialize=materialize)
+            out.append((p_.blocks, l_.blocks, it))
+    for (pa, la, ia), (pb, lb, ib) in zip(out[:2], out[2:]):
+        _same(pa, pb)
+        _same(la, lb)
+        assert ia == ib

@@ -18,7 +18,7 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "ops.tuples", "ops.compressed", "ops.spmv", "ops.ewise",
            "parallel.ellmat", "parallel.vec", "parallel.spmat", "parallel.spgemm",
            "parallel.spmv", "parallel.dense", "parallel.indexing",
-           "utils.graph500", "utils.rmat"}
+           "semantic", "utils.graph500", "utils.rmat"}
 
 
 def test_import_pulls_in_no_jax():

@@ -330,8 +330,9 @@ def test_block_spgemm_matches_reference():
 def test_router_and_spgemm_auto_match_reference():
     """``choose_spgemm_tier`` gives the reference's tier (mxu, windowed,
     scan) for unique and duplicated tiles, generic and dense-kernel
-    semirings and both backends; ``spgemm_auto`` runs esc and scan as the
-    reference does; windowed and windowed3d raise, naming the roadmap."""
+    semirings and both backends; ``spgemm_auto`` runs esc, scan and
+    windowed (routed and forced) as the reference does; windowed3d raises,
+    naming the roadmap."""
     r, c, v = graph()
     jD, tD = both(1, r, c, v)
     jU, tU = both(1, r, c, v, dedup="min_plus")
@@ -367,11 +368,13 @@ def test_router_and_spgemm_auto_match_reference():
                         jpar.spgemm_auto(jr, jD, jD, tier=tier))
     assert_same_mat(tpar.spgemm_auto(MIN_PLUS, tD, tD, tier="esc", merge="runs"),
                     jpar.spgemm_auto(jsr.MIN_PLUS, jD, jD, tier="esc", merge="runs"))
-    for tier in ("windowed", "windowed3d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 10"):
-            tpar.spgemm_auto(MIN_PLUS, tD, tD, tier=tier)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        tpar.spgemm_auto(MIN_PLUS, tD, tD)  # routed to windowed: never rerouted
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 12"):
+        tpar.spgemm_auto(MIN_PLUS, tD, tD, tier="windowed3d")
+    assert tpar.choose_spgemm_tier(MAX_MIN, tD, tD) == "windowed"
+    assert_same_mat(tpar.spgemm_auto(MAX_MIN, tD, tD),  # routed to windowed
+                    jpar.spgemm_auto(jsr.MAX_MIN, jD, jD))
+    assert_same_mat(tpar.spgemm_auto(PLUS_TIMES, tD, tD, tier="windowed", backend="dot"),
+                    jpar.spgemm_auto(jsr.PLUS_TIMES, jD, jD, tier="windowed", backend="dot"))
     with pytest.raises(ValueError, match="unknown spgemm tier"):
         tpar.spgemm_auto(MIN_PLUS, tD, tD, tier="dense")
 

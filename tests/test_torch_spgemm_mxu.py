@@ -123,8 +123,9 @@ def test_forced_overflow_retries_to_the_same_capacity():
 
 def test_duplicates_and_unported_tiers():
     """``coo_has_duplicates`` agrees with the reference; where the reference
-    leaves the mxu tier the port routes as it does, runs the esc and scan
-    tiers and raises NotImplementedError for the windowed ones."""
+    leaves the mxu tier the port routes as it does and runs the esc, scan
+    and windowed tiers as it does; it raises NotImplementedError for the
+    3D tier."""
     r, c, v = _graph()
     jD, tD = _both(1, r, c, v, None)  # symmetrized R-MAT keeps duplicates
     jU, tU = _both(1, r, c, v, SEMIRINGS[0])
@@ -137,13 +138,12 @@ def test_duplicates_and_unported_tiers():
     # a semiring without a dense kernel
     tier = jax_choose_tier(J_SELECT2ND_MAX, jU, jU)
     assert tier != "mxu" and choose_spgemm_tier(SELECT2ND_MAX, tU, tU) == tier
-    # forced tiers: esc and scan run; the windowed tiers are not ported
-    for tier in ("esc", "scan"):
+    # forced tiers: esc, scan and windowed run; the 3D tier is not ported
+    for tier in ("esc", "scan", "windowed"):
         _assert_same(jax_spgemm_auto(J_MIN_PLUS, jU, jU, tier=tier),
                      spgemm_auto(MIN_PLUS, tU, tU, tier=tier))
-    for tier in ("windowed", "windowed3d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            spgemm_auto(MIN_PLUS, tU, tU, tier=tier)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spgemm_auto(MIN_PLUS, tU, tU, tier="windowed3d")
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
