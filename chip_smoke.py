@@ -132,8 +132,40 @@ Phases (each prints one JSON line):
      ``filtered_bfs`` materialized and masked equal to each other and to a
      numpy BFS over the passing edges, ``filtered_mis`` independent and
      maximal over them. K1 runs as often as the plans say, K2 never.
+ 12. apps, the CombBLAS applications on the SpGEMM and SpMV layers (each
+     timed step a warm-up, whose result the checks read and whose readbacks
+     are counted, then two calls with CUDA events and the host clock around
+     the whole call; peak memory): (1) MCL at HipMCL's defaults (select
+     1100, recover 1400 at 0.9, hard threshold 1e-4, inflation 2) on R-MAT
+     scale 14, edgefactor 8: the dense loop (bf16x3, plateau kicks at 5e-5,
+     at most 20 iterations) with its chaos trajectory, kicks and clusters;
+     the sparse loop at phases 1 and 2 and the block loop (chaos_every=4),
+     one iteration each, the iteration's expansion beside its bytes bound;
+     three sparse iterations on the same recipe at scale 12 (8 phases), each
+     iterate column-stochastic within 2 nnz_j 2^-24 and holding fewer than
+     1400 entries above its least kept value, its chaos within 1e-3 of a
+     float64 MCL of the same steps on the host; a ring of 64 cliques of 64
+     vertices through both loops, which must return the cliques; labels are
+     each cluster's least vertex id. (2) On phase 10's scale-18 graph
+     Karp-Sipser ``maximal_matching``, ``maximum_matching`` and ``awpm``
+     (weights default_rng(5).random + 0.1), on phase 8's scale-20 graph the
+     first two: valid and maximal over the edge list, the maximum and AWPM
+     cardinalities equal to scipy's; the phases' SELECT2ND_MIN layer SpMV
+     timed a launch. (3) ``rcm_ordering`` on phase 9's scale-20 matrix from
+     root 0 and from the pseudo-peripheral probe, each equal to the reversed
+     numpy lexsort of (level, degree, id) from a host BFS, bandwidth before
+     and after; ``minimum_degree_ordering`` on R-MAT scale 10 against a host
+     elimination. (4) On phase 8's ELL layout (unit float32 values) at F =
+     64, 2 hops: ``spmm_khop`` plus_times normalised (mxu_gather, scatter)
+     within 2 (dmax + 2) 2^-24 |M|(|M||X|) of scipy's float64 product,
+     min_plus (scatter); ``summa_spmm`` on a 2 x 2 SpParMat of the same
+     graph (scatter, both stage orders), min_plus bit-equal to the ELL's;
+     ``propagate_features``; ``_propagate_batch_impl`` on 128 roots (8
+     PAD_ROOT lanes, exactly zero) against the whole-graph rows. K1 and K2
+     never run.
 Each path runs with every launch count set to 0 just before it and read
-just after. Then the ``kernels`` line and, last,
+just after. Then the ``kernels`` line (K1's launches by path: main_path,
+spgemm_general, spgemm_windowed, apps) and, last,
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -157,14 +189,18 @@ from combblas_tpu_torch import (
     DEFAULT_SEQ_TIERS,
     MAX_MIN,
     MIN_PLUS,
+    PAD_ROOT,
     PLUS_TIMES,
     SELECT2ND_MAX,
+    SELECT2ND_MIN,
+    DenseParMat,
     DistMultiVec,
     DistVec,
     EllParMat,
     Grid,
     SemanticGraph,
     SpParMat,
+    awpm,
     batch_traversed_edges,
     bfs,
     bfs_batch,
@@ -194,16 +230,26 @@ from combblas_tpu_torch import (
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
     lacc,
+    maximal_matching,
+    maximum_matching,
+    mcl,
+    mcl_prune_recovery_select,
     mem_efficient_spgemm,
+    minimum_degree_ordering,
     mis,
     num_components,
     ones_f32,
     packed_windows,
     packed_windows_2d,
+    pad_features,
     pagerank,
     pagerank_batch,
     parse_tier_spec,
+    propagate_features,
+    pseudo_peripheral_vertex,
+    rcm_ordering,
     rmat_symmetric_coo_host,
+    row_invdeg,
     semiring_matmul,
     semiring_matmul_reference,
     single_traversed_edges,
@@ -213,9 +259,11 @@ from combblas_tpu_torch import (
     spgemm_auto,
     spgemm_scan,
     spgemm_windowed,
+    spmm_khop,
     sssp,
     sssp_batch,
     subsref,
+    summa_spmm,
     traversed_edges,
     triangle_count,
     upload_csc_companion,
@@ -227,6 +275,9 @@ from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS as K2_VARIANTS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
 from combblas_tpu_torch.ops.spgemm import densify, mask_rows
 from combblas_tpu_torch.models import bfs as bfs_mod
+from combblas_tpu_torch.models import mcl as mcl_mod
+from combblas_tpu_torch.models import propagate as propagate_mod
+from combblas_tpu_torch.models.matching import maximum_matching_device
 from combblas_tpu_torch.parallel import ellmat
 from combblas_tpu_torch.parallel.spgemm import (
     _PALLAS_KINDS,
@@ -1716,7 +1767,8 @@ def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
         raise AssertionError(f"the SpParMat steps launched hand kernels: {hand_launches}")
     emit({"phase": "spmat_path", "step": "spmat_checks", "hand_kernel_launches": hand_launches,
           "total_s": time.perf_counter() - t_start})
-    return {"lines": lines, "programs": programs, "single": single, "spmat": spmat, "g": g}
+    return {"lines": lines, "programs": programs, "single": single, "spmat": spmat, "g": g,
+            "E": E}
 
 
 # --- phase 10: the general SpGEMM, the elementwise layer, TC and BC ----------
@@ -1788,9 +1840,12 @@ def step_cross_tier(dev) -> dict:
     out = {}
     for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
         _, _, _, A = weighted_rmat(SCALE, dev, grid, sr)
+        k1_before = semiring_matmul.launches
         want = live_entries(spgemm_auto(sr, A, A, tier="mxu"))
+        k1 = semiring_matmul.launches - k1_before
         line = {"phase": "spgemm_general", "step": "cross_tier", "semiring": sr.name,
-                "scale": SCALE, "grid": "1x1", "nnz_out": int(want[0].numel())}
+                "scale": SCALE, "grid": "1x1", "nnz_out": int(want[0].numel()),
+                "k1_launches": k1}
         for name, fn in (("esc", lambda: spgemm_auto(sr, A, A, tier="esc")),
                          ("runs", lambda: spgemm(sr, A, A, merge="runs")),
                          ("scan", lambda: spgemm_auto(sr, A, A, tier="scan"))):
@@ -2020,17 +2075,20 @@ def step_subsref(A_host: tuple) -> dict:
     return line
 
 
-def step_triangles(dev) -> list:
+def step_triangles(dev) -> tuple[list, dict]:
     """Step 5: triangles of the scale-15, 16 and 18 graphs (``build_graph``'s
     recipe) by every kernel that fits, each against the count scipy gives
-    on the host."""
+    on the host. Returns the lines and the scale-18 graph (phase 12's
+    matching graph)."""
     runs = {15: [("auto", 1), ("dense", 1), ("edgeharvest", 1), ("edgeharvest_bf16", 1),
                  ("sparse", 1)],
             16: [("auto", 1), ("edgeharvest_bf16", 1), ("sparse", 1), ("sparse", 2)],
             18: [("auto", 1), ("auto", 2)]}
-    lines = []
+    lines, kept = [], None
     for scale, kernels in runs.items():
         g = build_graph(scale, BFS_EDGEFACTOR, nroots=1)
+        if scale == MATCH_SCALE:
+            kept = g
         n = 1 << scale
         mats = {}
         for kernel, p in kernels:
@@ -2051,7 +2109,7 @@ def step_triangles(dev) -> list:
             lines.append(line)
         del mats
         torch.cuda.empty_cache()
-    return lines
+    return lines, kept
 
 
 def host_brandes(indptr, indices, n: int, source: int) -> np.ndarray:
@@ -2156,7 +2214,7 @@ def phase_spgemm_general(dev, t_start: float, g: dict) -> dict:
 
     ks, sub = timed("kselect_subsref", select_and_slice)
     torch.cuda.empty_cache()
-    tri = timed("triangles", step_triangles, dev)
+    tri, g18 = timed("triangles", step_triangles, dev)
     bc = timed("bc", step_bc, dev, g)
     launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
     if launches != {"k1": 4, "k2": 0} or k1_step1 != 4:
@@ -2164,7 +2222,7 @@ def phase_spgemm_general(dev, t_start: float, g: dict) -> dict:
                              "want k1 4, all in step 1, and k2 0")
     emit({"phase": "spgemm_general", "step": "checks", "hand_kernel_launches": launches,
           "step_s": step_s, "total_s": time.perf_counter() - t_start})
-    return {"cross": cross, "aa": aa, "kselect": ks, "subsref": sub,
+    return {"cross": cross, "aa": aa, "kselect": ks, "subsref": sub, "g18": g18,
             "triangles": tri, "bc": bc}
 
 
@@ -2462,6 +2520,587 @@ def phase_spgemm_windowed(dev, t_start: float, aa: dict, mxu13: dict, A20: SpPar
     return {"aa16": aa_w, "dot": dot, "local": local, "semantic": sem, "k1": k1}
 
 
+# --- phase 12: the applications (MCL, matchings, orderings, SpMM) --------------
+
+# HipMCL's InitParam (MCL.cpp:144-150): prune limit 1e-4, select 1100, recover
+# 1400 at 0.9; inflation 2
+MCL_PARAMS = dict(hard_threshold=1e-4, select_num=1100, recover_num=1400, recover_pct=0.9)
+MCL_SCALE, MCL_EDGEFACTOR = 14, 8  # the reference's app benchmark graph
+MCL_DENSE_MAX_ITERS = 20  # a depth cut: PERF.md section 4
+MCL_PERTURB = 5e-5  # the reference's app benchmark operating point
+# the sparse loop at scale 14 runs one iteration (its second expands 1.2e10
+# products, PERF.md section 4); three iterations are held against float64 on
+# the same recipe at scale 12, phased so that a phase's expansion fits
+MCL_SPARSE_MAX_ITERS = 1
+MCL_CHECK_SCALE, MCL_CHECK_ITERS, MCL_CHECK_PHASES = 12, 3, 8
+MCL_CHAOS_RTOL = 1e-3
+CLIQUES, CLIQUE_SIZE, CLIQUE_BRIDGE = 64, 64, 0.1
+MATCH_SCALE, MATCH_WEIGHT_SEED = 18, 5
+MD_SCALE = 10
+SPMM_F, SPMM_HOPS, SPMM_QUERIES, SPMM_PADS, SPMM_SEED = 64, 2, 128, 8, 13
+APPS_REPS = 2
+
+
+class Readbacks:
+    """Counts device → host reads of CUDA tensors (``bool``, ``int``,
+    ``float``, ``item``, ``cpu``, ``tolist``) while active: the readbacks
+    a call of the port makes."""
+
+    METHODS = ("__bool__", "__int__", "__float__", "__index__", "item", "cpu", "tolist")
+
+    def __enter__(self):
+        self.count = 0
+        self.saved = {m: getattr(torch.Tensor, m) for m in self.METHODS}
+
+        def wrap(orig):
+            def f(t, *a, **k):
+                if t.is_cuda:
+                    self.count += 1
+                return orig(t, *a, **k)
+            return f
+
+        for m, orig in self.saved.items():
+            setattr(torch.Tensor, m, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for m, orig in self.saved.items():
+            setattr(torch.Tensor, m, orig)
+
+
+def apps_times(fn, reps: int = APPS_REPS) -> dict:
+    """A step's protocol: one warm-up call (its result is what the checks
+    read; its readbacks are counted), then ``reps`` calls, each timed with
+    CUDA events and on the host clock around the whole call (the warm-up
+    too, the only time of a step run once). Peak memory over all calls."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Readbacks() as rb:
+        out, warm_ms, warm_s = timed_call(fn)
+    dev_ms, wall_s = [], []
+    for _ in range(reps):
+        _, ms, s = timed_call(fn)
+        dev_ms.append(ms)
+        wall_s.append(s)
+    return {"out": out, "warmup_ms": warm_ms, "warmup_wall_s": warm_s, "ms": dev_ms,
+            "wall_s": wall_s, "readbacks_per_call": rb.count,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def timing(t: dict) -> dict:
+    return {k: v for k, v in t.items() if k != "out"}
+
+
+def mcl_matrix(scale: int, dev) -> tuple[SpParMat, dict]:
+    """The R-MAT graph of the reference's MCL benchmark recipe (symmetric,
+    deduplicated, no loops; ``mcl`` adds them) on a 1×1 grid, unit weights."""
+    g = build_graph(scale, MCL_EDGEFACTOR, nroots=1)
+    n = 1 << scale
+    return SpParMat.from_global_coo(Grid.make(1, 1, device=dev), g["rows"], g["cols"],
+                                    np.ones(len(g["rows"]), np.float32), n, n), g
+
+
+def mcl_prune(C: SpParMat) -> SpParMat:
+    """The sparse loop's prune hook at ``MCL_PARAMS``."""
+    return mcl_prune_recovery_select(C, **MCL_PARAMS)
+
+
+def check_least_ids(labels: np.ndarray) -> int:
+    """Each label is the least vertex id of its cluster; the cluster count."""
+    uniq, first = np.unique(labels, return_index=True)
+    if not np.array_equal(uniq, labels[first]) or not np.array_equal(uniq, first):
+        raise AssertionError("mcl: a label is not its cluster's least vertex id")
+    return len(uniq)
+
+
+def host_mcl_chaos(rows, cols, n: int, iters: int) -> list:
+    """MCL in float64 with scipy: the same steps as the port's sparse loop
+    (loops, column-stochastic, then A², hard threshold, per-column select /
+    recover thresholds with ties kept, column-stochastic, chaos, inflation
+    2), sharing no code with it. The chaos of each iteration."""
+    p = MCL_PARAMS
+
+    def colnorm(M):
+        s = np.asarray(M.sum(0)).ravel()
+        return (M @ sp.diags(1.0 / np.where(s == 0, 1, s))).tocsc()
+
+    def colids(M):
+        return np.repeat(np.arange(M.shape[1]), np.diff(M.indptr))
+
+    def kth(M, k):
+        cols_ = colids(M)
+        sd = M.data[np.lexsort((-M.data, cols_))]
+        cnt = np.diff(M.indptr)
+        out = np.full(M.shape[1], -np.inf)
+        ok = cnt >= k
+        out[ok] = sd[M.indptr[:-1][ok] + k - 1]
+        return out
+
+    A = sp.csc_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    A = colnorm(A + sp.identity(n, format="csc"))
+    out = []
+    for _ in range(iters):
+        C = (A @ A).tocsc()
+        C.data[C.data < p["hard_threshold"]] = 0
+        C.eliminate_zeros()
+        C.sort_indices()
+        cc = colids(C)
+        s_th = kth(C, p["select_num"])
+        keep = C.data >= s_th[cc]
+        kept = np.bincount(cc, weights=np.where(keep, C.data, 0), minlength=n)
+        orig = np.bincount(cc, weights=C.data, minlength=n)
+        need = kept < p["recover_pct"] * orig
+        if need.any():
+            th = np.where(need, np.minimum(kth(C, p["recover_num"]), s_th), s_th)
+            keep = C.data >= th[cc]
+        C.data = np.where(keep, C.data, 0)
+        C.eliminate_zeros()
+        C = colnorm(C)
+        cc = colids(C)
+        mx = np.full(n, -np.inf)
+        np.maximum.at(mx, cc, C.data)
+        ssq = np.bincount(cc, weights=C.data**2, minlength=n)
+        nz = np.diff(C.indptr)
+        out.append(float(np.where(nz > 0, (mx - ssq) * nz, 0).max()))
+        A = C.copy()
+        A.data = A.data**2
+        A = colnorm(A)
+    return out
+
+
+def check_iterate(C: SpParMat) -> dict:
+    """An iterate after prune and re-normalisation: every non-empty column
+    sums to 1 within 2 · nnz_j · 2^-24 (its nnz_j float32 quotients summed
+    again in another order), and holds fewer than max(select, recover)
+    entries above its least kept value (the threshold keeps ties)."""
+    sums = C.reduce(PLUS_TIMES, "rows").blocks
+    nnz = C.nnz_per_column().blocks
+    err = torch.where(nnz > 0, (sums - 1).abs(), 0)
+    over = float((err - 2 * nnz * 2.0**-24).max())
+    colmin = C.reduce(MIN_PLUS, "rows")
+    above = C.dim_apply(colmin, lambda v, m: (v > m).to(torch.float32), "cols").reduce(
+        PLUS_TIMES, "rows").blocks
+    most = int(above.max())
+    cap = max(MCL_PARAMS["select_num"], MCL_PARAMS["recover_num"])
+    if over > 0 or most >= cap:
+        raise AssertionError(f"mcl iterate: a column sum is {over} past its bound, {most} "
+                             f"entries above a column's least kept value (cap {cap})")
+    return {"max_col_sum_err": float(err.max()), "max_col_nnz": int(nnz.max()),
+            "max_above_least_kept": most, "nnz": int(C.getnnz())}
+
+
+def step_mcl(dev) -> dict:
+    """Step 1: MCL at HipMCL's defaults. (a) the dense loop on R-MAT scale
+    14 (bf16x3, plateau kicks at 5e-5) to convergence or its iteration cap;
+    (b) the sparse loop there (phases 1, 2 and the block loop, one
+    iteration: PERF.md section 4); three sparse iterations driven by hand on
+    the scale-12 graph, each iterate checked and its chaos held to a
+    float64 MCL on the host; a ring of 64 cliques of 64 vertices through
+    both loops, which must return the cliques."""
+    A14, g14 = mcl_matrix(MCL_SCALE, dev)
+    n = 1 << MCL_SCALE
+    out = {"scale": MCL_SCALE, "n": n, "edges": len(g14["rows"]), **MCL_PARAMS}
+
+    dense = apps_times(lambda: (*mcl(A14, 2.0, max_iters=MCL_DENSE_MAX_ITERS,
+                                     expansion="dense", dense_mode="bf16x3",
+                                     perturb_delta=MCL_PERTURB, **MCL_PARAMS),
+                                dict(mcl_mod.mcl.last_run)))
+    labels, it, ch, run = dense["out"]
+    clusters = check_least_ids(labels.to_global())
+    npad = -(-n // 128) * 128
+    ops_ms = 3 * 2.0 * npad**3 / PEAK_F32_OPS * 1e3  # three float32 products an iteration
+    iter_ms = min(dense["ms"]) / max(it, 1)
+    out["dense"] = {"iterations": it, "chaos": ch, "converged": ch < 1e-3,
+                    "chaos_trajectory": run["chaos"], "kicks": run["kicks"],
+                    "clusters": clusters, **timing(dense), "ms_per_iteration": iter_ms,
+                    "iteration_bound_ms": ops_ms, "bound_by": "operations",
+                    "iteration_share_of_bound": ops_ms / iter_ms}
+    emit({"phase": "apps", "step": "mcl_dense", **out["dense"]})
+    del labels
+    torch.cuda.empty_cache()
+
+    sparse = {}
+    for name, kw in (("phases1", dict(phases=1)), ("phases2", dict(phases=2)),
+                     ("block4", dict(chaos_every=4))):
+        fn = lambda kw=kw: (*mcl(A14, 2.0, max_iters=MCL_SPARSE_MAX_ITERS, **kw, **MCL_PARAMS),
+                            dict(mcl_mod.mcl.last_run))
+        t = apps_times(fn) if name == "phases1" else apps_times(fn, reps=0)
+        labels, it, ch, run = t["out"]
+        line = {"iterations": it, "chaos": ch, "loop": run, **timing(t),
+                "clusters": check_least_ids(labels.to_global())}
+        sparse[name] = line
+        emit({"phase": "apps", "step": f"mcl_sparse_{name}", "scale": MCL_SCALE, **line})
+    # a column's sums of up to ~1100 float32 terms in another order, scaled
+    # by its entry count: within 1100 * 2^-24 < 1e-4 relative of each other
+    chs = [v["chaos"] for v in sparse.values()]
+    if max(chs) - min(chs) > 1e-4 * max(chs):
+        raise AssertionError(f"mcl: the sparse loops' first chaos differ: {chs}")
+    # one iteration's share: the expansion (ESC, E1's product) and the rest
+    A = mcl_mod.make_col_stochastic(A14.add_loops(1))
+    exp = apps_times(lambda: mem_efficient_spgemm(PLUS_TIMES, A, A, 1, prune_fn=mcl_prune))
+    flops = estimate_flops(A, A)
+    nnz_out = int(exp["out"].getnnz())
+    bound = esc_bytes_bound_ms(int(A.getnnz()), nnz_out)
+    ar, ac, av = A.to_global_coo()
+    it_line = {"expansion_with_prune": timing(exp), "products": flops, "nnz_out": nnz_out,
+               "bound_ms": bound, "bound_by": "bytes", "share": bound / min(exp["ms"]),
+               "iteration_ms": min(sparse["phases1"]["ms"]),
+               **library_spgemm_ms(ar, ac, av, n, 1, dev)}
+    emit({"phase": "apps", "step": "mcl_sparse_iteration", "scale": MCL_SCALE, **it_line})
+    out["sparse"] = {**sparse, "iteration": it_line}
+    del A, exp
+    torch.cuda.empty_cache()
+
+    # three iterations, every iterate checked, chaos against float64
+    A12, g12 = mcl_matrix(MCL_CHECK_SCALE, dev)
+    t0 = time.perf_counter()
+    want = host_mcl_chaos(g12["rows"], g12["cols"], 1 << MCL_CHECK_SCALE, MCL_CHECK_ITERS)
+    host_s = time.perf_counter() - t0
+    A = mcl_mod.make_col_stochastic(A12.add_loops(1))
+    iters = []
+    for k in range(MCL_CHECK_ITERS):
+        C = mem_efficient_spgemm(PLUS_TIMES, A, A, MCL_CHECK_PHASES, prune_fn=mcl_prune)
+        C = mcl_mod.make_col_stochastic(C)
+        ch = float(mcl_mod.chaos(C))
+        iters.append({"chaos": ch, "float64_chaos": want[k], **check_iterate(C)})
+        if abs(ch - want[k]) > MCL_CHAOS_RTOL * want[k]:
+            raise AssertionError(f"mcl iteration {k + 1}: chaos {ch}, float64 {want[k]}")
+        A = mcl_mod.inflate(C, 2.0)
+    out["float64_check"] = {"scale": MCL_CHECK_SCALE, "phases": MCL_CHECK_PHASES,
+                            "rtol": MCL_CHAOS_RTOL, "iterations": iters, "host_s": host_s}
+    emit({"phase": "apps", "step": "mcl_float64_check", **out["float64_check"]})
+    del A, C, A12
+    torch.cuda.empty_cache()
+
+    # the clique ring: both loops give the cliques exactly
+    nc = CLIQUES * CLIQUE_SIZE
+    blk = np.arange(nc) // CLIQUE_SIZE
+    ii, jj = np.nonzero(blk[:, None] == blk[None, :])
+    keep = ii != jj
+    ends = np.arange(CLIQUES) * CLIQUE_SIZE
+    bi, bj = ends + CLIQUE_SIZE - 1, (ends + CLIQUE_SIZE) % nc
+    r = np.concatenate([ii[keep], bi, bj])
+    c = np.concatenate([jj[keep], bj, bi])
+    v = np.concatenate([np.ones(keep.sum(), np.float32),
+                        np.full(2 * CLIQUES, CLIQUE_BRIDGE, np.float32)])
+    ring = SpParMat.from_global_coo(Grid.make(1, 1, device=dev), r, c, v, nc, nc)
+    want_labels = blk * CLIQUE_SIZE
+    ring_out = {}
+    for name, kw in (("dense", dict(expansion="dense", perturb_delta=MCL_PERTURB)),
+                     ("sparse", {})):
+        lab, it, ch = mcl(ring, 2.0, **kw, **MCL_PARAMS)
+        if not np.array_equal(lab.to_global(), want_labels) or not ch < 1e-3:
+            raise AssertionError(f"mcl {name}: the clique ring's clusters are not the cliques")
+        ring_out[name] = {"iterations": it, "chaos": ch}
+    out["clique_ring"] = {"cliques": CLIQUES, "size": CLIQUE_SIZE, **ring_out}
+    emit({"phase": "apps", "step": "mcl_clique_ring", **out["clique_ring"]})
+    return out
+
+
+def check_matching(rows, cols, n: int, mr: np.ndarray, mc: np.ndarray) -> int:
+    """A valid matching of the edge list (each matched row's column an edge,
+    the two mate arrays inverse) that is maximal (no edge with both ends
+    free); its cardinality."""
+    i = np.flatnonzero(mr >= 0)
+    j = mr[i].astype(np.int64)
+    keys = rows.astype(np.int64) * n + cols
+    pos = np.searchsorted(keys, i * n + j)
+    ok = (pos < len(keys)) & (keys[np.minimum(pos, len(keys) - 1)] == i * n + j)
+    if not ok.all() or not (mc[j] == i).all() or (mc >= 0).sum() != len(i):
+        raise AssertionError("matching: not a valid matching of the edges")
+    if ((mr[rows] < 0) & (mc[cols] < 0)).any():
+        raise AssertionError("matching: not maximal (an edge has both ends free)")
+    return len(i)
+
+
+def step_matching(dev, g18: dict, g20: dict) -> dict:
+    """Step 2: on ``build_graph``'s scale 18 (phase 10's), Karp-Sipser
+    ``maximal_matching``, ``maximum_matching`` (device phases) and ``awpm``
+    (weights ``default_rng(5).random + 0.1``), and the first two on phase
+    8's scale 20: valid and maximal over the edge list, the maximum
+    cardinality and AWPM's equal to scipy's. Then the phases' layer SpMV
+    timed a launch at scale 18."""
+    out = {}
+    for scale, g in ((MATCH_SCALE, g18), (BFS_SCALE, g20)):
+        rows, cols = g["rows"], g["cols"]
+        n = len(g["deg"])
+        grid = Grid.make(1, 1, device=dev)
+        A = SpParMat.from_global_coo(grid, rows, cols, np.ones(len(rows), np.float32), n, n)
+        t0 = time.perf_counter()
+        csr = sp.csr_matrix((np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n))
+        want = int((csgraph.maximum_bipartite_matching(csr, perm_type="column") >= 0).sum())
+        res = {"n": n, "edges": len(rows), "scipy_cardinality": want,
+               "scipy_s": time.perf_counter() - t0}
+        runs = [("maximal_ks", lambda: maximal_matching(A)),
+                ("maximum", lambda: maximum_matching(A))]
+        if scale == MATCH_SCALE:
+            w = (np.random.default_rng(MATCH_WEIGHT_SEED).random(len(rows)) + 0.1).astype(
+                np.float32)
+            Aw = SpParMat.from_global_coo(grid, rows, cols, w, n, n)
+            runs.append(("awpm", lambda: awpm(Aw)))
+        for name, fn in runs:
+            maximum_matching_device.last_run = None
+            t = apps_times(lambda: (fn(), dict(maximal_matching.last_run),
+                                    dict(maximum_matching_device.last_run or {})))
+            (mr, mc), ks_run, mm_run = t["out"]
+            card = check_matching(rows, cols, n, mr.to_global(), mc.to_global())
+            line = {"cardinality": card, **timing(t), "karp_sipser_rounds": ks_run["rounds"]}
+            if name != "maximal_ks":
+                if card != want:
+                    raise AssertionError(f"{name} scale {scale}: cardinality {card}, scipy "
+                                         f"{want}")
+                line.update(phases=mm_run["phases"], bfs_depths=mm_run["depths"],
+                            ms_per_phase=min(t["ms"]) / mm_run["phases"])
+            if name == "awpm":
+                mrg = mr.to_global()
+                i = np.flatnonzero(mrg >= 0)
+                keys = rows.astype(np.int64) * n + cols
+                line["matched_weight"] = float(
+                    w[np.searchsorted(keys, i * n + mrg[i])].astype(np.float64).sum())
+            res[name] = line
+            emit({"phase": "apps", "step": f"matching_{name}", "scale": scale,
+                  "scipy_cardinality": want, **line})
+        out[scale] = res
+        if scale == MATCH_SCALE:
+            # a phase's layer SpMV (SELECT2ND_MIN over Aᵀ, an int32 frontier)
+            AT = A.transpose().apply(ones_f32)
+            fr = torch.arange(n, device=dev, dtype=torch.int32)
+            fr = torch.where(fr % 2 == 0, fr, torch.iinfo(torch.int32).max)
+            x = DistVec(blocks=fr.view(1, n), length=n, align="row", grid=grid)
+            ms = time_cuda_ms(lambda: dist_spmv(SELECT2ND_MIN, AT, x), 5)
+            bound = spmv_bytes(len(rows), n, False) / PEAK_BYTES * 1e3
+            out["layer_spmv"] = {"scale": scale, "ms": ms, "bound_ms": bound,
+                                 "bound_by": "bytes", "share": bound / ms}
+            emit({"phase": "apps", "step": "matching_layer_spmv", **out["layer_spmv"]})
+            del AT, Aw
+        del A
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_min_degree(rows, cols, n: int) -> np.ndarray:
+    """Minimum-degree elimination in Python sets: each step the least-degree
+    live vertex (least id on ties), its live neighbours joined into a
+    clique, the vertex removed."""
+    adj = [set() for _ in range(n)]
+    for a, b in zip(rows.tolist(), cols.tolist()):
+        if a != b:
+            adj[a].add(b)
+            adj[b].add(a)
+    alive = np.ones(n, bool)
+    order = []
+    for _ in range(n):
+        deg = np.array([len(s) if alive[v] else np.iinfo(np.int32).max
+                        for v, s in enumerate(adj)])
+        v = int(np.argmin(deg))
+        if not alive[v]:
+            break
+        order.append(v)
+        alive[v] = False
+        nbrs = sorted(adj[v])
+        for a in nbrs:
+            adj[a].discard(v)
+            if len(nbrs) > 1:
+                adj[a].update(b for b in nbrs if b != a)
+        adj[v] = set()
+    return np.asarray(order + np.flatnonzero(alive).tolist())
+
+
+def step_ordering(dev, g20: dict, A20: SpParMat) -> dict:
+    """Step 3: ``rcm_ordering`` on phase 8's scale-20 graph with ``root=0``
+    and with the pseudo-peripheral probe, each a permutation equal to the
+    reversed numpy lexsort of (level, degree, id) from a host BFS of the
+    same root, with the bandwidth before and after; then
+    ``minimum_degree_ordering`` on R-MAT scale 10 against a host
+    elimination with the same tie rule."""
+    rows, cols, deg = g20["rows"], g20["cols"], g20["deg"]
+    n = len(deg)
+    indptr = np.searchsorted(rows.astype(np.int64), np.arange(n + 1))
+    before = int(np.abs(rows.astype(np.int64) - cols).max())
+    out = {"scale": BFS_SCALE, "n": n, "bandwidth_before": before}
+    probe = apps_times(lambda: pseudo_peripheral_vertex(A20), reps=0)
+    for name, root in (("root0", 0), ("probe", probe["out"])):
+        t = apps_times(lambda: rcm_ordering(A20, root=None if name == "probe" else 0))
+        perm = t["out"].to_global().astype(np.int64)
+        lv = host_bfs_levels(indptr, cols.astype(np.int64), root)
+        lv = np.where(lv < 0, n, lv)
+        want = np.lexsort((np.arange(n), deg, lv))[::-1]
+        if not np.array_equal(np.sort(perm), np.arange(n)) or not np.array_equal(perm, want):
+            raise AssertionError(f"rcm {name}: not the reversed (level, degree, id) order")
+        pinv = np.empty(n, np.int64)
+        pinv[perm] = np.arange(n)
+        line = {"root": int(root), **timing(t), "bandwidth_before": before,
+                "bandwidth_after": int(np.abs(pinv[rows] - pinv[cols]).max()),
+                "unreached": int((lv == n).sum())}
+        out[name] = line
+        emit({"phase": "apps", "step": f"rcm_{name}", **line})
+    out["probe_ms"] = probe["ms"]
+    out["probe_wall_s"] = probe["wall_s"]
+    gmd = build_graph(MD_SCALE, BFS_EDGEFACTOR, nroots=1)
+    nmd = 1 << MD_SCALE
+    Amd = SpParMat.from_global_coo(Grid.make(1, 1, device=dev), gmd["rows"], gmd["cols"],
+                                   np.ones(len(gmd["rows"]), np.float32), nmd, nmd)
+    t = apps_times(lambda: minimum_degree_ordering(Amd), reps=0)
+    want = host_min_degree(gmd["rows"], gmd["cols"], nmd)
+    if not np.array_equal(t["out"].to_global(), want):
+        raise AssertionError("minimum_degree_ordering differs from the host elimination")
+    out["min_degree"] = {"scale": MD_SCALE, "n": nmd, "edges": len(gmd["rows"]), **timing(t)}
+    emit({"phase": "apps", "step": "min_degree", **out["min_degree"]})
+    return out
+
+
+def spmm_bound_ms(E: EllParMat, n: int, F: int) -> float:
+    """Bytes bound of one ELL SpMM hop: every slot's column id and value
+    (4 + 4 bytes) and every bucket row's id, X read once and Y written once
+    (F float32 lanes a row)."""
+    slots = sum(bc.numel() for bc, _, _ in E.buckets)
+    rowids = sum(br.numel() for _, _, br in E.buckets)
+    return (8 * slots + 4 * rowids + 2 * 4 * n * F) / PEAK_BYTES * 1e3
+
+
+def library_spmm_ms(rows, cols, n: int, X: np.ndarray, dev) -> float:
+    """``torch.sparse.mm`` (the library's SpMM) of the unit-valued graph as
+    CSR (rows sorted) and X: one unnormalised hop, ms a launch."""
+    indptr = np.searchsorted(rows.astype(np.int64), np.arange(n + 1))
+    csr = torch.sparse_csr_tensor(torch.from_numpy(indptr),
+                                  torch.from_numpy(cols.astype(np.int64)), torch.ones(len(cols)),
+                                  size=(n, n), check_invariants=True).to(dev)
+    Xt = torch.from_numpy(X).to(dev)
+    return time_cuda_ms(lambda: torch.sparse.mm(csr, Xt), 5)
+
+
+def step_spmm(dev, g20: dict, E: EllParMat) -> dict:
+    """Step 4: the SpMM lane on phase 8's ELL layout (unit float32 values
+    on its slots) at F = 64, 2 hops: ``spmm_khop`` plus_times normalised
+    (mxu_gather, scatter) and min_plus (scatter), ``summa_spmm`` on a 2×2
+    ``SpParMat`` of the same graph (scatter; both stage orders),
+    ``propagate_features`` and ``_propagate_batch_impl`` on 128 roots."""
+    rows, cols, deg = g20["rows"], g20["cols"], g20["deg"]
+    n, F = len(deg), SPMM_F
+    lc = E.local_cols
+    E1 = EllParMat(buckets=tuple((bc, (bc < lc).to(torch.float32), br)
+                                 for bc, _, br in E.buckets), nrows=n, ncols=n, grid=E.grid)
+    rng = np.random.default_rng(SPMM_SEED)
+    X = rng.standard_normal((n, F)).astype(np.float32)
+    Xmin = rng.random((n, F)).astype(np.float32)
+    Xd = DistMultiVec.from_global(E.grid, X)
+    Xmind = DistMultiVec.from_global(E.grid, Xmin)
+    bound = spmm_bound_ms(E1, n, F)
+    # float64 reference of the normalised hops, and the rounding bound:
+    # each hop's sums of at most dmax + 1 terms, 2^-24 each, on |M|·|Y|
+    csr = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    M = sp.diags(1.0 / np.maximum(deg, 1)) @ csr
+    want = M @ (M @ X.astype(np.float64))
+    mag = M @ (M @ np.abs(X).astype(np.float64))
+    tol = SPMM_HOPS * (int(deg.max()) + 2) * 2.0**-24 * mag + 1e-30
+    out = {"scale": BFS_SCALE, "n": n, "F": F, "hops": SPMM_HOPS, "hop_bound_ms": bound,
+           "bound_by": "bytes", "plus_times_bound": "2 (dmax + 2) 2^-24 |M|(|M||X|)",
+           "library_hop_ms": library_spmm_ms(rows, cols, n, X, dev),
+           "library_call": "torch.sparse.mm(csr, X)"}
+    emit({"phase": "apps", "step": "spmm_library", **out})
+    results = {}
+    for name, sr, Xv, kw in (("plus_times_mxu_gather", PLUS_TIMES, Xd,
+                              dict(normalize=True, backend="mxu_gather")),
+                             ("plus_times_scatter", PLUS_TIMES, Xd,
+                              dict(normalize=True, backend="scatter")),
+                             ("min_plus_scatter", MIN_PLUS, Xmind, dict(backend="scatter"))):
+        t = apps_times(lambda: spmm_khop(sr, E1, Xv, SPMM_HOPS, **kw).blocks[0, :n])
+        y = t["out"]
+        results[name] = y
+        hop_ms = min(t["ms"]) / SPMM_HOPS
+        line = {**timing(t), "ms_per_hop": hop_ms, "share_of_bound": bound / hop_ms}
+        if sr is PLUS_TIMES:
+            err = np.abs(y.cpu().numpy().astype(np.float64) - want)
+            if not (err <= tol).all():
+                raise AssertionError(f"spmm {name}: off scipy's float64 product beyond bound")
+            line["max_abs_err_vs_float64"] = float(err.max())
+        out[name] = line
+        emit({"phase": "apps", "step": f"spmm_khop_{name}", **line})
+    # propagate_features is spmm_khop with the pad lanes cut
+    prop = propagate_features(E1, X, SPMM_HOPS, normalize=True)
+    if not (np.abs(prop - results["plus_times_scatter"].cpu().numpy()) <= 2 * tol).all():
+        raise AssertionError("propagate_features differs from spmm_khop")
+    # summa_spmm on a 2×2 SpParMat: two hops, both stage orders
+    g2 = Grid.make(2, 2, device=dev)
+    A2 = SpParMat.from_global_coo(g2, rows, cols, np.ones(len(rows), np.float32), n, n)
+    lr2 = g2.local_rows(n)
+    inv = torch.zeros(2 * lr2, dtype=torch.float32, device=dev)
+    inv[:n] = torch.from_numpy(1.0 / np.maximum(deg, 1).astype(np.float32)).to(dev)
+    inv = inv.view(2, 1, lr2, 1)  # row block i of every [pr, pc, lr, fc] block
+    for name, sr, Xh in (("plus_times", PLUS_TIMES, X), ("min_plus", MIN_PLUS, Xmin)):
+        for ring in (False, True):
+            def two_hops(sr=sr, Xh=Xh, ring=ring):
+                Y = DenseParMat.from_global(g2, Xh)
+                for _ in range(SPMM_HOPS):
+                    Y = summa_spmm(sr, A2, Y, backend="scatter", ring=ring)
+                    if sr is PLUS_TIMES:  # the same normalisation as spmm_khop's
+                        Y = DenseParMat(blocks=Y.blocks * inv, nrows=n, ncols=F, grid=g2)
+                return Y.to_global()
+            t = apps_times(two_hops)
+            y = t["out"]
+            if sr is PLUS_TIMES:
+                ok = (np.abs(y.astype(np.float64) - want) <= tol).all()
+            else:
+                ok = np.array_equal(y.view(np.int32),
+                                    results["min_plus_scatter"].cpu().numpy().view(np.int32))
+            if not ok:
+                raise AssertionError(f"summa_spmm {name} ring={ring} differs")
+            line = {"ring": ring, **timing(t), "ms_per_hop": min(t["ms"]) / SPMM_HOPS}
+            out[f"summa_{name}_ring{int(ring)}"] = line
+            emit({"phase": "apps", "step": f"summa_spmm_{name}", "grid": "2x2", **line})
+    del A2
+    torch.cuda.empty_cache()
+    # 128 root queries through the transpose, PAD_ROOT lanes zero
+    roots = g20["roots"][:SPMM_QUERIES].copy()
+    roots[-SPMM_PADS:] = PAD_ROOT
+    Xr = DistMultiVec.from_global(E.grid, pad_features(X), align="row")
+    invdeg = row_invdeg(E1).realign("col")
+    t = apps_times(lambda: propagate_mod._propagate_batch_impl(
+        E1, Xr, invdeg, torch.from_numpy(roots).to(dev), hops=SPMM_HOPS, normalize=True,
+        backend="mxu_gather").cpu().numpy())
+    got = t["out"]
+    live = roots != PAD_ROOT
+    if not (got[:, ~live] == 0).all():
+        raise AssertionError("propagate batch: a PAD_ROOT lane is not zero")
+    err = np.abs(got[:F, live].T.astype(np.float64) - want[roots[live]])
+    if not (err <= 2 * tol[roots[live]]).all():
+        raise AssertionError("propagate batch: lanes differ from the whole-graph rows")
+    out["propagate_batch"] = {"queries": SPMM_QUERIES, "pad_lanes": SPMM_PADS, **timing(t),
+                              "max_abs_err_vs_float64": float(err.max())}
+    emit({"phase": "apps", "step": "propagate_batch", **out["propagate_batch"]})
+    return out
+
+
+def phase_apps(dev, t_start: float, g20: dict, E: EllParMat, A20: SpParMat, g18: dict) -> dict:
+    """Phase 12 (module docstring): steps 1-4 with K1's and K2's launch
+    counts set to 0 just before and read just after; neither runs."""
+    emit({"phase": "apps", "step": "elapsed", "total_s": time.perf_counter() - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        step_s[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        emit({"phase": "apps", "step": f"{name}_done", "step_s": step_s[name],
+              "total_s": time.perf_counter() - t_start})
+        return out
+
+    res = {"mcl": timed("mcl", step_mcl, dev),
+           "matching": timed("matching", step_matching, dev, g18, g20),
+           "ordering": timed("ordering", step_ordering, dev, g20, A20),
+           "spmm": timed("spmm", step_spmm, dev, g20, E)}
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the apps phase launched hand kernels: {launches}")
+    emit({"phase": "apps", "step": "checks", "hand_kernel_launches": launches,
+          "step_s": step_s, "total_s": time.perf_counter() - t_start})
+    res["k1"] = launches["k1"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2486,12 +3125,16 @@ def main() -> int:
     general = phase_spgemm_general(dev, t_start, bfs_graph)
     torch.cuda.empty_cache()
     windowed = phase_spgemm_windowed(dev, t_start, general["aa"], mxu13, A20, bfs_graph)
+    torch.cuda.empty_cache()
+    apps = phase_apps(dev, t_start, bfs_graph, bfs["E"], A20, general.pop("g18"))
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
         t = times[kind]
         by_path = {"main_path": path["per_kind"][sr.name]["kernel_launches"],
-                   "spgemm_windowed": windowed["k1"][sr.name]}
+                   "spgemm_general": general["cross"][sr.name]["k1_launches"],
+                   "spgemm_windowed": windowed["k1"][sr.name],
+                   "apps": apps["k1"]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
@@ -2502,6 +3145,8 @@ def main() -> int:
         })
     if sum(k["launches_by_path"]["main_path"] for k in kernels) != path["launches"]:
         raise AssertionError("K1's launch counts do not add up on the main path")
+    if sum(k["launches_by_path"]["spgemm_general"] for k in kernels) != 4:
+        raise AssertionError("K1's launch counts do not add up on the spgemm_general path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({
         "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",

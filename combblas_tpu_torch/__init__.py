@@ -36,8 +36,14 @@ elementwise, select and split methods of ``SpParMat``), ``subsref`` /
 ``spasgn``, ``DenseParMat``, and on them ``triangle_count`` and
 betweenness centrality (``bc_batch``, ``betweenness_centrality``,
 ``bc_batch_dense``); and attributed-edge graphs with runtime filters
-(``SemanticGraph``, ``filtered_bfs``, ``filtered_mis``). All of it is in
-PyTorch ops as the reference runs it in XLA ops.
+(``SemanticGraph``, ``filtered_bfs``, ``filtered_mis``); and the CombBLAS
+applications on the SpGEMM and SpMV layers: Markov clustering (``mcl``:
+sparse, block and dense loops), bipartite matchings (``maximal_matching``,
+``maximum_matching``, ``awpm``), orderings (``rcm_ordering``,
+``minimum_degree_ordering``), and the SpMM lane (``dist_spmm_ell``,
+``summa_spmm``, ``spmm_khop``) with k-hop feature propagation
+(``propagate_features``). All of it is in PyTorch ops as the reference
+runs it in XLA ops.
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 """
@@ -74,8 +80,25 @@ from .models.bfs import (
     validate_bfs_tree,
 )
 from .models.cc import connected_components, lacc, num_components
+from .models.matching import (
+    awpm,
+    is_maximal,
+    is_valid_matching,
+    matching_weight,
+    maximal_matching,
+    maximum_matching,
+    maximum_matching_device,
+)
+from .models.mcl import chaos, inflate, make_col_stochastic, mcl, mcl_prune_recovery_select
 from .models.mis import mis
+from .models.ordering import (
+    bandwidth,
+    minimum_degree_ordering,
+    pseudo_peripheral_vertex,
+    rcm_ordering,
+)
 from .models.pagerank import pagerank, pagerank_batch
+from .models.propagate import propagate_features
 from .models.sssp import sssp, sssp_batch
 from .models.tc import (
     DENSE_MAX_DIM,
@@ -185,6 +208,19 @@ from .parallel.spgemm import (
     windowed_plan_2d,
 )
 from .parallel.spmat import SpParMat, key_u32_to_val, monotone_key_u32, ones_f32, ones_i32
+from .parallel.spmm import (
+    SPMM_BACKENDS,
+    admissible_spmm_backends,
+    dist_spmm,
+    dist_spmm_ell,
+    pad_feature_width,
+    pad_features,
+    resolve_spmm_backend,
+    row_invdeg,
+    spmm_backend_heuristic,
+    spmm_khop,
+    summa_spmm,
+)
 from .parallel.spmv import (
     csc_tiles,
     dist_spmspv,
@@ -232,6 +268,7 @@ __all__ = [
     "PhaseAdjustedWarning",
     "SELECT2ND_MAX",
     "SELECT2ND_MIN",
+    "SPMM_BACKENDS",
     "STANDARD_SEMIRINGS",
     "SemanticGraph",
     "Semiring",
@@ -243,6 +280,9 @@ __all__ = [
     "WINDOWED_MAX_PANEL_CELLS",
     "WINDOWED_MAX_TILE_CELLS",
     "accumulate_block_scatter",
+    "admissible_spmm_backends",
+    "awpm",
+    "bandwidth",
     "batch_traversed_edges",
     "bc_batch",
     "bc_batch_dense",
@@ -263,6 +303,7 @@ __all__ = [
     "build_graph",
     "build_structures",
     "calculate_phases",
+    "chaos",
     "choose_spgemm_tier",
     "choose_tier_from_counts",
     "col_selector",
@@ -279,6 +320,8 @@ __all__ = [
     "dense_to_tuples_arrays",
     "denseparmat_from_arrays",
     "densify_combine",
+    "dist_spmm",
+    "dist_spmm_ell",
     "dist_spmspv",
     "dist_spmspv_masked",
     "dist_spmv",
@@ -305,15 +348,26 @@ __all__ = [
     "flops_padded",
     "hilo_split",
     "host_value",
+    "inflate",
     "intersect_lookup",
+    "is_maximal",
+    "is_valid_matching",
     "key_u32_to_val",
     "lacc",
     "local_spgemm",
     "local_spgemm_windowed",
+    "make_col_stochastic",
     "mask_rows",
+    "matching_weight",
+    "maximal_matching",
+    "maximum_matching",
+    "maximum_matching_device",
+    "mcl",
+    "mcl_prune_recovery_select",
     "mem_efficient_spgemm",
     "merge_sorted_runs",
     "min_plus_matmul",
+    "minimum_degree_ordering",
     "mis",
     "monotone_key_u32",
     "num_components",
@@ -323,14 +377,21 @@ __all__ = [
     "pack_support_bits",
     "packed_windows",
     "packed_windows_2d",
+    "pad_feature_width",
+    "pad_features",
     "pagerank",
     "pagerank_batch",
     "panel_cap_from_bnnz",
     "parse_tier_spec",
     "popcount32",
     "popcount_pair_counts",
+    "propagate_features",
+    "pseudo_peripheral_vertex",
+    "rcm_ordering",
     "resolve_spgemm_backend",
+    "resolve_spmm_backend",
     "rmat_symmetric_coo_host",
+    "row_invdeg",
     "row_selector",
     "segment_reduce",
     "semiring_matmul",
@@ -344,6 +405,8 @@ __all__ = [
     "spgemm_scan",
     "spgemm_support_bits",
     "spgemm_windowed",
+    "spmm_backend_heuristic",
+    "spmm_khop",
     "spparmat_from_arrays",
     "sssp",
     "sssp_batch",
@@ -358,6 +421,7 @@ __all__ = [
     "summa_spgemm_scan",
     "summa_spgemm_windowed",
     "summa_spgemm_windowed_blocked",
+    "summa_spmm",
     "summa_stage_flops",
     "summa_stage_flops_host",
     "summa_window_bnnz",

@@ -3,7 +3,9 @@ plain PyTorch version, the mxu SpGEMM path, the dense -> sparse
 extraction, the batched and single-root BFS, the ELL SpMV family, the
 batched SSSP, and the SpParMat path (local and distributed SpMV forms,
 the DistVec op pack, the SpParMat operations, bfs, bfs_diropt, sssp,
-FastSV, LACC, mis, pagerank) on the card against the same calls on the
+FastSV, LACC, mis, pagerank), the general and windowed SpGEMM, and the
+applications on them (MCL, the matchings, the orderings, the SpMM lane
+and feature propagation) on the card against the same calls on the
 CPU. Marked
 ``cuda``; they skip where there is no card.
 
@@ -86,7 +88,25 @@ from combblas_tpu_torch import (
     sssp,
     traversed_edges,
 )
+from combblas_tpu_torch import (
+    DenseParMat,
+    awpm,
+    dist_spmm_ell,
+    maximal_matching,
+    maximum_matching,
+    mcl,
+    minimum_degree_ordering,
+    ones_f32,
+    pad_features,
+    propagate_features,
+    rcm_ordering,
+    row_invdeg,
+    summa_spmm,
+)
+from combblas_tpu_torch.models import matching as matching_mod
+from combblas_tpu_torch.models import mcl as mcl_mod
 from combblas_tpu_torch.models import mis as mis_mod
+from combblas_tpu_torch.models import propagate as propagate_mod
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS, chunk_rows, resident_blocks
 from combblas_tpu_torch.ops.spmv import spmspv, spmspv_dense_out, spmv
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, _kernel
@@ -1152,3 +1172,154 @@ def test_filtered_bfs_on_card_matches_cpu(cuda_device):
         _same(pa, pb)
         _same(la, lb)
         assert ia == ib
+
+
+# --- the applications: MCL, matchings, orderings, SpMM ---------------------------------
+
+
+def _ring_of_cliques(k=4, size=6, w=0.1):
+    n = k * size
+    d = np.zeros((n, n), np.float32)
+    for b in range(k):
+        d[b * size:(b + 1) * size, b * size:(b + 1) * size] = 1
+    np.fill_diagonal(d, 0)
+    for b in range(k):
+        i, j = b * size + size - 1, ((b + 1) % k) * size
+        d[i, j] = d[j, i] = w
+    return d
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+def test_dense_mcl_iterations_on_card_match_cpu(mode, cuda_device):
+    """Three iterations of the dense program: the state within 1e-6 of the
+    CPU's (TF32 off; the card sums in another order), the iteration and
+    kick counts equal; and the whole dense clustering gives the CPU's
+    labels."""
+    d = _ring_of_cliques()
+    a = d + np.eye(len(d), dtype=np.float32)
+    a = (a / a.sum(axis=0, keepdims=True)).astype(np.float32)
+    r, c = np.nonzero(a)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        run = mcl_mod.dense_mcl_program(24, 128, 2.0, 0.0, 3, hard=1e-4, select=24, recover=24,
+                                        rpct=0.9, mode=mode, perturb_delta=5e-5)
+        m, it, ch, _, kicks = run(*(torch.from_numpy(x).to(dev) for x in
+                                    (r.astype(np.int32), c.astype(np.int32), a[r, c])))
+        outs.append((m.cpu(), it, kicks))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-6, rtol=0)
+    assert outs[0][1:] == outs[1][1:]
+    labs = [mcl(SpParMat.from_dense(Grid.make(1, 1, device=dev), d), expansion="dense",
+                dense_mode=mode)[0].blocks.cpu() for dev in ("cpu", cuda_device)]
+    assert torch.equal(labs[0], labs[1])
+
+
+@pytest.mark.parametrize("kw", [{}, {"phases": 2}, {"scan": True}, {"chaos_every": 2}],
+                         ids=["sparse", "phases2", "scan", "block2"])
+def test_sparse_mcl_on_card_matches_cpu(kw, cuda_device):
+    """MCL's sparse and block loops on a 2×2 grid: the card gives the CPU's
+    labels and iteration count."""
+    d = _ring_of_cliques()
+    out = []
+    for dev in ("cpu", cuda_device):
+        lab, it, ch = mcl(SpParMat.from_dense(Grid.make(2, 2, device=dev), d), **kw)
+        out.append((lab.blocks.cpu(), it))
+        assert ch < 1e-3
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+
+
+def test_matchings_on_card_match_cpu(cuda_device):
+    """maximal (both rules, weighted), one _mcm_phase, maximum (device and
+    host) and AWPM on a 2×2 grid: mates exact."""
+    rng = np.random.default_rng(3)
+    d = ((rng.random((30, 26)) < 0.12) * (rng.permutation(780).reshape(30, 26) + 1.0)
+         ).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        A = SpParMat.from_dense(Grid.make(2, 2, device=dev), d)
+        res = [maximal_matching(A, karp_sipser=ks, weighted=w)
+               for ks, w in ((False, False), (True, False), (True, True))]
+        AT = A.transpose().apply(ones_f32)
+        mr, mc, n_aug = matching_mod._mcm_phase(AT, *res[0])
+        res += [(mr, mc), maximum_matching(A), maximum_matching(A, device=False), awpm(A)]
+        out.append([(x.blocks.cpu(), y.blocks.cpu()) for x, y in res] + [int(n_aug)])
+    for a, b in zip(out[0][:-1], out[1][:-1]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert out[0][-1] == out[1][-1]
+
+
+def test_orderings_on_card_match_cpu(cuda_device):
+    """rcm_ordering (probe and root 0) and minimum_degree_ordering: the
+    card's permutations equal the CPU's."""
+    rng = np.random.default_rng(4)
+    d = np.zeros((40, 40), np.float32)
+    for i in range(40):
+        for j in range(max(0, i - 3), min(40, i + 4)):
+            if i != j and rng.random() < 0.7:
+                d[i, j] = d[j, i] = 1
+    s = rng.permutation(40)
+    d = d[np.ix_(s, s)]
+    out = []
+    for dev in ("cpu", cuda_device):
+        A = SpParMat.from_dense(Grid.make(2, 2, device=dev), d)
+        out.append([rcm_ordering(A).blocks.cpu(), rcm_ordering(A, root=0).blocks.cpu(),
+                    minimum_degree_ordering(SpParMat.from_dense(
+                        Grid.make(1, 1, device=dev), d[:16, :16])).blocks.cpu()])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_spmm_on_card_matches_cpu(p, cuda_device):
+    """dist_spmm_ell (min_plus and max_min on NaN, ±0 and ±inf features;
+    plus_times on integer-valued features, both backends) and summa_spmm
+    (both stage orders): exact on the card against the CPU."""
+    rng = np.random.default_rng(5)
+    n, F = 72, 8
+    r, c = rng.integers(0, n, 420), rng.integers(0, n, 420)
+    r, c = np.concatenate([r, r[:30]]), np.concatenate([c, c[:30]])
+    v = rng.integers(1, 5, len(r)).astype(np.float32)
+    specials = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1, 2, -3], np.float32),
+                          size=(n, F))
+    ints = rng.integers(0, 4, (n, F)).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        g = Grid.make(p, p, device=dev)
+        E = EllParMat.from_host_coo(g, r, c, v, n, n)
+        A = SpParMat.from_global_coo(g, r, c, v, n, n)
+        res = []
+        for sr, X, backends in ((MIN_PLUS, specials, ("scatter",)),
+                                (MAX_MIN, specials, ("scatter",)),
+                                (PLUS_TIMES, ints, ("mxu_gather", "scatter"))):
+            Xd = DistMultiVec.from_global(g, X)
+            res += [dist_spmm_ell(sr, E, Xd, backend=b).blocks for b in backends]
+            res += [summa_spmm(sr, A, DenseParMat.from_global(g, X), backend=backends[0],
+                               ring=ring).blocks for ring in (False, True)]
+        out.append([x.cpu() for x in res])
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_propagation_on_card_matches_cpu(cuda_device):
+    """spmm_khop normalised and propagate_features within rtol 1e-5 (float
+    sums), _propagate_batch_impl's lanes within it and its PAD_ROOT lanes
+    exactly zero."""
+    rng = np.random.default_rng(6)
+    n, F = 96, 10
+    r, c = rng.integers(0, n, 380), rng.integers(0, n, 380)
+    key = np.unique(np.concatenate([r * n + c, c * n + r]))
+    r, c = key // n, key % n
+    v = np.ones(len(r), np.float32)
+    X = rng.integers(0, 3, (n, F)).astype(np.float32)
+    roots = rng.integers(0, n, 16).astype(np.int32)
+    roots[[3, 9]] = PAD_ROOT
+    out = []
+    for dev in ("cpu", cuda_device):
+        E = EllParMat.from_host_coo(Grid.make(2, 2, device=dev), r, c, v, n, n)
+        Xd = DistMultiVec.from_global(E.grid, pad_features(X), align="row")
+        inv = row_invdeg(E).realign("col")
+        batch = propagate_mod._propagate_batch_impl(E, Xd, inv, torch.from_numpy(roots), hops=2,
+                                                    normalize=True, backend="mxu_gather")
+        out.append((propagate_features(E, X, 2, normalize=True), batch.cpu()))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-5, atol=1e-6)
+    assert (out[1][1][:, [3, 9]] == 0).all()

@@ -14,10 +14,11 @@ REPO = Path(__file__).resolve().parent.parent
 # modules the walk below must reach (the Graph500 BFS path among them)
 MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.sssp",
            "models.pagerank", "models.cc", "models.mis", "models.tc", "models.bc",
+           "models.mcl", "models.matching", "models.ordering", "models.propagate",
            "ops.segment", "ops.spgemm", "ops.dense_to_tuples", "ops.semiring_matmul",
            "ops.tuples", "ops.compressed", "ops.spmv", "ops.ewise",
            "parallel.ellmat", "parallel.vec", "parallel.spmat", "parallel.spgemm",
-           "parallel.spmv", "parallel.dense", "parallel.indexing",
+           "parallel.spmv", "parallel.dense", "parallel.indexing", "parallel.spmm",
            "semantic", "utils.graph500", "utils.rmat"}
 
 
