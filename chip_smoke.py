@@ -163,9 +163,36 @@ Phases (each prints one JSON line):
      ``propagate_features``; ``_propagate_batch_impl`` on 128 roots (8
      PAD_ROOT lanes, exactly zero) against the whole-graph rows. K1 and K2
      never run.
+ 13. graph_input, Graph500 graph input at scale 20, edgefactor 16: (1)
+     ``kernel1_device`` on 1 x 1 as the reference's benchmark runs it (a
+     warm-up with key 41, then key 42 uncompressed), each stage's seconds,
+     peak memory and the deferred drop count (0); the matrix has no loops,
+     no duplicates, only ones, is symmetric, and its entries are exactly the
+     distinct symmetrised loop-free pairs of the card's own ``rmat_edges``;
+     its degrees are the row counts; the compressed call gives P A P^T with
+     the compression permutation read back (live vertices a prefix in
+     order, nkeep their count); on 2 x 2 with the extra relabel it gives
+     P Q A Q^T P^T with Q the key's ``randperm``; ``bfs`` from 4 roots on the
+     matrix equals a numpy BFS; ``rmat_edges`` on the card equals the CPU's
+     at scale 16; the layers G1 (``rmat_edges``), G2 (route + dedup) and G3
+     (``permute_vertices``) timed beside their bytes bounds with the
+     kernels a call. (2) The Graph500 v2.1 generator (native, user seed
+     0xDECAFBAD) timed, equal to the numpy stream on three ranges of 2^16
+     edges (head, middle, tail); its symmetrised loop-free edges routed onto
+     2 x 2 by ``from_device_coo(dedup_sr=SELECT2ND_MAX)`` equal scipy's
+     deduplicated COO tile array for tile array. (3) That graph as a 2 x 2
+     ``EllParMat``: ``bfs_batch_compact(ring=True)`` from 64 roots, timed,
+     4 lanes' levels, parents and edge counts equal to a numpy BFS.
+     (4) Phase 10's scale-18 graph through ``write_mm``, the native
+     ``read_mm`` (parse rate) and ``read_mm_distributed`` onto 2 x 2; kernel
+     1's matrix through ``write_binary`` / ``read_binary``; a checkpoint of
+     the 2 x 2 matrix loaded onto 2 x 2 (verbatim) and 1 x 1; its degree
+     vector through ``write_vec`` / ``read_vec``; every round trip gives the
+     data back exactly. The files live in ``build/chip_smoke_io`` and are
+     removed. K1 and K2 never run.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line (K1's launches by path: main_path,
-spgemm_general, spgemm_windowed, apps) and, last,
+spgemm_general, spgemm_windowed, apps, graph_input) and, last,
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -175,10 +202,12 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
@@ -211,6 +240,21 @@ from combblas_tpu_torch import (
     bc_batch_dense,
     bc_batch_dense_lanes,
     bfs_single,
+    checkpoint,
+    from_device_coo,
+    graph500_edges,
+    graph500_edges_native,
+    isolated_compression_perm,
+    kernel1_device,
+    permute_vertices,
+    read_binary,
+    read_mm,
+    read_mm_distributed,
+    read_vec,
+    rmat_edges,
+    write_binary,
+    write_mm,
+    write_vec,
     build_graph,
     build_structures,
     choose_spgemm_tier,
@@ -288,6 +332,7 @@ from combblas_tpu_torch.parallel.spgemm import (
     _shift_rowblock,
 )
 from combblas_tpu_torch.parallel.spmv import spmspv_counts
+from combblas_tpu_torch.utils import threefry
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
 FULL = 1 << SCALE  # the mxu tier's largest tile: 8192
@@ -823,11 +868,14 @@ def op_breakdown(fn, reps: int = 5) -> dict:
     (``key_averages``' own device time: an ``aten::`` operator's is that of
     the kernels it launched; the kernel list counts the same time again,
     by kernel, and also holds the kernels launched outside PyTorch's
-    operators, such as K2's). Where the profiler reports no device time,
+    operators, such as K2's; only records of the device count as kernels:
+    the host's "Command Buffer Full" waits also carry device time). Where
+    the profiler reports no device time,
     each call is timed whole with CUDA events instead and the line says
     so. ``events_ms`` is each call timed whole with CUDA events, and
     ``coverage`` the share of it that the traced kernels account for: a
     trace that lost device records shows as a coverage well below 1."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -847,7 +895,7 @@ def op_breakdown(fn, reps: int = 5) -> dict:
         row = {"calls": e.count / reps, "device_ms": own / 1e3 / reps}
         if e.key.startswith("aten::"):
             ops.append({"op": e.key, **row})
-        else:
+        elif e.device_type == DeviceType.CUDA:
             kernels.append({"kernel": e.key[:120], **row})
     if not kernels:
         return {"profiler_device_time": False, "events_ms": time_cuda_ms(fn, reps)}
@@ -3101,6 +3149,427 @@ def phase_apps(dev, t_start: float, g20: dict, E: EllParMat, A20: SpParMat, g18:
     return res
 
 
+# --- phase 13: graph input ---------------------------------------------------------
+
+GI_SCALE, GI_EDGEFACTOR = 20, 16  # bench.py:138-139, the BFS path's graph
+GI_WARM_SEED, GI_SEED = 41, 42  # bench.py:k1_device_child's keys
+GI_BFS_ROOTS = 4
+GI_RMAT_CHECK_SCALE = 16
+GI_V21_SEED = 0xDECAFBAD  # RefGen21's fallback seed
+GI_V21_RANGE = 1 << 16
+GI_BATCH_ROOTS = 64
+GI_IO_SCALE = 18
+GI_IO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_io"
+HOST_SOURCES = ("graphgen", "mmparse")  # combblas_tpu_torch/io/native/*.cpp
+
+
+def device_keys(A: SpParMat) -> torch.Tensor:
+    """Sorted int64 global keys row * ncols + col of every entry, on the
+    matrix's device."""
+    lr, lc = A.local_rows, A.local_cols
+    parts = []
+    for i in range(A.grid.pr):
+        for j in range(A.grid.pc):
+            r, c = A.rows[i, j], A.cols[i, j]
+            ok = r < lr
+            parts.append((r[ok].long() + i * lr) * A.ncols + c[ok].long() + j * lc)
+    return torch.sort(torch.cat(parts)).values
+
+
+def same_keys(A: SpParMat, keys: np.ndarray) -> bool:
+    """A's entries are exactly the host keys (sorted on the card)."""
+    want = torch.sort(torch.from_numpy(keys).to(A.rows.device)).values
+    return torch.equal(device_keys(A), want)
+
+
+def same_tiles(a: SpParMat, b: SpParMat) -> bool:
+    return (a.nrows, a.ncols) == (b.nrows, b.ncols) and all(
+        torch.equal(getattr(a, f).view(torch.uint8), getattr(b, f).view(torch.uint8))
+        for f in ("rows", "cols", "vals", "nnz"))
+
+
+def gi_layer(name: str, fn, bytes_moved: int, reps: int = 2) -> dict:
+    """A graph-input layer timed with CUDA events (``reps`` calls after the
+    path's own warm-up), beside its bytes bound over 3.35 TB/s, with the
+    device kernels a call and their time from ``op_breakdown``."""
+    ms = [timed_call(fn)[1] for _ in range(reps)]
+    bound = bytes_moved / PEAK_BYTES * 1e3
+    trace = op_breakdown(fn, 1)
+    line = {"layer": name, "ms": ms, "bound_ms": bound, "bound_by": "bytes",
+            "share_of_bound": bound / min(ms)}
+    if trace["profiler_device_time"]:
+        line.update(kernels_per_call=sum(k["calls"] for k in trace["kernels"]),
+                    kernels_ms=trace["kernels_ms"], coverage=trace["coverage"],
+                    top_kernels=trace["kernels"][:5])
+    return line
+
+
+def step_kernel1(dev) -> dict:
+    """Step 1: kernel 1 on the card (bench.py:k1_device_child's protocol),
+    its checks, four searches on its matrix, and G1-G3."""
+    n = 1 << GI_SCALE
+    g11 = Grid.make(1, 1, device=dev)
+    key = threefry.key(GI_SEED)
+
+    def run(grid, seed, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        A, deg, nkeep, t = kernel1_device(grid, GI_SCALE, GI_EDGEFACTOR, threefry.key(seed), **kw)
+        wall = time.perf_counter() - t0
+        dropped = int(t.pop("dropped_dev"))
+        if dropped:
+            raise AssertionError(f"kernel1_device dropped {dropped} tuples")
+        line = {"grid": f"{grid.pr}x{grid.pc}", **kw, "wall_s": wall, **t, "dropped": dropped,
+                "nnz": int(A.getnnz()), "nkeep": int(nkeep),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        return A, deg, line
+
+    out = {}
+    _, _, out["warmup"] = run(g11, GI_WARM_SEED, compress_isolated=False)
+    emit({"phase": "graph_input", "step": "kernel1_warmup", **out["warmup"]})
+    A, deg, out["timed"] = run(g11, GI_SEED, compress_isolated=False)
+    emit({"phase": "graph_input", "step": "kernel1", **out["timed"]})
+
+    # the card's own edge list, symmetrised, loops out: keys in numpy, their
+    # distinct set sorted on the card (numpy's sort of 33.5 M keys is too slow
+    # on the card's host for the phase's time)
+    t0 = time.perf_counter()
+    src, dst = (x.cpu().numpy().astype(np.int64)
+                for x in rmat_edges(key, GI_SCALE, GI_EDGEFACTOR << GI_SCALE, device=dev))
+    keep = src != dst
+    want = torch.unique(torch.from_numpy(np.concatenate(
+        [src[keep] * n + dst[keep], dst[keep] * n + src[keep]])).to(dev))
+    got = device_keys(A)
+    R, C = got // n, got % n
+    if not (bool((got[1:] > got[:-1]).all()) and not bool((R == C).any())
+            and bool((A.vals[A.rows < n] == 1).all())):
+        raise AssertionError("kernel 1: duplicates, loops or values other than 1")
+    if not torch.equal(torch.sort(C * n + R).values, got):
+        raise AssertionError("kernel 1: the matrix is not symmetric")
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel 1: {got.numel()} entries, the card's edge list gives "
+                             f"{want.numel()} distinct ones")
+    del want
+    R, C = R.cpu().numpy(), C.cpu().numpy()  # row-major
+    rowcnt = np.bincount(R, minlength=n)
+    if not np.array_equal(deg.to_global(), rowcnt.astype(np.float32)):
+        raise AssertionError("kernel 1: degrees differ from the row counts")
+    nkeep = int((rowcnt > 0).sum())
+    host_s = time.perf_counter() - t0
+
+    # compressed: P A Pᵀ with the compression permutation read back
+    Ac, degc, out["compressed"] = run(g11, GI_SEED, compress_isolated=True)
+    p, nk = isolated_compression_perm(A)
+    pg = p.to_global().astype(np.int64)
+    if not out["compressed"]["nkeep"] == int(nk) == nkeep:
+        raise AssertionError(f"kernel 1: nkeep {out['compressed']['nkeep']}, host {nkeep}")
+    if not np.array_equal(pg[rowcnt > 0], np.arange(nkeep)):
+        raise AssertionError("kernel 1: the live vertices are not a prefix in order")
+    if not same_keys(Ac, pg[R] * n + pg[C]):
+        raise AssertionError("kernel 1: the compressed matrix is not P A P^T")
+    if not np.array_equal(degc.to_global(), np.bincount(pg[R], minlength=n).astype(np.float32)):
+        raise AssertionError("kernel 1: compressed degrees differ")
+    emit({"phase": "graph_input", "step": "kernel1_compressed", **out["compressed"]})
+    del Ac, degc
+    torch.cuda.empty_cache()
+
+    # 2x2 with the extra relabel: Q, then the compression of Q A Qᵀ
+    g22 = Grid.make(2, 2, device=dev)
+    A22, deg22, out["relabel_2x2"] = run(g22, GI_SEED, extra_relabel=True)
+    q = DistVec.randperm(g22, n, threefry.fold_in(key, 1)).to_global().astype(np.int64)
+    live = np.zeros(n, bool)
+    live[q[rowcnt > 0]] = True
+    p2 = np.empty(n, np.int64)
+    p2[live] = np.arange(live.sum())
+    p2[~live] = live.sum() + np.arange((~live).sum())
+    if not same_keys(A22, p2[q[R]] * n + p2[q[C]]):
+        raise AssertionError("kernel 1 on 2x2: the relabelled matrix is not P Q A Qᵀ Pᵀ")
+    if not np.array_equal(deg22.to_global(),
+                          np.bincount(p2[q[R]], minlength=n).astype(np.float32)):
+        raise AssertionError("kernel 1 on 2x2: degrees differ")
+    emit({"phase": "graph_input", "step": "kernel1_relabel", **out["relabel_2x2"]})
+    del A22, deg22
+    torch.cuda.empty_cache()
+
+    # bfs (the SpParMat app) from 4 roots, held against a numpy BFS
+    indptr = np.concatenate([[0], np.cumsum(rowcnt)])
+    roots = np.random.default_rng(7).choice(np.flatnonzero(rowcnt > 0), GI_BFS_ROOTS,
+                                            replace=False)
+    searches = []
+    for root in roots:
+        bfs(A, int(root))  # warm-up
+        (par, lev, it), ms, wall = timed_call(lambda: bfs(A, int(root)))
+        te = int(traversed_edges(A, par))
+        if not np.array_equal(lev.to_global(), host_bfs_levels(indptr, C, int(root))):
+            raise AssertionError(f"bfs from {root} on kernel 1's matrix: levels differ")
+        searches.append({"root": int(root), "levels": it, "ms": ms, "wall_s": wall,
+                         "traversed_edges": te, "mteps": te / wall / 1e6})
+    out["bfs"] = searches
+    emit({"phase": "graph_input", "step": "kernel1_bfs", "searches": searches,
+          "host_check_s": host_s})
+
+    # the generator on the card equals the port's CPU path (integer arithmetic)
+    t0 = time.perf_counter()
+    a = rmat_edges(key, GI_RMAT_CHECK_SCALE, GI_EDGEFACTOR << GI_RMAT_CHECK_SCALE, device=dev)
+    b = rmat_edges(key, GI_RMAT_CHECK_SCALE, GI_EDGEFACTOR << GI_RMAT_CHECK_SCALE, device="cpu")
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+        raise AssertionError("rmat_edges on the card differs from the CPU path")
+    emit({"phase": "graph_input", "step": "rmat_card_equals_cpu",
+          "scale": GI_RMAT_CHECK_SCALE, "seconds": time.perf_counter() - t0})
+
+    # G1-G3 on kernel 1's own inputs (the timed call above was their warm-up)
+    nedges = GI_EDGEFACTOR << GI_SCALE
+    layers = [gi_layer("G1 rmat_edges",
+                       lambda: rmat_edges(key, GI_SCALE, nedges, device=dev), 2 * nedges * 4)]
+    rows = torch.from_numpy(np.concatenate([src, dst]).astype(np.int32)).to(dev)
+    cols = torch.from_numpy(np.concatenate([dst, src]).astype(np.int32)).to(dev)
+    loops = rows == cols
+    rows, cols = rows.masked_fill(loops, n).view(1, 1, -1), cols.masked_fill(loops, n).view(1, 1, -1)
+    ones = torch.ones_like(rows, dtype=torch.float32)
+    routed = A.capacity * 12 + 4  # tile rows, cols, vals written, nnz
+    layers.append(gi_layer(
+        "G2 redistribute_coo (route + dedup)",
+        lambda: from_device_coo(g11, rows, cols, ones, n, n, dedup_sr=SELECT2ND_MAX,
+                                defer_drop_check=True),
+        rows.numel() * 12 + routed))
+    del rows, cols, ones, loops
+    torch.cuda.empty_cache()
+    layers.append(gi_layer(
+        "G3 permute_vertices", lambda: permute_vertices(A, p),
+        A.capacity * 12 + 4 + n * 4 + 2 * A.capacity * 12 + 4))
+    for line in layers:
+        emit({"phase": "graph_input", "step": "layer", **line})
+    out["layers"] = layers
+    out["A"] = A
+    return out
+
+
+def step_refgen(dev) -> dict:
+    """Step 2: the v2.1 generator at scale 20 (native, against numpy on three
+    ranges), its graph routed onto 2x2 against scipy's deduplicated COO."""
+    n = 1 << GI_SCALE
+    m = GI_EDGEFACTOR << GI_SCALE
+    t0 = time.perf_counter()
+    src, dst = graph500_edges_native(GI_SCALE, userseed=GI_V21_SEED)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in (0, m // 2 - GI_V21_RANGE // 2, m - GI_V21_RANGE):
+        s, d = graph500_edges(GI_SCALE, userseed=GI_V21_SEED, start_edge=lo,
+                              end_edge=lo + GI_V21_RANGE)
+        if not (np.array_equal(s, src[lo:lo + GI_V21_RANGE])
+                and np.array_equal(d, dst[lo:lo + GI_V21_RANGE])):
+            raise AssertionError(f"native v2.1 generator differs from numpy at edge {lo}")
+    numpy_s = time.perf_counter() - t0
+    keep = src != dst
+    r = np.concatenate([src[keep], dst[keep]])
+    c = np.concatenate([dst[keep], src[keep]])
+    # host oracle: scipy's deduplicated COO, laid out as from_device_coo's tiles
+    t0 = time.perf_counter()
+    coo = sp.coo_matrix((np.ones(len(r), np.float32), (r, c)), shape=(n, n)).tocsr()
+    coo.sum_duplicates()
+    coo = coo.tocoo()
+    hr, hc = coo.row.astype(np.int64), coo.col.astype(np.int64)
+    scipy_s = time.perf_counter() - t0
+    g22 = Grid.make(2, 2, device=dev)
+    chunk = -(-len(r) // 4)
+    R = np.full(4 * chunk, n, np.int32)
+    Cc = np.full(4 * chunk, n, np.int32)
+    R[:len(r)], Cc[:len(r)] = r, c
+    up = [torch.from_numpy(x.reshape(2, 2, chunk)).to(dev) for x in (R, Cc)]
+    ones = torch.ones((2, 2, chunk), dtype=torch.float32, device=dev)
+    (A, dropped), route_ms, _ = timed_call(lambda: from_device_coo(
+        g22, *up, ones, n, n, dedup_sr=SELECT2ND_MAX, defer_drop_check=True))
+    if int(dropped):
+        raise AssertionError(f"routing the v2.1 graph dropped {int(dropped)} tuples")
+    lr = lc = n // 2
+    cap = A.capacity
+    want = {f: np.empty((2, 2, cap), np.int32) for f in ("rows", "cols")}
+    nnz = np.zeros((2, 2), np.int32)
+    for i in range(2):
+        for j in range(2):
+            sel = (hr // lr == i) & (hc // lc == j)  # row-major within the tile
+            k = int(sel.sum())
+            nnz[i, j] = k
+            want["rows"][i, j] = lr
+            want["cols"][i, j] = lc
+            want["rows"][i, j, :k] = hr[sel] - i * lr
+            want["cols"][i, j, :k] = hc[sel] - j * lc
+    vals = (np.arange(cap)[None, None, :] < nnz[:, :, None]).astype(np.float32)
+    if not (np.array_equal(A.rows.cpu().numpy(), want["rows"])
+            and np.array_equal(A.cols.cpu().numpy(), want["cols"])
+            and np.array_equal(A.vals.cpu().numpy(), vals)
+            and np.array_equal(A.nnz.cpu().numpy(), nnz)):
+        raise AssertionError("the routed v2.1 graph differs from scipy's deduplicated COO")
+    line = {"scale": GI_SCALE, "edges": m, "native_s": native_s,
+            "native_medges_per_s": m / native_s / 1e6, "numpy_check_s": numpy_s,
+            "numpy_ranges": 3, "nnz": len(hr), "scipy_s": scipy_s, "route_ms": route_ms,
+            "tile_capacity": cap}
+    emit({"phase": "graph_input", "step": "refgen21", **line})
+    return {"line": line, "rows": hr, "cols": hc}
+
+
+def step_batch_bfs(dev, g: dict) -> dict:
+    """Step 3: bfs_batch_compact with the ring fold on step 2's graph as a
+    2x2 EllParMat, from 64 roots; BFS_CHECK_LANES lanes held against a numpy
+    BFS (levels, max-id parents one level up, traversed edges)."""
+    n = 1 << GI_SCALE
+    r, c = g["rows"], g["cols"]  # row-sorted, deduplicated
+    t0 = time.perf_counter()
+    E = EllParMat.from_host_coo(Grid.make(2, 2, device=dev), r, c,
+                                np.zeros(len(r), np.int8), n, n)
+    build_s = time.perf_counter() - t0
+    deg = np.bincount(r, minlength=n)
+    roots = np.random.default_rng(7).choice(np.flatnonzero(deg > 0), GI_BATCH_ROOTS,
+                                            replace=False).astype(np.int32)
+    roots_dev = torch.from_numpy(roots).to(dev)
+    lr = E.grid.local_rows(n)
+    deg_blocks = torch.zeros(2 * lr, dtype=torch.int32)
+    deg_blocks[:n] = torch.from_numpy(deg.astype(np.int32))
+    deg_blocks = deg_blocks.view(2, lr).to(dev)
+    bfs_batch_compact(E, roots_dev, ring=True)  # warm-up
+    (par, lev, it), ms, wall = timed_call(lambda: bfs_batch_compact(E, roots_dev, ring=True))
+    te = batch_traversed_edges(deg_blocks, par).cpu().numpy()
+    t0 = time.perf_counter()
+    P = par.blocks.reshape(-1, GI_BATCH_ROOTS)[:n, :BFS_CHECK_LANES].cpu().numpy()
+    L = lev.blocks.reshape(-1, GI_BATCH_ROOTS)[:n, :BFS_CHECK_LANES].cpu().numpy()
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    for k in range(BFS_CHECK_LANES):
+        root = int(roots[k])
+        want_l = host_bfs_levels(row_ptr, c, root)
+        if not np.array_equal(L[:, k], want_l):
+            raise AssertionError(f"bfs_batch_compact lane {k}: levels differ from the host BFS")
+        if not np.array_equal(P[:, k], host_max_parents(r, c, row_ptr, want_l, root)):
+            raise AssertionError(f"bfs_batch_compact lane {k}: parents are not the max-id "
+                                 "neighbour one level up")
+        if int(te[k]) != int(deg[want_l >= 0].sum()) // 2:
+            raise AssertionError(f"bfs_batch_compact lane {k}: traversed edges differ")
+    line = {"scale": GI_SCALE, "grid": "2x2", "roots": GI_BATCH_ROOTS, "ring": True,
+            "host_build_s": build_s, "nnz": len(r), "levels": it, "ms": ms, "wall_s": wall,
+            "traversed_edges": int(te.astype(np.int64).sum()),
+            "host_bfs_lanes_equal": BFS_CHECK_LANES, "host_check_s": time.perf_counter() - t0}
+    emit({"phase": "graph_input", "step": "batch_bfs", **line})
+    return line
+
+
+def step_io(dev, A20: SpParMat, g18: dict) -> dict:
+    """Step 4: Matrix Market, binary, checkpoint and vector round trips."""
+    shutil.rmtree(GI_IO_DIR, ignore_errors=True)
+    GI_IO_DIR.mkdir(parents=True)
+    out = {}
+    try:
+        n = 1 << GI_IO_SCALE
+        r, c = g18["rows"].astype(np.int64), g18["cols"].astype(np.int64)
+        v = np.ones(len(r))
+        mm = GI_IO_DIR / "g18.mtx"
+        t0 = time.perf_counter()
+        write_mm(str(mm), (r, c, v, n, n))
+        write_s = time.perf_counter() - t0
+        size = mm.stat().st_size
+        t0 = time.perf_counter()
+        got = read_mm(str(mm))
+        read_s = time.perf_counter() - t0
+        order = np.lexsort((r, c))  # the file's column-major order
+        if not (got[3:] == (n, n) and np.array_equal(got[0], r[order])
+                and np.array_equal(got[1], c[order]) and np.array_equal(got[2], v)):
+            raise AssertionError("read_mm does not give back what write_mm wrote")
+        g22 = Grid.make(2, 2, device=dev)
+        (A18, _, read_dist_s) = timed_call(lambda: read_mm_distributed(g22, str(mm)))
+        if not same_keys(A18, r * n + c):
+            raise AssertionError("read_mm_distributed lost or moved entries")
+        out["matrix_market"] = {"scale": GI_IO_SCALE, "entries": len(r), "bytes": size,
+                                "write_s": write_s, "read_s": read_s,
+                                "parse_mb_per_s": size / read_s / 1e6,
+                                "read_distributed_s": read_dist_s}
+        emit({"phase": "graph_input", "step": "matrix_market", **out["matrix_market"]})
+
+        # binary at scale 20: kernel 1's matrix
+        R, C, V = A20.to_global_coo()
+        b = GI_IO_DIR / "k1.bin"
+        t0 = time.perf_counter()
+        write_binary(str(b), A20)
+        bw = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = read_binary(str(b))
+        br = time.perf_counter() - t0
+        if not (got[3:] == (A20.nrows, A20.ncols) and np.array_equal(got[0], R)
+                and np.array_equal(got[1], C) and np.array_equal(got[2], V.astype(np.float64))):
+            raise AssertionError("read_binary does not give back kernel 1's matrix")
+        out["binary"] = {"scale": GI_SCALE, "entries": len(R), "bytes": b.stat().st_size,
+                         "write_s": bw, "read_s": br}
+        emit({"phase": "graph_input", "step": "binary", **out["binary"]})
+        b.unlink()
+
+        # checkpoint of the 2x2 matrix: same grid verbatim, 2x2 -> 1x1
+        ck = GI_IO_DIR / "a18.npz"
+        t0 = time.perf_counter()
+        checkpoint.save(str(ck), A18)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load(str(ck), g22)
+        load_s = time.perf_counter() - t0
+        if not same_tiles(back, A18):
+            raise AssertionError("checkpoint.load on the same grid changed the tiles")
+        t0 = time.perf_counter()
+        one = checkpoint.load(str(ck), Grid.make(1, 1, device=dev))
+        cross_s = time.perf_counter() - t0
+        if not same_tiles(one, SpParMat.from_global_coo(one.grid, *A18.to_global_coo(), n, n)):
+            raise AssertionError("checkpoint.load onto 1x1 differs from the global tuples")
+        out["checkpoint"] = {"scale": GI_IO_SCALE, "bytes": ck.stat().st_size,
+                             "tile_capacity": A18.capacity, "save_s": save_s,
+                             "load_same_grid_s": load_s, "load_1x1_s": cross_s}
+        emit({"phase": "graph_input", "step": "checkpoint", **out["checkpoint"]})
+
+        # the degree vector
+        deg = A18.reduce(PLUS_TIMES, "cols", map_fn=ones_f32)
+        vf = GI_IO_DIR / "deg.txt"
+        t0 = time.perf_counter()
+        write_vec(str(vf), deg)
+        back, act = read_vec(g22, str(vf), align="row")
+        vec_s = time.perf_counter() - t0
+        if not (torch.equal(back.blocks, deg.blocks) and bool(act.blocks.reshape(-1)[:n].all())):
+            raise AssertionError("read_vec does not give back the degree vector")
+        out["vector"] = {"length": n, "round_trip_s": vec_s}
+        emit({"phase": "graph_input", "step": "vector", **out["vector"]})
+    finally:
+        shutil.rmtree(GI_IO_DIR, ignore_errors=True)
+    return out
+
+
+def phase_graph_input(dev, t_start: float, g18: dict) -> dict:
+    """Phase 13 (module docstring): steps 1-4 with K1's and K2's launch counts
+    set to 0 just before and read just after; neither runs."""
+    emit({"phase": "graph_input", "step": "elapsed", "total_s": time.perf_counter() - t_start})
+    # the two host C++ sources (the v2.1 generator, the Matrix Market
+    # parser), built by g++ before anything is timed
+    builds = {name: _build.build_host(name)["seconds"] for name in HOST_SOURCES}
+    emit({"phase": "graph_input", "step": "host_build", "seconds": builds})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        step_s[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        emit({"phase": "graph_input", "step": f"{name}_done", "step_s": step_s[name],
+              "total_s": time.perf_counter() - t_start})
+        return res
+
+    k1 = timed("kernel1", step_kernel1, dev)
+    gen = timed("refgen21", step_refgen, dev)
+    batch = timed("batch_bfs", step_batch_bfs, dev, gen)
+    io = timed("io", step_io, dev, k1.pop("A"), g18)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the graph-input phase launched hand kernels: {launches}")
+    emit({"phase": "graph_input", "step": "checks", "hand_kernel_launches": launches,
+          "step_s": step_s, "total_s": time.perf_counter() - t_start})
+    return {"kernel1": k1, "refgen21": gen["line"], "batch_bfs": batch, "io": io,
+            "k1": launches["k1"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -3126,7 +3595,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     windowed = phase_spgemm_windowed(dev, t_start, general["aa"], mxu13, A20, bfs_graph)
     torch.cuda.empty_cache()
-    apps = phase_apps(dev, t_start, bfs_graph, bfs["E"], A20, general.pop("g18"))
+    g18 = general.pop("g18")
+    apps = phase_apps(dev, t_start, bfs_graph, bfs["E"], A20, g18)
+    del bfs, A20, bfs_graph, mxu13
+    general.pop("aa")
+    torch.cuda.empty_cache()
+    graph_input = phase_graph_input(dev, t_start, g18)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
@@ -3134,7 +3608,7 @@ def main() -> int:
         by_path = {"main_path": path["per_kind"][sr.name]["kernel_launches"],
                    "spgemm_general": general["cross"][sr.name]["k1_launches"],
                    "spgemm_windowed": windowed["k1"][sr.name],
-                   "apps": apps["k1"]}
+                   "apps": apps["k1"], "graph_input": graph_input["k1"]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),

@@ -42,8 +42,16 @@ sparse, block and dense loops), bipartite matchings (``maximal_matching``,
 ``maximum_matching``, ``awpm``), orderings (``rcm_ordering``,
 ``minimum_degree_ordering``), and the SpMM lane (``dist_spmm_ell``,
 ``summa_spmm``, ``spmm_khop``) with k-hop feature propagation
-(``propagate_features``). All of it is in PyTorch ops as the reference
-runs it in XLA ops.
+(``propagate_features``); and graph input: the device R-MAT generator
+(``rmat_edges`` on threefry keys, ``utils.threefry``, the reference's
+stream bit for bit), the Graph500 v2.1 generator (``graph500_edges``,
+``graph500_edges_native``), tuple routing to owner tiles
+(``redistribute_coo``, ``from_device_coo``), Graph500 kernel 1 on the
+device (``kernel1_device``, ``permute_vertices``,
+``isolated_compression_perm``), Matrix Market, binary, vector and
+labelled-tuple files (``io``) and ``.npz`` checkpoints
+(``utils.checkpoint``). All of it is in PyTorch ops as the reference runs
+it in XLA ops (the generator and the Matrix Market parser as host C++).
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
 """
@@ -54,8 +62,24 @@ from .convert import (
     denseparmat_from_arrays,
     distmultivec_from_arrays,
     ellparmat_from_arrays,
+    key_from_jax,
     spparmat_from_arrays,
 )
+from .io import (
+    read_binary,
+    read_labeled_spmat,
+    read_labeled_tuples,
+    read_mm,
+    read_mm_distributed,
+    read_mm_spmat,
+    read_vec,
+    write_binary,
+    write_mm,
+    write_vec,
+)
+from .models.graph500 import isolated_compression_perm, kernel1_device, permute_vertices
+from .parallel.collectives import axis_ring_reduce
+from .parallel.redistribute import from_device_coo, redistribute_coo
 from .models import PAD_ROOT
 from .models.bc import (
     bc_batch,
@@ -241,7 +265,10 @@ from .semiring import (
     Semiring,
 )
 from .utils.graph500 import build_graph, build_structures
-from .utils.rmat import rmat_symmetric_coo_host
+from .utils.refgen21 import graph500_edges, graph500_edges_native
+from .utils.rmat import rmat_edges, rmat_symmetric_coo, rmat_symmetric_coo_host
+from .utils.threefry import ThreefryKey
+from .utils import checkpoint
 
 __all__ = [
     "BFS_CLASS_LADDER",
@@ -275,6 +302,7 @@ __all__ = [
     "SpParMat",
     "SpTuples",
     "TIERS",
+    "ThreefryKey",
     "WINDOWED_MAX_CELLS_PER_FLOP",
     "WINDOWED_MAX_COL_WINDOWS",
     "WINDOWED_MAX_PANEL_CELLS",
@@ -282,6 +310,7 @@ __all__ = [
     "accumulate_block_scatter",
     "admissible_spmm_backends",
     "awpm",
+    "axis_ring_reduce",
     "bandwidth",
     "batch_traversed_edges",
     "bc_batch",
@@ -304,6 +333,7 @@ __all__ = [
     "build_structures",
     "calculate_phases",
     "chaos",
+    "checkpoint",
     "choose_spgemm_tier",
     "choose_tier_from_counts",
     "col_selector",
@@ -346,12 +376,18 @@ __all__ = [
     "flat_to_tuples_arrays_reference",
     "flops",
     "flops_padded",
+    "from_device_coo",
+    "graph500_edges",
+    "graph500_edges_native",
     "hilo_split",
     "host_value",
     "inflate",
     "intersect_lookup",
     "is_maximal",
     "is_valid_matching",
+    "isolated_compression_perm",
+    "kernel1_device",
+    "key_from_jax",
     "key_u32_to_val",
     "lacc",
     "local_spgemm",
@@ -383,13 +419,24 @@ __all__ = [
     "pagerank_batch",
     "panel_cap_from_bnnz",
     "parse_tier_spec",
+    "permute_vertices",
     "popcount32",
     "popcount_pair_counts",
     "propagate_features",
     "pseudo_peripheral_vertex",
     "rcm_ordering",
+    "read_binary",
+    "read_labeled_spmat",
+    "read_labeled_tuples",
+    "read_mm",
+    "read_mm_distributed",
+    "read_mm_spmat",
+    "read_vec",
+    "redistribute_coo",
     "resolve_spgemm_backend",
     "resolve_spmm_backend",
+    "rmat_edges",
+    "rmat_symmetric_coo",
     "rmat_symmetric_coo_host",
     "row_invdeg",
     "row_selector",
@@ -436,4 +483,7 @@ __all__ = [
     "validate_bfs_tree",
     "windowed_plan",
     "windowed_plan_2d",
+    "write_binary",
+    "write_mm",
+    "write_vec",
 ]

@@ -1,11 +1,16 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA and host C++ sources into shared libraries and
+load them.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/combblas_tpu_torch/<name>-<hash>.so`` beside the package, keyed by a
 hash of the source and the flags, at first use. The libraries have a plain
 C interface and load with ``ctypes``; no PyTorch header is compiled, which
-keeps a build to seconds. Nothing here runs at import time, and nothing
-falls back: a missing ``nvcc`` or a failed build raises.
+keeps a build to seconds. The host sources ``io/native/<name>.cpp`` (the
+Graph500 v2.1 generator and the Matrix Market parser) build the same way
+with ``g++`` (``build_host`` / ``load_host``). Each build writes a
+temporary file and renames it into place, so processes that build at once
+do not see a half-written library. Nothing here runs at import time, and
+nothing falls back: a missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import importlib.util
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,7 +32,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_SRC = Path(__file__).resolve().parent / "io" / "native"
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
 _loaded: dict[str, ctypes.CDLL] = {}
+_host_loaded: dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 
 
 def _cuda_tool(tool: str) -> str:
@@ -102,3 +113,44 @@ def disassemble(path: str | Path) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed for {path}:\n{proc.stderr}")
     return proc.stdout
+
+
+def host_library_path(name: str) -> Path:
+    src = HOST_SRC / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> dict:
+    """Compile ``io/native/<name>.cpp`` with ``g++`` unless its library
+    exists. Returns the build seconds (0.0 when it was built already) and
+    the library's path; raises with the compiler's log on a failure."""
+    out = host_library_path(name)
+    if out.exists():
+        return {"seconds": 0.0, "path": str(out)}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH; io/native/{name}.cpp cannot be built")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([gxx, *GXX_FLAGS, str(HOST_SRC / f"{name}.cpp"), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"g++ failed for io/native/{name}.cpp (exit {proc.returncode}):\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return {"seconds": time.perf_counter() - t0, "path": str(out)}
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for ``io/native/<name>.cpp``, built first if
+    needed (one build a process, under a lock)."""
+    with _host_lock:
+        lib = _host_loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_host(name)["path"])
+            _host_loaded[name] = lib
+        return lib

@@ -1,7 +1,8 @@
-"""Carry matrices and vectors over from the JAX package.
+"""Carry matrices, vectors and random keys over from the JAX package.
 
 The port imports nothing of ``combblas_tpu``; the caller hands over the
-reference object's arrays as numpy (``np.asarray(A.rows)``, ...).
+reference object's arrays as numpy (``np.asarray(A.rows)``, ...), and a
+key as its data (``np.asarray(jax.random.key_data(k))``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from .parallel.ellmat import EllParMat, upload_csc_companion
 from .parallel.grid import Grid
 from .parallel.spmat import SpParMat
 from .parallel.vec import DistMultiVec
+from .utils.threefry import ThreefryKey
 
 
 def spparmat_from_arrays(
@@ -90,3 +92,13 @@ def denseparmat_from_arrays(grid: Grid, blocks, nrows: int, ncols: int) -> Dense
         raise ValueError(f"blocks {blocks.shape} do not hold a {nrows}x{ncols} matrix")
     return DenseParMat(blocks=torch.from_numpy(np.array(blocks)).to(grid.device),
                        nrows=int(nrows), ncols=int(ncols), grid=grid)
+
+
+def key_from_jax(key_data) -> ThreefryKey:
+    """The port's threefry key from the ``uint32[2]`` data of a JAX key
+    (``jax.random.key_data(k)``, or a raw ``PRNGKey``): both packages then
+    draw the same stream."""
+    data = np.asarray(key_data)
+    if data.shape != (2,) or data.dtype != np.uint32:
+        raise ValueError(f"a threefry key is uint32[2], got {data.dtype}{list(data.shape)}")
+    return ThreefryKey(int(data[0]), int(data[1]))

@@ -246,14 +246,12 @@ def bfs_batch_compact(A: EllParMat, sources, max_iters: int | None = None,
     (``_ell_levels_step``, cost ∝ stored slots). The result is the same
     either way.
 
-    ``ring=True`` (the reference's carousel fold across devices, same
-    result) is not ported.
+    ``ring`` is accepted for the reference's signature. A grid lives on one
+    device, where the ring (the reference's ``BitMapCarousel`` analog) and
+    the grid-order fold give the same bits, so each dense level folds a
+    grid row's tiles in the ring's order (``collectives.axis_ring_reduce``)
+    for both values. The ring schedule across cards comes with item 12c.
     """
-    if ring:
-        raise NotImplementedError(
-            "the ring (carousel) fold is a schedule across devices and is not "
-            "ported yet (ROADMAP queue 1, item 12); its result equals ring=False"
-        )
     grid = A.grid
     n = A.nrows
     pr_, lr = grid.pr, grid.local_rows(n)

@@ -23,11 +23,13 @@ DROP_SPREAD = 4096
 
 
 def segment_reduce(
-    sr: Semiring, vals: torch.Tensor, ids: torch.Tensor, num_segments: int
+    sr: Semiring, vals: torch.Tensor, ids: torch.Tensor, num_segments: int, *,
+    ids_sorted: bool = False,
 ) -> torch.Tensor:
     """``out[s] = sr.add``-fold of ``vals[ids == s]`` (``vals`` is ``[n]`` or
     ``[n, F]``); empty segments get ``sr.zero``. ids >= num_segments are
-    dropped."""
+    dropped. ``ids_sorted`` is the reference's hint that the ids ascend; the
+    result does not depend on it, and the scatters here do not use it."""
     sink = torch.clamp(ids, max=num_segments).long()  # one drop slot at the end
     if sr.add_kind == "sum":
         # 0 is the identity of any '+'-monoid: empty segments need no patch

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from ..ops.segment import expand_ranges, fix_signed_zeros, float_bits, segment_reduce
-from ..semiring import Semiring
+from ..semiring import SELECT2ND_MAX, Semiring
+from .collectives import axis_ring_reduce
 from .grid import Grid, HostGrid, check_length, fold_grid
 from .spmat import bucket_by_tile
 from .vec import DistMultiVec, DistVec
@@ -516,12 +517,15 @@ def _ell_levels_step(E: EllParMat, x8: torch.Tensor,
     [pr, lr, W] int8 row-aligned (1 = not yet discovered). Returns
     reached8 [pr, lr, W]: 1 where an undiscovered row has a frontier
     in-neighbour. The gather payload is W bytes per stored slot.
+    A grid row's tile results are folded in the carousel's order
+    (``collectives.axis_ring_reduce``), the reference's ``ring=True``; its
+    grid-order fold (``ring=False``) gives the same bits, as max commutes.
     """
     lr, lc = E.local_rows, E.local_cols
     W = x8.shape[2]
     out = []
     for i in range(E.grid.pr):
-        acc = None
+        ys = []
         for j in range(E.grid.pc):
             xpad = torch.cat([x8[j], x8.new_zeros((1, W))])
             y = x8.new_zeros((lr + 1, W))
@@ -531,9 +535,8 @@ def _ell_levels_step(E: EllParMat, x8: torch.Tensor,
                 for s0, s1 in _bucket_row_slices(nb_, kb, W, LEVELS_BUDGET_BYTES):
                     g = _gather_rows(xpad, torch.clamp(bc[s0:s1], max=lc))  # [rows, kb, W]
                     _scatter_rows_max(y, br[s0:s1], g.amax(dim=1))
-            y = torch.minimum(y[:lr], undiscovered8[i])  # only undiscovered rows fire
-            acc = y if acc is None else torch.maximum(acc, y)
-        out.append(acc)
+            ys.append(torch.minimum(y[:lr], undiscovered8[i]))  # only undiscovered rows fire
+        out.append(axis_ring_reduce(SELECT2ND_MAX, ys))
     return torch.stack(out)
 
 

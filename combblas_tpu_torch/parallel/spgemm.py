@@ -382,13 +382,16 @@ def summa_capacities_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int, nc
 
 
 def spgemm(sr: Semiring, A: SpParMat, B: SpParMat, slack: float = 1.05, *,
-           pow2_caps: bool = True, merge: str | None = None) -> SpParMat:
+           pow2_caps: bool = True, merge: str | None = None,
+           merge_source: str | None = None) -> SpParMat:
     """The symbolic pass, then the ESC SUMMA at its capacities, both
     rounded up to powers of two (``pow2_caps``; ``out_capacity`` clamped to
     the dense tile). ``merge``: ``"sort"`` (default) or ``"runs"``;
     ``"hash"`` (the 3D fiber tier's) runs as ``"runs"`` here, as in the
-    reference. ``spgemm.last_capacities`` records the two capacities of
-    the last call. Reference: ``Mult_AnXBn_Synch``."""
+    reference. ``merge_source`` is accepted and ignored: in the reference
+    it only labels a provenance counter, and ``obs`` is not ported yet
+    (ROADMAP item 13b). ``spgemm.last_capacities`` records the two
+    capacities of the last call. Reference: ``Mult_AnXBn_Synch``."""
     merge = "sort" if merge is None else ("runs" if merge == "hash" else merge)
     flop_cap, out_cap = summa_capacities(A, B, slack)
     if pow2_caps:

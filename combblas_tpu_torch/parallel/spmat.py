@@ -74,6 +74,13 @@ class SpParMat:
         """Total nonzeros (a 0-dim device tensor)."""
         return self.nnz.sum()
 
+    def load_imbalance(self) -> torch.Tensor:
+        """The largest tile's nnz over the mean tile's (a 0-dim float32
+        tensor; 0 for an empty matrix, as the reference divides by
+        max(total, 1)). Reference: ``SpParMat::LoadImbalance``."""
+        total = torch.clamp(self.nnz.sum(), min=1)
+        return (self.nnz.max() * self.grid.size).float() / total.float()
+
     def local_tile(self, i: int, j: int) -> SpTuples:
         """Tile (i, j) as an SpTuples with tile-local indices."""
         return SpTuples(
@@ -104,15 +111,19 @@ class SpParMat:
         return SpParMat(rows=out[0], cols=out[1], vals=out[2], nnz=out[3], nrows=int(nrows),
                         ncols=int(ncols), grid=grid)
 
-    def tile_map_ij(self, fn) -> "SpParMat":
+    def tile_map_ij(self, fn, out_like: "SpParMat | None" = None) -> "SpParMat":
         """``fn(tile, i, j) -> SpTuples`` on every tile (at grid
-        position (i, j))."""
-        return SpParMat.assemble(self.grid, self.nrows, self.ncols,
+        position (i, j)); the result has ``out_like``'s global dims where
+        given (a tile function that changes the tile's shape), else this
+        matrix's."""
+        ref = self if out_like is None else out_like
+        return SpParMat.assemble(self.grid, ref.nrows, ref.ncols,
                                  lambda i, j: fn(self.local_tile(i, j), i, j))
 
-    def tile_map(self, fn) -> "SpParMat":
-        """Apply ``fn: SpTuples -> SpTuples`` to every tile."""
-        return self.tile_map_ij(lambda t, i, j: fn(t))
+    def tile_map(self, fn, out_like: "SpParMat | None" = None) -> "SpParMat":
+        """Apply ``fn: SpTuples -> SpTuples`` to every tile; ``out_like``
+        as for ``tile_map_ij``."""
+        return self.tile_map_ij(lambda t, i, j: fn(t), out_like)
 
     def tile_map_indexed(self, fn) -> "SpParMat":
         """Apply ``fn(tile, row_offset, col_offset) -> SpTuples`` to every

@@ -20,9 +20,9 @@ flattened blocks, as the reference's does on its global view. Every op but
 ``randperm`` gives the reference's blocks bit for bit: ``sort`` and
 ``uniq`` order floats as ``lax.sort`` does (-inf, …, ±0.0 as one value,
 …, +inf, then every NaN as one value) through an order-preserving integer
-key of their bits, and ties keep the slot order. ``randperm`` takes a
-``torch.Generator`` where the reference takes a JAX key, so its
-permutation is another one.
+key of their bits, and ties keep the slot order. ``randperm`` gives the
+reference's permutation when it takes a threefry key; a
+``torch.Generator`` gives another one.
 Scatters that the reference runs with ``mode="drop"`` send the dropped
 slots to a spread of sink slots past the end, cut off afterwards
 (``segment_reduce_dropping``).
@@ -37,6 +37,8 @@ import torch
 
 from ..ops.segment import float_bits, fold_dim, segment_reduce_dropping
 from ..semiring import PLUS_TIMES, Semiring
+from ..utils import threefry
+from ..utils.threefry import ThreefryKey
 from .grid import Grid, combine_tiles
 
 
@@ -232,14 +234,26 @@ class DistVec:
         return active._with(keep.view(active.blocks.shape))
 
     @staticmethod
-    def randperm(grid: Grid, length: int, generator: torch.Generator | None = None,
+    def randperm(grid: Grid, length: int,
+                 generator: "torch.Generator | ThreefryKey | None" = None,
                  align: str = "col") -> "DistVec":
-        """A uniform random permutation of ``[0, length)`` drawn from
-        ``generator`` on its own device (when None, from the default
-        generator of the grid's device), the padding slots after it in
-        order. Reference: ``FullyDistVec::RandPerm``, which takes a JAX key:
-        the permutation differs from the reference's."""
+        """A uniform random permutation of ``[0, length)``, the padding slots
+        after it in order. Reference: ``FullyDistVec::RandPerm``.
+
+        With a threefry key (``utils.threefry.ThreefryKey``) it is the
+        reference's permutation bit for bit: the key splits in two, each
+        half draws 32 bits a slot, and the slots sort by (padding last,
+        first draw, second draw), stably. With a ``torch.Generator`` (or
+        None: the default generator of the grid's device) it is
+        ``torch.randperm`` on the generator's device, another permutation."""
         v = DistVec.iota(grid, length, torch.int32, align=align)
+        if isinstance(generator, ThreefryKey):
+            k1, k2 = threefry.split(generator)
+            n = v.blocks.numel()
+            dev = v.blocks.device
+            pad = (v._gids() >= length).to(torch.int64)
+            order = _lexsort([pad, threefry.bits(k1, (n,), dev), threefry.bits(k2, (n,), dev)])
+            return v._with(v.blocks.reshape(-1)[order].view(v.blocks.shape))
         gen_dev = generator.device if generator is not None else v.blocks.device
         head = torch.randperm(length, generator=generator, device=gen_dev)
         flat = v.blocks.reshape(-1).clone()

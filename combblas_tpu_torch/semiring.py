@@ -22,6 +22,10 @@ import torch
 from .operations import minimum as _ieee_minimum
 
 
+# Monoid kinds with a native scatter-combine (``generic``: a segmented fold).
+ADD_KINDS = ("sum", "min", "max", "generic")
+
+
 def _minval(dtype: torch.dtype) -> Any:
     if dtype.is_floating_point:
         return -float("inf")

@@ -146,10 +146,39 @@ def test_max_iters_past_the_int8_range_raises():
 
 
 def test_ring_schedule_is_not_ported():
+    """The name is older than the ring fold's port: ``ring=True`` used to
+    raise. On one tile the ring has one position, and the search equals
+    the reference's ring search and the port's ``ring=False``."""
     r, c, n = graph(7, 4)
-    _, mine = both((1, 1), r, c, n)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        bfs_batch_compact(mine, np.array([int(r[0])], np.int32), ring=True)
+    ref, mine = both((1, 1), r, c, n)
+    srcs = np.array([int(r[0])], np.int32)
+    got = bfs_batch_compact(mine, srcs, ring=True)
+    assert_same_search(got, jax_bfs.bfs_batch_compact(ref, jnp.asarray(srcs), ring=True))
+    off = bfs_batch_compact(mine, srcs)
+    assert torch.equal(got[0].blocks, off[0].blocks) and torch.equal(got[1].blocks, off[1].blocks)
+
+
+@pytest.mark.parametrize("shape, budgets", [((2, 2), False), ((2, 4), False), ((2, 2), True)],
+                         ids=["2x2", "2x4", "2x2-csc-budgets"])
+def test_bfs_batch_compact_ring_matches_reference_and_ring_off(shape, budgets):
+    """``ring=True`` folds each dense level's grid row in the carousel's
+    order: equal to the reference's ring search and to ``ring=False``
+    (levels, parents, level count), also with the sparse step in the mix."""
+    r, c, n = graph(8, 21)
+    ref, mine = both(shape, r, c, n)
+    srcs = np.flatnonzero(np.bincount(r, minlength=n) > 0)[[0, 3, 17, 40]].astype(np.int32)
+    jkw, kw = {}, {}
+    if budgets:
+        jkw = dict(csc=jax_ellmat.build_csc_companion(ref.grid, r, c, n, n),
+                   frontier_capacity=16, edge_capacity=256)
+        kw = dict(jkw, csc=build_csc_companion(mine.grid, r, c, n, n))
+    got = bfs_batch_compact(mine, srcs, ring=True, **kw)
+    assert_same_search(got, jax_bfs.bfs_batch_compact(ref, jnp.asarray(srcs), ring=True, **jkw))
+    if budgets:
+        assert set(bfs_batch_compact.last_run["steps"]) == {"sparse", "dense"}
+    off = bfs_batch_compact(mine, srcs, **kw)
+    assert got[2] == off[2]
+    assert torch.equal(got[0].blocks, off[0].blocks) and torch.equal(got[1].blocks, off[1].blocks)
 
 
 def test_batch_traversed_edges_matches_reference_and_host():

@@ -5,8 +5,11 @@ batched SSSP, and the SpParMat path (local and distributed SpMV forms,
 the DistVec op pack, the SpParMat operations, bfs, bfs_diropt, sssp,
 FastSV, LACC, mis, pagerank), the general and windowed SpGEMM, and the
 applications on them (MCL, the matchings, the orderings, the SpMM lane
-and feature propagation) on the card against the same calls on the
-CPU. Marked
+and feature propagation), and graph input (the threefry streams,
+``rmat_edges``, ``DistVec.randperm`` with a key, tuple routing, Graph500
+kernel 1 on the device, the ring fold of the batched BFS, a Matrix Market
+read onto the grid and a checkpoint round trip) on the card against the
+same calls on the CPU. Marked
 ``cuda``; they skip where there is no card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -1323,3 +1326,141 @@ def test_propagation_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-5, atol=1e-6)
     assert (out[1][1][:, [3, 9]] == 0).all()
+
+
+# --- graph input -----------------------------------------------------------------
+
+from combblas_tpu_torch import (  # noqa: E402
+    checkpoint,
+    from_device_coo,
+    kernel1_device,
+    read_mm_distributed,
+    redistribute_coo,
+    rmat_edges,
+    write_mm,
+)
+from combblas_tpu_torch.utils import threefry  # noqa: E402
+
+
+def _same_mat_fields(a: SpParMat, b: SpParMat) -> None:
+    assert (a.nrows, a.ncols) == (b.nrows, b.ncols)
+    for f in ("rows", "cols", "vals", "nnz"):
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        assert x.dtype == y.dtype and torch.equal(x.view(torch.uint8), y.view(torch.uint8)), f
+
+
+def test_threefry_streams_on_card_match_cpu(cuda_device):
+    """Integer arithmetic in int64: bits, uniforms (by their bits) and
+    permutations on the card equal the CPU's."""
+    k = threefry.key(123)
+    for shape, off in (((1000, 20), 0), ((333,), 5 << 32)):
+        assert torch.equal(threefry.bits(k, shape, cuda_device, off).cpu(),
+                           threefry.bits(k, shape, "cpu", off))
+    for lo, hi in ((0.0, 1.0), (0.95, 1.05)):
+        a = threefry.uniform(k, (1 << 18,), lo, hi, device=cuda_device).cpu()
+        b = threefry.uniform(k, (1 << 18,), lo, hi, device="cpu")
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for n in (1, 1000, 1 << 17):
+        assert torch.equal(threefry.permutation(k, n, cuda_device).cpu(),
+                           threefry.permutation(k, n, "cpu"))
+
+
+@pytest.mark.parametrize("scale, noise", [(8, True), (11, True), (9, False)])
+def test_rmat_edges_on_card_match_cpu(scale, noise, cuda_device):
+    k = threefry.key(scale)
+    a = rmat_edges(k, scale, 16 << scale, noise, device=cuda_device)
+    b = rmat_edges(k, scale, 16 << scale, noise, device="cpu")
+    for x, y in zip(a, b):
+        assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (2, 4)], ids=["1x1", "2x2", "2x4"])
+def test_randperm_with_a_key_on_card_matches_cpu(shape, cuda_device):
+    k = threefry.key(7)
+    a = DistVec.randperm(Grid.make(*shape, device=cuda_device), 1001, k)
+    b = DistVec.randperm(Grid.make(*shape, device="cpu"), 1001, k)
+    assert torch.equal(a.blocks.cpu(), b.blocks)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (2, 4)], ids=["1x1", "2x2", "2x4"])
+def test_redistribute_on_card_matches_cpu(shape, cuda_device):
+    """Routing with and without dedup, at capacities that drop tuples and at
+    from_device_coo's: the same tiles and drop counts."""
+    rng = np.random.default_rng(3)
+    n, m = 300, 5000
+    ntiles = shape[0] * shape[1]
+    chunk = -(-m // ntiles)
+    R = rng.integers(0, n, ntiles * chunk).astype(np.int32)
+    C = rng.integers(0, n, ntiles * chunk).astype(np.int32)
+    R[rng.random(len(R)) < 0.05] = n
+    V = rng.integers(1, 9, len(R)).astype(np.float32)
+    arrs = [x.reshape(*shape, chunk) for x in (R, C, V)]
+    out = []
+    for dev in ("cpu", cuda_device):
+        g = Grid.make(*shape, device=dev)
+        t = [torch.from_numpy(x).to(dev) for x in arrs]
+        res = []
+        for stage, tile, sr in ((64, 256, None), (64, 256, SELECT2ND_MAX),
+                                (4096, 8192, PLUS_TIMES)):
+            res.append(redistribute_coo(g, *t, n, n, stage_capacity=stage, tile_capacity=tile,
+                                        dedup_sr=sr))
+        res.append((from_device_coo(g, *t, n, n, dedup_sr=SELECT2ND_MAX), None))
+        out.append(res)
+    for (a, da), (b, db) in zip(*out):
+        _same_mat_fields(a, b)
+        if da is not None:
+            assert int(da) == int(db)
+    assert int(out[0][0][1]) > 0  # the small capacities dropped some
+
+
+@pytest.mark.parametrize("shape, extra", [((1, 1), False), ((2, 2), True)],
+                         ids=["1x1", "2x2-extra-relabel"])
+def test_kernel1_device_on_card_matches_cpu(shape, extra, cuda_device):
+    k = threefry.key(42)
+    out = [kernel1_device(Grid.make(*shape, device=dev), 10, 16, k, extra_relabel=extra)
+           for dev in ("cpu", cuda_device)]
+    (A, deg, nkeep, t), (B, deg2, nkeep2, t2) = out
+    _same_mat_fields(A, B)
+    assert torch.equal(deg.blocks, deg2.blocks.cpu())
+    assert int(nkeep) == int(nkeep2) and int(t["dropped_dev"]) == int(t2["dropped_dev"]) == 0
+    assert t2["dropped_dev"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+def test_bfs_ring_on_card_matches_cpu(shape, cuda_device):
+    n = 1 << 10
+    r, c = rmat_symmetric_coo_host(4, 10, 8)
+    key = np.unique(r * n + c)
+    r, c = key // n, key % n
+    srcs = np.flatnonzero(np.bincount(r, minlength=n) > 0)[:8].astype(np.int32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        E = EllParMat.from_host_coo(Grid.make(*shape, device=dev), r, c,
+                                    np.ones(len(r), np.float32), n, n)
+        p, lv, it = bfs_batch_compact(E, torch.from_numpy(srcs), ring=True)
+        out.append((p.blocks.cpu(), lv.blocks.cpu(), it))
+    off = bfs_batch_compact(E, torch.from_numpy(srcs))
+    assert out[0][2] == out[1][2] == off[2]
+    for a, b, o in zip(out[0][:2], out[1][:2], (off[0].blocks.cpu(), off[1].blocks.cpu())):
+        assert torch.equal(a, b) and torch.equal(b, o)
+
+
+def test_file_input_and_checkpoint_on_card(cuda_device, tmp_path):
+    """A Matrix Market file read onto a 2x2 grid on the card equals the CPU
+    read; a checkpoint of it loads back onto the card verbatim and onto a
+    1x1 grid as the CPU load does."""
+    rng = np.random.default_rng(9)
+    n = 200
+    r, c = rng.integers(0, n, 1500), rng.integers(0, n, 1500)
+    v = rng.integers(1, 50, 1500).astype(np.float64)
+    p = str(tmp_path / "g.mtx")
+    write_mm(p, (r, c, v, n, n))
+    cpu = read_mm_distributed(Grid.make(2, 2, device="cpu"), p, dedup_sr=PLUS_TIMES)
+    card = read_mm_distributed(Grid.make(2, 2, device=cuda_device), p, dedup_sr=PLUS_TIMES)
+    _same_mat_fields(card, cpu)
+    ck = str(tmp_path / "g.npz")
+    checkpoint.save(ck, card)
+    _same_mat_fields(checkpoint.load(ck, Grid.make(2, 2, device=cuda_device)), card)
+    _same_mat_fields(checkpoint.load(ck, Grid.make(1, 1, device=cuda_device)),
+                     checkpoint.load(ck, Grid.make(1, 1, device="cpu")))
+

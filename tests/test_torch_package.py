@@ -19,7 +19,9 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "ops.tuples", "ops.compressed", "ops.spmv", "ops.ewise",
            "parallel.ellmat", "parallel.vec", "parallel.spmat", "parallel.spgemm",
            "parallel.spmv", "parallel.dense", "parallel.indexing", "parallel.spmm",
-           "semantic", "utils.graph500", "utils.rmat"}
+           "semantic", "utils.graph500", "utils.rmat", "utils.threefry", "utils.refgen21",
+           "parallel.redistribute", "parallel.collectives", "models.graph500", "io", "io.mm",
+           "io.labels", "utils.checkpoint"}
 
 
 def test_import_pulls_in_no_jax():
