@@ -190,9 +190,31 @@ Phases (each prints one JSON line):
      vector through ``write_vec`` / ``read_vec``; every round trip gives the
      data back exactly. The files live in ``build/chip_smoke_io`` and are
      removed. K1 and K2 never run.
+ 14. mesh3d, the 3D (layered) tier on 2 x 2 x 2 (layers emulated on the
+     card): (1) phase 10's A·A recipe through ``spgemm3d(tier="esc")`` with
+     each fiber merge tier (sort, runs, hash), min_plus and plus_times,
+     each equal to the others and to the 2D ``spgemm`` (sort) on 2 x 2;
+     scale 16 is reckoned first (output tiles and hash table from the
+     tier's own capacity rule) and cut to 15 above 70 GB; ms a call, peak
+     memory, the fiber exchange's and the merge's ms, the bytes bound.
+     (2) The same min_plus product through ``spgemm_auto(grid3=...)``: the
+     router answers windowed3d, the result on the 2D grid equals step 1's;
+     timed beside the 2D windowed route. (3) Phase 11's scale-15 recipe
+     through ``spgemm3d_windowed(backend="dot")``, min_plus and max_min,
+     bit for bit equal to the scatter backend and to the 2D dot backend;
+     K1 launched layers x tiles x stages x live windows a call; K1 at the
+     layer's window shape held against its plain version. (4) Phase 8's
+     scale-20 matrix onto 2 x 2 x 2 col- and row-split, ``resplit3d`` both
+     ways and back to 1 x 1: the key and value set unchanged. (5) Phase
+     12's MCL graph on 2 x 2 through ``mcl(layers=2)``, one iteration: its
+     bare expansion equal in support to the 2D one's (values within 1e-4),
+     its iterate too but for entries at a column's select threshold, where
+     the order of a float sum decides a tie;
+     at scale 12 the plain and ``chaos_every=2`` 3D loops to convergence
+     with the 2D loop's labels. K2 never runs.
 Each path runs with every launch count set to 0 just before it and read
 just after. Then the ``kernels`` line (K1's launches by path: main_path,
-spgemm_general, spgemm_windowed, apps, graph_input) and, last,
+spgemm_general, spgemm_windowed, apps, graph_input, mesh3d) and, last,
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -227,7 +249,9 @@ from combblas_tpu_torch import (
     DistVec,
     EllParMat,
     Grid,
+    Grid3D,
     SemanticGraph,
+    SpParMat3D,
     SpParMat,
     awpm,
     batch_traversed_edges,
@@ -273,6 +297,7 @@ from combblas_tpu_torch import (
     filtered_mis,
     flat_to_tuples_arrays,
     flat_to_tuples_arrays_reference,
+    hash_table_capacity,
     lacc,
     maximal_matching,
     maximum_matching,
@@ -300,6 +325,7 @@ from combblas_tpu_torch import (
     sparsify,
     sparsify_windowed,
     spgemm,
+    spgemm3d,
     spgemm_auto,
     spgemm_scan,
     spgemm_windowed,
@@ -323,6 +349,8 @@ from combblas_tpu_torch.models import mcl as mcl_mod
 from combblas_tpu_torch.models import propagate as propagate_mod
 from combblas_tpu_torch.models.matching import maximum_matching_device
 from combblas_tpu_torch.parallel import ellmat
+from combblas_tpu_torch.parallel import mesh3d as mesh3d_mod
+from combblas_tpu_torch.parallel.mesh3d import spgemm3d_windowed
 from combblas_tpu_torch.parallel.spgemm import (
     _PALLAS_KINDS,
     _colmajor_with_starts,
@@ -2375,15 +2403,23 @@ def k1_at_window_shape(sr, A: SpParMat, plan: dict) -> dict:
     da = densify_combine(sr, _shift_rowblock(mask_rows(a, 0, rb), 0, arows), arows, pk)
     bs, starts = _colmajor_with_starts(a, plan["block_cols"])
     panel = _dense_col_panel(sr, bs, starts, 0, plan["block_cols"], pk, pwin, plan["panel_cap"])
+    return hold_k1(kind, da, panel)
+
+
+def hold_k1(kind: str, da: torch.Tensor, panel: torch.Tensor) -> dict:
+    """One K1 launch on the path's own operands, not counted, held bit for
+    bit against the plain version; both timed."""
     counted = semiring_matmul.launches
     got, ms, _ = timed_call(lambda: semiring_matmul(kind, da, panel))
     semiring_matmul.launches = counted
     want, plain_ms, _ = timed_call(lambda: semiring_matmul_reference(kind, da, panel))
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise AssertionError(f"K1 {kind} at the window shape differs from its plain version")
-    return {"kind": kind, "shape": [arows, pk, pwin], "variant": semiring_matmul.last_variant,
+    m, k = da.shape
+    n = panel.shape[1]
+    return {"kind": kind, "shape": [m, k, n], "variant": semiring_matmul.last_variant,
             "bit_equal": True, "max_abs_err": max_abs_err(got, want), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound(arows, pk, pwin)[0]}
+            "plain_ms": plain_ms, "bound_ms": bound(m, k, n)[0]}
 
 
 def step_windowed_dot(dev) -> tuple[dict, dict]:
@@ -3570,6 +3606,438 @@ def phase_graph_input(dev, t_start: float, g18: dict) -> dict:
             "k1": launches["k1"]}
 
 
+# --- phase 14: the 3D (layered) tier ------------------------------------------------
+
+M3_LAYERS, M3_P = 2, 2  # Grid3D.make(2, 2, 2)
+M3_SCALE = 16  # phase 10's A·A; cut to M3_CUT_SCALE when the reckoned peak passes the cap
+M3_CUT_SCALE, M3_PEAK_CAP_GB = 15, 70.0
+M3_MERGES = ("sort", "runs", "hash")
+M3_REPS = 1  # timed calls after the warm-up
+M3_MCL_GRID = 2  # the MCL matrix on 2×2: add_loops and the transpose need square blocking
+# an MCL value's relative error bound: its column is re-normalised by a
+# float32 sum of up to 1,400 kept terms (2^-24 each) in another order
+M3_MCL_RTOL = 1e-4
+# the most columns whose select ties may differ between the 3D and the 2D
+# iterate: the H100 showed 22-24 of 16,384, and two 2D runs differ at a few
+M3_MCL_TIE_COLUMNS = 64
+
+
+def live_entries3(C3) -> tuple[torch.Tensor, torch.Tensor]:
+    """``live_entries`` of a 3D matrix: its live entries as sorted global
+    keys and the values in that order, on the card."""
+    gr, gc, gv = mesh3d_mod._globalize3d(C3)
+    m = gr < C3.nrows
+    key, order = torch.sort(gr[m].long() * C3.ncols + gc[m].long())
+    return key, gv[m][order]
+
+
+def reckon_esc3d_gb(scale: int, dev) -> dict:
+    """The output and hash-table bytes ``spgemm3d(tier="esc")`` would hold
+    for the min_plus A·A at ``scale`` on the 3D grid, from its own capacity
+    rule (``_esc3d_caps``; output 12 bytes a slot, the table 12 bytes a slot
+    and an int32 claim)."""
+    _, _, _, A = weighted_rmat(scale, dev, Grid.make(M3_P, M3_P, device=dev), MIN_PLUS)
+    g3 = Grid3D.make(M3_LAYERS, M3_P, M3_P, device=dev)
+    A3, B3 = SpParMat3D.from_spmat(A, g3, "col"), SpParMat3D.from_spmat(A, g3, "row")
+    _, _, out_cap = mesh3d_mod._esc3d_caps(A3, B3, 1.05)
+    out_gb = g3.size * out_cap * 12 / 1e9
+    table_gb = hash_table_capacity(out_cap) * 16 / 1e9
+    return {"scale": scale, "out_capacity": out_cap, "output_gb": out_gb,
+            "hash_table_gb": table_gb, "reckoned_peak_gb": out_gb + table_gb}
+
+
+def fiber_breakdown(fn) -> dict:
+    """One more call of ``fn`` with the 3D tier's fiber exchange
+    (``_fiber_exchange``) and merge (``_fiber_merge``) each timed between two
+    synchronisations (host clock): their ms a call."""
+    spent = {"_fiber_exchange": 0.0, "_fiber_merge": 0.0}
+    saved = {name: getattr(mesh3d_mod, name) for name in spent}
+
+    def wrap(name):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return f
+
+    try:
+        for name in spent:
+            setattr(mesh3d_mod, name, wrap(name))
+        _, total_ms, _ = timed_call(fn)
+    finally:
+        for name, orig in saved.items():
+            setattr(mesh3d_mod, name, orig)
+    return {"call_ms": total_ms, "fiber_exchange_ms": spent["_fiber_exchange"] * 1e3,
+            "merge_ms": spent["_fiber_merge"] * 1e3}
+
+
+def same_or_close(got, want, exact: bool) -> bool:
+    """Equal keys, and values bit for bit (``exact``) or within 2^-20
+    relative (float32 sums of positive terms in another order)."""
+    if got[0].shape != want[0].shape or not torch.equal(got[0], want[0]):
+        return False
+    if exact:
+        return torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    return bool(((got[1] - want[1]).abs() <= 2.0**-20 * want[1].abs()).all())
+
+
+def step_esc3d(dev) -> dict:
+    """Step 1: A·A (phase 10's recipe) on 2×2×2 through ``spgemm3d(tier=
+    "esc")`` with each fiber merge tier, min_plus and plus_times: every
+    tier's live entries equal to each other and to the 2D ``spgemm`` (sort)
+    on 2×2, bit for bit (plus_times: integer sums below 2^24, so exact in
+    any order; else within 2^-20); ms a call, peak GB, the fiber exchange's
+    and the merge's ms, and the bytes bound. Scale 16 is cut to 15 when its
+    reckoned peak passes ``M3_PEAK_CAP_GB``."""
+    reckon = reckon_esc3d_gb(M3_SCALE, dev)
+    scale = M3_SCALE if reckon["reckoned_peak_gb"] <= M3_PEAK_CAP_GB else M3_CUT_SCALE
+    emit({"phase": "mesh3d", "step": "esc_reckoning", **reckon, "cap_gb": M3_PEAK_CAP_GB,
+          "scale_run": scale, "cut": scale != M3_SCALE})
+    grid = Grid.make(M3_P, M3_P, device=dev)
+    g3 = Grid3D.make(M3_LAYERS, M3_P, M3_P, device=dev)
+    out = {"scale": scale, "grid2": grid, "grid3": g3, "lines": {}}
+    for sr in (MIN_PLUS, PLUS_TIMES):
+        _, _, _, A = weighted_rmat(scale, dev, grid, sr)
+        nnz_a = int(A.getnnz())
+        ref = live_entries(spgemm(sr, A, A))
+        exact = sr is not PLUS_TIMES or float(ref[1].max()) < 2**24
+        A3 = SpParMat3D.from_spmat(A, g3, "col")
+        B3 = SpParMat3D.from_spmat(A, g3, "row")
+        line = {"phase": "mesh3d", "step": "esc3d", "semiring": sr.name, "scale": scale,
+                "grid3": f"{M3_LAYERS}x{M3_P}x{M3_P}", "nnz_a": nnz_a,
+                "nnz_out": int(ref[0].numel()), "largest_value": float(ref[1].max()),
+                "compared": "bit for bit" if exact else "within 2^-20 relative",
+                "bytes_bound_ms": esc_bytes_bound_ms(nnz_a, int(ref[0].numel()))}
+        first = None
+        for merge in M3_MERGES:
+            def call(merge=merge):
+                return spgemm3d(sr, A3, B3, tier="esc", merge=merge)
+
+            got, ms, peak = step_times(call, live_entries3, M3_REPS)
+            if not same_or_close(got, ref, exact):
+                raise AssertionError(f"esc3d {sr.name} {merge}: differs from the 2D spgemm")
+            if first is not None and not same_or_close(got, first, True):
+                raise AssertionError(f"esc3d {sr.name} {merge}: differs from merge=sort")
+            first = got if first is None else first
+            line[merge] = {"ms": ms, "peak_mem_gb": peak, "share_of_bound":
+                           line["bytes_bound_ms"] / ms, **mesh3d_mod.spgemm3d.last_run,
+                           **fiber_breakdown(call)}
+            del got
+            torch.cuda.empty_cache()
+        emit(line)
+        out["lines"][sr.name] = line
+        if sr is MIN_PLUS:
+            out.update(A=A, A3=A3, B3=B3, ref=ref)
+        del first
+        torch.cuda.empty_cache()
+    return out
+
+
+def step_routed3d(dev, esc: dict) -> dict:
+    """Step 2: the same min_plus product through ``spgemm_auto(grid3=...)``:
+    the router answers windowed3d, the result comes back on the 2D grid
+    equal to step 1's; timed beside the 2D windowed route on the same
+    matrix."""
+    A, g3 = esc["A"], esc["grid3"]
+    tier = choose_spgemm_tier(MIN_PLUS, A, A, grid3=g3)
+    if tier != "windowed3d" or choose_spgemm_tier(MIN_PLUS, A, A) != "windowed":
+        raise AssertionError(f"router: {tier} with grid3; the reference's rule gives windowed3d")
+    got, ms, peak = step_times(lambda: spgemm_auto(MIN_PLUS, A, A, grid3=g3), live_entries,
+                               M3_REPS)
+    plan = plan_summary(mesh3d_mod.spgemm3d_windowed.last_plan)
+    if not same_entries(got, esc["ref"]):
+        raise AssertionError("spgemm_auto(grid3=...) differs from step 1's product")
+    _, ms2d, peak2d = step_times(lambda: spgemm_auto(MIN_PLUS, A, A), None, M3_REPS)
+    nnz = int(got[0].numel())
+    line = {"phase": "mesh3d", "step": "routed", "semiring": "min_plus", "scale": esc["scale"],
+            "router": tier, "equal_to_step1": True, "nnz_out": nnz, "ms": ms,
+            "peak_mem_gb": peak, "nnz_out_per_s": nnz / (ms / 1e3), "plan": plan,
+            "windowed_2d_ms": ms2d, "windowed_2d_peak_mem_gb": peak2d,
+            "bytes_bound_ms": esc_bytes_bound_ms(int(A.getnnz()), nnz)}
+    line["share_of_bound"] = line["bytes_bound_ms"] / ms
+    emit(line)
+    return line
+
+
+def k1_at_layer_window_shape(sr, A3, B3, plan: dict) -> dict:
+    """The 3D dot backend's first K1 launch of a call (layer 0, tile (0,
+    0), stage 0, block 0, window 0) rebuilt from the path's operands: each
+    layer carries half the contraction."""
+    a, b = A3.local_tile(0, 0, 0), B3.local_tile(0, 0, 0)
+    rb = min(plan["block_rows"], A3.tile_rows)
+    arows, pk, pwin = _pad128(rb), _pad128(B3.tile_rows), _pad128(plan["block_cols"])
+    da = densify_combine(sr, _shift_rowblock(mask_rows(a, 0, rb), 0, arows), arows, pk)
+    bs, starts = _colmajor_with_starts(b, plan["block_cols"])
+    panel = _dense_col_panel(sr, bs, starts, 0, plan["block_cols"], pk, pwin, plan["panel_cap"])
+    return hold_k1(_PALLAS_KINDS[sr.name], da, panel)
+
+
+def step_dot3d(dev, esc: dict) -> tuple[dict, dict]:
+    """Step 3: phase 11's scale-15 recipe on 2×2×2 through
+    ``spgemm3d_windowed(backend="dot")`` for min_plus and max_min: bit for
+    bit equal to the scatter backend and to the 2D dot backend on 2×2; K1
+    launched layers × tiles × stages × live windows a call; K1 at the
+    layer's window shape held against its plain version. The 2D
+    comparison's launches are not counted. Returns (lines, K1 launches by
+    semiring)."""
+    g3, grid = esc["grid3"], esc["grid2"]
+    per_device = M3_LAYERS * M3_P * M3_P * M3_P  # layers × tiles × stages
+    lines, k1 = {}, {}
+    for sr in (MIN_PLUS, MAX_MIN):
+        if sr is MIN_PLUS and esc["scale"] == WIN_DOT_SCALE:
+            A, A3, B3 = esc["A"], esc["A3"], esc["B3"]
+        else:
+            _, _, _, A = weighted_rmat(WIN_DOT_SCALE, dev, grid, sr)
+            A3, B3 = SpParMat3D.from_spmat(A, g3, "col"), SpParMat3D.from_spmat(A, g3, "row")
+        counted = semiring_matmul.launches
+        ref = live_entries(spgemm_windowed(sr, A, A, backend="dot"))
+        semiring_matmul.launches = counted  # the 2D comparison is not the path
+        scatter, sc_ms, sc_peak = step_times(
+            lambda: spgemm3d_windowed(sr, A3, B3, backend="scatter"), live_entries3, M3_REPS)
+        if semiring_matmul.launches != counted or not same_entries(scatter, ref):
+            raise AssertionError(f"3D scatter {sr.name}: differs from the 2D dot backend")
+        before = semiring_matmul.launches
+        got, ms, peak = step_times(lambda: spgemm3d_windowed(sr, A3, B3, backend="dot"),
+                                   live_entries3, M3_REPS)
+        launched = semiring_matmul.launches - before
+        plan = mesh3d_mod.spgemm3d_windowed.last_plan
+        per_call = per_device * plan["packed"]
+        if launched != (1 + M3_REPS) * per_call:
+            raise AssertionError(f"3D dot {sr.name}: {launched} K1 launches, the plan says "
+                                 f"{(1 + M3_REPS) * per_call}")
+        if not same_entries(got, ref):
+            raise AssertionError(f"3D dot {sr.name}: differs from the 2D dot backend")
+        nnz = int(got[0].numel())
+        br = min(plan["block_rows"], A3.tile_rows)
+        ops_ms = (per_call * 2.0 * _pad128(br) * _pad128(B3.tile_rows)
+                  * _pad128(plan["block_cols"]) / PEAK_F32_OPS * 1e3)
+        line = {"phase": "mesh3d", "step": "dot3d", "semiring": sr.name, "scale": WIN_DOT_SCALE,
+                "grid3": f"{M3_LAYERS}x{M3_P}x{M3_P}", "nnz_out": nnz,
+                "equal_to_scatter_and_2d_dot": True, "k1_launches_per_call": per_call,
+                "scatter": {"ms": sc_ms, "peak_mem_gb": sc_peak,
+                            "product_bound_ms": esc_bytes_bound_ms(int(A.getnnz()), nnz)},
+                "ms": ms, "nnz_out_per_s": nnz / (ms / 1e3), "peak_mem_gb": peak,
+                "bound_ms": ops_ms, "bound_by": "operations", "share_of_bound": ops_ms / ms,
+                "plan": plan_summary(plan),
+                "k1_layer_window_shape": k1_at_layer_window_shape(sr, A3, B3, plan)}
+        emit(line)
+        lines[sr.name] = line
+        k1[sr.name] = launched
+        del A, A3, B3, got, ref, scatter
+        torch.cuda.empty_cache()
+    return lines, k1
+
+
+def step_convert3d(dev, A20: SpParMat) -> dict:
+    """Step 4: phase 8's scale-20 matrix onto 2×2×2 col-split and row-split
+    (``from_spmat``), ``resplit3d`` between them, and ``to_spmat`` back to
+    its 1×1 grid: the global key and value set unchanged at every step; ms
+    a call beside a bytes bound (every tuple read and written once)."""
+    g3 = Grid3D.make(M3_LAYERS, M3_P, M3_P, device=dev)
+    want = live_entries(A20)
+    nnz = int(want[0].numel())
+    bound_ms = 2 * 12 * nnz / PEAK_BYTES * 1e3
+    line = {"phase": "mesh3d", "step": "convert", "n": A20.nrows, "nnz": nnz,
+            "grid2": f"{A20.grid.pr}x{A20.grid.pc}", "grid3": f"{M3_LAYERS}x{M3_P}x{M3_P}",
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+    held = {}
+    for name, fn in (("from_spmat_col", lambda: SpParMat3D.from_spmat(A20, g3, "col")),
+                     ("from_spmat_row", lambda: SpParMat3D.from_spmat(A20, g3, "row")),
+                     ("resplit_col_to_row", lambda: mesh3d_mod.resplit3d(held["col"], "row")),
+                     ("resplit_row_to_col", lambda: mesh3d_mod.resplit3d(held["row"], "col")),
+                     ("to_spmat", lambda: held["col"].to_spmat(A20.grid))):
+        got, ms, peak = step_times(fn, None, M3_REPS)
+        keys = live_entries(got) if name == "to_spmat" else live_entries3(got)
+        if not same_entries(keys, want):
+            raise AssertionError(f"3D conversion {name}: the key and value set changed")
+        if name.startswith("from_spmat"):
+            held[name.rsplit("_", 1)[1]] = got
+        line[name] = {"ms": ms, "peak_mem_gb": peak, "share_of_bound": bound_ms / ms,
+                      "capacity": got.capacity}
+        del got, keys
+    emit(line)
+    return line
+
+
+def mcl3d_products(S: SpParMat, g3) -> tuple:
+    """One 3D MCL expansion from the loop-added, column-stochastic S: the
+    bare product and the iterate (the 3D sparsifier, re-normalised), as
+    live entries."""
+    A3 = SpParMat3D.from_spmat(S, g3, "col")
+    B3 = mesh3d_mod.resplit3d(A3, "row").shrink_to_fit()
+    bare = live_entries3(mesh3d_mod.mem_efficient_spgemm3d(PLUS_TIMES, A3, B3, 1))
+    C3 = mesh3d_mod.mem_efficient_spgemm3d(
+        PLUS_TIMES, A3, B3, 1,
+        prune_fn=lambda C: mcl_mod.mcl_prune_recovery_select3d(C, **MCL_PARAMS))
+    return bare, live_entries3(mcl_mod.make_col_stochastic3d(C3))
+
+
+def max_rel(got, want) -> float:
+    return float(((got - want).abs() / want.abs()).max()) if want.numel() else 0.0
+
+
+def hold_iterate(got, want, bare_got, bare_want, n: int) -> dict:
+    """An MCL iterate against another made with sums in another order. An
+    entry that only one of them keeps must be a tie that the order of a
+    float sum flips: in the bare expansions' values (the select's input),
+    within ``M3_MCL_RTOL`` of the other iterate's threshold in its column
+    (that side's least kept value there) or of the hard threshold. At most
+    ``M3_MCL_TIE_COLUMNS`` columns may hold such entries; every other column
+    keeps the same entries with values within ``M3_MCL_RTOL``."""
+    def at(keys, expansion):
+        pos = torch.searchsorted(expansion[0], keys).clamp(max=expansion[0].numel() - 1)
+        if not torch.equal(expansion[0][pos], keys):
+            raise AssertionError("mcl 3D iterate: an entry is not in the expansion")
+        return expansion[1][pos]
+
+    def col_min(keys, vals):
+        out = torch.full((n,), float("inf"), device=vals.device)
+        return out.scatter_reduce_(0, keys % n, vals, "amin")
+
+    hard = MCL_PARAMS["hard_threshold"]
+    only, touched, gap_max = {}, [], 0.0
+    for name, (k, _), bare, (ko, _), bare_o in (("got", got, bare_got, want, bare_want),
+                                                ("want", want, bare_want, got, bare_got)):
+        alone = ~torch.isin(k, ko)
+        cols = k[alone] % n
+        x = at(k[alone], bare)
+        gap = torch.minimum((x / col_min(ko, at(ko, bare_o))[cols] - 1).abs(),
+                            (x / hard - 1).abs())
+        if gap.numel():
+            gap_max = max(gap_max, float(gap.max()))
+        only[name] = int(alone.sum())
+        touched.append(cols)
+    if gap_max > M3_MCL_RTOL:
+        raise AssertionError(f"mcl 3D iterate: an entry only one side keeps is {gap_max} "
+                             "relative from the other side's threshold in its column")
+    touched = torch.unique(torch.cat(touched))
+    if touched.numel() > M3_MCL_TIE_COLUMNS:
+        raise AssertionError(f"mcl 3D iterate: select ties in {touched.numel()} columns, more "
+                             f"than {M3_MCL_TIE_COLUMNS}")
+    rest = []
+    for k, v in (got, want):
+        keep = ~torch.isin(k % n, touched)
+        rest.append((k[keep], v[keep]))
+    if not torch.equal(rest[0][0], rest[1][0]):
+        raise AssertionError("mcl 3D iterate: its support differs from the 2D one's off the ties")
+    rel = max_rel(rest[0][1], rest[1][1])
+    if rel > M3_MCL_RTOL:
+        raise AssertionError(f"mcl 3D iterate: values {rel} relative from the 2D's")
+    return {"only_3d": only["got"], "only_2d": only["want"], "tie_columns": int(touched.numel()),
+            "tie_columns_cap": M3_MCL_TIE_COLUMNS, "tie_max_rel_to_threshold": gap_max,
+            "same_support_elsewhere": True, "max_rel_err_elsewhere": rel}
+
+
+def step_mcl3d(dev) -> dict:
+    """Step 5: phase 12's MCL graph (scale 14, HipMCL's defaults) on 2×2 runs
+    ``mcl(layers=2)`` on 2×2×2 for one iteration (phase 12's depth cut),
+    its chaos within 1e-4 relative of the 2D loop's; its expansion, made by
+    hand, has the 2D one's support with values within ``M3_MCL_RTOL``, and
+    its iterate too but for ties at the select threshold
+    (``hold_iterate``; on the card a float sum's order is unordered, so two
+    2D runs may differ at such ties too). At scale 12, ``mcl(layers=2)``
+    plain and with ``chaos_every=2`` run to convergence with the 2D loop's
+    labels."""
+    grid = Grid.make(M3_MCL_GRID, M3_MCL_GRID, device=dev)
+    g3 = Grid3D.make(M3_LAYERS, M3_P, M3_P, device=dev)
+    out = {}
+    for scale in (MCL_SCALE, MCL_CHECK_SCALE):
+        A1, g = mcl_matrix(scale, dev)
+        r, c, v = A1.to_global_coo()
+        n = 1 << scale
+        A = SpParMat.from_global_coo(grid, r, c, v, n, n)
+        del A1
+        if scale == MCL_SCALE:
+            t = apps_times(lambda: (*mcl(A, 2.0, max_iters=MCL_SPARSE_MAX_ITERS, layers=2,
+                                         grid3=g3, **MCL_PARAMS), dict(mcl_mod.mcl.last_run)))
+            labels, it, ch3, run = t["out"]
+            t2 = apps_times(lambda: mcl(A, 2.0, max_iters=MCL_SPARSE_MAX_ITERS, **MCL_PARAMS),
+                            reps=0)
+            ch2 = t2["out"][2]
+            if abs(ch3 - ch2) > 1e-4 * ch2 or run["loop"] != "3d":
+                raise AssertionError(f"mcl 3D: first chaos {ch3}, the 2D loop's {ch2}")
+            S = mcl_mod.make_col_stochastic(A.add_loops(1))
+            bare, got = mcl3d_products(S, g3)
+            bare2 = live_entries(mem_efficient_spgemm(PLUS_TIMES, S, S, 1))
+            want = live_entries(mcl_mod.make_col_stochastic(mem_efficient_spgemm(
+                PLUS_TIMES, S, S, 1, prune_fn=mcl_prune)))
+            del S
+            # the bare expansion has no threshold: the same support exactly
+            if not torch.equal(bare[0], bare2[0]) or max_rel(bare[1], bare2[1]) > M3_MCL_RTOL:
+                raise AssertionError("mcl 3D expansion: differs from the 2D one")
+            out["one_iteration"] = {
+                "scale": scale, "grid2": f"{M3_MCL_GRID}x{M3_MCL_GRID}", "iterations": it,
+                "chaos": ch3, "chaos_2d": ch2, "expansion_nnz": int(bare[0].numel()),
+                "expansion_same_support": True,
+                "expansion_max_rel_err": max_rel(bare[1], bare2[1]),
+                "iterate_nnz": int(got[0].numel()), "iterate_nnz_2d": int(want[0].numel()),
+                **hold_iterate(got, want, bare, bare2, n), "rtol": M3_MCL_RTOL,
+                "clusters": check_least_ids(labels.to_global()), **timing(t),
+                "ms_2d": t2["warmup_ms"], "peak_mem_gb_2d": t2["peak_mem_gb"]}
+            emit({"phase": "mesh3d", "step": "mcl3d_one_iteration", **out["one_iteration"]})
+            del got, want, bare, bare2
+        else:
+            want, it2, _ = mcl(A, 2.0, **MCL_PARAMS)
+            line = {"scale": scale, "iterations_2d": it2,
+                    "clusters": check_least_ids(want.to_global())}
+            for name, kw in (("plain", {}), ("chaos_every2", {"chaos_every": 2})):
+                (lab, it, ch), ms, s = timed_call(lambda kw=kw: mcl(
+                    A, 2.0, layers=2, grid3=g3, **kw, **MCL_PARAMS))
+                if not np.array_equal(lab.to_global(), want.to_global()) or not ch < 1e-3:
+                    raise AssertionError(f"mcl 3D {name} at scale {scale}: labels differ from "
+                                         "the 2D loop's")
+                run = {k: v for k, v in mcl_mod.mcl.last_run.items()
+                       if k not in ("chaos", "chaos_at_sync")}
+                line[name] = {"iterations": it, "chaos": ch, "ms": ms, "wall_s": s, "loop": run}
+            out["converged"] = line
+            emit({"phase": "mesh3d", "step": "mcl3d_converged", **line})
+        del A
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh3d(dev, t_start: float, A20: SpParMat) -> dict:
+    """Phase 14 (module docstring): steps 1-5 with K1's and K2's launch
+    counts set to 0 just before and read just after. K1 runs only in step
+    3's dot calls, as their plans say; K2 never."""
+    emit({"phase": "mesh3d", "step": "elapsed", "total_s": time.perf_counter() - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        step_s[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh3d", "step": f"{name}_done", "step_s": step_s[name],
+              "total_s": time.perf_counter() - t_start})
+        return res
+
+    esc = timed("esc3d", step_esc3d, dev)
+    if semiring_matmul.launches:
+        raise AssertionError("the ESC 3D tier launched K1")
+    routed = timed("routed", step_routed3d, dev, esc)
+    if semiring_matmul.launches:
+        raise AssertionError("the 3D scatter backend launched K1")
+    dot, k1 = timed("dot3d", step_dot3d, dev, esc)
+    for key in ("A", "A3", "B3", "ref"):
+        esc.pop(key, None)
+    torch.cuda.empty_cache()
+    conv = timed("convert", step_convert3d, dev, A20)
+    mcl3 = timed("mcl3d", step_mcl3d, dev)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if launches != {"k1": sum(k1.values()), "k2": 0} or min(k1.values()) < 1:
+        raise AssertionError(f"mesh3d launched {launches}; its plans say K1 {k1}, K2 0")
+    emit({"phase": "mesh3d", "step": "checks", "hand_kernel_launches": launches,
+          "k1_by_semiring": k1, "step_s": step_s, "total_s": time.perf_counter() - t_start})
+    return {"esc3d": esc["lines"], "routed": routed, "dot3d": dot, "convert": conv,
+            "mcl3d": mcl3, "k1": k1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -3597,10 +4065,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     g18 = general.pop("g18")
     apps = phase_apps(dev, t_start, bfs_graph, bfs["E"], A20, g18)
-    del bfs, A20, bfs_graph, mxu13
+    del bfs, bfs_graph, mxu13
     general.pop("aa")
     torch.cuda.empty_cache()
     graph_input = phase_graph_input(dev, t_start, g18)
+    torch.cuda.empty_cache()
+    mesh3d = phase_mesh3d(dev, t_start, A20)
+    del A20
+    torch.cuda.empty_cache()
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
@@ -3608,7 +4080,8 @@ def main() -> int:
         by_path = {"main_path": path["per_kind"][sr.name]["kernel_launches"],
                    "spgemm_general": general["cross"][sr.name]["k1_launches"],
                    "spgemm_windowed": windowed["k1"][sr.name],
-                   "apps": apps["k1"], "graph_input": graph_input["k1"]}
+                   "apps": apps["k1"], "graph_input": graph_input["k1"],
+                   "mesh3d": mesh3d["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
@@ -3621,6 +4094,8 @@ def main() -> int:
         raise AssertionError("K1's launch counts do not add up on the main path")
     if sum(k["launches_by_path"]["spgemm_general"] for k in kernels) != 4:
         raise AssertionError("K1's launch counts do not add up on the spgemm_general path")
+    if sum(k["launches_by_path"]["mesh3d"] for k in kernels) != sum(mesh3d["k1"].values()):
+        raise AssertionError("K1's launch counts do not add up on the mesh3d path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({
         "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",

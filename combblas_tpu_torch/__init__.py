@@ -28,8 +28,11 @@ by sorted runs, ring or all-gather stage order) and the scan tier
 (``choose_spgemm_tier``, ``spgemm_auto``), the windowed tier
 (``spgemm_windowed``: dense row-block accumulators folded by the semiring's
 scatter or by dense window products, the semiring GEMM kernel's second
-caller; its fused, blocked and local forms, symbolic passes and plans; the
-3D tier above it is not ported yet), the bit-packed support oracle
+caller; its fused, blocked and local forms, symbolic passes and plans),
+the 3D (layered) tier (``Grid3D``, ``SpParMat3D``, ``spgemm3d``: ESC and
+windowed SUMMA per layer with the fiber merge by sort, sorted runs or
+``hash_merge``; ``spgemm_auto(grid3=...)`` routes windowed products there;
+``parallel.mesh3d``), the bit-packed support oracle
 (``pack_support_bits``, ``popcount_pair_counts``,
 ``spgemm_support_bits``), the sparse elementwise layer (``ops.ewise``, the
 elementwise, select and split methods of ``SpParMat``), ``subsref`` /
@@ -38,7 +41,7 @@ betweenness centrality (``bc_batch``, ``betweenness_centrality``,
 ``bc_batch_dense``); and attributed-edge graphs with runtime filters
 (``SemanticGraph``, ``filtered_bfs``, ``filtered_mis``); and the CombBLAS
 applications on the SpGEMM and SpMV layers: Markov clustering (``mcl``:
-sparse, block and dense loops), bipartite matchings (``maximal_matching``,
+sparse, block, dense and 3D loops), bipartite matchings (``maximal_matching``,
 ``maximum_matching``, ``awpm``), orderings (``rcm_ordering``,
 ``minimum_degree_ordering``), and the SpMM lane (``dist_spmm_ell``,
 ``summa_spmm``, ``spmm_khop``) with k-hop feature propagation
@@ -154,6 +157,8 @@ from .ops.spgemm import (
     expansion_slots,
     flops,
     flops_padded,
+    hash_merge,
+    hash_table_capacity,
     hilo_split,
     local_spgemm,
     mask_rows,
@@ -181,6 +186,7 @@ from .parallel.ellmat import (
 )
 from .parallel.dense import DenseParMat
 from .parallel.grid import Grid, HostGrid
+from .parallel.mesh3d import Grid3D, SpParMat3D, spgemm3d
 from .parallel.indexing import col_selector, row_selector, spasgn, subsref
 from .parallel.spgemm import (
     MXU_MAX_TILE_DIM,
@@ -285,6 +291,7 @@ __all__ = [
     "EllParMat",
     "FILTERED_SELECT2ND_MAX",
     "Grid",
+    "Grid3D",
     "HostGrid",
     "MAX_MIN",
     "MIN_PLUS",
@@ -300,6 +307,7 @@ __all__ = [
     "SemanticGraph",
     "Semiring",
     "SpParMat",
+    "SpParMat3D",
     "SpTuples",
     "TIERS",
     "ThreefryKey",
@@ -379,6 +387,8 @@ __all__ = [
     "from_device_coo",
     "graph500_edges",
     "graph500_edges_native",
+    "hash_merge",
+    "hash_table_capacity",
     "hilo_split",
     "host_value",
     "inflate",
@@ -448,6 +458,7 @@ __all__ = [
     "sparsify_windowed",
     "spasgn",
     "spgemm",
+    "spgemm3d",
     "spgemm_auto",
     "spgemm_scan",
     "spgemm_support_bits",

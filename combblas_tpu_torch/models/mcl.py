@@ -4,7 +4,7 @@
 Iterate {expand = A², prune / recover / select, make column-stochastic,
 measure chaos, inflate} until the chaos drops below ``eps``, then read the
 clusters off the converged matrix as connected components of A + Aᵀ
-(``MCL.cpp:515-660``). Three loops, as in the reference:
+(``MCL.cpp:515-660``). Four loops, as in the reference:
 
   * the sparse loop: expansion by the phased SUMMA
     (``mem_efficient_spgemm``, ESC or scan) with the column sparsifier
@@ -17,7 +17,15 @@ clusters off the converged matrix as connected components of A + Aᵀ
     dense ``[npad, npad]`` float32 matrix, squared by ``_mxu_dot`` (f32,
     bf16 or bf16x3), pruned with ``torch.topk`` thresholds, optionally
     kicked out of a flip-flop plateau (``perturb_delta``), and extracted
-    exactly through ``dense_support_nnz`` + ``sparsify_windowed``.
+    exactly through ``dense_support_nnz`` + ``sparsify_windowed``;
+  * the 3D loop (``layers > 1``, HipMCL's layered configuration): the
+    matrix goes col-split onto a layers × p × p grid (``mesh3d``); each
+    iteration resplits a row-split copy, expands by
+    ``mem_efficient_spgemm3d`` with the 3D sparsifier
+    (``mcl_prune_recovery_select3d``) and runs the column ops on the 3D
+    matrix; with ``chaos_every > 1`` its block form (frozen capacities,
+    ``summa3d_spgemm`` and ``resplit3d_fixed``, a reroll on overflow).
+    The converged matrix goes back to the 2D grid for the clusters.
 
 The reference runs the dense loop as one ``lax.while_loop`` with no
 readback; here it is a host loop that reads back one small vector an
@@ -29,19 +37,34 @@ fold, the dense products, column sums) fold in another order than XLA's,
 so iterates agree with the reference within float32 rounding, and labels
 agree exactly on inputs with no near-tie at a threshold.
 
-Not ported: ``layers > 1`` (the 3D path on ``mesh3d.py``), which raises
-``NotImplementedError`` (ROADMAP.md, queue 1, item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from ..ops.spgemm import dense_support_nnz, sparsify_windowed
+from ..parallel.mesh3d import (
+    Grid3D,
+    SpParMat3D,
+    apply3d,
+    dim_apply3d_cols,
+    kselect3d,
+    mem_efficient_spgemm3d,
+    nnz_per_column3d,
+    prune3d,
+    prune_column3d,
+    reduce3d_cols,
+    resplit3d,
+    resplit3d_fixed,
+    summa3d_spgemm,
+    summa3d_stage_flops,
+)
 from ..parallel.spgemm import (
     _mxu_dot,
     host_value,
@@ -53,10 +76,6 @@ from ..parallel.spmat import SpParMat
 from ..parallel.vec import DistVec
 from ..semiring import MAX_MIN, PLUS_TIMES
 from .cc import connected_components
-
-_UNPORTED_3D = ("MCL with layers > 1 (the 3D expansion on mesh3d.py) is not ported yet "
-                "(ROADMAP.md, queue 1, item 12)")
-
 
 def _square(v):
     return v * v
@@ -172,12 +191,12 @@ def mcl(
     ``scan``: the output-bounded scan expansion; ``chaos_every=K > 1``: the
     block loop (needs ``phases == 1``); ``expansion="dense"``: the dense
     loop on a 1x1 grid, ``dense_mode`` its product precision,
-    ``perturb_delta > 0`` its plateau kicks. ``layers > 1`` and ``grid3``
-    (the 3D path) raise ``NotImplementedError``. ``mcl.last_run`` records the
-    loop and the chaos of each iteration or sync (and the dense loop's
-    kicks, the block loop's rerolls and capacities)."""
-    if layers > 1 or grid3 is not None:
-        raise NotImplementedError(_UNPORTED_3D)
+    ``perturb_delta > 0`` its plateau kicks. ``layers > 1``: the 3D loop on
+    ``grid3``, by default ``Grid3D.make(layers, p, p)`` on A's device where
+    layers · p² is A's tile count (raises otherwise); ``grid3`` is read only
+    then, as in the reference. ``mcl.last_run`` records the loop and the
+    chaos of each iteration or sync (and the dense loop's kicks, the block
+    loops' rerolls and capacities)."""
     if add_self_loops:
         A = A.add_loops(1)
     A = make_col_stochastic(A)
@@ -185,10 +204,19 @@ def mcl(
                         recover_num=recover_num, recover_pct=recover_pct)
 
     if expansion == "dense":
-        if A.grid.size != 1:
+        if layers != 1 or A.grid.size != 1:
             raise ValueError("expansion='dense' runs on a 1x1 grid")
         A, it, ch = _mcl_dense_loop(A, inflation, eps, max_iters, prune_kwargs,
                                     mode=dense_mode, perturb_delta=perturb_delta)
+    elif layers > 1:
+        if grid3 is None:
+            p3 = math.isqrt(A.grid.size // layers)
+            if layers * p3 * p3 != A.grid.size:
+                raise ValueError(f"cannot factor {A.grid.size} devices into {layers} layers x "
+                                 "square grid; pass grid3= explicitly")
+            grid3 = Grid3D.make(layers, p3, p3, device=A.grid.device)
+        A, it, ch = _mcl3d_loop(A, grid3, inflation, eps, max_iters, phases, prune_kwargs,
+                                chaos_every=chaos_every)
     elif chaos_every > 1:
         if phases != 1:
             raise ValueError("chaos_every > 1 requires phases=1 (scan bounds memory)")
@@ -286,6 +314,170 @@ def _mcl2d_block_loop(A: SpParMat, inflation: float, eps: float, max_iters: int,
     mcl.last_run = {"loop": "block", "chaos_at_sync": history, "rerolls": rerolls,
                     "capacities": caps}
     return A, it, ch
+
+
+# --- the 3D loop (layers > 1) -------------------------------------------------------
+
+
+def make_col_stochastic3d(A3: SpParMat3D) -> SpParMat3D:
+    """``make_col_stochastic`` on a col-split 3D matrix."""
+    return dim_apply3d_cols(A3, reduce3d_cols(PLUS_TIMES, A3), _stochastic_scale)
+
+
+def chaos3d(A3: SpParMat3D) -> torch.Tensor:
+    """``chaos`` of a col-split 3D matrix (a 0-dim tensor)."""
+    colmax = reduce3d_cols(MAX_MIN, A3)
+    colssq = reduce3d_cols(PLUS_TIMES, A3, map_fn=_square)
+    nnzc = nnz_per_column3d(A3)
+    diff = colmax - colssq
+    return torch.where(nnzc > 0, diff * nnzc.to(diff.dtype), 0).max()
+
+
+def inflate3d(A3: SpParMat3D, power: float) -> SpParMat3D:
+    """``inflate`` of a col-split 3D matrix."""
+    return make_col_stochastic3d(apply3d(A3, _pow_fn(power)))
+
+
+def mcl_prune_recovery_select3d(C3: SpParMat3D, hard_threshold: float = 1e-8,
+                                select_num: int = 1100, recover_num: int = 1400,
+                                recover_pct: float = 0.9,
+                                device_gate: bool = False) -> SpParMat3D:
+    """``mcl_prune_recovery_select`` on a col-split 3D matrix (the
+    ``MemEfficientSpGEMM3D`` prune hook)."""
+    if hard_threshold > 0:
+        C3 = prune3d(C3, _lt_pred(float(hard_threshold)))
+    s_th = kselect3d(C3, select_num)
+    pruned = prune_column3d(C3, s_th, keep=_keep_ge)
+    kept = reduce3d_cols(PLUS_TIMES, pruned)
+    orig = reduce3d_cols(PLUS_TIMES, C3)
+    need_recover = kept < recover_pct * orig
+    if not device_gate and not bool(need_recover.any()):
+        return pruned
+    r_th = kselect3d(C3, recover_num)
+    final = torch.where(need_recover, torch.minimum(r_th, s_th), s_th)
+    return prune_column3d(C3, final, keep=_keep_ge)
+
+
+def _mcl3d_block_caps(A3: SpParMat3D, B3: SpParMat3D):
+    """Frozen 3D block capacities from one symbolic pass at the sync point,
+    2x headroom, powers of two: (flop, out, piece) for ``summa3d_spgemm``
+    and (stage, tile) for the resplit."""
+    g3 = A3.grid
+    L = g3.layers
+    per_stage = host_value(summa3d_stage_flops(A3, B3)).astype(np.float64)
+    rnd = lambda x: 1 << max(int(x) - 1, 1).bit_length()  # noqa: E731
+    total = per_stage.sum(axis=0)
+    dense_tile = A3.tile_rows * max(B3.ncols // max(g3.pc * L, 1), 1)
+    fcap = rnd(per_stage.max() * 2)
+    pcap = rnd(total.max() * 2)
+    ocap = max(min(rnd(total.max() * L * 2), dense_tile), 1)
+    nnz_tot = float(host_value(A3.nnz.sum()))
+    per_dest = max(-(-A3.capacity // f) for f in (g3.pc, g3.pr, L))
+    stage_cap = rnd(per_dest * 2)
+    tile_cap = rnd(max(nnz_tot / g3.size * 4, 4))
+    return fcap, ocap, pcap, stage_cap, tile_cap
+
+
+def _mcl3d_iter_device(A3: SpParMat3D, caps, inflation: float, prune_kwargs):
+    """One 3D iteration at frozen capacities: ``(A3_next, chaos,
+    overflow)``, the last two 0-dim tensors. Overflow bits: 1 the resplit
+    dropped tuples, 2 the expansion or a fiber piece overflowed, 4 an
+    output tile is full."""
+    fcap, ocap, pcap, stage_cap, tile_cap = caps
+    B3, dropped = resplit3d_fixed(A3, "row", stage_capacity=stage_cap, tile_capacity=tile_cap)
+    flop_need = summa3d_stage_flops(A3, B3).max()
+    C3, ov3 = summa3d_spgemm(PLUS_TIMES, A3, B3, flop_capacity=fcap, out_capacity=ocap,
+                             piece_capacity=pcap)
+    ov_out = (C3.nnz >= ocap).any().int()
+    ov_piece = (ov3[0] > 0).int()
+    C3 = mcl_prune_recovery_select3d(C3, device_gate=True, **prune_kwargs)
+    C3 = make_col_stochastic3d(C3)
+    ch = chaos3d(C3)
+    overflow = ((dropped > 0).int() + torch.maximum((flop_need > fcap).int(), ov_piece) * 2
+                + ov_out * 4)
+    return inflate3d(C3, inflation), ch, overflow
+
+
+def _mcl3d_block_loop(A3: SpParMat3D, inflation: float, eps: float, max_iters: int, K: int,
+                      prune_kwargs):
+    """The 3D twin of ``_mcl2d_block_loop``: one sync a K-iteration block,
+    and a block that overflowed reruns from its entry state with only the
+    overflowed group of capacities doubled (the out capacity clamped at
+    the dense tile, where a full tile is no overflow)."""
+    ch = float("inf")
+    it = 0
+    caps = dense_tile = None
+    history, rerolls = [], 0
+    while it < max_iters:
+        if caps is None:
+            B3_probe = resplit3d(A3, "row")
+            caps = _mcl3d_block_caps(A3, B3_probe)
+            g3 = A3.grid
+            dense_tile = A3.tile_rows * max(B3_probe.ncols // max(g3.pc * g3.layers, 1), 1)
+        k = min(K, max_iters - it)
+        A_entry = A3
+        worst = torch.zeros((), dtype=torch.int32, device=A3.grid.device)
+        for _ in range(k):
+            A3, ch_dev, ov = _mcl3d_iter_device(A3, caps, inflation, prune_kwargs)
+            worst = torch.bitwise_or(worst, ov)
+        bits = int(worst)
+        if (bits & 4) and caps[1] >= dense_tile:
+            bits &= ~4
+        if bits > 0:
+            rerolls += 1
+            fcap, ocap, pcap, stage_cap, tile_cap = caps
+            if bits & 1:
+                stage_cap, tile_cap = stage_cap * 2, tile_cap * 2
+            if bits & 2:
+                fcap, pcap = fcap * 2, pcap * 2
+            if bits & 4:
+                ocap = min(ocap * 2, max(dense_tile, 1))
+                pcap = pcap * 2
+            caps = (fcap, ocap, pcap, stage_cap, tile_cap)
+            A3 = A_entry
+            continue
+        ch = float(ch_dev)
+        history.append(ch)
+        it += k
+        if ch < eps:
+            break
+    mcl.last_run = {"loop": "3d_block", "chaos_at_sync": history, "rerolls": rerolls,
+                    "capacities": caps}
+    return A3, it, ch
+
+
+def _mcl3d_loop(A: SpParMat, grid3: Grid3D, inflation: float, eps: float, max_iters: int,
+                phases: int, prune_kwargs, chaos_every: int = 1):
+    """The 3D expansion loop: ``(converged matrix on A's grid, iterations,
+    chaos)``."""
+    A3 = SpParMat3D.from_spmat(A, grid3, split="col")
+    ht = prune_kwargs.get("hard_threshold", 0)
+    if chaos_every > 1:
+        if phases != 1:
+            raise ValueError("chaos_every > 1 requires phases=1")
+        A3, it, ch = _mcl3d_block_loop(A3, inflation, eps, max_iters, chaos_every,
+                                       prune_kwargs)
+    else:
+
+        def prune_fn(C3):
+            return mcl_prune_recovery_select3d(C3, **prune_kwargs)
+
+        ch = float("inf")
+        it = 0
+        history = []
+        for it in range(1, max_iters + 1):
+            B3 = resplit3d(A3, "row").shrink_to_fit()
+            C3 = mem_efficient_spgemm3d(PLUS_TIMES, A3, B3, phases, prune_fn=prune_fn)
+            C3 = make_col_stochastic3d(C3)
+            ch = float(chaos3d(C3))
+            history.append(ch)
+            A3 = inflate3d(C3, inflation).shrink_to_fit()
+            if ch < eps:
+                break
+        mcl.last_run = {"loop": "3d", "chaos": history}
+    if ht > 0:  # float32 residue, as in the 2D loops
+        A3 = prune3d(A3, _lt_pred(float(ht)))
+    return A3.to_spmat(A.grid), it, ch
 
 
 # --- the dense loop ---------------------------------------------------------------

@@ -10,13 +10,13 @@ uses: tile densification, dense-to-sparse extraction
 tier adds: the dense fold of its scatter backend
 (``accumulate_block_scatter``), the duplicate-combining densify
 (``densify_combine``) and the per-window output counts of the support
-oracle (``support_window_counts``).
-
-The 3D fiber merge's ``hash_merge`` is not ported yet (ROADMAP.md, queue
-1).
+oracle (``support_window_counts``); and the 3D fiber merge's hash tier
+(``hash_merge``, ``hash_table_capacity``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -452,6 +452,90 @@ def merge_sorted_runs(runs: list[SpTuples]) -> SpTuples:
             nxt.append(runs[-1])
         runs = nxt
     return runs[0]
+
+
+# --- the hash merge (the 3D fiber reduce's hash tier) ---------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def hash_table_capacity(out_capacity: int) -> int:
+    """``hash_merge``'s table size: the power of two at or above 4 times
+    the distinct-key bound (at least 8), a load factor of at most 0.25."""
+    return 1 << max(int(4 * max(out_capacity, 8)) - 1, 1).bit_length()
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix32 finalizer on uint32 values held in int64 (products
+    wrap mod 2^64, so their low 32 bits are the uint32 products)."""
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _U32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & _U32
+    return x ^ (x >> 16)
+
+
+def hash_merge(sr: Semiring, t: SpTuples, *, out_capacity: int, table_capacity: int,
+               n_probes: int = 16) -> tuple[SpTuples, torch.Tensor, torch.Tensor]:
+    """Combine the duplicate (row, col) keys of ``t`` through an
+    open-addressing table of ``table_capacity`` slots (a power of two),
+    probed by double hashing for ``n_probes`` rounds. A round: each
+    unplaced entry reads its slot's key; an empty slot is claimed by the
+    lowest-index entry proposing it, which installs its key; every entry
+    whose slot now holds its key folds its value in with the add monoid's
+    scatter combiner (``fold_into_``) and retires. Entries still unplaced
+    after the last round are counted, not dropped.
+
+    Returns ``(out, overflow, distinct)``: the table's entries in table
+    order with ``sr.zero`` values pruned (unsorted), truncated to
+    ``out_capacity``; the count of unplaced entries (the caller reruns
+    through a sorted tier when it is positive); and the distinct key count
+    before truncation. The hashes are the reference's uint32 arithmetic,
+    done in int64 masked to 32 bits, so the table's order is the
+    reference's. Each round walks only the entries not yet placed, and the
+    rounds stop when none is left: the same table. Only for semirings with
+    a scatter combiner. Reference: ``hash_merge``."""
+    if scatter_combine_for(sr) is None:
+        raise ValueError(f"semiring {sr.name} (add_kind={sr.add_kind}) has no scatter "
+                         "combiner; use merge_sorted_runs or the sort path")
+    T = int(table_capacity)
+    if T < 2 or T & (T - 1):
+        raise ValueError(f"table capacity {T} is not a power of two")
+    dev = t.rows.device
+    key = ((t.rows.long() * 0x9E3779B1) + (t.cols.long() * 0x85EBCA77)) & _U32
+    h0 = _mix32(key) & (T - 1)
+    step = ((_mix32(key ^ 0xC2B2AE35) | 1) & (T - 1)) | 1
+    t_rows = torch.full((T,), t.nrows, dtype=torch.int32, device=dev)
+    t_cols = torch.full((T,), t.ncols, dtype=torch.int32, device=dev)
+    t_buf = new_fold_buffer(sr, T, t.vals.dtype, dev)
+    # the unplaced entries, in index order, and their current slots
+    ids = torch.nonzero(t.valid_mask()).squeeze(1)
+    slot = h0[ids]
+    step = step[ids]
+    for round_ in range(n_probes):
+        if ids.numel() == 0:
+            break
+        if round_:
+            slot = (slot + step) & (T - 1)
+        rows, cols = t.rows[ids], t.cols[ids]
+        empty = t_rows[slot] == t.nrows
+        ids32 = ids.to(torch.int32)
+        winner = torch.full((T,), t.capacity, dtype=torch.int32, device=dev)
+        winner.scatter_reduce_(0, slot[empty], ids32[empty], reduce="amin")
+        inst = empty & (winner[slot] == ids32)
+        t_rows[slot[inst]] = rows[inst]
+        t_cols[slot[inst]] = cols[inst]
+        match = (t_rows[slot] == rows) & (t_cols[slot] == cols)
+        fold_into_(sr, t_buf, slot[match], t.vals[ids[match]])
+        keep = ~match
+        ids, slot, step = ids[keep], slot[keep], step[keep]
+    overflow = torch.tensor(ids.numel(), dtype=torch.int32, device=dev)
+    t_vals = fold_buffer_values(sr, t_buf, T, t.vals.dtype)
+    live = torch.nonzero((t_rows < t.nrows) & (t_vals != sr.zero(t.vals.dtype))).squeeze(1)
+    distinct = torch.tensor(live.numel(), dtype=torch.int32, device=dev)
+    live = live[:out_capacity]
+    n = live.numel()
+    out = SpTuples.empty(t.nrows, t.ncols, out_capacity, t.vals.dtype, device=dev)
+    out.rows[:n], out.cols[:n], out.vals[:n] = t_rows[live], t_cols[live], t_vals[live]
+    return dataclasses.replace(out, nnz=torch.clamp(distinct, max=out_capacity)), overflow, distinct
 
 
 # --- the bit-packed output-support oracle -----------------------------------

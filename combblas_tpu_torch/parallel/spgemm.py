@@ -25,9 +25,10 @@ SUMMA over the grid's tiles, ``C_ij = ⊕_s A_is ⊗ B_sj``, in four tiers.
 
 The phased (``mem_efficient_spgemm``) and blocked (``block_spgemm``) forms
 run the ESC tier over column or row/column pieces. ``spgemm_auto`` routes
-through ``choose_spgemm_tier``, the reference's rule; the 3D tier above it
-(``windowed3d``) is not ported yet, and a call forced there raises
-``NotImplementedError``.
+through ``choose_spgemm_tier``, the reference's rule; given a layered grid
+(``grid3``) a windowed product goes to the 3D tier (``windowed3d``:
+``mesh3d.spgemm3d_windowed`` on the operands converted to 3D, the result
+converted back).
 
 The tiles of a grid live on one device and are walked in loops, as the
 reference's all-gather (or, with ``ring=True``, its carousel of
@@ -89,8 +90,6 @@ _PALLAS_KINDS = {
 }
 
 TIERS = ("mxu", "windowed", "scan", "esc", "windowed3d")
-_UNPORTED_TIERS = ("windowed3d",)
-_UNPORTED_NOTE = "not ported yet (ROADMAP.md, queue 1, item 12: the 3D tier with mesh3d.py)"
 
 
 def host_value(x: torch.Tensor) -> np.ndarray:
@@ -1399,7 +1398,7 @@ def choose_tier_from_counts(sr: Semiring, max_tile_dim: int, tile_cells: int, pr
 
 
 def choose_spgemm_tier(sr: Semiring, A: SpParMat, B: SpParMat, *, backend: str | None = None,
-                       assume_unique: bool = False) -> str:
+                       assume_unique: bool = False, grid3=None) -> str:
     """The tier the reference's ``spgemm_auto`` picks:
 
       ``"mxu"``       tiles within ``MXU_MAX_TILE_DIM``, a semiring with a
@@ -1410,9 +1409,16 @@ def choose_spgemm_tier(sr: Semiring, A: SpParMat, B: SpParMat, *, backend: str |
                       (the symbolic pass counts the multiplies);
       ``"scan"``      everything else.
 
-    The reference's upgrade of ``windowed`` to ``windowed3d`` on a layered
-    mesh waits for ``mesh3d.py``."""
-    return _choose_spgemm_tier_2d(sr, A, B, backend=backend, assume_unique=assume_unique)
+    Given a layered grid (``grid3`` with more than one layer) whose layout
+    fits the product (``mesh3d.summa3d_compatible``), ``windowed`` becomes
+    ``"windowed3d"``; the other tiers stay 2D."""
+    tier = _choose_spgemm_tier_2d(sr, A, B, backend=backend, assume_unique=assume_unique)
+    if grid3 is not None and tier == "windowed":
+        from .mesh3d import summa3d_compatible
+
+        if grid3.layers > 1 and summa3d_compatible(grid3, A.nrows, A.ncols, B.ncols):
+            return "windowed3d"
+    return tier
 
 
 def _choose_spgemm_tier_2d(sr: Semiring, A: SpParMat, B: SpParMat, *,
@@ -1447,7 +1453,7 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
                 block_cols: int | None = None, backend: str | None = None,
                 oracle: bool = False, assume_unique: bool = False, ring: bool | None = None,
                 pipeline: bool | None = None, dispatch: str | None = None,
-                merge: str | None = None) -> SpParMat:
+                merge: str | None = None, grid3=None) -> SpParMat:
     """Sparse-output SpGEMM ``C = A ⊗ B`` through the tier
     ``choose_spgemm_tier`` picks, or ``tier``:
 
@@ -1466,12 +1472,27 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
                       precision. It needs tiles of unique entries, which
                       the router checks unless ``assume_unique``.
 
-    ``"windowed3d"`` raises ``NotImplementedError``: it is not ported yet.
+      ``"windowed3d"`` the layered route (needs ``grid3``): A col-split and B
+                      row-split onto ``grid3`` (``SpParMat3D.from_spmat``),
+                      ``spgemm3d_windowed`` (``block_rows``, ``block_cols``,
+                      ``backend``, ``mode``, ``slack``, ``merge``, ``ring``,
+                      ``pipeline``), the result back on A's grid.
+
     Env knobs and the plan store wait for the port of ``tuner/``."""
     if tier is None:
-        tier = choose_spgemm_tier(sr, A, B, backend=backend, assume_unique=assume_unique)
-    if tier in _UNPORTED_TIERS:
-        raise NotImplementedError(f"spgemm tier {tier!r} is {_UNPORTED_NOTE}")
+        tier = choose_spgemm_tier(sr, A, B, backend=backend, assume_unique=assume_unique,
+                                  grid3=grid3)
+    if tier == "windowed3d":
+        if grid3 is None:
+            raise ValueError("tier='windowed3d' needs a grid3 (the layered mesh)")
+        from .mesh3d import SpParMat3D, spgemm3d_windowed
+
+        A3 = SpParMat3D.from_spmat(A, grid3, split="col")
+        B3 = SpParMat3D.from_spmat(B, grid3, split="row")
+        C3 = spgemm3d_windowed(sr, A3, B3, block_rows=block_rows, block_cols=block_cols,
+                               backend=backend, mode=mode, slack=slack, merge=merge,
+                               ring=bool(ring), pipeline=pipeline is None or bool(pipeline))
+        return C3.to_spmat(A.grid)
     if tier == "esc":
         return spgemm(sr, A, B, slack, merge=merge)
     if tier == "scan":

@@ -8,7 +8,10 @@ applications on them (MCL, the matchings, the orderings, the SpMM lane
 and feature propagation), and graph input (the threefry streams,
 ``rmat_edges``, ``DistVec.randperm`` with a key, tuple routing, Graph500
 kernel 1 on the device, the ring fold of the batched BFS, a Matrix Market
-read onto the grid and a checkpoint round trip) on the card against the
+read onto the grid and a checkpoint round trip), and the 3D tier (the
+conversions and resplits, the ESC 3D product under each fiber merge tier
+with ``hash_merge``, the windowed 3D product on both backends with K1's
+launches, the routed ``windowed3d`` and the 3D MCL) on the card against the
 same calls on the CPU. Marked
 ``cuda``; they skip where there is no card.
 
@@ -1464,3 +1467,101 @@ def test_file_input_and_checkpoint_on_card(cuda_device, tmp_path):
     _same_mat_fields(checkpoint.load(ck, Grid.make(1, 1, device=cuda_device)),
                      checkpoint.load(ck, Grid.make(1, 1, device="cpu")))
 
+
+
+# --- the 3D tier --------------------------------------------------------------------
+
+from combblas_tpu_torch import Grid3D, SpParMat3D, hash_merge, hash_table_capacity  # noqa: E402
+from combblas_tpu_torch.parallel import mesh3d as mesh3d_mod  # noqa: E402
+
+
+def _mat3_fields(M):
+    return [M.rows, M.cols, M.vals, M.nnz]
+
+
+def _mats3(dev, n=512, seed=4):
+    """The scale-9 graph of ``_esc_graph`` col- and row-split on 2x2x2."""
+    _, r, c, v = _esc_graph(seed)
+    g = Grid3D.make(2, 2, 2, device=dev)
+    return (SpParMat3D.from_global_coo(g, r, c, v, n, n, "col"),
+            SpParMat3D.from_global_coo(g, r, c, v, n, n, "row"))
+
+
+def test_hash_merge_on_card_matches_cpu(cuda_device):
+    """``hash_merge`` on CUDA tensors: the table order, values, overflow and
+    distinct count of the CPU (integer values: the sums are exact)."""
+    rng = np.random.default_rng(3)
+    r, c = rng.integers(0, 300, 5000), rng.integers(0, 200, 5000)
+    v = rng.integers(1, 5, 5000).astype(np.float32)
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        for table, probes in ((hash_table_capacity(4096), 16), (1024, 3)):
+            out = [hash_merge(sr, SpTuples.from_coo(r, c, v, 300, 200, device=dev),
+                              out_capacity=4096, table_capacity=table, n_probes=probes)
+                   for dev in ("cpu", cuda_device)]
+            for a, b in zip(_mat_fields(out[0][0]), _mat_fields(out[1][0])):
+                _same(a, b)
+            assert [int(x) for x in out[0][1:]] == [int(x) for x in out[1][1:]]
+
+
+@pytest.mark.parametrize("merge", ["sort", "runs", "hash"])
+def test_esc3d_merge_tiers_on_card_match_cpu(merge, cuda_device):
+    """``spgemm3d`` (ESC) under each fiber merge tier, gathered and carousel,
+    on the card: the CPU's tiles for min_plus, max_min and plus_times."""
+    mats = [_mats3(dev) for dev in ("cpu", cuda_device)]
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        for ring in (False, True):
+            want = mesh3d_mod.spgemm3d(sr, *mats[0], merge=merge, ring=ring)
+            got = mesh3d_mod.spgemm3d(sr, *mats[1], merge=merge, ring=ring)
+            for a, b in zip(_mat3_fields(want), _mat3_fields(got)):
+                _same(a, b)
+
+
+@pytest.mark.parametrize("backend", ["scatter", "dot"])
+def test_windowed3d_on_card_matches_cpu(backend, cuda_device):
+    """The windowed 3D tier on the card gives the CPU's tiles; the dot
+    backend's tropical products launch K1 once a layer, tile, stage and
+    live window (the plan's count) and none for plus_times."""
+    mats = [_mats3(dev) for dev in ("cpu", cuda_device)]
+    kw = dict(backend=backend, block_rows=64, block_cols=128 if backend == "dot" else None)
+    for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
+        want = mesh3d_mod.spgemm3d_windowed(sr, *mats[0], **kw)
+        before = semiring_matmul.launches
+        got = mesh3d_mod.spgemm3d_windowed(sr, *mats[1], **kw)
+        plan = mesh3d_mod.spgemm3d_windowed.last_plan
+        per_call = 0 if backend == "scatter" or sr is PLUS_TIMES else 2 * 2 ** 3 * plan["packed"]
+        assert semiring_matmul.launches - before == per_call
+        for a, b in zip(_mat3_fields(want), _mat3_fields(got)):
+            _same(a, b)
+
+
+def test_conversions_and_routed_3d_on_card_match_cpu(cuda_device):
+    """2D → 3D (both splits), ``resplit3d``, 3D → 2D and the routed
+    ``spgemm_auto(grid3=...)`` on the card: the CPU's tiles."""
+    n, r, c, v = _esc_graph(6)
+    out = []
+    for dev in ("cpu", cuda_device):
+        A = SpParMat.from_global_coo(Grid.make(2, 4, device=dev), r, c, v, n, n)
+        A2 = SpParMat.from_global_coo(Grid.make(2, 2, device=dev), r, c, v, n, n)
+        g3 = Grid3D.make(2, 2, 2, device=dev)
+        col = SpParMat3D.from_spmat(A, g3, "col")
+        row = SpParMat3D.from_spmat(A, g3, "row")
+        out.append(_mat3_fields(col) + _mat3_fields(row)
+                   + _mat3_fields(mesh3d_mod.resplit3d(col, "row"))
+                   + _mat_fields(row.to_spmat(A.grid))
+                   + _mat_fields(spgemm_auto(MIN_PLUS, A2, A2, grid3=g3, tier="windowed3d")))
+    for a, b in zip(*out):
+        _same(a, b)
+
+
+def test_mcl_3d_on_card_matches_cpu(cuda_device):
+    """``mcl(layers=2)`` on 2x2x2, plain and block loops: the CPU's labels
+    and iteration count."""
+    d = _ring_of_cliques()
+    for kw in ({}, {"chaos_every": 2}):
+        out = []
+        for dev in ("cpu", cuda_device):
+            lab, it, ch = mcl(SpParMat.from_dense(Grid.make(2, 2, device=dev), d), layers=2,
+                              grid3=Grid3D.make(2, 2, 2, device=dev), **kw)
+            out.append((lab.blocks.cpu(), it))
+            assert ch < 1e-3
+        assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]

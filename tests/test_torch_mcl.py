@@ -15,7 +15,8 @@ labels of ``mcl`` on a ring of cliques, bridged cliques and a planted
 partition through the sparse loop (``phases`` 1 and 2, ``scan``), the
 block loop (``chaos_every=3``, and a forced capacity overflow that
 rerolls) and the dense loop (f32, bf16, bf16x3, with and without
-``perturb_delta``), on 1x1 and 2x2 grids; ``layers > 1`` raises.
+``perturb_delta``), on 1x1 and 2x2 grids; ``layers`` that do not factor
+the grid raise as in the reference (the 3D loop: ``test_torch_mesh3d_mcl.py``).
 Heavier combinations run under ``-m slow``.
 """
 
@@ -304,8 +305,13 @@ def test_block_loop_reroll_stays_exact(monkeypatch):
 
 
 def test_layers_raise():
-    _, TA = both((2, 2), bridged_cliques())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """``layers`` that do not factor the grid's tiles into layers × a
+    square grid raise, as the reference's assertion does (the 3D loop
+    itself: ``test_torch_mesh3d_mcl.py``); the dense loop needs one tile."""
+    JA, TA = both((2, 2), bridged_cliques())
+    with pytest.raises(AssertionError, match="cannot factor 4 devices into 2 layers"):
+        jmcl.mcl(JA, layers=2)
+    with pytest.raises(ValueError, match="cannot factor 4 devices into 2 layers"):
         tmcl.mcl(TA, layers=2)
     with pytest.raises(ValueError, match="1x1"):
         tmcl.mcl(TA, expansion="dense")

@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from combblas_tpu_torch import Grid, HostGrid
+from combblas_tpu_torch import Grid, Grid3D, HostGrid
 
 REPO = Path(__file__).resolve().parent.parent
 # modules the walk below must reach (the Graph500 BFS path among them)
@@ -20,7 +20,7 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "parallel.ellmat", "parallel.vec", "parallel.spmat", "parallel.spgemm",
            "parallel.spmv", "parallel.dense", "parallel.indexing", "parallel.spmm",
            "semantic", "utils.graph500", "utils.rmat", "utils.threefry", "utils.refgen21",
-           "parallel.redistribute", "parallel.collectives", "models.graph500", "io", "io.mm",
+           "parallel.redistribute", "parallel.collectives", "parallel.mesh3d", "models.graph500", "io", "io.mm",
            "io.labels", "utils.checkpoint"}
 
 
@@ -58,6 +58,21 @@ def test_grid_defaults_to_cuda(monkeypatch):
         Grid.make(2, 2, device="cuda")
     g = Grid.make(2, 2, device="cpu")
     assert g.device == torch.device("cpu") and g.size == 4 and g.is_square
+
+
+def test_grid3d_defaults_to_cuda(monkeypatch):
+    """``Grid3D.make`` asks for CUDA without a device and raises where CUDA
+    is absent, as ``Grid.make`` does; ``device="cpu"`` runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Grid3D.make(2, 2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Grid3D.make(2, 1, 1, device="cuda")
+    with pytest.raises(ValueError, match="positive"):
+        Grid3D.make(0, 2, 2, device="cpu")
+    g = Grid3D.make(2, 2, 4, device="cpu")
+    assert g.device == torch.device("cpu") and g.size == 16
+    assert (g.local_rows(10), g.local_cols(10)) == (5, 3)
 
 
 def test_owner_math_is_ceil_blocked():

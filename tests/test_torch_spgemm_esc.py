@@ -30,6 +30,7 @@ from combblas_tpu.ops import spgemm as jops
 from combblas_tpu.ops.compressed import CSR as JaxCSR
 from combblas_tpu.ops.tuples import SpTuples as JaxSpTuples
 from combblas_tpu.parallel import indexing as jidx
+from combblas_tpu.parallel import mesh3d as jmesh
 from combblas_tpu.parallel import spgemm as jpar
 from combblas_tpu.parallel.grid import Grid as JaxGrid
 from combblas_tpu.parallel.spmat import SpParMat as JaxSpParMat
@@ -47,6 +48,7 @@ from combblas_tpu_torch import (
 )
 from combblas_tpu_torch.ops import spgemm as tops
 from combblas_tpu_torch.parallel import indexing as tidx
+from combblas_tpu_torch.parallel import mesh3d as tmesh
 from combblas_tpu_torch.parallel import spgemm as tpar
 
 SEMIRINGS = {
@@ -331,8 +333,9 @@ def test_router_and_spgemm_auto_match_reference():
     """``choose_spgemm_tier`` gives the reference's tier (mxu, windowed,
     scan) for unique and duplicated tiles, generic and dense-kernel
     semirings and both backends; ``spgemm_auto`` runs esc, scan and
-    windowed (routed and forced) as the reference does; windowed3d raises,
-    naming the roadmap."""
+    windowed (routed and forced) as the reference does; forced to windowed3d
+    it runs the layered route on a 2x2x2 grid as the reference does, and
+    without ``grid3`` it fails as the reference's does."""
     r, c, v = graph()
     jD, tD = both(1, r, c, v)
     jU, tU = both(1, r, c, v, dedup="min_plus")
@@ -368,7 +371,13 @@ def test_router_and_spgemm_auto_match_reference():
                         jpar.spgemm_auto(jr, jD, jD, tier=tier))
     assert_same_mat(tpar.spgemm_auto(MIN_PLUS, tD, tD, tier="esc", merge="runs"),
                     jpar.spgemm_auto(jsr.MIN_PLUS, jD, jD, tier="esc", merge="runs"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 12"):
+    assert_same_mat(tpar.spgemm_auto(MIN_PLUS, tD, tD, tier="windowed3d",
+                                     grid3=tmesh.Grid3D.make(2, 2, 2, device="cpu")),
+                    jpar.spgemm_auto(jsr.MIN_PLUS, jD, jD, tier="windowed3d",
+                                     grid3=jmesh.Grid3D.make(2, 2, 2)))
+    with pytest.raises(AssertionError, match="needs a grid3"):
+        jpar.spgemm_auto(jsr.MIN_PLUS, jD, jD, tier="windowed3d")
+    with pytest.raises(ValueError, match="needs a grid3"):
         tpar.spgemm_auto(MIN_PLUS, tD, tD, tier="windowed3d")
     assert tpar.choose_spgemm_tier(MAX_MIN, tD, tD) == "windowed"
     assert_same_mat(tpar.spgemm_auto(MAX_MIN, tD, tD),  # routed to windowed

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from combblas_tpu.parallel.grid import Grid as JGrid
+from combblas_tpu.parallel.mesh3d import Grid3D as JGrid3D
 from combblas_tpu.parallel.spgemm import _mxu_dot as jax_mxu_dot
 from combblas_tpu.parallel.spgemm import choose_spgemm_tier as jax_choose_tier
 from combblas_tpu.parallel.spgemm import coo_has_duplicates as jax_has_dups
@@ -32,6 +33,7 @@ from combblas_tpu_torch import (
     PLUS_TIMES,
     SELECT2ND_MAX,
     Grid,
+    Grid3D,
     SpParMat,
     choose_spgemm_tier,
     coo_has_duplicates,
@@ -124,8 +126,9 @@ def test_forced_overflow_retries_to_the_same_capacity():
 def test_duplicates_and_unported_tiers():
     """``coo_has_duplicates`` agrees with the reference; where the reference
     leaves the mxu tier the port routes as it does and runs the esc, scan
-    and windowed tiers as it does; it raises NotImplementedError for the
-    3D tier."""
+    and windowed tiers as it does; forced to the 3D tier it runs the
+    layered route on a 2x2x2 grid as the reference does, and without
+    ``grid3`` it fails as the reference's does."""
     r, c, v = _graph()
     jD, tD = _both(1, r, c, v, None)  # symmetrized R-MAT keeps duplicates
     jU, tU = _both(1, r, c, v, SEMIRINGS[0])
@@ -138,11 +141,17 @@ def test_duplicates_and_unported_tiers():
     # a semiring without a dense kernel
     tier = jax_choose_tier(J_SELECT2ND_MAX, jU, jU)
     assert tier != "mxu" and choose_spgemm_tier(SELECT2ND_MAX, tU, tU) == tier
-    # forced tiers: esc, scan and windowed run; the 3D tier is not ported
+    # forced tiers: esc, scan, windowed and the layered windowed3d run
     for tier in ("esc", "scan", "windowed"):
         _assert_same(jax_spgemm_auto(J_MIN_PLUS, jU, jU, tier=tier),
                      spgemm_auto(MIN_PLUS, tU, tU, tier=tier))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _assert_same(jax_spgemm_auto(J_MIN_PLUS, jU, jU, tier="windowed3d",
+                                 grid3=JGrid3D.make(2, 2, 2)),
+                 spgemm_auto(MIN_PLUS, tU, tU, tier="windowed3d",
+                             grid3=Grid3D.make(2, 2, 2, device="cpu")))
+    with pytest.raises(AssertionError, match="needs a grid3"):
+        jax_spgemm_auto(J_MIN_PLUS, jU, jU, tier="windowed3d")
+    with pytest.raises(ValueError, match="needs a grid3"):
         spgemm_auto(MIN_PLUS, tU, tU, tier="windowed3d")
 
 

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 
 from combblas_tpu import semiring as jsr
+from combblas_tpu.parallel import mesh3d as jm
 from combblas_tpu.parallel import spgemm as jpar
 from combblas_tpu_torch import MIN_PLUS, PLUS_TIMES
+from combblas_tpu_torch.parallel import mesh3d as tm
 from combblas_tpu_torch.parallel import spgemm as tpar
 from test_torch_spgemm_windowed import (BC, BR, M, SEMIRINGS, assert_same_mat, both, operands,
                                         tensor_np)
@@ -105,13 +107,22 @@ def test_fused_forms_and_skip_lists_match_reference():
 
 def test_spgemm_auto_serves_windowed():
     """``spgemm_auto`` routed or forced to ``windowed`` runs the tier as the
-    reference does; ``windowed3d`` still raises."""
+    reference does; forced to ``windowed3d`` it runs the layered route on a
+    2x2x2 grid as the reference does, and without ``grid3`` it fails as the
+    reference's does."""
     jA, tA, jB, tB, _, _ = operands(2, seed=17, m=32, n=64)
     assert (tpar.choose_spgemm_tier(MIN_PLUS, tA, tB)
             == jpar.choose_spgemm_tier(jsr.MIN_PLUS, jA, jB) == "windowed")
     assert_same_mat(tpar.spgemm_auto(MIN_PLUS, tA, tB, block_rows=BR),
                     jpar.spgemm_auto(jsr.MIN_PLUS, jA, jB, block_rows=BR))
-    with pytest.raises(NotImplementedError, match="mesh3d"):
+    assert_same_mat(
+        tpar.spgemm_auto(MIN_PLUS, tA, tB, tier="windowed3d", block_rows=BR,
+                         grid3=tm.Grid3D.make(2, 2, 2, device="cpu")),
+        jpar.spgemm_auto(jsr.MIN_PLUS, jA, jB, tier="windowed3d", block_rows=BR,
+                         grid3=jm.Grid3D.make(2, 2, 2)))
+    with pytest.raises(AssertionError, match="needs a grid3"):
+        jpar.spgemm_auto(jsr.MIN_PLUS, jA, jB, tier="windowed3d")
+    with pytest.raises(ValueError, match="needs a grid3"):
         tpar.spgemm_auto(MIN_PLUS, tA, tB, tier="windowed3d")
     with pytest.raises(ValueError, match="dispatch"):
         tpar.spgemm_windowed(MIN_PLUS, tA, tB, dispatch="eager")
