@@ -212,9 +212,35 @@ Phases (each prints one JSON line):
      the order of a float sum decides a tie;
      at scale 12 the plain and ``chaos_every=2`` 3D loops to convergence
      with the 2D loop's labels. K2 never runs.
-Each path runs with every launch count set to 0 just before it and read
-just after. Then the ``kernels`` line (K1's launches by path: main_path,
-spgemm_general, spgemm_windowed, apps, graph_input, mesh3d) and, last,
+ 15. tuner, the measured-plan tuner (at most 60 s; each step's plan store a
+     fresh directory under ``build/chip_smoke_plans``): (1) on phase 5's
+     scale-13 graph (1 x 1, min_plus) with ``COMBBLAS_TUNER_PROBE=1``, one
+     ``spgemm_auto`` misses the store and probes the admissible rungs on
+     the 2048-wide proxy at the default budget: each rung's seconds, the
+     winner, the store's ``stats()``, K1's launches by candidate, warm-up
+     and timed run each counted (the mxu rung runs K1); K1 at the mxu
+     rung's shape on the probe's proxy held against its plain version;
+     nothing skipped (``probe_spgemm.last_errors`` empty),
+     ``plan_source`` "probe", one line in the store file; the product equal
+     to phase 5's mxu result and to ``spgemm_auto(tier=<winner>)`` with the
+     store off, bit for bit; (2) the same call again: "store", no new probe
+     run, one more hit, the same product, its seconds beside step 1's; (3)
+     a fresh ``PlanStore`` reading the file: the same record, the key's
+     platform "cuda"; (4) step 1 under ``COMBBLAS_SPGEMM_BACKEND=dot`` in a
+     second store (the windowed rung and any geometry sweep run K1; K1
+     also held at the windowed rung's window shape on the proxy); (5)
+     ``resolve_spmm_backend(PLUS_TIMES, E, 64, X=X)`` on phase 8's ELL layout
+     (unit values): both backends measured, the winner persisted and
+     replayed, one hop under each within twice the one-hop rounding bound;
+     (6) ``spgemm3d`` on phase 14's min_plus recipe on 2 x 2 x 2: the
+     (tier, merge) candidates measured on the real operands, the winner
+     replayed from the store, the product equal to phase 14's ESC sort
+     result. K2 never runs.
+The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
+so phases 1-14 route as without a store), removed at the end. Each path
+runs with every launch count set to 0 just before it and read just after.
+Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
+spgemm_windowed, apps, graph_input, mesh3d, tuner) and, last,
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -222,8 +248,10 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -359,7 +387,11 @@ from combblas_tpu_torch.parallel.spgemm import (
     _pad128,
     _shift_rowblock,
 )
+from combblas_tpu_torch.parallel.spmm import SPMM_BACKENDS, dist_spmm_ell, resolve_spmm_backend
 from combblas_tpu_torch.parallel.spmv import spmspv_counts
+from combblas_tpu_torch.tuner import config as tuner_config
+from combblas_tpu_torch.tuner import probe as tuner_probe
+from combblas_tpu_torch.tuner import store as tuner_store
 from combblas_tpu_torch.utils import threefry
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
@@ -2391,17 +2423,18 @@ def step_windowed_aa16(dev, aa: dict) -> dict:
     return lines
 
 
-def k1_at_window_shape(sr, A: SpParMat, plan: dict) -> dict:
-    """The dot backend's first K1 launch of a call (tile (0, 0), stage 0,
-    block 0, window 0) rebuilt from the path's own operands, launched once
-    and held bit for bit against the plain version; both timed. The
-    launch is not counted."""
+def k1_at_window_shape(sr, A: SpParMat, plan: dict, B: SpParMat | None = None) -> dict:
+    """The dot backend's first K1 launch of a call A·B (B defaults to A;
+    tile (0, 0), stage 0, block 0, window 0) rebuilt from the path's own
+    operands, launched once and held bit for bit against the plain
+    version; both timed. The launch is not counted."""
     kind = _PALLAS_KINDS[sr.name]
-    a = A.local_tile(0, 0)
+    B = A if B is None else B
+    a, b = A.local_tile(0, 0), B.local_tile(0, 0)
     rb = min(plan["block_rows"], A.local_rows)
-    arows, pk, pwin = _pad128(rb), _pad128(A.local_rows), _pad128(plan["block_cols"])
+    arows, pk, pwin = _pad128(rb), _pad128(B.local_rows), _pad128(plan["block_cols"])
     da = densify_combine(sr, _shift_rowblock(mask_rows(a, 0, rb), 0, arows), arows, pk)
-    bs, starts = _colmajor_with_starts(a, plan["block_cols"])
+    bs, starts = _colmajor_with_starts(b, plan["block_cols"])
     panel = _dense_col_panel(sr, bs, starts, 0, plan["block_cols"], pk, pwin, plan["panel_cap"])
     return hold_k1(kind, da, panel)
 
@@ -2413,10 +2446,10 @@ def hold_k1(kind: str, da: torch.Tensor, panel: torch.Tensor) -> dict:
     got, ms, _ = timed_call(lambda: semiring_matmul(kind, da, panel))
     semiring_matmul.launches = counted
     want, plain_ms, _ = timed_call(lambda: semiring_matmul_reference(kind, da, panel))
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError(f"K1 {kind} at the window shape differs from its plain version")
     m, k = da.shape
     n = panel.shape[1]
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"K1 {kind} at {[m, k, n]} differs from its plain version")
     return {"kind": kind, "shape": [m, k, n], "variant": semiring_matmul.last_variant,
             "bit_equal": True, "max_abs_err": max_abs_err(got, want), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound(m, k, n)[0]}
@@ -4024,6 +4057,8 @@ def phase_mesh3d(dev, t_start: float, A20: SpParMat) -> dict:
     if semiring_matmul.launches:
         raise AssertionError("the 3D scatter backend launched K1")
     dot, k1 = timed("dot3d", step_dot3d, dev, esc)
+    # step 1's min_plus product, kept on the host for phase 15
+    ref_host = tuple(t.cpu() for t in esc["ref"])
     for key in ("A", "A3", "B3", "ref"):
         esc.pop(key, None)
     torch.cuda.empty_cache()
@@ -4035,7 +4070,341 @@ def phase_mesh3d(dev, t_start: float, A20: SpParMat) -> dict:
     emit({"phase": "mesh3d", "step": "checks", "hand_kernel_launches": launches,
           "k1_by_semiring": k1, "step_s": step_s, "total_s": time.perf_counter() - t_start})
     return {"esc3d": esc["lines"], "routed": routed, "dot3d": dot, "convert": conv,
-            "mcl3d": mcl3, "k1": k1}
+            "mcl3d": mcl3, "k1": k1, "scale": esc["scale"], "ref_host": ref_host}
+
+
+# --- phase 15: the measured-plan tuner ----------------------------------------------
+
+PLAN_STORE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_plans"
+TUNER_CAP_S = 60.0  # the phase's time budget
+TUNER_SPMM_F = 64
+
+
+@contextlib.contextmanager
+def tuner_env(**knobs):
+    """The tuner's knobs set (a value) or unset (None) for the block, by
+    their ``tuner.config`` names, restored after; the process's plan store
+    is reloaded on the way in and out."""
+    names = {k: getattr(tuner_config, k) for k in knobs}
+    saved = {name: os.environ.get(name) for name in names.values()}
+    for k, v in knobs.items():
+        if v is None:
+            os.environ.pop(names[k], None)
+        else:
+            os.environ[names[k]] = str(v)
+    tuner_store._reset_for_tests()
+    try:
+        yield
+    finally:
+        for name, v in saved.items():
+            if v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
+        tuner_store._reset_for_tests()
+
+
+@contextlib.contextmanager
+def counted_measure(log: list):
+    """The probe's cost functional, unchanged, wrapped to append to ``log``
+    each measured candidate's K1 launches as ``(warm_up, timed)``: the
+    timed run's are counted around it, the warm-up's since the end of the
+    previous measurement (the probe runs a candidate's warm-up just before
+    measuring it, and nothing else between)."""
+    real = tuner_probe.wall_measure
+    mark = [semiring_matmul.launches]
+
+    def factory(device):
+        measure = real(device)
+
+        def counted(fn):
+            before = semiring_matmul.launches
+            dt = measure(fn)
+            mark[0], warm = semiring_matmul.launches, before - mark[0]
+            log.append((warm, semiring_matmul.launches - before))
+            return dt
+
+        return counted
+
+    tuner_probe.wall_measure = factory
+    try:
+        yield
+    finally:
+        tuner_probe.wall_measure = real
+
+
+def host_timed(fn):
+    """(result, seconds) on the host clock around a call ending in a
+    synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def store_off():
+    """``COMBBLAS_PLAN_STORE=0`` for the block, the process's cached store
+    kept for after it."""
+    saved = os.environ.get(tuner_config.ENV_PLAN_STORE)
+    os.environ[tuner_config.ENV_PLAN_STORE] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(tuner_config.ENV_PLAN_STORE)
+        else:
+            os.environ[tuner_config.ENV_PLAN_STORE] = saved
+
+
+def k1_at_probe_shapes(A: SpParMat, name: str, backend: str | None) -> dict:
+    """K1 at the shapes the probe of ``spgemm_auto(MIN_PLUS, A, A)`` gave
+    it, on the probe's own proxy (``proxy_coo`` at the default ``max_dim``
+    and seed), launched uncounted and held bit for bit against the plain
+    version: the mxu rung's dense tiles, and under the dot backend the
+    windowed rung's first window (its plan from a rerun of that rung on the
+    proxy, whose launches are taken off the count again)."""
+    (ra, ca, va), (rb, cb, vb), (pm, pk, pn) = tuner_probe.proxy_coo(
+        A, A, tuner_config.probe_max_dim())
+    pA = SpParMat.from_global_coo(A.grid, ra, ca, va, pm, pk)
+    pB = SpParMat.from_global_coo(A.grid, rb, cb, vb, pk, pn)
+    zero = float(MIN_PLUS.zero_fn(pA.dtype))
+    da = densify(pA.local_tile(0, 0), _pad128(pm), _pad128(pk), zero)
+    db = densify(pB.local_tile(0, 0), _pad128(pk), _pad128(pn), zero)
+    holds = {"mxu_rung": hold_k1("min_plus", da, db)}
+    del da, db
+    if backend == "dot":
+        counted = semiring_matmul.launches
+        spgemm_auto(MIN_PLUS, pA, pB, tier="windowed", backend="dot", assume_unique=True)
+        semiring_matmul.launches = counted
+        plan = spgemm_windowed.last_plan
+        holds["windowed_rung"] = k1_at_window_shape(MIN_PLUS, pA, plan, pB)
+    for rung, h in holds.items():
+        emit({"phase": "tuner", "step": f"{name} k1 at the {rung}'s shape", **h})
+    return {rung: {"shape": h["shape"], "ms": h["ms"], "plain_ms": h["plain_ms"]}
+            for rung, h in holds.items()}
+
+
+def step_tuner_probe(dev, A: SpParMat, mxu_min: tuple, store_dir: Path,
+                     backend: str | None) -> dict:
+    """Steps 1-3 (``backend`` None) or step 4 (``"dot"``): one
+    ``spgemm_auto`` with the probe on misses the fresh store and probes at
+    the default ``max_dim`` and budget; its product against phase 5's and
+    against ``spgemm_auto(tier=<winner>)`` with the store off; then (steps
+    2, 3) the replay from the same store and from a fresh ``PlanStore``
+    reading the file."""
+    name = "probe" if backend is None else f"probe_{backend}"
+    with tuner_env(ENV_PLAN_STORE=store_dir, ENV_PROBE="1", ENV_BACKEND=backend):
+        st = tuner_store.get_store()
+        log: list = []
+        k1 = semiring_matmul.launches
+        with counted_measure(log):
+            C, call_s = host_timed(lambda: spgemm_auto(MIN_PLUS, A, A))
+        call_k1 = semiring_matmul.launches - k1
+        run = dict(spgemm_auto.last_run)
+        errors = list(tuner_probe.probe_spgemm.last_errors)
+        costs = tuner_probe.probe_spgemm.last_costs
+        stats = st.stats()
+        if run["plan_source"] != "probe" or errors:
+            raise AssertionError(f"tuner {name}: source {run['plan_source']}, skipped {errors}")
+        lines = Path(st.file).read_text().splitlines()
+        if len(lines) != 1 or stats["entries"] != 1:
+            raise AssertionError(f"tuner {name}: the store holds {len(lines)} lines")
+        used = backend or "scatter"
+        key = tuner_store.spgemm_plan_key(MIN_PLUS, A, A, used)
+        rec = st.peek(key)
+        if rec.tier != run["tier"] or key.platform != dev.type:
+            raise AssertionError(f"tuner {name}: record {rec} under {key}")
+        got = live_entries(C)
+        del C
+        if not same_entries(tuple(t.cpu() for t in got), mxu_min):
+            raise AssertionError(f"tuner {name}: differs from phase 5's mxu product")
+        with store_off():
+            k1 = semiring_matmul.launches
+            forced = live_entries(spgemm_auto(MIN_PLUS, A, A, tier=run["tier"]))
+            forced_k1 = semiring_matmul.launches - k1
+        if not same_entries(got, forced):
+            raise AssertionError(f"tuner {name}: differs from spgemm_auto(tier={run['tier']!r})")
+        del forced
+        # per measured candidate: K1 in its warm-up and timed runs
+        tiers = list(costs["tiers"])
+        geo = list(costs.get("geometry", {}))
+        k1_by = {t: {"warm_up": w, "timed": n}
+                 for t, (w, n) in zip(tiers + [f"geometry {g}" for g in geo], log)}
+        if (len(log) != len(k1_by)
+                or sum(w + n for w, n in log) != call_k1 - forced_k1):
+            raise AssertionError(f"tuner {name}: K1 launches {k1_by} vs {call_k1 - forced_k1}")
+        holds = k1_at_probe_shapes(A, name, backend)
+        line = {"phase": "tuner", "step": name, "backend": used, "winner": run["tier"],
+                "plan_source": run["plan_source"], "probe_dim": rec.probe_dim,
+                "record": {"block_rows": rec.block_rows, "block_cols": rec.block_cols,
+                           "cost_s": rec.cost_s},
+                "rung_seconds": costs["tiers"], "geometry_seconds": costs.get("geometry", {}),
+                "probe_seconds": stats["probe_seconds"], "probe_runs": stats["probe_runs"],
+                "store": {k: v for k, v in stats.items() if k != "path"},
+                "call_s": call_s, "k1_call": call_k1, "k1_probe": call_k1 - forced_k1,
+                "k1_by_candidate": k1_by, "k1_product": forced_k1, "last_errors": errors,
+                "k1_held_at_probe_shapes": holds, "equal_to_phase5": True, "equal_to_forced_tier": True, "key": key.to_json()}
+        emit(line)
+        if backend is not None:
+            return {"line": line, "k1": call_k1 + forced_k1}
+        # step 2: the replay from the same store; step 3: a fresh PlanStore
+        # reading the file
+        replay = {}
+        k1_replay = 0
+        for step in ("replay", "reload"):
+            if step == "reload":
+                tuner_store._reset_for_tests()
+            st = tuner_store.get_store()
+            before = st.stats()
+            k1 = semiring_matmul.launches
+            C, s = host_timed(lambda: spgemm_auto(MIN_PLUS, A, A))
+            k1_replay += semiring_matmul.launches - k1
+            after = st.stats()
+            src = spgemm_auto.last_run["plan_source"]
+            if (src != "store" or after["probe_runs"] != before["probe_runs"]
+                    or after["hits"] != before["hits"] + 1 or st.peek(key) != rec):
+                raise AssertionError(f"tuner {step}: source {src}, stats {before} -> {after}")
+            if not same_entries(live_entries(C), got):
+                raise AssertionError(f"tuner {step}: differs from the probing call's product")
+            del C
+            replay[step] = {"call_s": s, "plan_source": src, "hits": after["hits"],
+                            "probe_runs": after["probe_runs"],
+                            "k1": semiring_matmul.launches - k1}
+        file_key = json.loads(Path(st.file).read_text().splitlines()[0])["key"]
+        if file_key["platform"] != dev.type:
+            raise AssertionError(f"tuner reload: the file's key is {file_key}")
+    emit({"phase": "tuner", "step": "replay", **replay["replay"], "probing_call_s": call_s})
+    emit({"phase": "tuner", "step": "reload", **replay["reload"], "file_key": file_key})
+    return {"line": line, "replay": replay, "k1": call_k1 + forced_k1 + k1_replay}
+
+
+def step_tuner_spmm(dev, E_host: tuple, store_dir: Path) -> dict:
+    """Step 5: ``resolve_spmm_backend(PLUS_TIMES, E, 64, X=X)`` on phase
+    8's ELL layout (unit float32 values) with the probe on: both backends
+    measured on the real operands, the winner persisted, the second call
+    replaying it; one hop under each backend, the two within twice the
+    one-hop rounding bound (dmax + 2) 2^-24 |A||X| (phase 12's bound for
+    one hop)."""
+    buckets, n = E_host
+    grid = Grid.make(1, 1, device=dev)
+    lc = grid.local_cols(n)
+    E1 = EllParMat(buckets=tuple((bc.to(dev), (bc < lc).to(torch.float32).to(dev), br.to(dev))
+                                 for bc, br in buckets), nrows=n, ncols=n, grid=grid)
+    X = np.random.default_rng(SPMM_SEED).standard_normal((n, TUNER_SPMM_F)).astype(np.float32)
+    Xd = DistMultiVec.from_global(grid, X)
+    with tuner_env(ENV_PLAN_STORE=store_dir, ENV_PROBE="1"):
+        st = tuner_store.get_store()
+        backend, s = host_timed(lambda: resolve_spmm_backend(PLUS_TIMES, E1, TUNER_SPMM_F,
+                                                             X=Xd))
+        errors = list(tuner_probe.probe_spmm.last_errors)
+        costs = dict(tuner_probe.probe_spmm.last_costs)
+        first = st.stats()
+        again, s2 = host_timed(lambda: resolve_spmm_backend(PLUS_TIMES, E1, TUNER_SPMM_F,
+                                                            X=Xd))
+        second = st.stats()
+    if (errors or set(costs) != {"mxu_gather", "scatter"} or again != backend
+            or second["probe_runs"] != first["probe_runs"] or second["hits"] != first["hits"] + 1):
+        raise AssertionError(f"tuner spmm: {backend}/{again}, {costs}, {errors}, {second}")
+    y = {b: dist_spmm_ell(PLUS_TIMES, E1, Xd, backend=b).blocks for b in SPMM_BACKENDS}
+    mag = dist_spmm_ell(PLUS_TIMES, E1, DistMultiVec.from_global(grid, np.abs(X)),
+                        backend="scatter").blocks
+    deg = E1.reduce(PLUS_TIMES, "cols").blocks
+    tol = (float(deg.max()) + 2) * 2.0**-24 * mag.double()
+    diff = (y["mxu_gather"].double() - y["scatter"].double()).abs()
+    if not bool((diff <= 2 * tol).all()):
+        raise AssertionError("tuner spmm: the backends' hops differ beyond the rounding bound")
+    line = {"phase": "tuner", "step": "spmm", "F": TUNER_SPMM_F, "n": n, "winner": backend,
+            "backend_seconds": costs, "probing_call_s": s, "replay_call_s": s2,
+            "store": {k: v for k, v in second.items() if k != "path"}, "last_errors": errors,
+            "max_abs_diff_between_backends": float(diff.max()),
+            "bound": "2 (dmax + 2) 2^-24 |A||X|"}
+    emit(line)
+    return line
+
+
+def step_tuner_3d(dev, store_dir: Path, scale: int, ref_host: tuple) -> dict:
+    """Step 6: ``spgemm3d`` on phase 14's recipe (min_plus A·A on 2×2×2, at
+    its scale) with the probe on: the (tier, merge) candidates measured on
+    the real operands, the winner persisted and replayed from the store;
+    the product equal to phase 14's ESC sort result."""
+    grid = Grid.make(M3_P, M3_P, device=dev)
+    g3 = Grid3D.make(M3_LAYERS, M3_P, M3_P, device=dev)
+    _, _, _, A = weighted_rmat(scale, dev, grid, MIN_PLUS)
+    A3 = SpParMat3D.from_spmat(A, g3, "col")
+    B3 = SpParMat3D.from_spmat(A, g3, "row")
+    del A
+    with tuner_env(ENV_PLAN_STORE=store_dir, ENV_PROBE="1"):
+        st = tuner_store.get_store()
+        C, s = host_timed(lambda: spgemm3d(MIN_PLUS, A3, B3))
+        run = dict(mesh3d_mod.spgemm3d.last_run)
+        errors = list(tuner_probe.probe_spgemm3d.last_errors)
+        costs = dict(tuner_probe.probe_spgemm3d.last_costs)
+        first = st.stats()
+        if run["plan_source"] != "probe" or errors:
+            raise AssertionError(f"tuner 3d: source {run['plan_source']}, skipped {errors}")
+        got = live_entries3(C)
+        del C
+        if not same_entries(tuple(t.cpu() for t in got), ref_host):
+            raise AssertionError("tuner 3d: differs from phase 14's ESC sort result")
+        C, s2 = host_timed(lambda: spgemm3d(MIN_PLUS, A3, B3))
+        run2 = dict(mesh3d_mod.spgemm3d.last_run)
+        second = st.stats()
+        if (run2["plan_source"] != "store" or second["probe_runs"] != first["probe_runs"]
+                or not same_entries(live_entries3(C), got)):
+            raise AssertionError(f"tuner 3d replay: {run2}, {second}")
+        rec = st.peek(tuner_store.spgemm3d_plan_key(MIN_PLUS, A3, B3, ""))
+    line = {"phase": "tuner", "step": "spgemm3d", "scale": scale,
+            "grid3": f"{M3_LAYERS}x{M3_P}x{M3_P}", "winner": [rec.tier, rec.merge],
+            "candidate_seconds": costs, "probing_call_s": s, "replay_call_s": s2,
+            "replay_source": run2["plan_source"], "merge_source": run2["merge_source"],
+            "store": {k: v for k, v in second.items() if k != "path"}, "last_errors": errors,
+            "equal_to_phase14": True}
+    emit(line)
+    return line
+
+
+def phase_tuner(dev, t_start: float, mxu_min: tuple, E_host: tuple, m3: dict) -> dict:
+    """Phase 15 (module docstring): steps 1-6 with K1's and K2's launch
+    counts set to 0 just before and read just after; each step's store is
+    a fresh directory under ``PLAN_STORE_DIR``."""
+    t0 = time.perf_counter()
+    emit({"phase": "tuner", "step": "elapsed", "total_s": t0 - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    r, c = rmat_symmetric_coo_host(GRAPH_SEED, SCALE, EDGEFACTOR)
+    v = np.random.default_rng(WEIGHT_SEED).integers(1, 16, r.shape[0]).astype(np.float32)
+    A = SpParMat.from_global_coo(Grid.make(1, 1, device=dev), r, c, v, FULL, FULL,
+                                 dedup_sr=MIN_PLUS)
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        step_s[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return res
+
+    probe = timed("probe_replay_reload", step_tuner_probe, dev, A, mxu_min,
+                  PLAN_STORE_DIR / "mxu", None)
+    dot = timed("probe_dot", step_tuner_probe, dev, A, mxu_min, PLAN_STORE_DIR / "dot", "dot")
+    del A
+    spmm = timed("spmm", step_tuner_spmm, dev, E_host, PLAN_STORE_DIR / "spmm")
+    d3 = timed("spgemm3d", step_tuner_3d, dev, PLAN_STORE_DIR / "spgemm3d", m3["scale"],
+               m3["ref_host"])
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    k1 = probe["k1"] + dot["k1"]
+    if launches != {"k1": k1, "k2": 0} or probe["line"]["k1_probe"] < 1:
+        raise AssertionError(f"tuner launched {launches}; the steps count K1 {k1}, K2 0")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "tuner", "step": "checks", "hand_kernel_launches": launches,
+          "k1_by_step": {"probe_replay_reload": probe["k1"], "probe_dot": dot["k1"],
+                         "spmm": 0, "spgemm3d": 0},
+          "step_s": step_s, "phase_s": phase_s, "cap_s": TUNER_CAP_S,
+          "within_cap": phase_s <= TUNER_CAP_S, "total_s": time.perf_counter() - t_start})
+    return {"probe": probe["line"], "dot": dot["line"], "spmm": spmm, "spgemm3d": d3,
+            "k1": {"min_plus": k1, "max_min": 0}}
 
 
 def main() -> int:
@@ -4043,6 +4412,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 1
+    # the routed calls ask the plan store: a fresh one of the script's own,
+    # probing off, so their tiers come from the code, not an ambient store
+    shutil.rmtree(PLAN_STORE_DIR, ignore_errors=True)
+    os.environ[tuner_config.ENV_PLAN_STORE] = str(PLAN_STORE_DIR)
+    for name in (tuner_config.ENV_PROBE, tuner_config.ENV_TIER, tuner_config.ENV_BACKEND,
+                 tuner_config.ENV_TIER3D, tuner_config.ENV_MERGE, tuner_config.ENV_SPMM_BACKEND):
+        os.environ.pop(name, None)
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(PLAN_STORE_DIR, ignore_errors=True)
+
+
+def run_phases() -> int:
+    """Phases 1-15 (module docstring), then the ``kernels`` line and the
+    contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     # torch.sparse.mm, timed as the library's call, is marked beta
@@ -4065,6 +4450,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     g18 = general.pop("g18")
     apps = phase_apps(dev, t_start, bfs_graph, bfs["E"], A20, g18)
+    # for phase 15, on the host: phase 5's min_plus product and phase 8's
+    # ELL structure
+    mxu_min = tuple(t.cpu() for t in mxu13["min_plus"])
+    E_host = (tuple((bc.cpu(), br.cpu()) for bc, _, br in bfs["E"].buckets), bfs["E"].nrows)
     del bfs, bfs_graph, mxu13
     general.pop("aa")
     torch.cuda.empty_cache()
@@ -4072,6 +4461,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh3d = phase_mesh3d(dev, t_start, A20)
     del A20
+    torch.cuda.empty_cache()
+    tuner = phase_tuner(dev, t_start, mxu_min, E_host, mesh3d)
+    del mxu_min, E_host
     torch.cuda.empty_cache()
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
@@ -4081,7 +4473,7 @@ def main() -> int:
                    "spgemm_general": general["cross"][sr.name]["k1_launches"],
                    "spgemm_windowed": windowed["k1"][sr.name],
                    "apps": apps["k1"], "graph_input": graph_input["k1"],
-                   "mesh3d": mesh3d["k1"][sr.name]}
+                   "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
@@ -4096,6 +4488,9 @@ def main() -> int:
         raise AssertionError("K1's launch counts do not add up on the spgemm_general path")
     if sum(k["launches_by_path"]["mesh3d"] for k in kernels) != sum(mesh3d["k1"].values()):
         raise AssertionError("K1's launch counts do not add up on the mesh3d path")
+    if (sum(k["launches_by_path"]["tuner"] for k in kernels) != sum(tuner["k1"].values())
+            or tuner["k1"]["min_plus"] < 1):
+        raise AssertionError("K1's launch counts do not add up on the tuner path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({
         "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",

@@ -52,8 +52,11 @@ stream bit for bit), the Graph500 v2.1 generator (``graph500_edges``,
 (``redistribute_coo``, ``from_device_coo``), Graph500 kernel 1 on the
 device (``kernel1_device``, ``permute_vertices``,
 ``isolated_compression_perm``), Matrix Market, binary, vector and
-labelled-tuple files (``io``) and ``.npz`` checkpoints
-(``utils.checkpoint``). All of it is in PyTorch ops as the reference runs
+labelled-tuple files (``io``) and ``.npz`` and sharded checkpoints
+(``utils.checkpoint``); and the measured-plan tuner (``tuner``: the one
+parser of the ``COMBBLAS_*`` knobs, the JSONL plan store beside the
+kernel build cache (``utils.compile_cache``), the probe that measures the
+rungs), which ``spgemm_auto``, ``spgemm3d`` and the SpMM backend consult. All of it is in PyTorch ops as the reference runs
 it in XLA ops (the generator and the Matrix Market parser as host C++).
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.
@@ -274,7 +277,8 @@ from .utils.graph500 import build_graph, build_structures
 from .utils.refgen21 import graph500_edges, graph500_edges_native
 from .utils.rmat import rmat_edges, rmat_symmetric_coo, rmat_symmetric_coo_host
 from .utils.threefry import ThreefryKey
-from .utils import checkpoint
+from .utils import checkpoint, compile_cache
+from . import tuner
 
 __all__ = [
     "BFS_CLASS_LADDER",
@@ -342,6 +346,8 @@ __all__ = [
     "calculate_phases",
     "chaos",
     "checkpoint",
+    "compile_cache",
+    "tuner",
     "choose_spgemm_tier",
     "choose_tier_from_counts",
     "col_selector",

@@ -2,8 +2,10 @@
 load them.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-``build/combblas_tpu_torch/<name>-<hash>.so`` beside the package, keyed by a
-hash of the source and the flags, at first use. The libraries have a plain
+``<build dir>/<name>-<hash>.so``, keyed by a hash of the source and the
+flags, at first use. The build dir is the one committed by
+``utils.compile_cache.enable_compile_cache``, else ``BUILD_DIR``
+(``build/combblas_tpu_torch`` beside the package). The libraries have a plain
 C interface and load with ``ctypes``; no PyTorch header is compiled, which
 keeps a build to seconds. The host sources ``io/native/<name>.cpp`` (the
 Graph500 v2.1 generator and the Matrix Market parser) build the same way
@@ -25,8 +27,10 @@ import threading
 import time
 from pathlib import Path
 
+from .utils import compile_cache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "combblas_tpu_torch"
+BUILD_DIR = Path(compile_cache.CACHE_DIR)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,10 +60,18 @@ def _cuda_tool(tool: str) -> str:
     raise RuntimeError(f"{tool} not found (looked on PATH, in {', '.join(map(str, dirs))})")
 
 
+def build_dir() -> Path:
+    """Where libraries are built and loaded from: the compile cache's
+    committed dir (``compile_cache.configured_dir()``), else
+    ``BUILD_DIR``."""
+    committed = compile_cache.configured_dir()
+    return BUILD_DIR if committed is None else Path(committed)
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> dict[str, dict]:
@@ -67,7 +79,7 @@ def build(names: list[str]) -> dict[str, dict]:
     per source, all started together. Returns, per name, the build seconds
     (0.0 when it was already built), the compiler's log (``-Xptxas -v``:
     registers, shared memory, spills) and the library's path."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     jobs = {}
     report = {}
     for name in names:
@@ -118,7 +130,7 @@ def disassemble(path: str | Path) -> str:
 def host_library_path(name: str) -> Path:
     src = HOST_SRC / f"{name}.cpp"
     digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_host(name: str) -> dict:
@@ -128,7 +140,7 @@ def build_host(name: str) -> dict:
     out = host_library_path(name)
     if out.exists():
         return {"seconds": 0.0, "path": str(out)}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError(f"g++ not found on PATH; io/native/{name}.cpp cannot be built")

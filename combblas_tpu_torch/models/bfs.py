@@ -37,12 +37,12 @@ counts). Its levels reuse one ``CSC`` per tile, built at the start of the
 call (the reference builds them in every top-down step).
 
 Not ported: ``bfs_levels_instrumented``, which is built on ``obs`` spans
-(ROADMAP queue 1, item 13). Nor are the reference's device-buffer caches
+(ROADMAP queue 1, item 13b). Nor are the reference's device-buffer caches
 (``_gid_blocks``, ``_iota_operand``, the ``lru_cache`` of single-root
 programs, ``clear_bfs_caches`` and its cache gauges): they exist for the
 TPU's execution (closure-constant tables, one compiled program per tier
 spec); eager torch compiles nothing, so the port keeps no such cache.
-The ``obs`` gauges come with ROADMAP item 13.
+The ``obs`` gauges come with ROADMAP item 13b.
 """
 
 from __future__ import annotations

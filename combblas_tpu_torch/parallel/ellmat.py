@@ -34,6 +34,7 @@ import torch
 
 from ..ops.segment import expand_ranges, fix_signed_zeros, float_bits, segment_reduce
 from ..semiring import SELECT2ND_MAX, Semiring
+from ..tuner import config as tuner_config
 from .collectives import axis_ring_reduce
 from .grid import Grid, HostGrid, check_length, fold_grid
 from .spmat import bucket_by_tile
@@ -95,7 +96,7 @@ class EllParMat:
     @staticmethod
     def from_host_coo(
         grid: Grid, rows, cols, vals, nrows: int, ncols: int,
-        max_k: int | None = None, ladder: str = "fine", headroom: float = 0.0,
+        max_k: int | None = None, ladder: str = "fine", headroom: float | None = None,
     ) -> "EllParMat":
         """Build from host global COO: numpy, then one upload per array.
         See ``host_build`` for ``max_k``, ``ladder`` and ``headroom``."""
@@ -116,7 +117,7 @@ class EllParMat:
     @staticmethod
     def host_build(
         grid: HostGrid, rows, cols, vals, nrows: int, ncols: int,
-        max_k: int | None = None, ladder: str = "fine", headroom: float = 0.0,
+        max_k: int | None = None, ladder: str = "fine", headroom: float | None = None,
     ):
         """Host-only bucket construction: a list of (bc, bv, br) numpy
         arrays, ``[pr, pc, nb, kb]`` int32, ``[pr, pc, nb, kb]`` of
@@ -127,9 +128,10 @@ class EllParMat:
         recombine in the result scatter. ``ladder``: ``"fine"`` is the
         1.5-step ladder, ``"coarse"`` powers of two (fewer classes, more
         padding). ``headroom`` adds ``ceil(nb * headroom)`` free padding
-        rows to every class (negative values count as 0).
+        rows to every class (negative values count as 0); ``None`` reads
+        ``COMBBLAS_DYNAMIC_HEADROOM`` (default 0, ``tuner.config``).
         """
-        headroom = max(float(headroom), 0.0)
+        headroom = tuner_config.dynamic_headroom(headroom)
         vals = np.asarray(vals)
         rows, cols, order, counts, starts, _cap, lr, lc = bucket_by_tile(
             grid, rows, cols, nrows, ncols, None

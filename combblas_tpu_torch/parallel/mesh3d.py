@@ -30,11 +30,14 @@ the ``[L_src, L_dst]`` piece axes; a layer's within-layer gathers are the
     ``nnz_per_column3d``, ``kselect3d``, ``prune_column3d``, ``prune3d``,
     ``apply3d``, ``dim_apply3d_cols``).
 
-Deviations from the reference: no ``interpret`` argument (the semiring
-GEMM's plain version is the CPU path); no plan-store, environment or probe
-rungs in ``spgemm3d`` / ``spgemm3d_windowed`` (the tuner, ROADMAP item 13a:
-an argument, else ``"esc"`` and the merge heuristic); no ``obs`` counters
-(item 13b); ``ring`` keeps the carousel's stage order and ``pipeline``
+``spgemm3d`` resolves its tier through the tuner's chain (argument, plan
+store, ``COMBBLAS_SPGEMM3D_TIER``, the probe on the real operands,
+``"esc"``) and its merge tier through ``tuner.resolve.resolve_merge``
+(argument, the record, ``COMBBLAS_SPGEMM_MERGE``, then the heuristic);
+``spgemm3d_windowed`` reads ``COMBBLAS_SPGEMM_MERGE`` before its
+heuristic. Deviations from the reference: no ``interpret`` argument (the
+semiring GEMM's plain version is the CPU path); no ``obs`` counters
+(ROADMAP item 13b); ``ring`` keeps the carousel's stage order and ``pipeline``
 changes nothing, as in 2D. The fiber's partials are built one fiber (2D
 tile position) at a time, cut to their live entries, so only one fiber's
 pieces are alive; the capacities, output layouts, overflow vectors and
@@ -58,10 +61,14 @@ from ..ops.spgemm import (
 )
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring, _minval
+from ..tuner import config as tuner_config
+from ..tuner import store as tuner_store
+from ..tuner.resolve import resolve_merge
 from .grid import Grid, combine_tiles
 from .spgemm import (
     _PALLAS_KINDS,
     WINDOWED_CHUNK_W,
+    TierRefusal,
     _carousel_stages,
     _check_dot_dtype,
     _stage_chunk,
@@ -80,9 +87,9 @@ from .spgemm import (
 )
 from .spmat import SpParMat, key_u32_to_val, monotone_key_u32
 
-#: The fiber reduce's combine tiers (the reference's ``MERGE_TIER_NAMES``,
-#: ``tuner/config.py``).
-MERGE_TIERS = ("sort", "runs", "hash")
+#: The fiber reduce's combine tiers — the one definition lives with the
+#: environment's vetting in ``tuner/config.py``.
+MERGE_TIERS = tuner_config.MERGE_TIER_NAMES
 
 #: Probe rounds of the hash merge tier before its counted overflow sends
 #: the product through the sorted-runs tier (read at each call, so it can
@@ -563,7 +570,7 @@ def _check_fiber_overflow(piece_over: int, piece_cap: int, who: str, slack: floa
     entries."""
     if piece_over <= 0:
         return
-    raise ValueError(
+    raise TierRefusal(
         f"{who}: fiber exchange overflowed — a piece exceeded its "
         f"piece_capacity={piece_cap} by {piece_over} entries and the "
         f"all_to_all would have dropped them; raise the sizing slack "
@@ -593,20 +600,62 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
              merge: str | None = None, ring: bool | None = None,
              pipeline: bool | None = None,
              merge_source: str | None = None) -> SpParMat3D:
-    """The sized 3D product: ``tier`` ``"esc"`` (default; the symbolic pass,
+    """The sized 3D product: ``tier`` ``"esc"`` (the symbolic pass,
     capacities rounded to powers of two, ``summa3d_spgemm``) or
     ``"windowed"`` (``spgemm3d_windowed`` at ``max(slack - 0.03, 1.02)``).
-    ``merge``: the fiber merge tier (default: the heuristic); a hash tier
-    on a monoid with no scatter combiner runs as ``runs``, and a hash
-    overflow reruns the sized kernel through ``runs``. ``ring`` None means
-    False, ``pipeline`` None True. ``merge_source`` is accepted and
-    ignored (it labels an ``obs`` counter in the reference). The tier has
-    only its argument rung here: the plan store, environment and probe
-    rungs wait for the tuner (ROADMAP item 13a)."""
+    The tier resolves argument > plan store (``op="spgemm3d"``; a record
+    whose tier is not esc or windowed is discarded; it replays
+    ``block_rows`` / ``block_cols``, ``ring`` and ``pipeline`` where the
+    argument is ``None``) > ``COMBBLAS_SPGEMM3D_TIER`` > the probe
+    (``COMBBLAS_TUNER_PROBE=1``: ``tuner.probe.probe_spgemm3d`` measures
+    (tier, merge) candidates on these operands and persists the winner) >
+    ``"esc"``; the store is asked only when it holds entries or probing is
+    on. ``merge``: the fiber merge tier, argument > the record >
+    ``COMBBLAS_SPGEMM_MERGE`` > the heuristic; a hash tier on a monoid
+    with no scatter combiner runs as ``runs``, and a hash overflow reruns
+    the sized kernel through ``runs``. ``ring`` None means False,
+    ``pipeline`` None True. ``merge_source`` is accepted and ignored (it
+    labels an ``obs`` counter in the reference). ``spgemm3d.last_run``
+    records the tier, ``plan_source``, ``merge_source`` and, for esc, the
+    capacities and the merge that ran."""
     del merge_source
-    tier = "esc" if tier is None else tier
+    plan_source = "arg" if tier is not None else None
+    st = key = rec = None
+    if tier is None:
+        st = tuner_store.get_store()
+        if st is not None and (st.entries() > 0 or tuner_config.probe_enabled()):
+            key = tuner_store.spgemm3d_plan_key(sr, A, B,
+                                                backend or tuner_config.env_backend() or "")
+            rec = st.lookup(key) if st.entries() > 0 else None
+            if rec is not None and rec.tier not in ("esc", "windowed"):
+                rec = None  # the record vetting
+            if rec is not None:
+                tier, plan_source = rec.tier, "store"
+                block_rows = rec.block_rows if block_rows is None else block_rows
+                block_cols = rec.block_cols if block_cols is None else block_cols
+                ring = rec.ring if ring is None else ring
+                pipeline = rec.pipeline if pipeline is None else pipeline
+    if tier is None:
+        tier = tuner_config.env_tier3d()
+        if tier is not None:
+            plan_source = "env"
+    if tier is None and st is not None and tuner_config.probe_enabled():
+        from ..tuner.probe import probe_spgemm3d
+
+        prec = probe_spgemm3d(sr, A, B, store=st, key=key)
+        if prec is not None:
+            tier, plan_source, rec = prec.tier, "probe", prec
+            ring = prec.ring if ring is None else ring
+            pipeline = prec.pipeline if pipeline is None else pipeline
+    if tier is None:
+        tier, plan_source = "esc", "heuristic"
+    merge, merge_source = resolve_merge(merge, rec)
+    if merge_source == "store" and plan_source == "probe":
+        merge_source = "probe"  # the record came from this call's probe
     if tier not in ("esc", "windowed"):
         raise ValueError(f"spgemm3d tier must be 'esc' or 'windowed', got {tier!r}")
+    spgemm3d.last_run = {"tier": tier, "plan_source": plan_source,
+                         "merge_source": merge_source}
     ring = False if ring is None else bool(ring)
     pipeline = True if pipeline is None else bool(pipeline)
     if tier == "windowed":
@@ -632,9 +681,8 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
 
     C, overflow = run_kernel(merge)
     piece_over, merge_over, hash_over = (int(x) for x in host_value(overflow))
-    spgemm3d.last_run = {"tier": "esc", "merge": merge, "flop_capacity": flop_cap,
-                         "piece_capacity": piece_cap, "out_capacity": out_cap,
-                         "hash_overflow": hash_over}
+    spgemm3d.last_run.update(merge=merge, flop_capacity=flop_cap, piece_capacity=piece_cap,
+                             out_capacity=out_cap, hash_overflow=hash_over)
     _check_fiber_overflow(piece_over, piece_cap, "spgemm3d", slack)
     if hash_over > 0:
         C, overflow = run_kernel("runs")
@@ -642,7 +690,7 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
         spgemm3d.last_run["merge"] = "runs"
         _check_fiber_overflow(piece_over, piece_cap, "spgemm3d", slack)
     if merge_over > 0:
-        raise ValueError(f"spgemm3d: merge distinct keys exceeded out_capacity by "
+        raise TierRefusal(f"spgemm3d: merge distinct keys exceeded out_capacity by "
                          f"{merge_over}; raise slack")
     return C
 
@@ -869,12 +917,13 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
     """The windowed 3D tier's entry: the 3D window pass (one readback),
     ``windowed_plan3d`` (caps the largest over layers), then
     ``summa3d_spgemm_windowed``. The fiber piece and merge capacities come
-    from the same symbolic bounds. ``merge`` None: the heuristic (``runs``
-    for scatter's sorted pieces, ``sort`` or ``hash`` for the 2D dot's);
+    from the same symbolic bounds. ``merge`` None: ``COMBBLAS_SPGEMM_MERGE``,
+    else the heuristic (``runs`` for scatter's sorted pieces, ``sort`` or
+    ``hash`` for the 2D dot's);
     a hash overflow reruns the product through ``runs``; a fiber piece
     overflow raises naming ``slack``. ``merge_source`` is accepted and
-    ignored (an ``obs`` label in the reference); no environment rung
-    (ROADMAP item 13a). ``spgemm3d_windowed.last_plan`` records the last
+    ignored (an ``obs`` label in the reference; ``obs`` waits for ROADMAP
+    item 13b). ``spgemm3d_windowed.last_plan`` records the last
     call's plan (backend, blocks, windows, packed, caps, merge)."""
     del merge_source
     backend = resolve_spgemm_backend(backend)
@@ -910,6 +959,8 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
     piece_cap = rnd(min(sum(per_block_bound), lr * lcB))
     out_cap = min(rnd(piece_cap * L), max(lr * (lcB // L), 1))
     if merge is None:
+        merge = tuner_config.env_merge()
+    if merge is None:
         merge = _merge_heuristic(sr, L, piece_cap * L / max(out_cap, 1), pieces_sorted)
     if merge not in MERGE_TIERS:
         raise ValueError(f"merge must be one of {MERGE_TIERS}, got {merge!r}")
@@ -932,7 +983,7 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
         spgemm3d_windowed.last_plan["hash_overflow"] = hash_over
         return C
     if extract_over > 0 or merge_over > 0:
-        raise ValueError(f"windowed 3D tier overflowed its symbolic bound (extraction "
+        raise TierRefusal(f"windowed 3D tier overflowed its symbolic bound (extraction "
                          f"{extract_over}, merge {merge_over})")
     return C
 
@@ -991,7 +1042,7 @@ def _route_with_retry(route, chunk_cap: int, dest_fanouts, total: int, ndev: int
             return build()
         stage_cap *= 2
         tile_cap *= 2
-    raise ValueError(f"{what} dropped {nd} tuples after {max_retries} capacity doublings")
+    raise TierRefusal(f"{what} dropped {nd} tuples after {max_retries} capacity doublings")
 
 
 def _rechunk(arr: torch.Tensor, ndev: int, sentinel):

@@ -25,7 +25,8 @@ SUMMA over the grid's tiles, ``C_ij = ⊕_s A_is ⊗ B_sj``, in four tiers.
 
 The phased (``mem_efficient_spgemm``) and blocked (``block_spgemm``) forms
 run the ESC tier over column or row/column pieces. ``spgemm_auto`` routes
-through ``choose_spgemm_tier``, the reference's rule; given a layered grid
+through the tuner's chain (argument, plan store, environment, probe;
+``tuner/``), then ``choose_spgemm_tier``, the reference's rule; given a layered grid
 (``grid3``) a windowed product goes to the 3D tier (``windowed3d``:
 ``mesh3d.spgemm3d_windowed`` on the operands converted to 3D, the result
 converted back).
@@ -68,6 +69,8 @@ from ..ops.spgemm import (
 )
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring
+from ..tuner import config as tuner_config
+from ..tuner import store as tuner_store
 from .spmat import SpParMat
 
 #: Above this local tile dimension the reference leaves the dense tier.
@@ -385,12 +388,15 @@ def spgemm(sr: Semiring, A: SpParMat, B: SpParMat, slack: float = 1.05, *,
            merge_source: str | None = None) -> SpParMat:
     """The symbolic pass, then the ESC SUMMA at its capacities, both
     rounded up to powers of two (``pow2_caps``; ``out_capacity`` clamped to
-    the dense tile). ``merge``: ``"sort"`` (default) or ``"runs"``;
-    ``"hash"`` (the 3D fiber tier's) runs as ``"runs"`` here, as in the
-    reference. ``merge_source`` is accepted and ignored: in the reference
-    it only labels a provenance counter, and ``obs`` is not ported yet
-    (ROADMAP item 13b). ``spgemm.last_capacities`` records the two
-    capacities of the last call. Reference: ``Mult_AnXBn_Synch``."""
+    the dense tile). ``merge``: argument > ``COMBBLAS_SPGEMM_MERGE`` >
+    ``"sort"``; ``"runs"`` merges sorted runs, and ``"hash"`` (the 3D fiber
+    tier's) runs as ``"runs"`` here, as in the reference. ``merge_source``
+    is accepted and ignored: in the reference it only labels a provenance
+    counter, and ``obs`` is not ported yet (ROADMAP item 13b).
+    ``spgemm.last_capacities`` records the two capacities of the last
+    call. Reference: ``Mult_AnXBn_Synch``."""
+    if merge is None:
+        merge = tuner_config.env_merge()
     merge = "sort" if merge is None else ("runs" if merge == "hash" else merge)
     flop_cap, out_cap = summa_capacities(A, B, slack)
     if pow2_caps:
@@ -556,7 +562,7 @@ def spgemm_scan(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
         if over <= 0:
             return C
         out_capacity = max(1 << (out_capacity + over - 1).bit_length(), out_capacity * 2)
-    raise ValueError(f"spgemm_scan still overflowing by {over} after {max_retries} "
+    raise TierRefusal(f"spgemm_scan still overflowing by {over} after {max_retries} "
                      "retries; pass an explicit out_capacity")
 
 
@@ -1115,7 +1121,7 @@ def _windows(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows, flop_caps, o
         _check_dot_dtype(sr, A.dtype)
         if two_d and (panel_cap is None or panel_cap < 1
                       or any(len(row) != ncw for row in skip)):
-            raise ValueError(f"the 2D dot backend needs panel_cap >= 1 and {ncw} windows a "
+            raise TierRefusal(f"the 2D dot backend needs panel_cap >= 1 and {ncw} windows a "
                              "block")
     return _Windows(sr, lrA=lrA, lrB=lrB, lcB=lcB, block_rows=block_rows,
                     flop_caps=flop_caps, out_caps=out_caps, skip=skip, backend=backend,
@@ -1243,6 +1249,21 @@ def summa_spgemm_windowed_blocked(sr: Semiring, A: SpParMat, B: SpParMat, *, blo
     return C, worst
 
 
+class CapacityOverflowError(RuntimeError):
+    """A product's output outgrew the capacity its symbolic pass sized
+    (the windowed tier's symbolic upper bound). Its own type, so the
+    tuner's probe can skip such a rung without also skipping a failed
+    kernel build (a plain ``RuntimeError``)."""
+
+
+class TierRefusal(ValueError):
+    """A tier refusing operands it cannot size or tile: capacities that
+    the retries did not cover, a window geometry the tier cannot run. Its
+    own type, so the tuner's probe can skip such a rung without also
+    skipping a ``ValueError`` raised on a bad call (a kernel wrapper's
+    precondition)."""
+
+
 def _clamp_out_caps_2d(out_caps, block_rows: int, block_cols: int, lrA: int, lcB: int):
     return tuple(tuple(min(oc, max(min(block_rows, lrA - g * block_rows), 1)
                            * max(min(block_cols, lcB - h * block_cols), 1))
@@ -1253,7 +1274,7 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
                     block_cols: int | None = None, backend: str | None = None,
                     mode: str = "f32", slack: float = 1.02, oracle: bool = False,
                     ring: bool = False, pipeline: bool = True, dispatch: str | None = None,
-                    bucket: bool = True) -> SpParMat:
+                    bucket: bool | None = None) -> SpParMat:
     """The windowed tier's entry: the symbolic pass (one readback), the
     plan (``windowed_plan`` for the scatter backend, ``windowed_plan_2d``
     for dot), then the kernel.
@@ -1261,12 +1282,14 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
     ``backend``: ``resolve_spgemm_backend`` (default ``"scatter"``).
     ``block_rows`` / ``block_cols``: ``default_block_rows`` /
     ``default_block_cols``. ``bucket``: the capacities rounded up to
-    powers of two and clamped to the blocks' cells again (the reference's
+    powers of two and clamped to the blocks' cells again; ``None`` reads
+    ``COMBBLAS_SPGEMM_BUCKET_CAPS`` (on unless ``"0"``, the reference's
     default). ``oracle`` (dot, 1x1, tiles within ``MXU_MAX_TILE_DIM``,
     ``block_cols`` a multiple of 32): the out caps become the support
     oracle's exact window counts, and empty windows are skipped; elsewhere
     it is ignored, as in the reference. ``dispatch`` (``"auto"``,
-    ``"fused"``, ``"blocked"``; default ``"auto"``): on a grid of more than
+    ``"fused"``, ``"blocked"``; argument > ``COMBBLAS_SPGEMM_DISPATCH`` >
+    ``"auto"``): on a grid of more than
     one tile the scatter backend runs the blocked form when more than one
     block is occupied (``"auto"``) or when asked, unless ``ring`` (a
     carousel is fused only); one tile runs ``local_spgemm_windowed``; dot
@@ -1274,9 +1297,9 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
     accepted, no effect (eager torch has no rotation to overlap).
     ``spgemm_windowed.last_plan`` records the last call's plan."""
     backend = resolve_spgemm_backend(backend)
-    dispatch = "auto" if dispatch is None else dispatch
-    if dispatch not in ("auto", "fused", "blocked"):
-        raise ValueError(f"dispatch must be 'auto', 'fused' or 'blocked', got {dispatch!r}")
+    dispatch = tuner_config.resolve_dispatch(dispatch)
+    if bucket is None:
+        bucket = tuner_config.bucket_caps_enabled()
     if backend == "dot":
         _check_dot_dtype(sr, A.dtype)
     lrA, lcB = A.local_rows, B.local_cols
@@ -1339,7 +1362,7 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
     spgemm_windowed.last_plan = plan
     over = int(overflow)
     if over > 0:  # the caps are symbolic upper bounds: an overflow is a fault
-        raise RuntimeError(f"windowed tier overflowed its symbolic bound by {over}")
+        raise CapacityOverflowError(f"windowed tier overflowed its symbolic bound by {over}")
     return C
 
 
@@ -1350,10 +1373,11 @@ spgemm_windowed.last_plan = None
 
 
 def resolve_spgemm_backend(backend: str | None = None) -> str:
-    """The windowed tier's accumulate backend: the explicit argument, else
-    the platform default, ``"scatter"`` (the reference's default on every
-    platform but the TPU, which has no scatter unit). The environment knob
-    waits for the port of ``tuner/`` (ROADMAP.md, queue 1, item 13)."""
+    """The windowed tier's accumulate backend: the explicit argument >
+    ``COMBBLAS_SPGEMM_BACKEND`` > ``"scatter"`` (the reference's default on
+    every platform but the TPU, which has no scatter unit)."""
+    if backend is None:
+        backend = tuner_config.env_backend()
     backend = "scatter" if backend is None else backend
     if backend not in ("dot", "scatter"):
         raise ValueError(f"backend must be 'dot' or 'scatter', got {backend!r}")
@@ -1454,8 +1478,8 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
                 oracle: bool = False, assume_unique: bool = False, ring: bool | None = None,
                 pipeline: bool | None = None, dispatch: str | None = None,
                 merge: str | None = None, grid3=None) -> SpParMat:
-    """Sparse-output SpGEMM ``C = A ⊗ B`` through the tier
-    ``choose_spgemm_tier`` picks, or ``tier``:
+    """Sparse-output SpGEMM ``C = A ⊗ B`` through the tier that the routing
+    below resolves:
 
       ``"esc"``       ``spgemm`` (``merge``: sort or runs);
       ``"scan"``      ``spgemm_scan`` (``out_capacity``, ``slack``,
@@ -1478,10 +1502,77 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
                       ``backend``, ``mode``, ``slack``, ``merge``, ``ring``,
                       ``pipeline``), the result back on A's grid.
 
-    Env knobs and the plan store wait for the port of ``tuner/``."""
+    Routing (the precedence documented in ``tuner/config.py``): the
+    explicit ``tier`` > the **plan store** (a measured plan remembered for
+    this (shape bucket, density band, semiring, backend, grid, grid3,
+    platform) key, ``tuner.store``; vetted: a tier the router does not
+    serve, ``windowed3d`` without ``grid3``, and ``mxu`` on operands with
+    duplicate entries unless ``assume_unique`` are discarded) >
+    ``COMBBLAS_SPGEMM_TIER`` > the **probe** (``COMBBLAS_TUNER_PROBE=1``,
+    2D only: ``tuner.probe.probe_spgemm`` measures the admissible rungs on
+    a bounded proxy and persists the winner) > ``choose_spgemm_tier``. The
+    store is asked only when it holds entries or probing is on (the key
+    costs one host nnz readback per operand). A record replays its
+    ``block_rows`` / ``block_cols``, ``dispatch``, ``ring``, ``pipeline``
+    and ``merge``, each only where the argument is ``None``; the
+    environment's block geometry (``COMBBLAS_SPGEMM_BLOCK_ROWS`` /
+    ``_BLOCK_COLS``) fills in after the record. The call that probes does
+    not apply the probe's geometry; the next call, from the store, does.
+    ``spgemm_auto.last_run`` records ``tier``, ``plan_source`` (``arg``,
+    ``store``, ``env``, ``probe`` or ``heuristic``) and ``merge_source``."""
+    plan_source = "arg" if tier is not None else None
+    merge_source = "arg" if merge is not None else None
+    store = key = rec = None
+    if tier is None:
+        store = tuner_store.get_store()
+        if store is not None and (store.entries() > 0 or tuner_config.probe_enabled()):
+            key = tuner_store.spgemm_plan_key(sr, A, B, resolve_spgemm_backend(backend),
+                                              grid3=grid3)
+            rec = store.lookup(key)
+        # vet the remembered plan before trusting it; a rejected record
+        # degrades down the chain
+        if rec is not None and rec.tier not in TIERS:
+            rec = None  # e.g. a serve-lane record under a mangled key
+        if rec is not None and rec.tier == "windowed3d" and grid3 is None:
+            rec = None  # a 3D plan is unusable without a layered grid
+        if (rec is not None and rec.tier == "mxu" and not assume_unique
+                and (coo_has_duplicates(A) or (B is not A and coo_has_duplicates(B)))):
+            # the record was measured on SOME input of this bucket, not
+            # necessarily a duplicate-free one
+            rec = None
+        if rec is not None:
+            tier, plan_source = rec.tier, "store"
+            block_rows = rec.block_rows if block_rows is None else block_rows
+            block_cols = rec.block_cols if block_cols is None else block_cols
+            dispatch = rec.dispatch if dispatch is None else dispatch
+            ring = rec.ring if ring is None else ring
+            pipeline = rec.pipeline if pipeline is None else pipeline
+            if merge is None and rec.merge is not None:
+                merge, merge_source = rec.merge, "store"
+    # the environment's geometry fills in AFTER the record
+    if block_rows is None:
+        block_rows = tuner_config.env_block_rows()
+    if block_cols is None:
+        block_cols = tuner_config.env_block_cols()
+    if tier is None:
+        tier = tuner_config.env_tier()
+        if tier is not None:
+            plan_source = "env"
+    if tier is None and store is not None and grid3 is None and tuner_config.probe_enabled():
+        from ..tuner.probe import probe_spgemm
+
+        prec = probe_spgemm(sr, A, B, backend=resolve_spgemm_backend(backend), store=store,
+                            key=key)
+        if prec is not None:
+            tier, plan_source = prec.tier, "probe"
     if tier is None:
         tier = choose_spgemm_tier(sr, A, B, backend=backend, assume_unique=assume_unique,
                                   grid3=grid3)
+        plan_source = "heuristic"
+    spgemm_auto.last_run = {"tier": tier, "plan_source": plan_source,
+                            "merge_source": merge_source}
+    ring = False if ring is None else bool(ring)
+    pipeline = True if pipeline is None else bool(pipeline)
     if tier == "windowed3d":
         if grid3 is None:
             raise ValueError("tier='windowed3d' needs a grid3 (the layered mesh)")
@@ -1491,18 +1582,17 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
         B3 = SpParMat3D.from_spmat(B, grid3, split="row")
         C3 = spgemm3d_windowed(sr, A3, B3, block_rows=block_rows, block_cols=block_cols,
                                backend=backend, mode=mode, slack=slack, merge=merge,
-                               ring=bool(ring), pipeline=pipeline is None or bool(pipeline))
+                               ring=ring, pipeline=pipeline, merge_source=merge_source)
         return C3.to_spmat(A.grid)
     if tier == "esc":
-        return spgemm(sr, A, B, slack, merge=merge)
+        return spgemm(sr, A, B, slack, merge=merge, merge_source=merge_source)
     if tier == "scan":
         return spgemm_scan(sr, A, B, out_capacity=out_capacity, slack=slack,
                            max_retries=max_retries)
     if tier == "windowed":
         return spgemm_windowed(sr, A, B, block_rows=block_rows, block_cols=block_cols,
                                backend=backend, mode=mode, slack=slack, oracle=oracle,
-                               ring=bool(ring), pipeline=pipeline is None or bool(pipeline),
-                               dispatch=dispatch)
+                               ring=ring, pipeline=pipeline, dispatch=dispatch)
     if tier != "mxu":
         raise ValueError(f"unknown spgemm tier {tier!r}; expected one of {TIERS}")
     if out_capacity is None:
@@ -1519,3 +1609,6 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
         f"spgemm_auto still overflowing by {over} after {max_retries} "
         "retries; pass an explicit out_capacity"
     )
+
+
+spgemm_auto.last_run = None

@@ -16,11 +16,10 @@ propagation, embedding smoothing).
     accumulator with the semiring's scatter (sum, min or max).
   * ``spmm_khop``: k chained hops, optionally row-normalised.
 
-The tiles of a grid live on one device and are walked in loops. The
-reference resolves ``dist_spmm``'s backend through its tuner (plan store,
-environment, probe, heuristic); the tuner is not ported (ROADMAP.md,
-queue 1, item 13), so here the chain is ``backend=`` argument >
-heuristic. ``pipeline`` is accepted and changes nothing: there is no
+The tiles of a grid live on one device and are walked in loops.
+``dist_spmm`` and ``spmm_khop`` resolve the backend through the tuner's
+chain (``resolve_spmm_backend``: argument, plan store, environment,
+probe on the real operands, heuristic). ``pipeline`` is accepted and changes nothing: there is no
 rotation to overlap on one device, and ``ring`` keeps the carousel's
 stage order (it decides a float sum's order). Integer-valued and min/max
 results equal the reference's bit for bit; a float plus_times sum may
@@ -241,11 +240,19 @@ def summa_spmm(sr: Semiring, A: SpParMat, X: DenseParMat, *, backend: str = "mxu
 
 def resolve_spmm_backend(sr: Semiring, E, feat_width: int, backend: str | None = None,
                          X: DistMultiVec | None = None) -> str:
-    """The SpMM backend: an explicit ``backend`` (checked exact for
-    ``sr``), else the only admissible one, else the heuristic. The
-    reference's plan store, environment knob and probe rungs wait for the
-    tuner (ROADMAP.md, queue 1, item 13); ``E``, ``feat_width`` and ``X``
-    are their inputs and go unused here."""
+    """The SpMM backend through the tuner's chain: an explicit ``backend``
+    (checked exact for ``sr``) > the plan store (``op="spmm"``, the
+    feature-width bucket in the key's third shape slot) >
+    ``COMBBLAS_SPMM_BACKEND`` > the probe (``COMBBLAS_TUNER_PROBE=1`` and
+    ``X`` given: both admissible backends measured on the real operands,
+    ``tuner.probe.probe_spmm``) > the heuristic (plus_times →
+    ``mxu_gather``, else ``scatter``). A semiring with one exact backend
+    short-circuits. A backend from the environment that is not admissible
+    raises ``ValueError`` naming the knob."""
+    from ..tuner import config as tuner_config
+    from ..tuner import store as tuner_store
+    from ..tuner.resolve import resolve_tier
+
     allowed = admissible_spmm_backends(sr)
     if backend is not None:
         if backend not in allowed:
@@ -254,4 +261,24 @@ def resolve_spmm_backend(sr: Semiring, E, feat_width: int, backend: str | None =
         return backend
     if len(allowed) == 1:
         return allowed[0]
-    return spmm_backend_heuristic(sr)
+    store = tuner_store.get_store()
+    key = None
+    if store is not None and (store.entries() > 0 or tuner_config.probe_enabled()):
+        key = tuner_store.spmm_plan_key(sr, E, feat_width)
+    probe = None
+    if X is not None:
+        def probe():
+            from ..tuner.probe import probe_spmm
+
+            return probe_spmm(sr, E, X, store=store, key=key)
+
+    tier, source, _ = resolve_tier(key, allowed=allowed,
+                                   heuristic=lambda: spmm_backend_heuristic(sr), op="spmm",
+                                   store=store, probe=probe)
+    if tier not in allowed:
+        raise ValueError(
+            f"resolved SpMM backend {tier!r} (source: {source}) is "
+            f"not admissible for {sr.name} — COMBBLAS_SPMM_BACKEND "
+            f"takes one of {allowed}"
+        )
+    return tier

@@ -1,7 +1,8 @@
-"""Checkpoints of distributed objects as ``.npz`` — counterpart of the
-first part of ``combblas_tpu/utils/checkpoint.py`` (``save``, ``load``,
+"""Checkpoints of distributed objects — counterpart of the ``.npz`` and
+sharded parts of ``combblas_tpu/utils/checkpoint.py`` (``save``, ``load``,
 ``_restore_vec``, ``_npz_to_tuples``: ≈ ParallelBinaryWrite, rebuilt from
-files as the reference does).
+files as the reference does; ``save_sharded`` / ``load_sharded``, the
+twins of ``save_orbax`` / ``load_orbax``).
 
 A file holds the tile arrays (``rows``, ``cols``, ``vals``, ``nnz`` of an
 ``SpParMat``; ``blocks`` of a ``DistVec``) and a ``__meta__`` JSON of the
@@ -9,13 +10,19 @@ kind, dims and grid, written by ``np.savez_compressed`` with the
 reference's names, dtypes and JSON, so each package loads the other's
 files. A load onto a grid of the saved shape puts the arrays on the
 grid's device verbatim; onto another shape it rebuilds from global tuples.
-The reference's orbax checkpoints (item 13a) and its version snapshots
-(items 14 and 15) are not ported yet.
+
+The sharded form (``save_sharded``) writes a directory: one ``torch.save``
+file per tile of each array (``<name>.<i>.<j>.pt`` for an ``SpParMat``,
+``blocks.<i>.pt`` for a ``DistVec``) and the reference's
+``cbtpu_meta.json``. The reference writes the same arrays through orbax,
+which the port does not use. The reference's version snapshots (ROADMAP
+items 14 and 15) are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import warnings
 
 import numpy as np
@@ -139,3 +146,64 @@ def _npz_to_tuples(z, meta):
             cs.append(C[i, j, m].astype(np.int64) + j * lc)
             vs.append(V[i, j, m])
     return np.concatenate(rs), np.concatenate(cs), np.concatenate(vs)
+
+
+# --- sharded (one file per tile) ----------------------------------------------
+
+
+_META_FILE = "cbtpu_meta.json"
+
+
+def _tile_arrays(obj, meta: dict) -> dict:
+    if meta["kind"] == "SpParMat":
+        return {"rows": obj.rows, "cols": obj.cols, "vals": obj.vals, "nnz": obj.nnz}
+    return {"blocks": obj.blocks}
+
+
+def save_sharded(path: str, obj) -> None:
+    """Write an ``SpParMat`` or ``DistVec`` into the directory ``path``:
+    one ``torch.save`` file per tile of each array and the
+    ``cbtpu_meta.json`` sidecar. Twin of the reference's ``save_orbax``
+    (which writes the same arrays through orbax)."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    meta = _meta_of(obj)
+    for name, arr in _tile_arrays(obj, meta).items():
+        for idx in np.ndindex(*arr.shape[: 2 if meta["kind"] == "SpParMat" else 1]):
+            # clone: torch.save of a view writes its whole storage
+            torch.save(arr[idx].detach().clone().cpu(),
+                       os.path.join(path, ".".join([name, *map(str, idx)]) + ".pt"))
+    with open(os.path.join(path, _META_FILE), "w") as f:
+        json.dump(meta, f)
+
+
+def _load_tiles(path: str, name: str, lead: tuple, device) -> torch.Tensor:
+    tiles = [torch.load(os.path.join(path, ".".join([name, *map(str, idx)]) + ".pt"),
+                        map_location=device, weights_only=True)
+             for idx in np.ndindex(*lead)]
+    return torch.stack(tiles).reshape(*lead, *tiles[0].shape)
+
+
+def load_sharded(path: str, grid: Grid, fill=None):
+    """Load a ``save_sharded`` directory onto ``grid``: an ``SpParMat``
+    onto a grid of the saved shape only (the reference's ``load_orbax``
+    rule; ``save`` / ``load`` restore across shapes), a ``DistVec`` onto
+    any grid through ``_restore_vec``."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, _META_FILE)) as f:
+        meta = json.load(f)
+    pr, pc = meta["grid"]
+    if meta["kind"] == "SpParMat":
+        if meta["grid"] != [grid.pr, grid.pc]:
+            raise ValueError(
+                "orbax path restores onto the same grid shape; use save/load "
+                "(.npz) for cross-shape restore"
+            )
+        arrays = {name: _load_tiles(path, name, (pr, pc), grid.device)
+                  for name in ("rows", "cols", "vals", "nnz")}
+        return SpParMat(**arrays, nrows=meta["nrows"], ncols=meta["ncols"], grid=grid)
+    if meta["kind"] == "DistVec":
+        pa = pr if meta["align"] == "row" else pc
+        blocks = _load_tiles(path, "blocks", (pa,), "cpu").numpy()
+        return _restore_vec(blocks, meta, grid, fill)
+    raise TypeError(meta["kind"])

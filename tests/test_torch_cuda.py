@@ -12,8 +12,12 @@ read onto the grid and a checkpoint round trip), and the 3D tier (the
 conversions and resplits, the ESC 3D product under each fiber merge tier
 with ``hash_merge``, the windowed 3D product on both backends with K1's
 launches, the routed ``windowed3d`` and the 3D MCL) on the card against the
-same calls on the CPU. Marked
-``cuda``; they skip where there is no card.
+same calls on the CPU, and the measured-plan tuner (the probe picks a rung
+on the card with K1's launches counted and nothing skipped, then the store
+replays it; the dot backend's windowed rung, the SpMM and the 3D probes).
+Marked ``cuda``; they skip where there is no card. The module runs under a
+fresh plan store of its own with probing off, so the routed calls take
+their tiers from the code, not from an ambient store.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch (``tests/conftest.py`` imports JAX, hence
@@ -32,6 +36,8 @@ K * 2**-24 * sum|a||b| per cell, and the SpMV's ``plus_times`` on
 non-integer data to the CPU's result within ``rtol=1e-5, atol=1e-6``
 (``index_add_`` on CUDA sums in no fixed order).
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -118,6 +124,25 @@ from combblas_tpu_torch.ops.spmv import spmspv, spmspv_dense_out, spmv
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, _kernel
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plan_store(tmp_path_factory):
+    """A fresh plan store for the module, probing off; removed at the end."""
+    from combblas_tpu_torch.tuner import config as tuner_config
+    from combblas_tpu_torch.tuner import store as tuner_store
+
+    d = tmp_path_factory.mktemp("plans")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(tuner_config.ENV_PLAN_STORE, str(d))
+        for name in (tuner_config.ENV_PROBE, tuner_config.ENV_TIER, tuner_config.ENV_BACKEND,
+                     tuner_config.ENV_TIER3D, tuner_config.ENV_MERGE,
+                     tuner_config.ENV_SPMM_BACKEND):
+            mp.delenv(name, raising=False)
+        tuner_store._reset_for_tests()
+        yield d
+    tuner_store._reset_for_tests()
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture
@@ -1565,3 +1590,97 @@ def test_mcl_3d_on_card_matches_cpu(cuda_device):
             out.append((lab.blocks.cpu(), it))
             assert ch < 1e-3
         assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+
+
+# --- the measured-plan tuner ---------------------------------------------------------
+
+from combblas_tpu_torch.parallel import spmm as spmm_mod  # noqa: E402
+from combblas_tpu_torch.tuner import config as tuner_config  # noqa: E402
+from combblas_tpu_torch.tuner import probe as tuner_probe  # noqa: E402
+from combblas_tpu_torch.tuner import store as tuner_store  # noqa: E402
+
+
+@pytest.fixture
+def probe_store(monkeypatch, tmp_path):
+    """Probing on, into an empty store of the test's own."""
+    monkeypatch.setenv(tuner_config.ENV_PLAN_STORE, str(tmp_path / "plans"))
+    monkeypatch.setenv(tuner_config.ENV_PROBE, "1")
+    tuner_store._reset_for_tests()
+    yield tuner_store.get_store()
+    tuner_store._reset_for_tests()
+
+
+def _probe_graph(dev, sr, p=1):
+    n = 1 << 8
+    r, c = rmat_symmetric_coo_host(3, 8, 8)
+    v = np.random.default_rng(7).integers(1, 16, r.shape[0]).astype(np.float32)
+    return SpParMat.from_global_coo(Grid.make(p, p, device=dev), r, c, v, n, n, dedup_sr=sr)
+
+
+@pytest.mark.parametrize("backend", ["scatter", "dot"])
+def test_probe_on_card_picks_a_rung_then_store_replays(backend, probe_store, monkeypatch,
+                                                       cuda_device):
+    """``spgemm_auto`` with the probe on: the rungs are measured on the card
+    (K1 launches in the mxu rung, and under the dot backend in the windowed
+    rung and its geometry sweep), nothing is skipped, the winner is
+    persisted under a ``platform: "cuda"`` key and its product equals the
+    CPU's at that tier; the next call replays it from the store without
+    probing, also after a reload from the file."""
+    monkeypatch.setenv(tuner_config.ENV_BACKEND, backend)
+    A = _probe_graph(cuda_device, MIN_PLUS)
+    before = semiring_matmul.launches
+    got = spgemm_auto(MIN_PLUS, A, A)
+    run = spgemm_auto.last_run
+    assert run["plan_source"] == "probe"
+    assert tuner_probe.probe_spgemm.last_errors == []
+    assert semiring_matmul.launches > before
+    costs = tuner_probe.probe_spgemm.last_costs["tiers"]
+    assert set(costs) == {"mxu", "windowed", "scan"} and run["tier"] == min(costs, key=costs.get)
+    st = probe_store.stats()
+    assert st["entries"] == 1 and st["probe_runs"] >= 3 and st["probe_seconds"] > 0
+    key = tuner_store.spgemm_plan_key(MIN_PLUS, A, A, backend)
+    assert key.platform == "cuda" and probe_store.peek(key).tier == run["tier"]
+    Acpu = _probe_graph("cpu", MIN_PLUS)
+    monkeypatch.setenv(tuner_config.ENV_PLAN_STORE, "0")
+    want = spgemm_auto(MIN_PLUS, Acpu, Acpu, tier=run["tier"])
+    for a, b in zip(_mat_fields(want), _mat_fields(got)):
+        _same(a, b)
+    monkeypatch.setenv(tuner_config.ENV_PLAN_STORE, probe_store.path)
+    again = spgemm_auto(MIN_PLUS, A, A)
+    assert spgemm_auto.last_run["plan_source"] == "store"
+    assert probe_store.stats()["probe_runs"] == st["probe_runs"]
+    assert probe_store.stats()["hits"] == st["hits"] + 1
+    tuner_store._reset_for_tests()
+    spgemm_auto(MIN_PLUS, A, A)
+    assert spgemm_auto.last_run["plan_source"] == "store"
+    assert tuner_store.get_store().stats()["hits"] == 1
+    del again
+
+
+def test_spmm_and_3d_probes_on_card(probe_store, cuda_device):
+    """``resolve_spmm_backend`` with ``X`` measures both backends on the
+    card and the next call replays the winner; ``spgemm3d`` probes its
+    (tier, merge) candidates and its product equals the CPU's at the
+    winning pair; nothing is skipped."""
+    n = 256
+    r, c = rmat_symmetric_coo_host(5, 8, 8)
+    X = np.random.default_rng(2).integers(0, 3, (n, 16)).astype(np.float32)
+    E = EllParMat.from_host_coo(Grid.make(1, 1, device=cuda_device), r, c,
+                                np.ones(len(r), np.float32), n, n)
+    Xd = DistMultiVec.from_global(E.grid, X, align="col")
+    backend = spmm_mod.resolve_spmm_backend(PLUS_TIMES, E, 16, X=Xd)
+    assert tuner_probe.probe_spmm.last_errors == []
+    assert set(tuner_probe.probe_spmm.last_costs) == {"mxu_gather", "scatter"}
+    runs = probe_store.stats()["probe_runs"]
+    assert spmm_mod.resolve_spmm_backend(PLUS_TIMES, E, 16) == backend
+    assert probe_store.stats()["probe_runs"] == runs
+    mats = [_mats3(dev) for dev in ("cpu", cuda_device)]
+    got = mesh3d_mod.spgemm3d(MIN_PLUS, *mats[1])
+    run = dict(mesh3d_mod.spgemm3d.last_run)
+    assert run["plan_source"] == "probe" and tuner_probe.probe_spgemm3d.last_errors == []
+    rec = probe_store.peek(tuner_store.spgemm3d_plan_key(MIN_PLUS, *mats[1], ""))
+    want = mesh3d_mod.spgemm3d(MIN_PLUS, *mats[0], tier=rec.tier, merge=rec.merge)
+    for a, b in zip(_mat3_fields(want), _mat3_fields(got)):
+        _same(a, b)
+    mesh3d_mod.spgemm3d(MIN_PLUS, *mats[1])
+    assert mesh3d_mod.spgemm3d.last_run["plan_source"] == "store"

@@ -21,7 +21,8 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "parallel.spmv", "parallel.dense", "parallel.indexing", "parallel.spmm",
            "semantic", "utils.graph500", "utils.rmat", "utils.threefry", "utils.refgen21",
            "parallel.redistribute", "parallel.collectives", "parallel.mesh3d", "models.graph500", "io", "io.mm",
-           "io.labels", "utils.checkpoint"}
+           "io.labels", "utils.checkpoint", "utils.compile_cache", "tuner", "tuner.config",
+           "tuner.store", "tuner.resolve", "tuner.probe"}
 
 
 def test_import_pulls_in_no_jax():
