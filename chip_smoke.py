@@ -201,8 +201,10 @@ Phases (each prints one JSON line):
      router answers windowed3d, the result on the 2D grid equals step 1's;
      timed beside the 2D windowed route. (3) Phase 11's scale-15 recipe
      through ``spgemm3d_windowed(backend="dot")``, min_plus and max_min,
-     bit for bit equal to the scatter backend and to the 2D dot backend;
-     K1 launched layers x tiles x stages x live windows a call; K1 at the
+     bit for bit equal to the scatter backend and to the 2D dot backend
+     (phase 11's products of the same operands, kept on the host: the 2D
+     product is not run again here); K1 launched layers x tiles x stages x
+     live windows a call; K1 at the
      layer's window shape held against its plain version. (4) Phase 8's
      scale-20 matrix onto 2 x 2 x 2 col- and row-split, ``resplit3d`` both
      ways and back to 1 x 1: the key and value set unchanged. (5) Phase
@@ -236,11 +238,37 @@ Phases (each prints one JSON line):
      (tier, merge) candidates measured on the real operands, the winner
      replayed from the store, the product equal to phase 14's ESC sort
      result. K2 never runs.
+ 16. obs, the telemetry (at most 40 s; ``combblas_tpu_torch.obs``): (1)
+     phase 5's min_plus ``spgemm_auto`` (mxu) with obs off, on, and on with
+     ``DEVICE_SYNC``: the products bit for bit equal, K1 twice each, the
+     same device kernels in ``torch.profiler`` traces off and on (a mode
+     whose trace shows fewer is traced again, 8 traces at most: the
+     profiler drops device records here) and the same synchronising calls
+     (``torch.cuda.set_sync_debug_mode("warn")``) off and on, traced and
+     not, ``DEVICE_SYNC`` adding exactly the readback of
+     ``spgemm.realized_nnz``; ``spgemm.auto.tier{tier=mxu, sr=min_plus}``
+     1, ``spgemm.mxu.overflow_retries`` 1 (the second attempt),
+     ``spgemm.realized_nnz`` nnz(C); the call's ms with obs off and on, in
+     turns; (2) the ``spgemm.auto`` range around K1's two kernels on the
+     profiler's timeline, and ``timers.trace`` writing a trace that names
+     it; (3) ``bfs_levels_instrumented`` on phase 8's ELL layout from 4
+     roots: levels equal to a numpy BFS, the frontier events equal to its
+     level sizes, ``spmv.dispatch`` one a hop, ms a hop beside ``bfs``'s
+     ms a level on the same roots; (4) phase 15's probe of the scale-13
+     product with obs on, in a fresh store: the ``tuner.probe.*``,
+     ``tuner.store.*`` and ``spgemm.auto.plan_source`` series of the
+     probing call and the replay, K1's launches the candidates' plus the
+     product's; (5) on the host: ``dump_jsonl`` -> ``parse_jsonl`` ->
+     ``aggregate`` and ``export.render`` -> ``parse_exposition`` equal to
+     the registry, one fetch from a ``ScrapeServer`` on 127.0.0.1, a
+     ``FlightRecorder`` dump and a ``FleetLog`` read back, and
+     ``psum_counters`` on a 2 x 2 grid's counters on the card against
+     numpy. Files in ``build/chip_smoke_obs``, removed. K2 never runs.
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
-spgemm_windowed, apps, graph_input, mesh3d, tuner) and, last,
+spgemm_windowed, apps, graph_input, mesh3d, tuner, obs) and, last,
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -367,7 +395,12 @@ from combblas_tpu_torch import (
     upload_csc_companion,
     validate_bfs_device,
 )
-from combblas_tpu_torch import _build
+from combblas_tpu_torch import _build, obs
+from combblas_tpu_torch.models.bfs import bfs_levels_instrumented
+from combblas_tpu_torch.obs import export as obs_export
+from combblas_tpu_torch.obs.fleetlog import FleetLog
+from combblas_tpu_torch.obs.recorder import FlightRecorder
+from combblas_tpu_torch.utils import timers
 from combblas_tpu_torch.ops.dense_to_tuples import _PANEL_ROWS, _panels
 from combblas_tpu_torch.ops.dense_to_tuples import VARIANTS as K2_VARIANTS
 from combblas_tpu_torch.ops.semiring_matmul import KINDS, TILE, main_loop_counts
@@ -1876,7 +1909,7 @@ def phase_bfs_path(dev, t_start: float, scale: int = BFS_SCALE,
     emit({"phase": "spmat_path", "step": "spmat_checks", "hand_kernel_launches": hand_launches,
           "total_s": time.perf_counter() - t_start})
     return {"lines": lines, "programs": programs, "single": single, "spmat": spmat, "g": g,
-            "E": E}
+            "E": E, "csr_host": {"indptr": indptr[0, 0], "cols": rowidx[0, 0]}}
 
 
 # --- phase 10: the general SpGEMM, the elementwise layer, TC and BC ----------
@@ -2455,16 +2488,17 @@ def hold_k1(kind: str, da: torch.Tensor, panel: torch.Tensor) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound(m, k, n)[0]}
 
 
-def step_windowed_dot(dev) -> tuple[dict, dict]:
+def step_windowed_dot(dev) -> tuple[dict, dict, dict]:
     """Step 2: R-MAT scale 15 on 2×2 (16384-wide tiles) through
     ``spgemm_windowed(backend="dot")``: equal to the scatter backend and to
     ``spgemm`` (sort); K1 launches equal to tiles × stages × live windows a
     call; the carousel once for min_plus; K1 at the window shape held
     against its plain version for min_plus and max_min. Returns (lines, K1
-    launches by kind)."""
+    launches by kind, the tropical products' live entries on the host, which
+    phase 14's 3D dot step holds its products against)."""
     grid = Grid.make(WIN_DOT_GRID, WIN_DOT_GRID, device=dev)
     p = WIN_DOT_GRID
-    lines, k1 = {}, {}
+    lines, k1, host = {}, {}, {}
     for sr in (MIN_PLUS, MAX_MIN, PLUS_TIMES):
         _, _, _, A = weighted_rmat(WIN_DOT_SCALE, dev, grid, sr)
         ref = live_entries(spgemm(sr, A, A))
@@ -2503,11 +2537,12 @@ def step_windowed_dot(dev) -> tuple[dict, dict]:
         if sr is not PLUS_TIMES:
             line["k1_window_shape"] = k1_at_window_shape(sr, A, plan)
             k1[sr.name] = launched
+            host[sr.name] = tuple(t.cpu() for t in got)
         emit(line)
         lines[sr.name] = line
         del A, ref, got
         torch.cuda.empty_cache()
-    return lines, k1
+    return lines, k1, host
 
 
 def step_windowed_local(dev, mxu13: dict) -> tuple[dict, dict]:
@@ -2625,7 +2660,7 @@ def phase_spgemm_windowed(dev, t_start: float, aa: dict, mxu13: dict, A20: SpPar
     aa_w = timed("aa16", step_windowed_aa16, dev, aa)
     if semiring_matmul.launches:
         raise AssertionError("the scatter backend launched K1")
-    dot, k1_dot = timed("dot", step_windowed_dot, dev)
+    dot, k1_dot, dot_host = timed("dot", step_windowed_dot, dev)
     local, k1_local = timed("local", step_windowed_local, dev, mxu13)
     sem = timed("semantic", step_semantic, dev, A20, g)
     k1 = {kind: k1_dot[kind] + k1_local[kind] for kind in k1_dot}
@@ -2634,7 +2669,8 @@ def phase_spgemm_windowed(dev, t_start: float, aa: dict, mxu13: dict, A20: SpPar
         raise AssertionError(f"spgemm_windowed launched {launches}; its plans say K1 {k1}, K2 0")
     emit({"phase": "spgemm_windowed", "step": "checks", "hand_kernel_launches": launches,
           "k1_by_semiring": k1, "step_s": step_s, "total_s": time.perf_counter() - t_start})
-    return {"aa16": aa_w, "dot": dot, "local": local, "semantic": sem, "k1": k1}
+    return {"aa16": aa_w, "dot": dot, "local": local, "semantic": sem, "k1": k1,
+            "dot_host": dot_host}
 
 
 # --- phase 12: the applications (MCL, matchings, orderings, SpMM) --------------
@@ -3808,14 +3844,14 @@ def k1_at_layer_window_shape(sr, A3, B3, plan: dict) -> dict:
     return hold_k1(_PALLAS_KINDS[sr.name], da, panel)
 
 
-def step_dot3d(dev, esc: dict) -> tuple[dict, dict]:
+def step_dot3d(dev, esc: dict, dot2d_host: dict) -> tuple[dict, dict]:
     """Step 3: phase 11's scale-15 recipe on 2×2×2 through
     ``spgemm3d_windowed(backend="dot")`` for min_plus and max_min: bit for
-    bit equal to the scatter backend and to the 2D dot backend on 2×2; K1
-    launched layers × tiles × stages × live windows a call; K1 at the
-    layer's window shape held against its plain version. The 2D
-    comparison's launches are not counted. Returns (lines, K1 launches by
-    semiring)."""
+    bit equal to the scatter backend and to the 2D dot backend on 2×2
+    (``dot2d_host``: phase 11's products of the same operands, kept on the
+    host, uploaded here); K1 launched layers × tiles × stages × live
+    windows a call; K1 at the layer's window shape held against its plain
+    version. Returns (lines, K1 launches by semiring)."""
     g3, grid = esc["grid3"], esc["grid2"]
     per_device = M3_LAYERS * M3_P * M3_P * M3_P  # layers × tiles × stages
     lines, k1 = {}, {}
@@ -3826,8 +3862,7 @@ def step_dot3d(dev, esc: dict) -> tuple[dict, dict]:
             _, _, _, A = weighted_rmat(WIN_DOT_SCALE, dev, grid, sr)
             A3, B3 = SpParMat3D.from_spmat(A, g3, "col"), SpParMat3D.from_spmat(A, g3, "row")
         counted = semiring_matmul.launches
-        ref = live_entries(spgemm_windowed(sr, A, A, backend="dot"))
-        semiring_matmul.launches = counted  # the 2D comparison is not the path
+        ref = tuple(t.to(dev) for t in dot2d_host[sr.name])
         scatter, sc_ms, sc_peak = step_times(
             lambda: spgemm3d_windowed(sr, A3, B3, backend="scatter"), live_entries3, M3_REPS)
         if semiring_matmul.launches != counted or not same_entries(scatter, ref):
@@ -4032,7 +4067,7 @@ def step_mcl3d(dev) -> dict:
     return out
 
 
-def phase_mesh3d(dev, t_start: float, A20: SpParMat) -> dict:
+def phase_mesh3d(dev, t_start: float, A20: SpParMat, dot2d_host: dict) -> dict:
     """Phase 14 (module docstring): steps 1-5 with K1's and K2's launch
     counts set to 0 just before and read just after. K1 runs only in step
     3's dot calls, as their plans say; K2 never."""
@@ -4056,7 +4091,7 @@ def phase_mesh3d(dev, t_start: float, A20: SpParMat) -> dict:
     routed = timed("routed", step_routed3d, dev, esc)
     if semiring_matmul.launches:
         raise AssertionError("the 3D scatter backend launched K1")
-    dot, k1 = timed("dot3d", step_dot3d, dev, esc)
+    dot, k1 = timed("dot3d", step_dot3d, dev, esc, dot2d_host)
     # step 1's min_plus product, kept on the host for phase 15
     ref_host = tuple(t.cpu() for t in esc["ref"])
     for key in ("A", "A3", "B3", "ref"):
@@ -4407,6 +4442,407 @@ def phase_tuner(dev, t_start: float, mxu_min: tuple, E_host: tuple, m3: dict) ->
             "k1": {"min_plus": k1, "max_min": 0}}
 
 
+# --- phase 16: telemetry (obs) -------------------------------------------------------
+
+OBS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_obs"
+OBS_CAP_S = 40.0  # the phase's time budget
+OBS_BFS_ROOTS = 4
+OBS_REPS = 3  # timed calls after the warm-up, obs off and on
+OBS_TRACES = 8  # profiler traces of a mode at most (records can be dropped)
+
+
+def count_syncs(fn):
+    """(result, synchronising calls) of ``fn``, counted as the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+
+
+def profiled(fn):
+    """(result, profiler) of one call of ``fn`` under ``torch.profiler``
+    (CPU and CUDA), the device synchronised inside the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def device_kernels(prof, span_names: set) -> list:
+    """The kernels of a trace: device records, less copies and fills and
+    less the ranges that ``record_function`` spans leave on the device's
+    timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in span_names
+            and not e.name.startswith(("Memcpy", "Memset", "Activity Buffer"))]
+
+
+def same_tiles_bits(a: SpParMat, b: SpParMat) -> bool:
+    """Every array of two products equal, padding slots included, values by
+    their bits."""
+    return (a.capacity == b.capacity and torch.equal(a.rows, b.rows)
+            and torch.equal(a.cols, b.cols) and torch.equal(a.nnz, b.nnz)
+            and torch.equal(a.vals.view(torch.int32), b.vals.view(torch.int32)))
+
+
+def obs_series(prefixes: tuple) -> dict:
+    """The registry's series whose name starts with one of ``prefixes``,
+    as ``name{labels}`` -> value (a histogram: its count)."""
+    out = {}
+    for r in obs.registry.snapshot():
+        if r["name"].startswith(prefixes):
+            lab = ",".join(f"{k}={v}" for k, v in sorted(r["labels"].items()))
+            out[r["name"] + (f"{{{lab}}}" if lab else "")] = (
+                r["count"] if r["kind"] == "histogram" else r["value"])
+    return out
+
+
+def step_obs_contract(dev, A: SpParMat) -> dict:
+    """Steps 1 and 2: phase 5's min_plus ``spgemm_auto`` (mxu) with obs off,
+    on, and on with ``DEVICE_SYNC``: outputs bit-equal, K1 twice a call,
+    the same device kernels in the profiler's traces off and on, the same
+    synchronising calls off and on (traced and not), ``DEVICE_SYNC``
+    adding the one readback of ``spgemm.realized_nnz``; the gated series; the ``spgemm.auto`` range
+    around K1's two kernels; ``timers.trace`` naming the span; the call's
+    ms with obs off and on."""
+    def call():
+        return spgemm_auto(MIN_PLUS, A, A)
+
+    def traced(mode):
+        obs.disable()
+        obs.reset()
+        if mode != "off":
+            obs.enable(device_sync=mode == "sync", install_hooks=False)
+        k1 = semiring_matmul.launches
+        (C, syncs), prof = profiled(lambda: count_syncs(call))
+        names = {r["name"] for r in obs._spans.log}
+        run = {"C": C, "syncs": syncs, "k1": semiring_matmul.launches - k1,
+               "kernels": device_kernels(prof, names), "prof": prof,
+               "series": obs_series(("spgemm.",))}
+        obs.disable()
+        return run
+
+    # warm-up, traced and counted as below and dropped: the duplicate
+    # check's memo on A, and the first trace's one-time synchronisation
+    traced("off")
+    # The profiler drops device records on this machine (PERF.md §7), never
+    # adds any: a mode whose trace shows fewer kernels than another's is
+    # traced again, up to OBS_TRACES times, and its largest count stands.
+    # DEVICE_SYNC is held to its synchronising calls, not traced.
+    runs = {mode: [traced(mode)] for mode in ("off", "on")}
+    while True:
+        best = max(len(r["kernels"]) for rs in runs.values() for r in rs)
+        short = [m for m, rs in runs.items()
+                 if max(len(r["kernels"]) for r in rs) < best and len(rs) < OBS_TRACES]
+        if not short:
+            break
+        for m in short:
+            runs[m].append(traced(m))
+    traces = {m: [len(r["kernels"]) for r in rs] for m, rs in runs.items()}
+    # the synchronising calls again without the profiler, DEVICE_SYNC too
+    untraced = {}
+    for mode in ("off", "on", "sync"):
+        obs.reset()
+        if mode != "off":
+            obs.enable(device_sync=mode == "sync", install_hooks=False)
+        k1 = semiring_matmul.launches
+        C, syncs = count_syncs(call)
+        untraced[mode] = {"C": C, "syncs": syncs, "k1": semiring_matmul.launches - k1,
+                          "series": obs_series(("spgemm.",))}
+        obs.disable()
+    every = [r for rs in runs.values() for r in rs] + list(untraced.values())
+    C = runs["off"][0]["C"]
+    nnz = int(C.getnnz())
+    if not all(same_tiles_bits(C, r["C"]) for r in every):
+        raise AssertionError("obs: the product differs with telemetry on")
+    if any(r["k1"] != 2 for r in every):
+        raise AssertionError(f"obs: K1 launches {[r['k1'] for r in every]}, want 2 each")
+    n_kernels = {m: max(n) for m, n in traces.items()}
+    if len(set(n_kernels.values())) != 1 or n_kernels["off"] < 2:
+        raise AssertionError(f"obs: device kernels by trace {traces}")
+    sync_sets = {m: {r["syncs"] for r in rs} for m, rs in runs.items()}
+    if any(len(v) != 1 for v in sync_sets.values()) or sync_sets["on"] != sync_sets["off"]:
+        raise AssertionError(f"obs: synchronising calls in the traces {sync_sets}")
+    syncs = {m: r["syncs"] for m, r in untraced.items()}
+    if syncs["on"] != syncs["off"] or syncs["sync"] != syncs["off"] + 1:
+        raise AssertionError(f"obs: synchronising calls {syncs}")
+    runs = {m: max(rs, key=lambda r: len(r["kernels"])) for m, rs in runs.items()}
+    ser = untraced["sync"]["series"]
+    want = {"spgemm.auto.tier{sr=min_plus,tier=mxu}": 1,
+            "spgemm.mxu.overflow_retries": 1, "spgemm.realized_nnz": nnz}
+    if any(ser.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"obs: series {ser}, want {want}")
+    if untraced["on"]["series"].get("spgemm.realized_nnz") is not None:
+        raise AssertionError("obs: spgemm.realized_nnz recorded without DEVICE_SYNC")
+    # step 2: the span's range on the profiler's timeline
+    evs = runs["on"]["prof"].events()
+    spans = [e for e in evs if e.name == "spgemm.auto" and e.device_type.name == "CPU"]
+    k1_kernels = [e for e in runs["on"]["kernels"] if "semiring_mm" in e.name]
+    if len(spans) != 1 or len(k1_kernels) != 2:
+        raise AssertionError(f"obs: {len(spans)} spgemm.auto ranges, {len(k1_kernels)} K1 kernels")
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    inside = [lo <= k.time_range.start and k.time_range.end <= hi for k in k1_kernels]
+    if not all(inside):
+        raise AssertionError(f"obs: K1 kernels outside the spgemm.auto range ({inside})")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    obs.enable(install_hooks=False)
+    k1 = semiring_matmul.launches
+    with timers.trace(str(OBS_DIR / "trace")):
+        call()
+        torch.cuda.synchronize()
+    k1_trace = semiring_matmul.launches - k1
+    obs.disable()
+    files = list((OBS_DIR / "trace").iterdir())
+    body = files[0].read_text() if len(files) == 1 else ""
+    if "spgemm.auto" not in body or "semiring_mm" not in body:
+        raise AssertionError(f"obs: timers.trace wrote {files}, naming the span: "
+                             f"{'spgemm.auto' in body}")
+    # the call's time, obs off and on (DEVICE_SYNC off), in turns
+    ms = {}
+    k1 = semiring_matmul.launches
+    for mode in ("off", "on", "on", "off"):
+        obs.reset()
+        if mode == "on":
+            obs.enable(install_hooks=False)
+        ms.setdefault(mode, []).append(time_cuda_ms(call, OBS_REPS))
+        obs.disable()
+    k1_timed = semiring_matmul.launches - k1
+    if k1_timed != 4 * (1 + OBS_REPS) * 2 or k1_trace != 2:
+        raise AssertionError(f"obs: K1 launches in the timed calls {k1_timed}, trace {k1_trace}")
+    line = {"phase": "obs", "step": "contract", "nnz_out": nnz, "bit_equal": True,
+            "k1_per_call": 2, "device_kernels": n_kernels, "kernels_by_trace": traces,
+            "sync_calls": syncs, "sync_calls_traced": {m: min(v) for m, v in sync_sets.items()},
+            "series": ser, "span_encloses_k1": True,
+            "span_ms": (hi - lo) / 1e3,
+            "k1_kernel_ms": [(k.time_range.end - k.time_range.start) / 1e3 for k in k1_kernels],
+            "trace_file_names_span": True, "ms_off": ms["off"], "ms_on": ms["on"]}
+    emit(line)
+    n_calls = len(every)
+    del runs, every, untraced
+    return {"line": line, "k1": 2 * (1 + n_calls) + k1_trace + k1_timed}
+
+
+def step_obs_bfs(dev, E_host: tuple, bfs_host: dict) -> dict:
+    """Step 3: ``bfs_levels_instrumented`` on phase 8's ELL layout from its
+    first roots: levels equal to the numpy BFS, the frontier events equal to
+    its level sizes (summing to the vertices found less the root),
+    ``spmv.dispatch`` one a hop; ms a hop beside ``bfs``'s ms a level on the
+    same roots."""
+    buckets, n = E_host
+    grid = Grid.make(1, 1, device=dev)
+    E = EllParMat(buckets=tuple((bc.to(dev), torch.zeros(bc.shape, dtype=torch.int8, device=dev),
+                                 br.to(dev)) for bc, br in buckets),
+                  nrows=n, ncols=n, grid=grid)
+    indptr, cols = bfs_host["indptr"], bfs_host["cols"]
+    per_root = []
+    for root in bfs_host["roots"][:OBS_BFS_ROOTS]:
+        root = int(root)
+        want = host_bfs_levels(indptr, cols, root)
+        obs.reset()
+        obs.enable(install_hooks=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, levels, hops = bfs_levels_instrumented(E, root)
+        torch.cuda.synchronize()
+        inst_s = time.perf_counter() - t0
+        obs.disable()
+        lv = levels.to_global()
+        curve = [r["events"][0]["nnz"] for r in obs._spans.log if r["name"] == "bfs.hop"]
+        sizes = np.bincount(want[want >= 0]).tolist()[1:] + [0]
+        dispatch = obs.registry.get_counter("spmv.dispatch", kernel="dist_spmv_masked")
+        if not np.array_equal(lv, want):
+            raise AssertionError(f"obs bfs {root}: levels differ from the numpy BFS")
+        if curve != sizes or sum(curve) != int((want >= 0).sum()) - 1 or dispatch != hops:
+            raise AssertionError(f"obs bfs {root}: frontier {curve} vs {sizes}, "
+                                 f"dispatch {dispatch} vs {hops} hops")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lv2, niter = bfs(E, root)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if niter != hops or not torch.equal(lv2.blocks, levels.blocks):
+            raise AssertionError(f"obs bfs {root}: bfs gives {niter} levels, {hops} hops")
+        per_root.append({"root": root, "hops": hops, "frontier": curve,
+                         "ms_per_hop": inst_s * 1e3 / hops,
+                         "bfs_ms_per_level": plain_s * 1e3 / niter})
+    obs.reset()
+    line = {"phase": "obs", "step": "bfs_levels_instrumented", "scale": BFS_SCALE,
+            "levels_equal_numpy": True, "per_root": per_root,
+            "ms_per_hop": float(np.mean([r["ms_per_hop"] for r in per_root])),
+            "bfs_ms_per_level": float(np.mean([r["bfs_ms_per_level"] for r in per_root]))}
+    emit(line)
+    return line
+
+
+def step_obs_tuner(dev, A: SpParMat, mxu_min: tuple) -> dict:
+    """Step 4: phase 15's probe of the scale-13 min_plus product with obs on,
+    in a fresh store: the ``tuner.probe.*``, ``tuner.store.*`` and
+    ``spgemm.auto.plan_source`` series of the probing call and of the
+    replay; K1's launches: the probe's candidates (warm-up and timed) plus
+    the product, which the replay runs again."""
+    prefixes = ("tuner.probe.", "tuner.store.", "spgemm.auto.plan_source")
+    with tuner_env(ENV_PLAN_STORE=PLAN_STORE_DIR / "obs", ENV_PROBE="1"):
+        obs.reset()
+        obs.enable(install_hooks=False)
+        log: list = []
+        k1 = semiring_matmul.launches
+        with counted_measure(log):
+            C = spgemm_auto(MIN_PLUS, A, A)
+        k1_probe = semiring_matmul.launches - k1
+        probing = obs_series(prefixes)
+        src1 = spgemm_auto.last_run["plan_source"]
+        if not same_entries(tuple(t.cpu() for t in live_entries(C)), mxu_min):
+            raise AssertionError("obs tuner: the probing call differs from phase 5's product")
+        del C
+        obs.reset()
+        k1 = semiring_matmul.launches
+        spgemm_auto(MIN_PLUS, A, A)
+        k1_replay = semiring_matmul.launches - k1
+        replay = obs_series(prefixes)
+        src2 = spgemm_auto.last_run["plan_source"]
+        obs.disable()
+        obs.reset()
+    candidates = sum(w + n for w, n in log)
+    winner = [k for k in probing if k.startswith("tuner.probe.winner")]
+    if (src1, src2) != ("probe", "store") or k1_probe != candidates + k1_replay:
+        raise AssertionError(f"obs tuner: sources {src1}/{src2}, K1 {k1_probe} vs "
+                             f"{candidates} + {k1_replay}")
+    if (len(winner) != 1 or probing.get("tuner.store.misses{op=spgemm}") != 1
+            or replay.get("tuner.store.hits{op=spgemm}") != 1
+            or f"spgemm.auto.plan_source{{op=spgemm,source=probe,{winner[0][19:-1]}}}"
+            not in probing):
+        raise AssertionError(f"obs tuner: series {probing} / {replay}")
+    line = {"phase": "obs", "step": "tuner", "probing_call": probing, "replay": replay,
+            "k1_probing_call": k1_probe, "k1_candidates": candidates, "k1_replay": k1_replay}
+    emit(line)
+    return {"line": line, "k1": k1_probe + k1_replay}
+
+
+def step_obs_sinks(dev) -> dict:
+    """Step 5, on the host: the registry of the phase's last call through
+    ``dump_jsonl`` -> ``parse_jsonl(validate=True)`` -> ``aggregate``, and
+    ``export.render`` -> ``parse_exposition``, both equal to the registry;
+    one fetch from a ``ScrapeServer`` on 127.0.0.1; a ``FlightRecorder``
+    dump and a ``FleetLog`` read back; ``psum_counters`` on a 2x2 grid's
+    counter tensor on the card against numpy."""
+    import urllib.request
+
+    obs.reset()
+    obs.enable(install_hooks=False)
+    with obs.span("obs.sinks", step=5):
+        obs.count("obs.sinks.check", 3, kind="counter")
+        obs.gauge("obs.sinks.gauge", 2.5)
+        for i in range(600):
+            obs.observe("obs.sinks.hist", i / 7)
+        obs.span_event("checked", n=1)
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    path = obs.dump_jsonl(str(OBS_DIR / "obs.jsonl"))
+    recs = obs.parse_jsonl(path, validate=True)
+    agg = obs.aggregate(recs)
+    snap = obs.registry.snapshot()
+    counters = {r["name"]: r["value"] for r in snap if r["kind"] == "counter"}
+    if (recs[0]["schema"] != obs.SCHEMA or {k.split("{")[0]: v for k, v in
+                                             agg["counters"].items()} != counters
+            or agg["span_table"]["obs.sinks"][1] != 1):
+        raise AssertionError(f"obs sinks: JSONL round trip {agg['counters']} vs {counters}")
+    text = obs_export.render()
+    parsed = obs_export.parse_exposition(text)
+    for r in snap:
+        name = obs_export.metric_name(r["name"])
+        lab = obs_export._labels(r["labels"])
+        got = parsed.get((name + ("_count" if r["kind"] == "histogram" else ""), lab))
+        want = r["count"] if r["kind"] == "histogram" else r["value"]
+        if got != float(want):
+            raise AssertionError(f"obs sinks: exposition {name}{lab} = {got}, want {want}")
+    srv = obs_export.serve_scrape()
+    try:
+        body = urllib.request.urlopen(srv.url + "/metrics", timeout=10).read().decode()
+    finally:
+        srv.stop()
+    scraped = {k: v for k, v in obs_export.parse_exposition(body).items()
+               if not k[0].startswith("combblas_obs_scrape")}
+    if scraped != parsed:
+        raise AssertionError("obs sinks: the scrape differs from render()")
+    rec = FlightRecorder(capacity=8, out_dir=str(OBS_DIR / "flightrec"))
+    for i in range(10):
+        rec.record("serve.batch", batch=i, outcome="ok")
+    fr = obs.parse_jsonl(rec.dump("manual", force=True), validate=True)
+    log = FleetLog(str(OBS_DIR / "fleet.jsonl"))
+    for i in range(3):
+        log.event("spawn", replica=i)
+    fl = obs.parse_jsonl(log.path, validate=True)
+    if (fr[0]["schema"] != obs.FLIGHTREC_SCHEMA or [e["batch"] for e in fr[1:]] != list(
+            range(2, 10)) or fl[0]["schema"] != obs.FLEETLOG_SCHEMA or len(fl) != 4):
+        raise AssertionError("obs sinks: flight recorder or fleet log round trip")
+    local = torch.arange(2 * 2 * 5, dtype=torch.int64, device=dev).reshape(2, 2, 5) * 3 - 7
+    tot = obs.psum_counters(Grid.make(2, 2, device=dev), local)
+    if not np.array_equal(tot.cpu().numpy(), local.cpu().numpy().sum(axis=(0, 1))):
+        raise AssertionError("obs sinks: psum_counters differs from numpy")
+    obs.disable()
+    obs.reset()
+    line = {"phase": "obs", "step": "sinks", "jsonl_records": len(recs),
+            "exposition_lines": len(text.splitlines()), "scrape_equal": True,
+            "flightrec_events": len(fr) - 1, "fleetlog_events": len(fl) - 1,
+            "psum_counters": tot.cpu().tolist()}
+    emit(line)
+    return line
+
+
+def phase_obs(dev, t_start: float, mxu_min: tuple, E_host: tuple, bfs_host: dict) -> dict:
+    """Phase 16 (module docstring): steps 1-5 with K1's and K2's launch
+    counts set to 0 just before and read just after; K1 runs only in the
+    min_plus products of steps 1, 2 and 4."""
+    t0 = time.perf_counter()
+    emit({"phase": "obs", "step": "elapsed", "total_s": t0 - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    r, c = rmat_symmetric_coo_host(GRAPH_SEED, SCALE, EDGEFACTOR)
+    v = np.random.default_rng(WEIGHT_SEED).integers(1, 16, r.shape[0]).astype(np.float32)
+    A = SpParMat.from_global_coo(Grid.make(1, 1, device=dev), r, c, v, FULL, FULL,
+                                 dedup_sr=MIN_PLUS)
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        step_s[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return res
+
+    try:
+        contract = timed("contract", step_obs_contract, dev, A)
+        bfs_line = timed("bfs", step_obs_bfs, dev, E_host, bfs_host)
+        tuner = timed("tuner", step_obs_tuner, dev, A, mxu_min)
+        sinks = timed("sinks", step_obs_sinks, dev)
+    finally:
+        obs.disable()
+        obs.reset()
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+    del A
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    k1 = contract["k1"] + tuner["k1"]
+    if launches != {"k1": k1, "k2": 0}:
+        raise AssertionError(f"obs launched {launches}; the steps count K1 {k1}, K2 0")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "obs", "step": "checks", "hand_kernel_launches": launches,
+          "k1_by_step": {"contract": contract["k1"], "bfs": 0, "tuner": tuner["k1"],
+                         "sinks": 0},
+          "step_s": step_s, "phase_s": phase_s, "cap_s": OBS_CAP_S,
+          "within_cap": phase_s <= OBS_CAP_S, "total_s": time.perf_counter() - t_start})
+    return {"contract": contract["line"], "bfs": bfs_line, "tuner": tuner["line"],
+            "sinks": sinks, "k1": {"min_plus": k1, "max_min": 0}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -4426,7 +4862,7 @@ def main() -> int:
 
 
 def run_phases() -> int:
-    """Phases 1-15 (module docstring), then the ``kernels`` line and the
+    """Phases 1-16 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -4454,16 +4890,20 @@ def run_phases() -> int:
     # ELL structure
     mxu_min = tuple(t.cpu() for t in mxu13["min_plus"])
     E_host = (tuple((bc.cpu(), br.cpu()) for bc, _, br in bfs["E"].buckets), bfs["E"].nrows)
+    # for phase 16, on the host: the graph's CSR arrays and its roots
+    bfs_host = {**bfs.pop("csr_host"), "roots": bfs_graph["roots"][:OBS_BFS_ROOTS].copy()}
     del bfs, bfs_graph, mxu13
     general.pop("aa")
     torch.cuda.empty_cache()
     graph_input = phase_graph_input(dev, t_start, g18)
     torch.cuda.empty_cache()
-    mesh3d = phase_mesh3d(dev, t_start, A20)
+    mesh3d = phase_mesh3d(dev, t_start, A20, windowed.pop("dot_host"))
     del A20
     torch.cuda.empty_cache()
     tuner = phase_tuner(dev, t_start, mxu_min, E_host, mesh3d)
-    del mxu_min, E_host
+    torch.cuda.empty_cache()
+    obs_phase = phase_obs(dev, t_start, mxu_min, E_host, bfs_host)
+    del mxu_min, E_host, bfs_host
     torch.cuda.empty_cache()
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
@@ -4473,7 +4913,8 @@ def run_phases() -> int:
                    "spgemm_general": general["cross"][sr.name]["k1_launches"],
                    "spgemm_windowed": windowed["k1"][sr.name],
                    "apps": apps["k1"], "graph_input": graph_input["k1"],
-                   "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name]}
+                   "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name],
+                   "obs": obs_phase["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
@@ -4491,6 +4932,9 @@ def run_phases() -> int:
     if (sum(k["launches_by_path"]["tuner"] for k in kernels) != sum(tuner["k1"].values())
             or tuner["k1"]["min_plus"] < 1):
         raise AssertionError("K1's launch counts do not add up on the tuner path")
+    if (sum(k["launches_by_path"]["obs"] for k in kernels) != sum(obs_phase["k1"].values())
+            or obs_phase["k1"]["min_plus"] < 1):
+        raise AssertionError("K1's launch counts do not add up on the obs path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({
         "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",

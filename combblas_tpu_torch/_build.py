@@ -12,7 +12,10 @@ Graph500 v2.1 generator and the Matrix Market parser) build the same way
 with ``g++`` (``build_host`` / ``load_host``). Each build writes a
 temporary file and renames it into place, so processes that build at once
 do not see a half-written library. Nothing here runs at import time, and
-nothing falls back: a missing compiler or a failed build raises.
+nothing falls back: a missing compiler or a failed build raises. With
+telemetry on and its hooks installed (``obs.install_hooks``), a library
+found built counts as ``compile_cache.hits`` and a compile as
+``compile_cache.misses``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import threading
 import time
 from pathlib import Path
 
+from . import obs
 from .utils import compile_cache
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -85,8 +89,10 @@ def build(names: list[str]) -> dict[str, dict]:
     for name in names:
         out = library_path(name)
         if out.exists():
+            obs.build_event(cached=True)
             report[name] = {"seconds": 0.0, "log": "", "path": str(out)}
             continue
+        obs.build_event(cached=False)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
@@ -139,7 +145,9 @@ def build_host(name: str) -> dict:
     the library's path; raises with the compiler's log on a failure."""
     out = host_library_path(name)
     if out.exists():
+        obs.build_event(cached=True)
         return {"seconds": 0.0, "path": str(out)}
+    obs.build_event(cached=False)
     out.parent.mkdir(parents=True, exist_ok=True)
     gxx = shutil.which("g++")
     if gxx is None:

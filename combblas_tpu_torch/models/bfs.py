@@ -36,13 +36,16 @@ accumulated in float32 as the reference does, and the walk's per-tile
 counts). Its levels reuse one ``CSC`` per tile, built at the start of the
 call (the reference builds them in every top-down step).
 
-Not ported: ``bfs_levels_instrumented``, which is built on ``obs`` spans
-(ROADMAP queue 1, item 13b). Nor are the reference's device-buffer caches
-(``_gid_blocks``, ``_iota_operand``, the ``lru_cache`` of single-root
-programs, ``clear_bfs_caches`` and its cache gauges): they exist for the
-TPU's execution (closure-constant tables, one compiled program per tier
-spec); eager torch compiles nothing, so the port keeps no such cache.
-The ``obs`` gauges come with ROADMAP item 13b.
+``bfs_levels_instrumented`` is the host-stepped BFS with one ``obs`` span
+a hop and a ``frontier`` event carrying the level's discovered count (one
+readback a level, as in the reference).
+
+Not ported: the reference's device-buffer caches (``_gid_blocks``,
+``_iota_operand``, the ``lru_cache`` of single-root programs,
+``clear_bfs_caches``): they exist for the TPU's execution (closure-constant
+tables, one compiled program per tier spec); eager torch compiles nothing,
+so the port keeps no such cache, and the reference's ``cache.bfs.*``
+gauges (its provider over those caches) are left out with them.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.segment import expand_ranges
 from ..parallel.ellmat import (
     EllParMat,
@@ -136,6 +140,44 @@ def bfs(A, source, max_iters: int | None = None, sr: Semiring = SELECT2ND_MAX):
 
 # the last call's device -> host readbacks (one a level)
 bfs.last_run = None
+
+
+def bfs_levels_instrumented(A, source, max_iters: int | None = None,
+                            sr: Semiring = SELECT2ND_MAX):
+    """Host-stepped level-synchronous BFS with one ``obs`` span PER HOP
+    (``bfs.hop`` inside a ``bfs`` span), each carrying a ``frontier`` event
+    with the discovered-vertex count — the per-iteration table of the
+    reference's TIMING builds (``TopDownBFS.cpp:472-479``), structured.
+
+    A debugging and observability tool, not the benchmark kernel: every
+    level reads its frontier count back (which also ends the loop). The
+    spans line up with the kernels on the ``torch.profiler`` timeline.
+    ``A``: an ``SpParMat`` or an ``EllParMat`` (``dist_spmv_masked``
+    dispatches). Returns ``(parents, levels, num_levels)`` like ``bfs``,
+    the terminal empty level counted.
+    """
+    grid = A.grid
+    n = A.nrows
+    iters = max_iters if max_iters is not None else n
+    row_gids, parents, levels, x = _root_state(A, int(source))
+
+    def mk(b):
+        return DistVec(blocks=b, length=n, align="row", grid=grid)
+
+    niter = 0
+    with obs.span("bfs", source=int(source), nrows=int(n)):
+        for hop in range(iters):
+            with obs.span("bfs.hop", hop=hop):
+                y = dist_spmv_masked(
+                    sr, A, DistVec(blocks=x, length=A.ncols, align="col", grid=grid),
+                    mk(parents < 0)).blocks
+                new, parents, levels, x = _advance(A, y, parents, levels, row_gids, hop)
+                frontier_nnz = int(new.sum())  # the level's readback
+                obs.span_event("frontier", hop=hop + 1, nnz=frontier_nnz)
+            niter = hop + 1
+            if frontier_nnz == 0:
+                break
+    return mk(parents), mk(levels), niter
 
 
 def bfs_diropt(A: SpParMat, source, *, frontier_capacity: int, exp_capacity: int,

@@ -15,9 +15,9 @@ on the grid's device:
     dense prefix [0, nkeep); the matrix keeps its n)
 
 Fed the same key, every stage gives the reference's arrays bit for bit.
-The reference's ``obs`` spans and histograms (``graph500.py:174, :197,
-:214, :223, :230, :236-240``) are left out until ``obs`` is ported (ROADMAP
-item 13b), and so is its ``BENCH_K1_LOG`` debug print.
+Each stage runs in its ``k1.*`` span, and with telemetry on the stage
+seconds land in the ``k1.<stage>_s`` histograms, as in the reference. Its
+``BENCH_K1_LOG`` debug print is left out.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import time
 
 import torch
 
+from .. import obs
 from ..parallel.grid import Grid
 from ..parallel.redistribute import from_device_coo
 from ..parallel.spmat import SpParMat
@@ -121,51 +122,61 @@ def kernel1_device(
     ndev = grid.size
 
     t0 = time.perf_counter()
-    src, dst = rmat_edges(key, scale, edgefactor * n, device=dev)
-    rows = torch.cat([src, dst])
-    cols = torch.cat([dst, src])
-    del src, dst
-    keep = rows != cols
-    rows = torch.where(keep, rows, n).to(torch.int32)
-    cols = torch.where(keep, cols, n).to(torch.int32)
-    del keep
-    total = rows.shape[0]
-    chunk = -(-total // ndev)
-    pad = chunk * ndev - total
-    if pad:
-        rows = torch.cat([rows, rows.new_full((pad,), n)])
-        cols = torch.cat([cols, cols.new_full((pad,), n)])
-    shape = (grid.pr, grid.pc, chunk)
-    rows, cols = rows.view(shape), cols.view(shape)
-    _sync(dev)
+    with obs.span("k1.generate", scale=scale):
+        src, dst = rmat_edges(key, scale, edgefactor * n, device=dev)
+        rows = torch.cat([src, dst])
+        cols = torch.cat([dst, src])
+        del src, dst
+        keep = rows != cols
+        rows = torch.where(keep, rows, n).to(torch.int32)
+        cols = torch.where(keep, cols, n).to(torch.int32)
+        del keep
+        total = rows.shape[0]
+        chunk = -(-total // ndev)
+        pad = chunk * ndev - total
+        if pad:
+            rows = torch.cat([rows, rows.new_full((pad,), n)])
+            cols = torch.cat([cols, cols.new_full((pad,), n)])
+        shape = (grid.pr, grid.pc, chunk)
+        rows, cols = rows.view(shape), cols.view(shape)
+        _sync(dev)
     timings["generate_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    vals = torch.ones(shape, dtype=torch.float32, device=dev)
-    A, dropped = from_device_coo(grid, rows, cols, vals, n, n, slack=slack,
-                                 dedup_sr=SELECT2ND_MAX, defer_drop_check=True)
-    del rows, cols, vals
-    _sync(dev)
+    with obs.span("k1.route_dedup"):
+        vals = torch.ones(shape, dtype=torch.float32, device=dev)
+        A, dropped = from_device_coo(grid, rows, cols, vals, n, n, slack=slack,
+                                     dedup_sr=SELECT2ND_MAX, defer_drop_check=True)
+        del rows, cols, vals
+        _sync(dev)
     timings["route_dedup_s"] = time.perf_counter() - t0
     timings["dropped_dev"] = dropped
 
     if extra_relabel:
         t0 = time.perf_counter()
-        p = DistVec.randperm(grid, n, threefry.fold_in(key, 1))
-        A = permute_vertices(A, p)
-        _sync(dev)
+        with obs.span("k1.relabel"):
+            p = DistVec.randperm(grid, n, threefry.fold_in(key, 1))
+            A = permute_vertices(A, p)
+            _sync(dev)
         timings["relabel_s"] = time.perf_counter() - t0
 
     nkeep = torch.tensor(n, dtype=torch.int32, device=dev)
     if compress_isolated:
         t0 = time.perf_counter()
-        p, nkeep = isolated_compression_perm(A)
-        A = permute_vertices(A, p)
-        _sync(dev)
+        with obs.span("k1.compress_isolated"):
+            p, nkeep = isolated_compression_perm(A)
+            A = permute_vertices(A, p)
+            _sync(dev)
         timings["compress_isolated_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    degrees = A.reduce(PLUS_TIMES, "cols", map_fn=lambda v: (v != 0).to(v.dtype))
-    _sync(dev)
+    with obs.span("k1.degree"):
+        degrees = A.reduce(PLUS_TIMES, "cols", map_fn=lambda v: (v != 0).to(v.dtype))
+        _sync(dev)
     timings["degree_s"] = time.perf_counter() - t0
+    if obs.ENABLED:
+        # kernel-1 stage times as histograms (the per-stage TIMING table)
+        for k, v in timings.items():
+            if isinstance(v, float):
+                obs.observe("k1." + k, v)
     return A, degrees, nkeep, timings

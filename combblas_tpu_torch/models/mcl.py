@@ -37,6 +37,12 @@ fold, the dense products, column sums) fold in another order than XLA's,
 so iterates agree with the reference within float32 rounding, and labels
 agree exactly on inputs with no near-tie at a threshold.
 
+Telemetry, at the reference's sites: the sparse loop's ``mcl.round``
+spans with a ``chaos`` event, the block loops' ``mcl.block_rerolls`` and
+(2D) ``mcl.block_sync`` events, and the dense loop's ``mcl.dense`` span
+with ``mcl.perturb_kicks`` and a ``mcl.converged`` event. The dense
+loop's kick count is a host int here; its final chaos costs one more small
+readback with telemetry on, as the reference's kick count does.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.spgemm import dense_support_nnz, sparsify_windowed
 from ..parallel.mesh3d import (
     Grid3D,
@@ -233,11 +240,14 @@ def mcl(
         it = 0
         history = []
         for it in range(1, max_iters + 1):
-            A = mem_efficient_spgemm(PLUS_TIMES, A, A, phases, prune_fn=prune_fn, scan=scan)
-            A = make_col_stochastic(A)
-            ch = float(chaos(A))
-            history.append(ch)
-            A = inflate(A, inflation)
+            with obs.span("mcl.round", round=it):
+                A = mem_efficient_spgemm(PLUS_TIMES, A, A, phases, prune_fn=prune_fn,
+                                         scan=scan)
+                A = make_col_stochastic(A)
+                ch = float(chaos(A))
+                history.append(ch)
+                A = inflate(A, inflation)
+                obs.span_event("chaos", round=it, chaos=ch)
             if ch < eps:
                 break
         mcl.last_run = {"loop": "sparse", "chaos": history}
@@ -302,6 +312,8 @@ def _mcl2d_block_loop(A: SpParMat, inflation: float, eps: float, max_iters: int,
             worst = torch.maximum(worst, ov)
         if int(worst) > 0:  # the sync point
             rerolls += 1
+            if obs.ENABLED:
+                obs.count("mcl.block_rerolls")
             dense_tile = max(A_entry.local_rows * A_entry.local_cols, 1)
             caps = (caps[0] * 2, min(caps[1] * 2, dense_tile))
             A = A_entry
@@ -309,6 +321,7 @@ def _mcl2d_block_loop(A: SpParMat, inflation: float, eps: float, max_iters: int,
         ch = float(ch_dev)
         history.append(ch)
         it += k
+        obs.span_event("mcl.block_sync", iters_done=it, chaos=ch)
         if ch < eps:
             break
     mcl.last_run = {"loop": "block", "chaos_at_sync": history, "rerolls": rerolls,
@@ -425,6 +438,9 @@ def _mcl3d_block_loop(A3: SpParMat3D, inflation: float, eps: float, max_iters: i
             bits &= ~4
         if bits > 0:
             rerolls += 1
+            if obs.ENABLED:
+                # same unlabeled series as the 2D loop
+                obs.count("mcl.block_rerolls")
             fcap, ocap, pcap, stage_cap, tile_cap = caps
             if bits & 1:
                 stage_cap, tile_cap = stage_cap * 2, tile_cap * 2
@@ -597,7 +613,12 @@ def _mcl_dense_loop(A: SpParMat, inflation: float, eps: float, max_iters: int, p
     run = dense_mcl_program(n, npad, inflation, eps, max_iters, hard=hard, select=select,
                             recover=recover, rpct=rpct, mode=mode, perturb_delta=perturb_delta)
     t0 = A.local_tile(0, 0)
-    m, it, ch, hist, kicks = run(t0.rows, t0.cols, t0.vals)
+    with obs.span("mcl.dense", n=int(n), mode=mode):
+        m, it, ch, hist, kicks = run(t0.rows, t0.cols, t0.vals)
+        if obs.ENABLED:
+            obs.count("mcl.perturb_kicks", int(kicks))
+            obs.span_event("mcl.converged", iters=int(it), chaos=float(ch),
+                           perturb_kicks=int(kicks))
     nnz_exact = int(dense_support_nnz(m, 0.0, n, n))
     cap = 1 << max(nnz_exact, 1024).bit_length()
     t, total = sparsify_windowed(m, 0.0, n, n, cap)

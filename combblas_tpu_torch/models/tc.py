@@ -17,13 +17,16 @@ the dense kernel multiplies float32 0/1 matrices: exact with TF32 on or
 off (0 and 1 are exact in TF32, the sums accumulate in float32 and stay
 below n < 2^24). The bf16 edge harvest multiplies its 0/1 rows in bf16 and
 sums each edge's products in float32. Counts return as the reference's
-int32 (hi, lo) 15-bit splits, summed in int64 inside.
+int32 (hi, lo) 15-bit splits, summed in int64 inside. An edge-harvest
+call counts ``spgemm.auto.tier{tier=<kernel>, sr=plus_times}``, as the
+reference's does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..ops.spgemm import (
     combine_hilo,
     coo_sort_dedup,
@@ -169,6 +172,8 @@ def triangle_count(A: SpParMat, kernel: str = "auto") -> int:
         return combine_hilo(_tc_dense(t.rows, t.cols, A.nrows))
     harvest = {"edgeharvest": _tc_edge_harvest_bits, "edgeharvest_bf16": _tc_edge_harvest}
     if kernel in harvest:
+        if obs.ENABLED:
+            obs.count("spgemm.auto.tier", tier=kernel, sr="plus_times")
         if A.grid.size > 1:
             if kernel != "edgeharvest":
                 raise ValueError(

@@ -1,0 +1,575 @@
+"""Metrics registry — counterpart of ``combblas_tpu/obs/metrics.py``:
+counters, gauges, histograms with labels.
+
+The structured replacement for the reference's global ``cblas_*`` counter
+variables (``CombBLAS.h:77-102``): instead of a fixed set of doubles, a
+registry of named scalar facts — nnz in/out, SpGEMM symbolic flops,
+redistribute drop counts, kernel build-cache hits, per-op load imbalance —
+each optionally qualified by labels (``kernel="summa"``), snapshottable
+for the JSONL exporter and mergeable across processes.
+
+Everything here is plain host-side Python over dicts: no tensor ever
+enters the registry (call sites convert to ``int``/``float`` first), so a
+metric can never force a device sync.
+
+The catalog below keeps the reference's rows, word for word, for the
+series this package emits; the rows of the serve and dynamic-graph
+layers come with those layers. Where a row speaks of the TPU's machinery
+the port's meaning is its counterpart: ``compile_cache.hits/misses``
+count the hand kernels' library builds (``_build.py``: found built, or
+compiled), ``compile_cache.entries`` the files of the build dir, and the
+``mxu`` tier is the dense tier (K1 for the tropical semirings).
+
+SpGEMM tier-router series (round 6 — the auto-tiered kernel ladder,
+docs/spgemm.md):
+
+==================================  =======  ==============================
+name                                kind     meaning
+==================================  =======  ==============================
+``spgemm.auto.tier``                counter  calls routed per tier; labels
+                                             ``tier`` (mxu / windowed /
+                                             scan / esc / edgeharvest) and
+                                             ``sr`` (semiring name)
+``spgemm.windowed.windows_skipped`` counter  row blocks skipped because the
+                                             symbolic pass proved them
+                                             empty (never scanned)
+``spgemm.windowed.blocks``          gauge    row blocks in the last plan
+``spgemm.auto.mask_density``        gauge    symbolic output-support bound
+                                             over dense cells (the oracle's
+                                             density estimate)
+==================================  =======  ==============================
+
+2D windowed ``dot`` backend series (round 7 — the B-column-windowed MXU
+tier that makes ``windowed`` the TPU mid-scale default, docs/spgemm.md):
+
+=========================================  =======  =====================
+name                                       kind     meaning
+=========================================  =======  =====================
+``spgemm.windowed.col_windows_skipped``    counter  (row block, col
+                                                    window) pairs proved
+                                                    symbolically empty —
+                                                    never densified,
+                                                    matmul'd, or scanned
+``spgemm.windowed.col_windows``            gauge    col windows per row
+                                                    block in the last 2D
+                                                    plan
+``spgemm.windowed.panel_cells``            gauge    padded-k × padded-
+                                                    window cells of one
+                                                    dense B stage panel
+                                                    (the stage-operand
+                                                    memory envelope; ≤
+                                                    WINDOWED_MAX_PANEL_
+                                                    CELLS when routed)
+``spgemm.windowed.window_density``         gauge    symbolic output bound
+                                                    over dense cells,
+                                                    restricted to LIVE
+                                                    (non-skipped) windows
+``spgemm.auto.dedup_fallback``             counter  mxu routings demoted
+                                                    because a tile held
+                                                    duplicate entries
+                                                    (labels: ``sr``)
+``spgemm.windowed.oracle_skipped``         counter  oracle=True requests
+                                                    that fell back to
+                                                    clamped-flops caps
+                                                    (outside the oracle
+                                                    envelope)
+=========================================  =======  =====================
+
+``serve.requests{status=timeout}`` now also counts EXECUTION-time
+deadline drops (a request already expired when its batch reached the
+device is settled before occupying a lane), not just queue-sweep
+expiries.
+
+Pipelined / packed / 3D SpGEMM series (round 9 — the stage-pipelined
+windowed carousel, oracle-packed launches, and the windowed 3D tier;
+docs/spgemm.md):
+
+=======================================  =======  =====================
+name                                     kind     meaning
+=======================================  =======  =====================
+``spgemm.pipeline.stages_overlapped``    counter  TRACE-TIME: carousel
+                                                  stages whose
+                                                  successor rotation
+                                                  was issued before
+                                                  their accumulate
+                                                  (p−1 per compiled
+                                                  pipelined ring
+                                                  program; the jit
+                                                  retrace-visibility
+                                                  convention of the
+                                                  ``trace.*`` series)
+``spgemm.windowed.windows_packed``       counter  windows in the packed
+                                                  launch list — the
+                                                  MXU/scatter launches
+                                                  a plan actually pays
+                                                  (vs ``blocks`` ×
+                                                  ``col_windows``
+                                                  total)
+``spgemm.windowed.pack_ratio``           gauge    windows_packed /
+                                                  windows_total of the
+                                                  last plan (< 1 means
+                                                  the skip list or the
+                                                  oracle pruned
+                                                  launches)
+``spgemm.summa3d.layers``                gauge    L of the last 3D
+                                                  windowed product
+                                                  (``spgemm3d_windowed``
+                                                  / the ``windowed3d``
+                                                  auto route)
+=======================================  =======  =====================
+
+Span events: the carousel body emits one ``spgemm.pipeline.stage``
+event per stage at trace time (fields ``stage``,
+``overlapped`` — whether the next rotation was issued early), so a
+trace export shows the planned comm/compute overlap structure of the
+compiled schedule.
+
+Autotuner / plan-store series (round 10 — the measured-cost plan store
+and micro-probe pass, docs/autotuning.md):
+
+===================================  =======  =========================
+name                                 kind     meaning
+===================================  =======  =========================
+``tuner.store.hits``                 counter  routing decisions served
+                                              from a remembered plan
+                                              (labels: ``op`` =
+                                              spgemm / spgemm3d)
+``tuner.store.misses``               counter  lookups with no matching
+                                              plan (probe or fallback
+                                              follows)
+``tuner.store.entries``              gauge    plans currently loaded
+                                              (labels: ``dir``); also
+                                              published by the
+                                              compile-cache provider
+                                              as ``compile_cache.
+                                              entries{cache=plans}`` —
+                                              one health surface for
+                                              both caches
+``tuner.store.invalid``              counter  corrupted / truncated /
+                                              schema-mismatched JSONL
+                                              lines skipped at load
+``tuner.store.write_errors``         counter  failed store appends
+                                              (read-only replica; the
+                                              in-memory plan still
+                                              routes)
+``tuner.probe.runs``                 counter  candidate rungs measured
+                                              by the micro-probe pass
+                                              (labels: ``tier``)
+``tuner.probe.seconds``              counter  cumulative timed probe
+                                              seconds (the obs-visible
+                                              probe cost)
+``tuner.probe.winner``               counter  probe passes won per
+                                              tier (labels: ``tier``)
+``tuner.probe.errors``               counter  candidate rungs that
+                                              faulted on the proxy
+                                              (dropped, not fatal)
+``tuner.probe.budget_exhausted``     counter  probe passes cut short
+                                              by the probe budget
+``tuner.store.rejected``             counter  key-matched records
+                                              DISCARDED at routing
+                                              (labels: ``reason`` =
+                                              tier / no_grid3 / dup) —
+                                              pair with ``hits`` to
+                                              read the true hit rate
+``spgemm.windowed.dispatch_conflict``  counter  ring requests that
+                                              overrode an explicit
+                                              blocked dispatch (ring
+                                              is fused-only; the more
+                                              specific ask wins)
+``spgemm.auto.plan_source``          counter  WHERE each routing came
+                                              from: labels ``source``
+                                              (arg / store / env /
+                                              probe / heuristic),
+                                              ``tier``, ``op``
+``spgemm.windowed.dispatch``         counter  windowed-tier program
+                                              decomposition per call:
+                                              labels ``mode`` (local /
+                                              fused / blocked — the
+                                              building-block default)
+===================================  =======  =========================
+
+The ``tuner.probe`` span wraps each probe pass (attrs ``sr``, proxy
+``dim``), so trace exports show probe cost inline with the product that
+paid it.
+
+Dynamic-graph mutation series (round 11 — delta buffers, incremental
+version builds, warm-restart recompute, the serve write lane;
+docs/dynamic.md):
+
+====================================  =========  =======================
+name                                  kind       meaning
+====================================  =========  =======================
+``tuner.store.compacted``             counter    superseded/evicted
+                                                 JSONL lines removed by
+                                                 the load-time
+                                                 compaction rewrite
+``tuner.store.evicted``               counter    plans dropped by the
+                                                 max-entries
+                                                 oldest-cost eviction
+====================================  =========  =======================
+
+Batched-SpMM / propagate-lane series (round 12 — the MXU-resident
+SpMM kernel family, the ``"propagate"`` serve kind, headroom-aware
+bucket sizing and window-geometry probing; docs/spmm.md):
+
+====================================  =======  =========================
+name                                  kind     meaning
+====================================  =======  =========================
+``spmm.pipeline.stages_overlapped``   counter  TRACE-TIME: carousel
+                                               stages whose successor
+                                               panel rotation was
+                                               issued before their
+                                               contraction (p−1 per
+                                               compiled pipelined ring
+                                               program — the SpMM twin
+                                               of ``spgemm.pipeline.
+                                               stages_overlapped``)
+``spgemm.auto.plan_source``           counter  gains ``op="spmm"``
+                                               rows: where each SpMM
+                                               backend resolution came
+                                               from (arg / store / env
+                                               / probe / heuristic)
+``tuner.probe.geometry_runs``         counter  windowed block-geometry
+                                               candidates measured by
+                                               the probe's
+                                               window-geometry sweep
+                                               (the winner persists
+                                               with ``block_rows`` /
+                                               ``block_cols`` in its
+                                               plan record)
+====================================  =======  =========================
+
+Merge-tier / 3D-carousel series (round 13 — the sort-free fiber
+reduce and the carousel-pipelined per-layer 3D SUMMA;
+docs/spgemm.md "merge tiers"):
+
+====================================  =======  =========================
+name                                  kind     meaning
+====================================  =======  =========================
+``spgemm.merge.tier``                 counter  combine-merge tier each
+                                               merge-consuming entry
+                                               resolved (labels
+                                               ``tier`` = sort / runs
+                                               / hash, ``source`` =
+                                               arg / store / env /
+                                               probe / heuristic /
+                                               hash_fallback, with a
+                                               ``_degraded`` suffix
+                                               when a forced hash on a
+                                               generic monoid degraded
+                                               to runs at the knob,
+                                               and ``op``)
+``spgemm.merge.hash_overflow``        counter  entries the hash tier's
+                                               bounded table failed to
+                                               place (the product
+                                               transparently reruns
+                                               through the sorted-runs
+                                               tier — this counter is
+                                               how a mis-routed plan
+                                               gets noticed)
+``spgemm.summa3d.piece_overflow``     counter  fiber-exchange entries
+                                               that exceeded
+                                               piece_capacity (the
+                                               entry RAISES naming the
+                                               slack knob; round-13
+                                               bugfix — previously
+                                               detected but silently
+                                               ignored by callers)
+``spgemm.pipeline.stages_overlapped`` counter  now ALSO emitted by the
+                                               3D kernels' pipelined
+                                               rings (p−1 per layer
+                                               program per compiled
+                                               trace, same trace-time
+                                               convention)
+====================================  =======  =========================
+
+Pre-existing serve series gain a ``tenant`` label when the emitting
+scheduler/breaker is owned by a pool tenant (``serve.queue.depth``,
+``serve.queue.rejected``, ``serve.requests``, ``serve.breaker.*``);
+single-tenant servers emit the unchanged label sets.
+
+Foundation series (rounds 1-5 — cataloged here since round 15; the
+static catalog-drift sweep in tests/test_obs_catalog.py asserts every
+literal ``obs.count/gauge/observe`` series name in the package appears
+in this docstring):
+
+=====================================  =========  =====================
+name                                   kind       meaning
+=====================================  =========  =====================
+``spgemm.symbolic_fill_slots``         counter    symbolic fill-in of a
+                                                  product (pre-launch)
+``spgemm.realized_nnz``                counter    realized output nnz
+                                                  (DEVICE_SYNC only)
+``spgemm.load_imbalance``              gauge      max/mean per-tile
+                                                  flops (the
+                                                  reference's
+                                                  LoadImbalance)
+``spgemm.phases``                      gauge      multi-phase SpGEMM
+                                                  phase count
+``spgemm.phase_adjusted``              counter    phase counts adjusted
+                                                  upward by the memory
+                                                  estimator
+``spgemm.scan.overflow_retries``       counter    scan-tier capacity
+                                                  retries
+``spgemm.scan.overflow_slots``         counter    slots dropped pre-
+                                                  retry (always
+                                                  retried to zero)
+``spgemm.mxu.overflow_retries``        counter    mxu-tier extraction
+                                                  retries
+``redistribute.dropped``               counter    entries dropped by a
+                                                  capacity-bounded
+                                                  route (0 = complete)
+``redistribute.retries``               counter    capacity-doubling
+                                                  retries
+``redistribute.stage_capacity``        gauge      per-stage routing
+                                                  capacity of the last
+                                                  call
+``redistribute.tile_capacity``         gauge      per-tile landing
+                                                  capacity of the last
+                                                  call
+``spmv.dispatch``                      counter    SpMV dispatches per
+                                                  kernel (labels:
+                                                  ``kernel``)
+``compile_cache.hits/misses``          counter    persistent XLA cache
+                                                  traffic (the
+                                                  jax.monitoring
+                                                  bridge)
+``compile_cache.entries``              gauge      cache files on disk
+                                                  (labels ``cache`` =
+                                                  xla / plans)
+``mcl.perturb_kicks``                  counter    MCL chaos-plateau
+                                                  perturbation kicks
+``mcl.block_rerolls``                  counter    MCL sparse-block
+                                                  capacity rerolls
+``k1.*`` (``k1.<stage>_s``)            histogram  Graph500 kernel-1
+                                                  stage seconds
+``obs.provider_errors``                counter    broken pull-provider
+                                                  callbacks (caught)
+=====================================  =========  =====================
+
+Production-observability series (round 15 — per-request tracing, the
+flight recorder, SLO error budgets, freshness gauges and the scrape
+surface; docs/observability.md "Serving observability"):
+
+========================================  =========  ==================
+name                                      kind       meaning
+========================================  =========  ==================
+``serve.trace.sampled``                   counter    requests whose
+                                                     deterministic
+                                                     sample-hash
+                                                     admitted a trace
+                                                     (labels ``lane`` =
+                                                     request / update)
+``serve.trace.dropped``                   counter    completed traces
+                                                     dropped by the
+                                                     bounded trace log
+``serve.flightrec.events``                counter    events recorded
+                                                     into flight-
+                                                     recorder rings
+``serve.flightrec.dumps``                 counter    ring snapshots
+                                                     written (labels
+                                                     ``reason`` =
+                                                     worker_error /
+                                                     breaker_open /
+                                                     poisoned /
+                                                     merge_failed /
+                                                     slo_breach /
+                                                     manual)
+``obs.scrape.requests``                   counter    HTTP scrape hits
+                                                     (labels ``path``)
+========================================  =========  ==================
+
+Process-fleet series (round 17 — subprocess replicas with real crash
+domains; docs/serving.md "Process fleet").  The shared policy layer
+(``serve/policy.py``) emits the routing/supervision disposition under
+the fleet's own prefix, so ``serve.procfleet.submitted`` /
+``.spillover`` / ``.read_retry`` / ``.supervisor`` are the
+``serve.fleet.*`` rows above with processes instead of threads; the
+rows below are process-specific:
+
+========================================  =========  ==================
+name                                      kind       meaning
+========================================  =========  ==================
+``tuner.store.compact_skipped``           counter    plan-store
+                                                     compactions
+                                                     skipped on
+                                                     advisory-lock
+                                                     contention (a
+                                                     sibling process
+                                                     is compacting) —
+                                                     the next loader
+                                                     compacts instead
+``tuner.store.append_unfenced``           counter    plan appends that
+                                                     proceeded without
+                                                     the shared fence
+                                                     after the bounded
+                                                     non-blocking
+                                                     retries (a wedged
+                                                     lock holder must
+                                                     never hang the
+                                                     write path)
+========================================  =========  ==================
+
+Fleet observability plane (round 18, the serve/procfleet.py +
+serve/ipc.py cross-process plane; ``replica=``-labeled child-process
+series additionally arrive in a ``ProcessFleet.serve_metrics()``
+scrape via the heartbeat-piggybacked registry snapshots):
+
+========================================  =========  ==================
+``serve.fleetlog.events``                 counter    supervision
+                                                     timeline events
+                                                     appended to the
+                                                     ``combblas_tpu.
+                                                     fleetlog/v1`` log
+                                                     (labels ``event``)
+========================================  =========  ==================
+"""
+
+from __future__ import annotations
+
+import threading
+
+from .sinks import quantile_summary
+
+#: Metric-kind tags used in snapshots and the JSONL schema.
+KIND_COUNTER = "counter"
+KIND_GAUGE = "gauge"
+KIND_HISTOGRAM = "histogram"
+
+#: Per-histogram sample reservoir size (round 15): the last RESERVOIR
+#: observations ride along in snapshots so quantile summaries
+#: (p50/p95/p99) are computable ONCE (``sinks.quantile_summary``) for
+#: the Prometheus exporter, ``aggregate()`` and the bench sidecars —
+#: instead of every bench keeping its own latency list.  Overflow
+#: overwrites in arrival order (a sliding window of recent values).
+RESERVOIR = 512
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted(labels.items()))
+
+
+class MetricsRegistry:
+    """Threadsafe in-memory metric store.
+
+    Counters are monotonically-added floats/ints; gauges hold the last
+    set value; histograms keep (count, sum, min, max) — enough for the
+    per-app tables and for cross-process aggregation without binning
+    policy baked in.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: dict[tuple, float] = {}
+        self._gauges: dict[tuple, float] = {}
+        # [count, sum, min, max, samples] — samples is the bounded
+        # quantile reservoir (RESERVOIR), overwritten in arrival order
+        self._hists: dict[tuple, list] = {}
+
+    def _key(self, name: str, labels: dict) -> tuple:
+        # labels live inside the key (sorted tuple); snapshot()
+        # reconstructs the dict from it
+        return (name, _label_key(labels))
+
+    # -- writers -----------------------------------------------------------
+    def count(self, name: str, value=1, **labels):
+        with self._lock:
+            key = self._key(name, labels)
+            self._counters[key] = self._counters.get(key, 0) + value
+
+    def gauge(self, name: str, value, **labels):
+        with self._lock:
+            self._gauges[self._key(name, labels)] = value
+
+    def observe(self, name: str, value, **labels):
+        with self._lock:
+            key = self._key(name, labels)
+            h = self._hists.get(key)
+            if h is None:
+                self._hists[key] = [1, value, value, value, [value]]
+            else:
+                h[0] += 1
+                h[1] += value
+                h[2] = min(h[2], value)
+                h[3] = max(h[3], value)
+                samples = h[4]
+                if len(samples) < RESERVOIR:
+                    samples.append(value)
+                else:  # sliding window: overwrite in arrival order
+                    samples[(h[0] - 1) % RESERVOIR] = value
+
+    # -- readers -----------------------------------------------------------
+    def get_counter(self, name: str, default=0, **labels):
+        return self._counters.get((name, _label_key(labels)), default)
+
+    def get_gauge(self, name: str, default=None, **labels):
+        return self._gauges.get((name, _label_key(labels)), default)
+
+    def get_histogram(self, name: str, **labels):
+        h = self._hists.get((name, _label_key(labels)))
+        if h is None:
+            return None
+        return {
+            "count": h[0], "sum": h[1], "min": h[2], "max": h[3],
+            **quantile_summary(h[4]),
+        }
+
+    def empty(self) -> bool:
+        return not (self._counters or self._gauges or self._hists)
+
+    def snapshot(self) -> list[dict]:
+        """All metrics as schema records (no ``v``/``ts`` envelope — the
+        sink adds those)."""
+        with self._lock:
+            out = []
+            for (name, lk), v in sorted(self._counters.items()):
+                out.append({
+                    "kind": KIND_COUNTER, "name": name,
+                    "labels": dict(lk), "value": v,
+                })
+            for (name, lk), v in sorted(self._gauges.items()):
+                out.append({
+                    "kind": KIND_GAUGE, "name": name,
+                    "labels": dict(lk), "value": v,
+                })
+            for (name, lk), h in sorted(self._hists.items()):
+                out.append({
+                    "kind": KIND_HISTOGRAM, "name": name,
+                    "labels": dict(lk), "count": h[0], "sum": h[1],
+                    "min": h[2], "max": h[3],
+                    # the bounded reservoir + its quantile summary:
+                    # computed HERE once, reused by the exporter,
+                    # aggregate() and the bench sidecars
+                    "samples": [round(float(v), 9) for v in h[4]],
+                    **quantile_summary(h[4]),
+                })
+            return out
+
+    def prune_labels(self, **labels) -> int:
+        """Delete every series whose label set CONTAINS all the given
+        ``key=value`` pairs (round 15: the tenant-churn label-space
+        prune — a removed pool tenant's ``tenant=...`` series must not
+        live in the registry, and its scrape surface, forever).
+        Returns the number of series removed."""
+        items = tuple(labels.items())
+        if not items:
+            return 0
+
+        def hit(lk: tuple) -> bool:
+            d = dict(lk)
+            return all(d.get(k) == v for k, v in items)
+
+        removed = 0
+        with self._lock:
+            for store in (self._counters, self._gauges, self._hists):
+                dead = [k for k in store if hit(k[1])]
+                for k in dead:
+                    del store[k]
+                removed += len(dead)
+        return removed
+
+    def clear(self):
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()

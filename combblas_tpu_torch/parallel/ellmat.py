@@ -385,6 +385,15 @@ def _ell_local_spmm(sr: Semiring, buckets, x2: torch.Tensor, lr: int, lc: int,
     y = None
     for bc, bv, br in buckets:
         nb_, kb = bc.shape
+        if y is None and (nb_, kb) == (1, 1) and sr.add_kind == "sum":
+            # The reference's first bucket of one row and one slot adds no
+            # zero: XLA folds its ``+ 0.0`` start and one-row scatter away,
+            # so the lone product is stored as is (a -0.0 stays -0.0).
+            g = _gather_rows(xpad, torch.clamp(bc, max=lc))
+            yb = sr.mul(bv[:, :, None], g)[:, 0, :]
+            y = torch.full((lr + 1, F), zero, dtype=yb.dtype, device=x2.device)
+            y.index_copy_(0, br.long(), yb)
+            continue
         for s0, s1 in _bucket_row_slices(nb_, kb, payload, SPMV_BUDGET_BYTES):
             g = _gather_rows(xpad, torch.clamp(bc[s0:s1], max=lc))  # [rows, kb, F]
             if backend == "mxu_gather":

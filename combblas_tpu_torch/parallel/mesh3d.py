@@ -36,9 +36,19 @@ store, ``COMBBLAS_SPGEMM3D_TIER``, the probe on the real operands,
 (argument, the record, ``COMBBLAS_SPGEMM_MERGE``, then the heuristic);
 ``spgemm3d_windowed`` reads ``COMBBLAS_SPGEMM_MERGE`` before its
 heuristic. Deviations from the reference: no ``interpret`` argument (the
-semiring GEMM's plain version is the CPU path); no ``obs`` counters
-(ROADMAP item 13b); ``ring`` keeps the carousel's stage order and ``pipeline``
-changes nothing, as in 2D. The fiber's partials are built one fiber (2D
+semiring GEMM's plain version is the CPU path); ``ring`` keeps the
+carousel's stage order and ``pipeline`` changes nothing, as in 2D.
+
+Telemetry, at the reference's sites and gates: ``spgemm.auto.plan_source``,
+``spgemm.merge.tier`` (labelled by its source; ``merge_source=`` from a
+caller wins), ``tuner.store.rejected``, ``spgemm.merge.hash_overflow``,
+``spgemm.summa3d.piece_overflow``, ``spgemm.summa3d.layers``,
+``spgemm.windowed.windows_packed`` / ``pack_ratio`` and
+``spgemm.pipeline.stages_overlapped``. The last is counted at trace time
+in the reference (``summa3d_spgemm`` and ``summa3d_spgemm_windowed`` are
+jitted there) and once a call here. Its ``trace.summa3d_spgemm`` and
+``trace.summa3d_spgemm_windowed`` count JAX retraces; eager torch has
+none, so they are left out. The fiber's partials are built one fiber (2D
 tile position) at a time, cut to their live entries, so only one fiber's
 pieces are alive; the capacities, output layouts, overflow vectors and
 raises are the reference's.
@@ -52,6 +62,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.segment import segment_reduce
 from ..ops.spgemm import (
     hash_merge,
@@ -71,6 +82,7 @@ from .spgemm import (
     TierRefusal,
     _carousel_stages,
     _check_dot_dtype,
+    _record_carousel_stages,
     _stage_chunk,
     _window_stage_symbolic,
     _windowed_carousel_compute,
@@ -525,6 +537,8 @@ def summa3d_spgemm(sr: Semiring, A: SpParMat3D, B: SpParMat3D, *, flop_capacity:
     caller reruns through a sorted tier). Reference: ``summa3d_spgemm``
     (``Mult_AnXBn_SUMMA3D``)."""
     _check_summa3d(A, B, merge)
+    if obs.ENABLED and ring and A.grid.pr > 1:
+        obs.count("spgemm.pipeline.stages_overlapped", A.grid.pr - 1)
 
     def partial(l_, i, j):
         chunks = [_stage_chunk(sr, a, b, flop_capacity)
@@ -570,6 +584,8 @@ def _check_fiber_overflow(piece_over: int, piece_cap: int, who: str, slack: floa
     entries."""
     if piece_over <= 0:
         return
+    if obs.ENABLED:
+        obs.count("spgemm.summa3d.piece_overflow", piece_over)
     raise TierRefusal(
         f"{who}: fiber exchange overflowed — a piece exceeded its "
         f"piece_capacity={piece_cap} by {piece_over} entries and the "
@@ -614,11 +630,11 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
     ``COMBBLAS_SPGEMM_MERGE`` > the heuristic; a hash tier on a monoid
     with no scatter combiner runs as ``runs``, and a hash overflow reruns
     the sized kernel through ``runs``. ``ring`` None means False,
-    ``pipeline`` None True. ``merge_source`` is accepted and ignored (it
-    labels an ``obs`` counter in the reference). ``spgemm3d.last_run``
+    ``pipeline`` None True. ``merge_source`` labels the ``spgemm.merge.tier``
+    count when a caller has already resolved ``merge``. ``spgemm3d.last_run``
     records the tier, ``plan_source``, ``merge_source`` and, for esc, the
     capacities and the merge that ran."""
-    del merge_source
+    caller_source = merge_source
     plan_source = "arg" if tier is not None else None
     st = key = rec = None
     if tier is None:
@@ -628,7 +644,10 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
                                                 backend or tuner_config.env_backend() or "")
             rec = st.lookup(key) if st.entries() > 0 else None
             if rec is not None and rec.tier not in ("esc", "windowed"):
-                rec = None  # the record vetting
+                # the record vetting, made visible
+                if obs.ENABLED:
+                    obs.count("tuner.store.rejected", reason="tier")
+                rec = None
             if rec is not None:
                 tier, plan_source = rec.tier, "store"
                 block_rows = rec.block_rows if block_rows is None else block_rows
@@ -650,8 +669,12 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
     if tier is None:
         tier, plan_source = "esc", "heuristic"
     merge, merge_source = resolve_merge(merge, rec)
-    if merge_source == "store" and plan_source == "probe":
+    if caller_source is not None:
+        merge_source = caller_source
+    elif merge_source == "store" and plan_source == "probe":
         merge_source = "probe"  # the record came from this call's probe
+    if obs.ENABLED:
+        obs.count("spgemm.auto.plan_source", source=plan_source, tier=tier, op="spgemm3d")
     if tier not in ("esc", "windowed"):
         raise ValueError(f"spgemm3d tier must be 'esc' or 'windowed', got {tier!r}")
     spgemm3d.last_run = {"tier": tier, "plan_source": plan_source,
@@ -661,19 +684,25 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
     if tier == "windowed":
         return spgemm3d_windowed(sr, A, B, block_rows=block_rows, block_cols=block_cols,
                                  backend=backend, mode=mode, slack=max(slack - 0.03, 1.02),
-                                 merge=merge, ring=ring, pipeline=pipeline)
+                                 merge=merge, ring=ring, pipeline=pipeline,
+                                 merge_source=merge_source)
     if ring and not pipeline:
         raise ValueError("spgemm3d: the esc tier's carousel has no serial "
                          "(pipeline=False) control — use tier='windowed' for the "
                          "pipelined-vs-serial A/B")
     L = A.grid.layers
     flop_cap, piece_cap, out_cap = _esc3d_caps(A, B, slack)
+    label = merge_source
     if merge is None:
         merge = _merge_heuristic(sr, L, piece_cap * L / max(out_cap, 1), pieces_sorted=False)
+        label = "heuristic"
     if merge == "hash" and scatter_combine_for(sr) is None:
         merge = "runs"
+        label = f"{label}_degraded"
     if merge not in MERGE_TIERS:
         raise ValueError(f"merge must be one of {MERGE_TIERS}, got {merge!r}")
+    if obs.ENABLED:
+        obs.count("spgemm.merge.tier", tier=merge, source=label, op="spgemm3d")
 
     def run_kernel(mg):
         return summa3d_spgemm(sr, A, B, flop_capacity=flop_cap, out_capacity=out_cap,
@@ -685,6 +714,10 @@ def spgemm3d(sr: Semiring, A: SpParMat3D, B: SpParMat3D, slack: float = 1.05, *,
                              out_capacity=out_cap, hash_overflow=hash_over)
     _check_fiber_overflow(piece_over, piece_cap, "spgemm3d", slack)
     if hash_over > 0:
+        # counted fallback: rerun the already-sized kernel through runs
+        if obs.ENABLED:
+            obs.count("spgemm.merge.hash_overflow", hash_over)
+            obs.count("spgemm.merge.tier", tier="runs", source="hash_fallback", op="spgemm3d")
         C, overflow = run_kernel("runs")
         piece_over, merge_over, _ = (int(x) for x in host_value(overflow))
         spgemm3d.last_run["merge"] = "runs"
@@ -858,8 +891,11 @@ def summa3d_spgemm_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *, blo
     count over its cap, the fiber piece drop, the distinct-key count
     minus ``out_capacity``, the hash tier's unplaced entries. Reference:
     ``summa3d_spgemm_windowed``."""
-    del pipeline
     _check_summa3d(A3, B3, merge)
+    if obs.ENABLED and ring and pipeline and A3.grid.pr > 1:
+        obs.count("spgemm.pipeline.stages_overlapped", A3.grid.pr - 1)
+    if ring:
+        _record_carousel_stages(A3.grid.pr, pipeline)
     grid = A3.grid
     L = grid.layers
     lr, lrB, lcB = A3.tile_rows, B3.tile_rows, B3.tile_cols
@@ -921,11 +957,10 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
     else the heuristic (``runs`` for scatter's sorted pieces, ``sort`` or
     ``hash`` for the 2D dot's);
     a hash overflow reruns the product through ``runs``; a fiber piece
-    overflow raises naming ``slack``. ``merge_source`` is accepted and
-    ignored (an ``obs`` label in the reference; ``obs`` waits for ROADMAP
-    item 13b). ``spgemm3d_windowed.last_plan`` records the last
+    overflow raises naming ``slack``. ``merge_source`` labels the
+    ``spgemm.merge.tier`` count of a ``merge`` its caller resolved
+    (default ``"arg"``). ``spgemm3d_windowed.last_plan`` records the last
     call's plan (backend, blocks, windows, packed, caps, merge)."""
-    del merge_source
     backend = resolve_spgemm_backend(backend)
     L = A3.grid.layers
     lr, lrB, lcB = A3.tile_rows, B3.tile_rows, B3.tile_cols
@@ -942,6 +977,7 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
         panel_cap = panel_cap_from_bnnz(host_value(summa3d_window_bnnz(B3, block_cols)),
                                         int(B3.capacity))
         packed = len(packed_windows_2d(skip))
+        ntot = sum(len(row) for row in skip)
         per_block_bound = [sum(row) for row in out_caps]
         pieces_sorted = False  # 2D dot chunks are window-major
     else:
@@ -953,17 +989,27 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
         skip = tuple(row[0] for row in sk2)
         block_cols = panel_cap = None
         packed = len(packed_windows(skip))
+        ntot = len(skip)
         per_block_bound = list(out_caps)
         pieces_sorted = True
     rnd = lambda x: 1 << (max(int(x), 1) - 1).bit_length()  # noqa: E731
     piece_cap = rnd(min(sum(per_block_bound), lr * lcB))
     out_cap = min(rnd(piece_cap * L), max(lr * (lcB // L), 1))
+    if merge is not None and merge_source is None:
+        merge_source = "arg"
     if merge is None:
         merge = tuner_config.env_merge()
+        merge_source = "env" if merge is not None else None
     if merge is None:
         merge = _merge_heuristic(sr, L, piece_cap * L / max(out_cap, 1), pieces_sorted)
+        merge_source = "heuristic"
     if merge not in MERGE_TIERS:
         raise ValueError(f"merge must be one of {MERGE_TIERS}, got {merge!r}")
+    if obs.ENABLED:
+        obs.gauge("spgemm.summa3d.layers", L)
+        obs.count("spgemm.windowed.windows_packed", packed)
+        obs.gauge("spgemm.windowed.pack_ratio", packed / ntot if ntot else 0.0)
+        obs.count("spgemm.merge.tier", tier=merge, source=merge_source, op="spgemm3d")
     C, overflow = summa3d_spgemm_windowed(
         sr, A3, B3, block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps, skip=skip,
         backend=backend, mode=mode, chunk_w=chunk_w, block_cols=block_cols,
@@ -977,9 +1023,12 @@ def spgemm3d_windowed(sr: Semiring, A3: SpParMat3D, B3: SpParMat3D, *,
     extract_over, piece_over, merge_over, hash_over = (int(x) for x in host_value(overflow))
     _check_fiber_overflow(piece_over, piece_cap, "spgemm3d_windowed", slack)
     if hash_over > 0:
+        # counted fallback: rerun through the sorted-runs tier
+        if obs.ENABLED:
+            obs.count("spgemm.merge.hash_overflow", hash_over)
         C = spgemm3d_windowed(sr, A3, B3, block_rows=block_rows, block_cols=block_cols,
                               backend=backend, mode=mode, slack=slack, merge="runs", ring=ring,
-                              pipeline=pipeline)
+                              pipeline=pipeline, merge_source="hash_fallback")
         spgemm3d_windowed.last_plan["hash_overflow"] = hash_over
         return C
     if extract_over > 0 or merge_over > 0:

@@ -12,9 +12,13 @@ grid lives on one device. Tuples past a full bucket or a full tile are
 dropped and counted, as in the reference: callers check the count (or let
 ``from_device_coo`` retry with doubled capacities).
 
-The reference's ``obs`` spans, counters and gauges
-(``redistribute.py:108-110, :222-252``) are left out until ``obs`` is
-ported (ROADMAP item 13b).
+Telemetry (the reference's sites): ``from_device_coo`` gauges
+``redistribute.stage_capacity`` / ``redistribute.tile_capacity`` on the
+deferred path, and otherwise runs in a ``redistribute`` span with a
+``route`` event, a ``redistribute.dropped`` count an attempt and
+``redistribute.retries`` a doubling. The reference's
+``trace.redistribute_coo`` counts JAX retraces; eager torch has none, so
+it is left out.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.segment import DROP_SPREAD, spread_drops
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring
@@ -166,18 +171,30 @@ def from_device_coo(
     stage_cap = 1 << max(int(np.ceil(np.log2(max(max(per_dest1, per_dest2) * slack, 1)))), 0)
     tile_cap = 1 << max(int(np.ceil(np.log2(max(chunk * slack, 1)))), 0)
     if defer_drop_check:
+        if obs.ENABLED:
+            obs.gauge("redistribute.stage_capacity", stage_cap)
+            obs.gauge("redistribute.tile_capacity", tile_cap)
         return redistribute_coo(grid, rows, cols, vals, nrows, ncols, stage_capacity=stage_cap,
                                 tile_capacity=tile_cap, dedup_sr=dedup_sr)
     nd = 0
-    for _ in range(max_retries + 1):
-        mat, dropped = redistribute_coo(grid, rows, cols, vals, nrows, ncols,
-                                        stage_capacity=stage_cap, tile_capacity=tile_cap,
-                                        dedup_sr=dedup_sr)
-        nd = int(dropped)
-        if nd == 0:
-            return mat
-        stage_cap *= 2
-        tile_cap *= 2
+    with obs.span("redistribute", chunk=int(chunk)):
+        for attempt in range(max_retries + 1):
+            mat, dropped = redistribute_coo(grid, rows, cols, vals, nrows, ncols,
+                                            stage_capacity=stage_cap, tile_capacity=tile_cap,
+                                            dedup_sr=dedup_sr)
+            nd = int(dropped)
+            if obs.ENABLED:
+                # the actual drop count per attempt — zero on success, so
+                # the counter reads as total tuples ever bounced
+                obs.count("redistribute.dropped", nd)
+                obs.span_event("route", attempt=attempt, dropped=nd,
+                               stage_capacity=stage_cap, tile_capacity=tile_cap)
+            if nd == 0:
+                return mat
+            if obs.ENABLED:
+                obs.count("redistribute.retries")
+            stage_cap *= 2
+            tile_cap *= 2
     raise ValueError(
         f"redistribute still dropped {nd} tuples after {max_retries} "
         "capacity doublings; call redistribute_coo with explicit capacities"

@@ -38,6 +38,23 @@ part of the output layout). The stage expansions inside a product are
 internal: they are sized from exact counts read back and cut to their
 valid slots before the merge, which gives the same outputs, padding slots
 included, with less memory.
+
+Telemetry (``obs``), at the reference's sites and under its gates: the
+symbolic pass's ``spgemm.symbolic_fill_slots`` / ``spgemm.load_imbalance``,
+the ``spgemm``, ``spgemm.scan``, ``spgemm.phase`` and ``spgemm.auto``
+spans with their events, the router's ``spgemm.auto.*`` and
+``tuner.store.rejected`` counts, the windowed plan's
+``spgemm.windowed.*`` series, the retry counts of the scan and mxu tiers,
+``spgemm.merge.tier`` (labelled by ``merge_source``), and
+``spgemm.realized_nnz``, read back only under ``obs.DEVICE_SYNC`` as in the
+reference, even where the port has the count on the host already. Sites
+that the reference reaches while tracing a jitted program count once a
+call here: ``spgemm.pipeline.stages_overlapped`` (``summa_spgemm``,
+``summa_spgemm_scan``, ``summa_spgemm_windowed``) and the carousel's
+``spgemm.pipeline.stage`` events. The reference's ``trace.summa_spgemm``,
+``trace.summa_spgemm_scan``, ``trace.summa_spgemm_windowed`` and
+``trace.summa_spgemm_mxu`` count JAX retraces; eager torch has none, so
+they are left out.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.compressed import CSR
 from ..ops.semiring_matmul import semiring_matmul
 from ..ops.spgemm import (
@@ -292,6 +310,9 @@ def summa_spgemm(sr: Semiring, A: SpParMat, B: SpParMat, *, flop_capacity: int,
     _check_compat(A, B)
     if merge not in ("sort", "runs"):
         raise ValueError(f"merge must be 'sort' or 'runs', got {merge!r}")
+    p = A.grid.pr
+    if obs.ENABLED and ring and p > 1:
+        obs.count("spgemm.pipeline.stages_overlapped", p - 1)
 
     def tile(i, j):
         chunks = [_stage_chunk(sr, a, b, flop_capacity)
@@ -346,7 +367,30 @@ def summa_capacities(A: SpParMat, B: SpParMat, slack: float = 1.05):
     tile's total expansion clamped to the dense tile, each times
     ``slack``."""
     per_stage = host_value(summa_stage_flops(A, B)).astype(np.float64)
+    if obs.ENABLED:
+        _record_symbolic_metrics(per_stage)
     return _caps_from_stage_flops(per_stage, A.local_rows * B.local_cols, slack)
+
+
+def _record_symbolic_metrics(per_stage: np.ndarray) -> None:
+    """Registry facts from one symbolic pass: total symbolic fill-in
+    (expansion slots — the flops side of symbolic-vs-realized) and the
+    per-tile LoadImbalance (max/mean over output tiles, the reference's
+    ``LoadImbalance`` statistic)."""
+    per_tile = per_stage.sum(axis=0)
+    mean = float(per_tile.mean())
+    obs.count("spgemm.symbolic_fill_slots", float(per_stage.sum()))
+    obs.gauge("spgemm.load_imbalance", float(per_tile.max() / mean) if mean > 0 else 1.0)
+
+
+def _record_realized_nnz(C: SpParMat) -> None:
+    """Realized output fill-in (the other half of symbolic-vs-realized).
+    Reading ``C.nnz`` is a device readback, so this records ONLY under
+    the explicit ``obs.DEVICE_SYNC`` opt-in, as in the reference — also
+    where the port has already read the count back — so that telemetry
+    never adds a readback a caller did not ask for."""
+    if obs.ENABLED and obs.DEVICE_SYNC:
+        obs.count("spgemm.realized_nnz", int(host_value(C.nnz).sum()))
 
 
 def summa_stage_flops_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int,
@@ -379,6 +423,8 @@ def summa_capacities_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int, nc
     if per_stage is None:
         per_stage = summa_stage_flops_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a,
                                            ncols_a, ncols_b)
+    if obs.ENABLED:
+        _record_symbolic_metrics(np.asarray(per_stage, np.float64))
     dense_tile = grid.local_rows(nrows_a) * grid.local_cols(ncols_b)
     return _caps_from_stage_flops(per_stage, dense_tile, slack)
 
@@ -391,19 +437,34 @@ def spgemm(sr: Semiring, A: SpParMat, B: SpParMat, slack: float = 1.05, *,
     the dense tile). ``merge``: argument > ``COMBBLAS_SPGEMM_MERGE`` >
     ``"sort"``; ``"runs"`` merges sorted runs, and ``"hash"`` (the 3D fiber
     tier's) runs as ``"runs"`` here, as in the reference. ``merge_source``
-    is accepted and ignored: in the reference it only labels a provenance
-    counter, and ``obs`` is not ported yet (ROADMAP item 13b).
-    ``spgemm.last_capacities`` records the two capacities of the last
-    call. Reference: ``Mult_AnXBn_Synch``."""
+    labels the ``spgemm.merge.tier`` count (``"arg"`` for a given
+    ``merge``, ``"env"``, ``"heuristic"``; ``spgemm_auto`` passes
+    ``"store"`` for a plan record's merge). ``spgemm.last_capacities``
+    records the two capacities of the last call. Reference:
+    ``Mult_AnXBn_Synch``."""
+    if merge is not None and merge_source is None:
+        merge_source = "arg"
     if merge is None:
         merge = tuner_config.env_merge()
-    merge = "sort" if merge is None else ("runs" if merge == "hash" else merge)
-    flop_cap, out_cap = summa_capacities(A, B, slack)
-    if pow2_caps:
-        flop_cap = 1 << (flop_cap - 1).bit_length()
-        out_cap = min(1 << (out_cap - 1).bit_length(), max(A.local_rows * B.local_cols, 1))
-    spgemm.last_capacities = (flop_cap, out_cap)
-    return summa_spgemm(sr, A, B, flop_capacity=flop_cap, out_capacity=out_cap, merge=merge)
+        merge_source = "env" if merge is not None else None
+    if merge == "hash":
+        merge = "runs"
+    if merge is None:
+        merge, merge_source = "sort", "heuristic"
+    with obs.span("spgemm", sr=sr.name):
+        if obs.ENABLED:
+            obs.count("spgemm.merge.tier", tier=merge, source=merge_source, op="spgemm")
+        flop_cap, out_cap = summa_capacities(A, B, slack)
+        if pow2_caps:
+            flop_cap = 1 << (flop_cap - 1).bit_length()
+            out_cap = min(1 << (out_cap - 1).bit_length(),
+                          max(A.local_rows * B.local_cols, 1))
+        if obs.ENABLED:
+            obs.span_event("capacities", flop_capacity=flop_cap, out_capacity=out_cap)
+        spgemm.last_capacities = (flop_cap, out_cap)
+        C = summa_spgemm(sr, A, B, flop_capacity=flop_cap, out_capacity=out_cap, merge=merge)
+        _record_realized_nnz(C)
+        return C
 
 
 spgemm.last_capacities = None
@@ -447,7 +508,12 @@ def mem_efficient_spgemm(sr: Semiring, A: SpParMat, B: SpParMat, phases: int, *,
                 f"and the nearest divisor above it ({adj}) is >4x the request; choose a "
                 f"phase count dividing local_cols (divisors of {lc}) or repad the matrix")
         warnings.warn(PhaseAdjustedWarning(phases, adj, lc), stacklevel=2)
+        if obs.ENABLED:
+            obs.count("spgemm.phase_adjusted")
         phases = adj
+    if obs.ENABLED:
+        # the phase count actually executed (the spgemm.phase spans below)
+        obs.gauge("spgemm.phases", phases, scan=str(scan))
 
     def mult(a, b):
         return spgemm_scan(sr, a, b, slack=slack) if scan else spgemm(sr, a, b, slack)
@@ -456,9 +522,12 @@ def mem_efficient_spgemm(sr: Semiring, A: SpParMat, B: SpParMat, phases: int, *,
         C = mult(A, B)
         return prune_fn(C) if prune_fn is not None else C
     outs = []
-    for Bs in B.col_split(phases):
-        C = mult(A, Bs.shrink_to_fit())
-        outs.append(prune_fn(C) if prune_fn is not None else C)
+    for pi, Bs in enumerate(B.col_split(phases)):
+        with obs.span("spgemm.phase", phase=pi):
+            C = mult(A, Bs.shrink_to_fit())
+            if prune_fn is not None:
+                C = prune_fn(C)
+        outs.append(C)
     return SpParMat.col_concatenate(outs)
 
 
@@ -522,6 +591,8 @@ def summa_spgemm_scan(sr: Semiring, A: SpParMat, B: SpParMat, *, flop_capacity: 
     later counts, so a positive overflow is a lower bound of the
     shortfall."""
     _check_compat(A, B)
+    if obs.ENABLED and ring and A.grid.pr > 1:
+        obs.count("spgemm.pipeline.stages_overlapped", A.grid.pr - 1)
     dev = A.grid.device
     worst = [torch.zeros((), dtype=torch.long, device=dev)]
 
@@ -548,20 +619,29 @@ def spgemm_scan(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
     cheap; each retry grows it to the power of two above ``out_capacity +
     overflow``, and at least doubles it, since the overflow is a lower
     bound. One readback an attempt."""
-    flop_cap, flops_out_cap = summa_capacities(A, B, slack)
-    if out_capacity is None:
-        out_capacity = max(min(flops_out_cap, max(A.capacity, B.capacity)), 64)
-    out_capacity = 1 << (int(out_capacity) - 1).bit_length()
-    over, tried = 0, []
-    for _ in range(max_retries + 1):
-        tried.append(out_capacity)
-        C, overflow = summa_spgemm_scan(sr, A, B, flop_capacity=flop_cap,
-                                        out_capacity=out_capacity, ring=ring)
-        over = int(overflow)
-        spgemm_scan.last_run = {"flop_capacity": flop_cap, "out_capacities": tried}
-        if over <= 0:
-            return C
-        out_capacity = max(1 << (out_capacity + over - 1).bit_length(), out_capacity * 2)
+    with obs.span("spgemm.scan", sr=sr.name):
+        flop_cap, flops_out_cap = summa_capacities(A, B, slack)
+        if out_capacity is None:
+            out_capacity = max(min(flops_out_cap, max(A.capacity, B.capacity)), 64)
+        out_capacity = 1 << (int(out_capacity) - 1).bit_length()
+        over, tried = 0, []
+        for attempt in range(max_retries + 1):
+            tried.append(out_capacity)
+            C, overflow = summa_spgemm_scan(sr, A, B, flop_capacity=flop_cap,
+                                            out_capacity=out_capacity, ring=ring)
+            over = int(overflow)
+            spgemm_scan.last_run = {"flop_capacity": flop_cap, "out_capacities": tried}
+            if over <= 0:
+                if obs.ENABLED:
+                    obs.count("spgemm.scan.overflow_retries", attempt)
+                    obs.span_event("sized", flop_capacity=flop_cap,
+                                   out_capacity=out_capacity, retries=attempt)
+                    _record_realized_nnz(C)
+                return C
+            if obs.ENABLED:
+                obs.count("spgemm.scan.overflow_slots", over)
+            out_capacity = max(1 << (out_capacity + over - 1).bit_length(),
+                               out_capacity * 2)
     raise TierRefusal(f"spgemm_scan still overflowing by {over} after {max_retries} "
                      "retries; pass an explicit out_capacity")
 
@@ -1068,6 +1148,18 @@ def _windowed_gathered_compute(win: _Windows, stages) -> tuple[list, torch.Tenso
     return chunks, worst
 
 
+def _record_carousel_stages(p: int, pipeline: bool) -> None:
+    """One ``spgemm.pipeline.stage`` event per carousel stage, noting whether
+    its successor rotation is issued early. The reference records them
+    while it traces the windowed carousel (once a trace); the port records
+    them once a call of a carousel product."""
+    if not obs.ENABLED:
+        return
+    for s in range(p):
+        obs.span_event("spgemm.pipeline.stage", stage=s,
+                       overlapped=bool(pipeline and s != p - 1))
+
+
 def _windowed_carousel_compute(win: _Windows, stages) -> tuple[list, torch.Tensor]:
     """The carousel schedule on one output tile, stage-outer: every
     occupied block's accumulator lives across the stages (the reference's
@@ -1161,7 +1253,11 @@ def summa_spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows:
     block; ``ring=True`` in the carousel's order, stage by stage with every
     block's accumulator live. ``pipeline`` changes no output: eager torch
     has no rotation to overlap."""
-    del pipeline
+    p = A.grid.pr
+    if obs.ENABLED and ring and pipeline and p > 1:
+        obs.count("spgemm.pipeline.stages_overlapped", p - 1)
+    if ring:
+        _record_carousel_stages(p, pipeline)
     win = _windows(sr, A, B, block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps,
                    skip=skip, backend=backend, mode=mode, chunk_w=chunk_w,
                    block_cols=block_cols, panel_cap=panel_cap)
@@ -1319,12 +1415,17 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
         if plan["oracle"]:
             out_caps, skip = _oracle_out_caps_2d(sr, A, B, block_rows, block_cols, out_caps,
                                                  skip)
+        elif oracle and obs.ENABLED:
+            # requested but inapplicable: the clamped-flops caps, observably
+            obs.count("spgemm.windowed.oracle_skipped")
         if bucket:
             flop_caps, out_caps = bucket_plan_caps(flop_caps, out_caps)
             out_caps = _clamp_out_caps_2d(out_caps, block_rows, block_cols, lrA, lcB)
         panel_cap = panel_cap_from_bnnz(host_value(summa_window_bnnz(B, block_cols)),
                                         B.capacity)
         form = "local" if A.grid.size == 1 else "fused"
+        if obs.ENABLED:
+            _record_windowed_2d_metrics(A, B, form, skip, pt, block_rows, block_cols)
         plan.update(block_cols=block_cols, panel_cap=panel_cap, windows=len(skip[0]))
         kw = dict(block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps, skip=skip,
                   backend="dot", block_cols=block_cols, panel_cap=panel_cap, mode=mode)
@@ -1343,18 +1444,33 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
             out_caps = tuple(min(oc, max(min(block_rows, lrA - g * block_rows), 1) * lcB)
                              for g, oc in enumerate(out_caps))
         if ring and dispatch == "blocked":
-            dispatch = "fused"  # a carousel is fused only
+            # a carousel is fused only (the conflict is counted)
+            if obs.ENABLED:
+                obs.count("spgemm.windowed.dispatch_conflict")
+            dispatch = "fused"
         packed = len(packed_windows(skip))
         kw = dict(block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps, skip=skip,
                   chunk_w=chunk_w)
         if A.grid.size == 1:
             form = "local"
-            C, overflow = local_spgemm_windowed(sr, A, B, **kw)
         elif dispatch == "blocked" or (dispatch == "auto" and not ring and packed > 1):
             form = "blocked"
-            C, overflow = summa_spgemm_windowed_blocked(sr, A, B, **kw)
         else:
             form = "fused"
+        if obs.ENABLED:
+            obs.count("spgemm.windowed.dispatch", mode=form)
+            obs.count("spgemm.windowed.windows_skipped", sum(skip))
+            obs.count("spgemm.windowed.windows_packed", packed)
+            obs.gauge("spgemm.windowed.pack_ratio", packed / len(skip) if skip else 0.0)
+            obs.gauge("spgemm.windowed.blocks", len(skip))
+            obs.gauge("spgemm.auto.mask_density",
+                      float(np.asarray(pair[1]).sum(axis=1).max(axis=(-1, -2)).sum())
+                      / max(lrA * lcB, 1))
+        if form == "local":
+            C, overflow = local_spgemm_windowed(sr, A, B, **kw)
+        elif form == "blocked":
+            C, overflow = summa_spgemm_windowed_blocked(sr, A, B, **kw)
+        else:
             C, overflow = summa_spgemm_windowed(sr, A, B, backend="scatter", mode=mode,
                                                 ring=ring, pipeline=pipeline, **kw)
     plan.update(form=form, blocks=len(skip), packed=packed, flop_caps=flop_caps,
@@ -1363,10 +1479,41 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
     over = int(overflow)
     if over > 0:  # the caps are symbolic upper bounds: an overflow is a fault
         raise CapacityOverflowError(f"windowed tier overflowed its symbolic bound by {over}")
+    _record_realized_nnz(C)
     return C
 
 
 spgemm_windowed.last_plan = None
+
+
+def _record_windowed_2d_metrics(A: SpParMat, B: SpParMat, form: str, skip, pt,
+                                block_rows: int, block_cols: int) -> None:
+    """The dot backend's plan series: dispatch form, skipped and packed
+    (row block, column window) pairs, windows a block, the stage panel's
+    cells, and the symbolic output bound over the cells of the live
+    windows (``window_density``) and of the whole tile
+    (``spgemm.auto.mask_density``)."""
+    obs.count("spgemm.windowed.dispatch", mode=form)
+    obs.count("spgemm.windowed.col_windows_skipped", sum(sum(row) for row in skip))
+    npk = len(packed_windows_2d(skip))
+    ntot = sum(len(row) for row in skip)
+    obs.count("spgemm.windowed.windows_packed", npk)
+    obs.gauge("spgemm.windowed.pack_ratio", npk / ntot if ntot else 0.0)
+    obs.gauge("spgemm.windowed.col_windows", len(skip[0]) if skip else 0)
+    obs.gauge("spgemm.windowed.panel_cells", _pad128(B.local_rows) * _pad128(block_cols))
+    obs.gauge("spgemm.windowed.blocks", len(skip))
+    live_cells = live_bound = 0.0
+    per_tile = np.asarray(pt).sum(axis=2).max(axis=(-1, -2))
+    for g in range(len(skip)):
+        rb = min(block_rows, A.local_rows - g * block_rows)
+        for h in range(len(skip[g])):
+            if skip[g][h]:
+                continue
+            wc = min(block_cols, B.local_cols - h * block_cols)
+            live_cells += rb * wc
+            live_bound += min(float(per_tile[g, h]), rb * wc)
+    obs.gauge("spgemm.windowed.window_density", live_bound / live_cells if live_cells else 0.0)
+    obs.gauge("spgemm.auto.mask_density", live_bound / max(A.local_rows * B.local_cols, 1))
 
 
 # --- the router --------------------------------------------------------------------
@@ -1459,6 +1606,8 @@ def _choose_spgemm_tier_2d(sr: Semiring, A: SpParMat, B: SpParMat, *,
         if assume_unique or not (coo_has_duplicates(A)
                                  or (B is not A and coo_has_duplicates(B))):
             return "mxu"
+        if obs.ENABLED:
+            obs.count("spgemm.auto.dedup_fallback", sr=sr.name)
         return choose_tier_from_counts(sr, max_dim, cells, A.grid.pr, flops_total(), backend,
                                        k_dim=B.local_rows, allow_mxu=False,
                                        n_dim=B.local_cols)
@@ -1531,14 +1680,24 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
             rec = store.lookup(key)
         # vet the remembered plan before trusting it; a rejected record
         # degrades down the chain
+        # degrades down the chain, made visible as tuner.store.rejected
         if rec is not None and rec.tier not in TIERS:
-            rec = None  # e.g. a serve-lane record under a mangled key
+            # e.g. a serve-lane record under a mangled key
+            if obs.ENABLED:
+                obs.count("tuner.store.rejected", reason="tier")
+            rec = None
         if rec is not None and rec.tier == "windowed3d" and grid3 is None:
-            rec = None  # a 3D plan is unusable without a layered grid
+            # a 3D plan is unusable without a layered grid
+            if obs.ENABLED:
+                obs.count("tuner.store.rejected", reason="no_grid3")
+            rec = None
         if (rec is not None and rec.tier == "mxu" and not assume_unique
                 and (coo_has_duplicates(A) or (B is not A and coo_has_duplicates(B)))):
             # the record was measured on SOME input of this bucket, not
             # necessarily a duplicate-free one
+            if obs.ENABLED:
+                obs.count("spgemm.auto.dedup_fallback", sr=sr.name)
+                obs.count("tuner.store.rejected", reason="dup")
             rec = None
         if rec is not None:
             tier, plan_source = rec.tier, "store"
@@ -1573,42 +1732,49 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
                             "merge_source": merge_source}
     ring = False if ring is None else bool(ring)
     pipeline = True if pipeline is None else bool(pipeline)
-    if tier == "windowed3d":
-        if grid3 is None:
-            raise ValueError("tier='windowed3d' needs a grid3 (the layered mesh)")
-        from .mesh3d import SpParMat3D, spgemm3d_windowed
-
-        A3 = SpParMat3D.from_spmat(A, grid3, split="col")
-        B3 = SpParMat3D.from_spmat(B, grid3, split="row")
-        C3 = spgemm3d_windowed(sr, A3, B3, block_rows=block_rows, block_cols=block_cols,
-                               backend=backend, mode=mode, slack=slack, merge=merge,
-                               ring=ring, pipeline=pipeline, merge_source=merge_source)
-        return C3.to_spmat(A.grid)
-    if tier == "esc":
-        return spgemm(sr, A, B, slack, merge=merge, merge_source=merge_source)
-    if tier == "scan":
-        return spgemm_scan(sr, A, B, out_capacity=out_capacity, slack=slack,
-                           max_retries=max_retries)
-    if tier == "windowed":
-        return spgemm_windowed(sr, A, B, block_rows=block_rows, block_cols=block_cols,
-                               backend=backend, mode=mode, slack=slack, oracle=oracle,
-                               ring=ring, pipeline=pipeline, dispatch=dispatch)
-    if tier != "mxu":
+    if tier not in TIERS:
         raise ValueError(f"unknown spgemm tier {tier!r}; expected one of {TIERS}")
-    if out_capacity is None:
-        out_capacity = max(A.capacity, B.capacity, 64)
-    out_capacity = 1 << (int(out_capacity) - 1).bit_length()
-    over = 0
-    for _ in range(max_retries + 1):
-        C, overflow = summa_spgemm_mxu(sr, A, B, out_capacity=out_capacity, mode=mode)
-        over = int(overflow)
-        if over <= 0:
-            return C
-        out_capacity = 1 << (out_capacity + over - 1).bit_length()
-    raise ValueError(
-        f"spgemm_auto still overflowing by {over} after {max_retries} "
-        "retries; pass an explicit out_capacity"
-    )
+    if obs.ENABLED:
+        obs.count("spgemm.auto.tier", tier=tier, sr=sr.name)
+        obs.count("spgemm.auto.plan_source", source=plan_source, tier=tier, op="spgemm")
+    with obs.span("spgemm.auto", sr=sr.name, tier=tier):
+        if tier == "windowed3d":
+            if grid3 is None:
+                raise ValueError("tier='windowed3d' needs a grid3 (the layered mesh)")
+            from .mesh3d import SpParMat3D, spgemm3d_windowed
+
+            A3 = SpParMat3D.from_spmat(A, grid3, split="col")
+            B3 = SpParMat3D.from_spmat(B, grid3, split="row")
+            C3 = spgemm3d_windowed(sr, A3, B3, block_rows=block_rows, block_cols=block_cols,
+                                   backend=backend, mode=mode, slack=slack, merge=merge,
+                                   ring=ring, pipeline=pipeline, merge_source=merge_source)
+            return C3.to_spmat(A.grid)
+        if tier == "esc":
+            return spgemm(sr, A, B, slack, merge=merge, merge_source=merge_source)
+        if tier == "scan":
+            return spgemm_scan(sr, A, B, out_capacity=out_capacity, slack=slack,
+                               max_retries=max_retries)
+        if tier == "windowed":
+            return spgemm_windowed(sr, A, B, block_rows=block_rows, block_cols=block_cols,
+                                   backend=backend, mode=mode, slack=slack, oracle=oracle,
+                                   ring=ring, pipeline=pipeline, dispatch=dispatch)
+        if out_capacity is None:
+            out_capacity = max(A.capacity, B.capacity, 64)
+        out_capacity = 1 << (int(out_capacity) - 1).bit_length()
+        over = 0
+        for attempt in range(max_retries + 1):
+            C, overflow = summa_spgemm_mxu(sr, A, B, out_capacity=out_capacity, mode=mode)
+            over = int(overflow)
+            if over <= 0:
+                if obs.ENABLED:
+                    obs.count("spgemm.mxu.overflow_retries", attempt)
+                    _record_realized_nnz(C)
+                return C
+            out_capacity = 1 << (out_capacity + over - 1).bit_length()
+        raise ValueError(
+            f"spgemm_auto still overflowing by {over} after {max_retries} "
+            "retries; pass an explicit out_capacity"
+        )
 
 
 spgemm_auto.last_run = None

@@ -24,6 +24,12 @@ rotation to overlap on one device, and ``ring`` keeps the carousel's
 stage order (it decides a float sum's order). Integer-valued and min/max
 results equal the reference's bit for bit; a float plus_times sum may
 differ in its last bits.
+
+Telemetry: ``summa_spmm`` counts ``spmm.pipeline.stages_overlapped``
+(p - 1 for ``ring`` and ``pipeline`` on p > 1), once a call where the
+reference, which runs it jitted, counts once a trace. The reference's
+``trace.spmm_ell``, ``trace.spmm_khop`` and ``trace.summa_spmm`` count
+JAX retraces; eager torch has none, so they are left out.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops.segment import DROP_SPREAD, spread_drops
 from ..ops.spgemm import _keyed, fold_buffer_values, fold_into_, fold_keys, new_fold_buffer
 from ..semiring import PLUS_TIMES, Semiring
@@ -216,6 +223,8 @@ def summa_spmm(sr: Semiring, A: SpParMat, X: DenseParMat, *, backend: str = "mxu
     lr = grid.local_rows(A.nrows)
     lk = grid.local_rows(X.nrows)
     out_dtype = torch.promote_types(A.vals.dtype, X.dtype)
+    if obs.ENABLED and ring and pipeline and p > 1:
+        obs.count("spmm.pipeline.stages_overlapped", p - 1)
     if ring:
         stage_k = {(i, j): [a[i * p + j][1] for _, a, _ in _carousel_stages(p)]
                    for i in range(p) for j in range(p)}

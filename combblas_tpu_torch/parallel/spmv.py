@@ -17,12 +17,19 @@ builds its own, as the reference does. The outputs are the same either
 way. The walk's per-tile counts (active columns and walked entries, cut at
 the budgets) are read back once a call, or passed in (``counts=``) by a
 caller that read them with its own readback.
+
+Telemetry: each entry point counts ``spmv.dispatch{kernel}``, as the
+reference does. The reference's ``dist_spmspv`` and
+``dist_spmspv_masked`` are jitted, and its other entries are often called
+from jitted code, so there the count is one a trace; the port runs
+eagerly and counts one a call.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..ops.compressed import CSC
 from ..ops.segment import expand_ranges
 from ..ops.spmv import spmspv_dense_out, spmv
@@ -46,6 +53,8 @@ def _local_spmv(sr: Semiring, A: SpParMat, xb: torch.Tensor):
 def dist_spmv(sr: Semiring, A, x: DistVec) -> DistVec:
     """y = A ⊗ x: x in either alignment, y row-aligned. ``A``: an
     ``SpParMat`` or an ``EllParMat``."""
+    if obs.ENABLED:
+        obs.count("spmv.dispatch", kernel="dist_spmv")
     if isinstance(A, EllParMat):
         return dist_spmv_ell(sr, A, x)
     check_length(A, x)
@@ -56,6 +65,8 @@ def dist_spmv(sr: Semiring, A, x: DistVec) -> DistVec:
 def dist_spmv_masked(sr: Semiring, A, x: DistVec, row_active: DistVec) -> DistVec:
     """``dist_spmv`` with ``sr.zero`` in the rows where ``row_active``
     (bool) is False."""
+    if obs.ENABLED:
+        obs.count("spmv.dispatch", kernel="dist_spmv_masked")
     if isinstance(A, EllParMat):
         return dist_spmv_ell_masked(sr, A, x, row_active)
     check_length(A, x)
@@ -70,6 +81,8 @@ def dist_spmspv(sr: Semiring, A: SpParMat, x: DistVec, x_active: DistVec):
     the rows with an entry in an active column, nnz their count (0-dim
     int32)."""
     check_length(A, x)
+    if obs.ENABLED:
+        obs.count("spmv.dispatch", kernel="dist_spmspv")
     lr = A.local_rows
     xa = x_active.realign("col").blocks
     act = []
@@ -123,6 +136,8 @@ def dist_spmspv_masked(sr: Semiring, A: SpParMat, x: DistVec, x_active: DistVec,
     ``spmspv_counts``' values as host ints, read back here when None.
     """
     check_length(A, x)
+    if obs.ENABLED:
+        obs.count("spmv.dispatch", kernel="dist_spmspv_masked")
     xb = x.realign("col").blocks
     xa = x_active.realign("col").blocks
     if csc is None:

@@ -68,6 +68,13 @@ ENV_DYNAMIC_HEADROOM = "COMBBLAS_DYNAMIC_HEADROOM"
 #: tiers").
 ENV_MERGE = "COMBBLAS_SPGEMM_MERGE"
 
+#: Round-15 knob: deterministic per-request trace sampling rate for the
+#: serve path (``obs/trace.py``).  A request is traced iff obs is
+#: enabled AND ``crc32(request id) mod 1e6 < rate * 1e6`` — same ids +
+#: same rate = same sampled set on every replica.  Unset/empty/0 = no
+#: tracing (the zero-cost default).
+ENV_OBS_TRACE_SAMPLE = "COMBBLAS_OBS_TRACE_SAMPLE"
+
 #: Valid merge-tier names (parallel/mesh3d re-exports this as
 #: MERGE_TIERS — one definition, vetting and kernel asserts agree).
 MERGE_TIER_NAMES = ("sort", "runs", "hash")
@@ -224,3 +231,25 @@ def dynamic_headroom(given: float | None = None) -> float:
     v = os.environ.get(ENV_DYNAMIC_HEADROOM)
     return max(float(v), 0.0) if v else DEFAULT_DYNAMIC_HEADROOM
 
+
+
+def obs_enabled() -> bool:
+    """``COMBBLAS_OBS``: telemetry on (any value but unset, empty, "0").
+    ``obs/__init__.py`` reads it once, at its import, as the reference's
+    does (whose ``obs`` reads the variable itself)."""
+    return os.environ.get("COMBBLAS_OBS", "0") not in ("", "0")
+
+
+def obs_device_sync() -> bool:
+    """``COMBBLAS_OBS_SYNC``: the metrics that read device scalars back
+    on, read once at ``obs``'s import."""
+    return os.environ.get("COMBBLAS_OBS_SYNC", "0") not in ("", "0")
+
+
+def obs_trace_sample(given: float | None = None) -> float:
+    """Per-request trace sampling rate in [0, 1]: explicit argument >
+    ``COMBBLAS_OBS_TRACE_SAMPLE`` > 0 (off).  Clamped to [0, 1]."""
+    if given is None:
+        v = os.environ.get(ENV_OBS_TRACE_SAMPLE)
+        given = float(v) if v else 0.0
+    return min(max(float(given), 0.0), 1.0)

@@ -31,8 +31,10 @@ tier's ``CapacityOverflowError`` and ``torch.OutOfMemoryError``); each
 skip is recorded in the probe's ``last_errors``.  Anything else — a
 failed kernel build, a CUDA launch error, a kernel wrapper's
 ``ValueError`` on a bad call — propagates: the probe never hides a
-kernel.  The reference's
-``obs`` counters and spans are not ported yet.
+kernel.  Probe cost is obs-visible, as in the reference: each pass runs
+in a ``tuner.probe`` span (``tuner.probe.geometry`` for the windowed
+geometry sweep) and counts ``tuner.probe.{runs,errors,budget_exhausted,
+seconds,winner,geometry_runs}``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..parallel.spgemm import CapacityOverflowError, TierRefusal
 from . import config
 from .store import PlanKey, PlanRecord, PlanStore
@@ -216,27 +219,41 @@ def wall_measure(device: torch.device):
 
 
 def _measure_candidates(cands, run_of, measure, budget_s, errors,
-                        spent0: float = 0.0):
+                        spent0: float = 0.0, tier_of=None, geometry: bool = False):
     """Warm then time each candidate in order until the budget (counted
     from ``spent0``) is spent; the first is always measured.  Returns
     ``(costs, spent, runs)``; a candidate that raises one of
-    ``PROBE_SKIPS`` is skipped and appended to ``errors``."""
+    ``PROBE_SKIPS`` is skipped and appended to ``errors``.  Counts
+    ``tuner.probe.budget_exhausted``, ``tuner.probe.errors{tier}`` and
+    ``tuner.probe.runs{tier}`` (``tier_of(cand)``, default the candidate
+    itself), or for the ``geometry`` sweep ``tuner.probe.geometry_runs``
+    and errors under ``tier=windowed``."""
     costs: dict = {}
     spent = 0.0
     runs = 0
     for cand in cands:
         if costs and spent0 + spent >= budget_s:
+            if obs.ENABLED:
+                obs.count("tuner.probe.budget_exhausted")
             break
+        tier = "windowed" if geometry else (cand if tier_of is None else tier_of(cand))
         run = run_of(cand)
         try:
             run()  # warm-up (untimed)
             dt = float(measure(run))
         except PROBE_SKIPS as exc:
             errors.append({"candidate": cand, "error": f"{type(exc).__name__}: {exc}"})
+            if obs.ENABLED:
+                obs.count("tuner.probe.errors", tier=tier)
             continue
         costs[cand] = dt
         spent += dt
         runs += 1
+        if obs.ENABLED:
+            if geometry:
+                obs.count("tuner.probe.geometry_runs")
+            else:
+                obs.count("tuner.probe.runs", tier=tier)
     return costs, spent, runs
 
 
@@ -300,14 +317,19 @@ def probe_spgemm(
             assume_unique=(tier != "mxu"),
         )
 
-    costs, spent, runs = _measure_candidates(
-        cands, run_tier, measure, budget_s, errors)
+    with obs.span("tuner.probe", sr=sr.name, dim=pm):
+        costs, spent, runs = _measure_candidates(
+            cands, run_tier, measure, budget_s, errors)
     if store is not None:
         store.record_probe(runs, spent)
+    if obs.ENABLED:
+        obs.count("tuner.probe.seconds", spent)
     probe_spgemm.last_costs = {"tiers": dict(costs)}
     if not costs:
         return None
     winner = min(costs, key=costs.get)
+    if obs.ENABLED:
+        obs.count("tuner.probe.winner", tier=winner)
     # the window-geometry sweep: when windowed won and budget remains,
     # sweep a small block_rows / block_cols grid on the same proxy and
     # persist the winning geometry, rescaled to the real dims, WITH the
@@ -323,11 +345,14 @@ def probe_spgemm(
                 block_rows=br, block_cols=bc, assume_unique=True,
             )
 
-        geo_costs, geo_spent, geo_runs = _measure_candidates(
-            _geometry_candidates(pm, pn), run_geo, measure, budget_s,
-            errors, spent0=spent)
+        with obs.span("tuner.probe.geometry", dim=pm):
+            geo_costs, geo_spent, geo_runs = _measure_candidates(
+                _geometry_candidates(pm, pn), run_geo, measure, budget_s,
+                errors, spent0=spent, geometry=True)
         if store is not None:
             store.record_probe(geo_runs, geo_spent)
+        if obs.ENABLED and geo_spent:
+            obs.count("tuner.probe.seconds", geo_spent)
         probe_spgemm.last_costs["geometry"] = {
             f"{br}x{bc}": dt for (br, bc), dt in geo_costs.items()}
         for geo, dt in geo_costs.items():
@@ -430,14 +455,19 @@ def probe_spgemm3d(
         tier, merge = cand
         return lambda: mesh3d.spgemm3d(sr, A3, B3, tier=tier, merge=merge)
 
-    costs, spent, runs = _measure_candidates(
-        candidates, run_of, measure, budget_s, errors)
+    with obs.span("tuner.probe", sr=sr.name, dim=int(A3.nrows), op="spgemm3d"):
+        costs, spent, runs = _measure_candidates(
+            candidates, run_of, measure, budget_s, errors, tier_of=lambda c: c[0])
     probe_spgemm3d.last_costs = {f"{t}/{m}": dt for (t, m), dt in costs.items()}
     if store is not None:
         store.record_probe(runs, spent)
+    if obs.ENABLED:
+        obs.count("tuner.probe.seconds", spent)
     if not costs:
         return None
     winner = min(costs, key=costs.get)
+    if obs.ENABLED:
+        obs.count("tuner.probe.winner", tier=winner[0])
     rec = PlanRecord(
         tier=winner[0], merge=winner[1], cost_s=costs[winner],
         source="probe", probe_dim=int(A3.nrows),
@@ -485,14 +515,19 @@ def probe_spmm(
     def run_of(backend):
         return lambda: spmm_mod.dist_spmm_ell(sr, E, X, backend=backend)
 
-    costs, spent, runs = _measure_candidates(
-        cands, run_of, measure, budget_s, errors)
+    with obs.span("tuner.probe", sr=sr.name, dim=int(E.nrows), op="spmm"):
+        costs, spent, runs = _measure_candidates(
+            cands, run_of, measure, budget_s, errors)
     probe_spmm.last_costs = dict(costs)
     if store is not None:
         store.record_probe(runs, spent)
+    if obs.ENABLED:
+        obs.count("tuner.probe.seconds", spent)
     if not costs:
         return None
     winner = min(costs, key=costs.get)
+    if obs.ENABLED:
+        obs.count("tuner.probe.winner", tier=winner)
     rec = PlanRecord(
         tier=winner, cost_s=costs[winner], source="probe",
         probe_dim=int(E.nrows),

@@ -11,6 +11,7 @@ record's geometry, schedule and merge fills), with the same vetting.
 
 from __future__ import annotations
 
+from .. import obs
 from . import config
 from . import store as tuner_store
 
@@ -41,42 +42,49 @@ def resolve_tier(
     * ``probe`` — optional zero-arg callable returning a ``PlanRecord``
       (or None); tried only when probing is enabled
       (``COMBBLAS_TUNER_PROBE=1``) and the store missed;
-    * ``account`` — ``True`` uses ``store.lookup`` (hit/miss counters);
-      ``False`` uses ``store.peek`` and counts nothing.
+    * ``account`` — ``True`` uses ``store.lookup`` (hit/miss counters)
+      and counts ``spgemm.auto.plan_source`` and a vetted-out record's
+      ``tuner.store.rejected``; ``False`` uses ``store.peek`` and counts
+      nothing.
     """
     if tier is not None:
-        return tier, "arg", None
-    rec = None
-    source = None
-    if store is None:
-        store = tuner_store.get_store()
-    if store is not None and key is not None:
-        rec = store.lookup(key) if account else store.peek(key)
-    if rec is not None and rec.tier not in allowed:
-        rec = None  # the record vetting
-    if rec is not None:
-        tier, source = rec.tier, "store"
-    if tier is None:
-        if op == "spgemm3d":
-            env_val = config.env_tier3d()
-        elif op == "spmm":
-            env_val = config.env_spmm_backend()
-        else:
-            env_val = config.env_tier()
-        if env_val is not None:
-            tier, source = env_val, "env"
-    if (
-        tier is None
-        and probe is not None
-        and store is not None
-        and config.probe_enabled()
-    ):
-        prec = probe()
-        if prec is not None:
-            tier, source, rec = prec.tier, "probe", prec
-    if tier is None:
-        tier = heuristic() if callable(heuristic) else heuristic
-        source = "heuristic"
+        source, rec = "arg", None
+    else:
+        source = rec = None
+        if store is None:
+            store = tuner_store.get_store()
+        if store is not None and key is not None:
+            rec = store.lookup(key) if account else store.peek(key)
+        if rec is not None and rec.tier not in allowed:
+            # the record vetting
+            if account and obs.ENABLED:
+                obs.count("tuner.store.rejected", reason="tier")
+            rec = None
+        if rec is not None:
+            tier, source = rec.tier, "store"
+        if tier is None:
+            if op == "spgemm3d":
+                env_val = config.env_tier3d()
+            elif op == "spmm":
+                env_val = config.env_spmm_backend()
+            else:
+                env_val = config.env_tier()
+            if env_val is not None:
+                tier, source = env_val, "env"
+        if (
+            tier is None
+            and probe is not None
+            and store is not None
+            and config.probe_enabled()
+        ):
+            prec = probe()
+            if prec is not None:
+                tier, source, rec = prec.tier, "probe", prec
+        if tier is None:
+            tier = heuristic() if callable(heuristic) else heuristic
+            source = "heuristic"
+    if account and obs.ENABLED:
+        obs.count("spgemm.auto.plan_source", source=source, tier=tier, op=op)
     return tier, source, rec
 
 

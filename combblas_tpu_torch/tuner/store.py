@@ -26,8 +26,10 @@ the card, ``"cpu"`` on the CPU), so a plan measured on the card is never
 replayed on the CPU.  The store also remembers serve warm-up lanes
 (``add_serve_lane`` / ``serve_lanes``) for the serving engine.
 
-Host counters (``stats()``) are plain ints and always live.  The
-reference's ``obs`` mirrors of them are not ported yet.
+Host counters (``stats()``) are plain ints and always live; the obs
+mirrors (``tuner.store.{hits,misses,entries,invalid,evicted,compacted,
+compact_skipped,append_unfenced,write_errors}``) cost nothing when
+telemetry is disabled.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import os
 import threading
 import time
 
+from .. import obs
 from . import config
 
 #: JSONL schema tag — bump on any incompatible key/plan layout change;
@@ -199,6 +202,8 @@ class PlanStore:
         self._evicted = 0
         self._loaded_size = -1
         self._load()
+        if obs.ENABLED:
+            obs.gauge("tuner.store.entries", len(self._plans), dir=self.path)
 
     # -- persistence -------------------------------------------------------
 
@@ -226,6 +231,8 @@ class PlanStore:
                 # corrupted / truncated / wrong-schema line: count it,
                 # skip it, keep loading — the robustness contract
                 self._invalid += 1
+                if obs.ENABLED:
+                    obs.count("tuner.store.invalid")
                 continue
             valid_lines += 1
             self._plans[key] = rec  # append-only log: later lines win
@@ -255,7 +262,10 @@ class PlanStore:
                 break
             del self._plans[k]
             n += 1
-        self._evicted += n
+        if n:
+            self._evicted += n
+            if obs.ENABLED:
+                obs.count("tuner.store.evicted", n)
         return n
 
     def _lock_file(self) -> str:
@@ -280,7 +290,10 @@ class PlanStore:
             try:
                 fcntl.flock(lf, fcntl.LOCK_EX | fcntl.LOCK_NB)
             except OSError:
-                return  # a sibling holds the lock: skip
+                # a sibling holds the lock: skip
+                if obs.ENABLED:
+                    obs.count("tuner.store.compact_skipped")
+                return
             if os.path.getsize(self.file) != self._loaded_size:
                 return  # sibling appended since we read: leave it
             with open(tmp, "w", encoding="utf-8") as f:
@@ -288,7 +301,10 @@ class PlanStore:
                     f.write(_line(key, rec))
             os.replace(tmp, self.file)
         except OSError:
-            return  # read-only store: the in-memory view is compact
+            # read-only store: the in-memory view is compact anyway
+            if obs.ENABLED:
+                obs.count("tuner.store.write_errors")
+            return
         finally:
             if lf is not None:
                 try:
@@ -297,6 +313,8 @@ class PlanStore:
                     pass
                 os.close(lf)
         self._compacted += removed_lines
+        if obs.ENABLED:
+            obs.count("tuner.store.compacted", removed_lines)
 
     def _append(self, key: PlanKey, rec: PlanRecord) -> None:
         """One O_APPEND ``write`` of a whole line under a SHARED
@@ -322,6 +340,8 @@ class PlanStore:
             if not locked:
                 os.close(lf)
                 lf = None
+                if obs.ENABLED:
+                    obs.count("tuner.store.append_unfenced")
             fd = os.open(
                 self.file, os.O_APPEND | os.O_CREAT | os.O_WRONLY,
                 0o644,
@@ -331,7 +351,9 @@ class PlanStore:
             finally:
                 os.close(fd)
         except OSError:
-            pass  # read-only store: the in-memory plan still routes
+            # read-only store: the in-memory plan still routes
+            if obs.ENABLED:
+                obs.count("tuner.store.write_errors")
         finally:
             if lf is not None:
                 try:
@@ -349,6 +371,8 @@ class PlanStore:
                 self._misses += 1
             else:
                 self._hits += 1
+        if obs.ENABLED:
+            obs.count("tuner.store.misses" if rec is None else "tuner.store.hits", op=key.op)
         return rec
 
     def peek(self, key: PlanKey) -> PlanRecord | None:
@@ -368,6 +392,8 @@ class PlanStore:
             self._evict_to_cap(config.store_max_entries(), protect=key)
         if persist:
             self._append(key, rec)
+        if obs.ENABLED:
+            obs.gauge("tuner.store.entries", len(self._plans), dir=self.path)
 
     def add_serve_lane(self, key: PlanKey, kind: str,
                        width: int) -> bool:

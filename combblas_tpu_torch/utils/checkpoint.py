@@ -16,7 +16,10 @@ file per tile of each array (``<name>.<i>.<j>.pt`` for an ``SpParMat``,
 ``blocks.<i>.pt`` for a ``DistVec``) and the reference's
 ``cbtpu_meta.json``. The reference writes the same arrays through orbax,
 which the port does not use. The reference's version snapshots (ROADMAP
-items 14 and 15) are not ported yet.
+items 14 and 15) are not ported yet, and with them its three ``obs`` sites
+(``serve.recovery.snapshot_rejected``, ``serve.checkpoint.save_s`` and
+``serve.checkpoint.load_s``), which sit in ``load_latest_version``,
+``save_version`` and ``load_version``; the ported parts have none.
 """
 
 from __future__ import annotations

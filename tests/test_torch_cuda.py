@@ -14,8 +14,10 @@ with ``hash_merge``, the windowed 3D product on both backends with K1's
 launches, the routed ``windowed3d`` and the 3D MCL) on the card against the
 same calls on the CPU, and the measured-plan tuner (the probe picks a rung
 on the card with K1's launches counted and nothing skipped, then the store
-replays it; the dot backend's windowed rung, the SpMM and the 3D probes).
-Marked ``cuda``; they skip where there is no card. The module runs under a
+replays it; the dot backend's windowed rung, the SpMM and the 3D probes),
+and the telemetry's cost contract (obs on adds no kernel and no
+synchronising call to ``spgemm_auto``; the ``spgemm.auto`` range holds K1's
+kernels on the profiler's timeline). Marked ``cuda``; they skip where there is no card. The module runs under a
 fresh plan store of its own with probing off, so the routed calls take
 their tiers from the code, not from an ambient store.
 
@@ -1684,3 +1686,113 @@ def test_spmm_and_3d_probes_on_card(probe_store, cuda_device):
         _same(a, b)
     mesh3d_mod.spgemm3d(MIN_PLUS, *mats[1])
     assert mesh3d_mod.spgemm3d.last_run["plan_source"] == "store"
+
+
+# --- obs: the telemetry's cost contract on the card ----------------------------------
+
+
+def _obs_mat(dev):
+    n = 1 << 8
+    r, c = rmat_symmetric_coo_host(3, 8, 8)
+    v = np.random.default_rng(7).integers(1, 16, r.shape[0]).astype(np.float32)
+    return SpParMat.from_global_coo(Grid.make(1, 1, device=dev), r, c, v, n, n,
+                                    dedup_sr=MIN_PLUS)
+
+
+def _syncs(fn):
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+
+
+def _kernels(fn, span_names=("spgemm.auto",)):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and e.name not in span_names
+          and not e.name.startswith(("Memcpy", "Memset", "Activity Buffer"))]
+    return out, ks, prof
+
+
+def test_obs_adds_no_kernel_and_no_sync_to_spgemm_auto(cuda_device):
+    """Telemetry on adds no kernel launch and no synchronising call to the
+    mxu path; ``DEVICE_SYNC`` adds exactly the one readback of
+    ``spgemm.realized_nnz``; the products are bit-equal. The profiler can
+    drop device records, never add any, so a mode is traced again (eight
+    times at most) while it shows fewer kernels than another."""
+    from combblas_tpu_torch import obs
+
+    A = _obs_mat(cuda_device)
+
+    def traced(mode):
+        obs.disable()
+        obs.reset()
+        if mode != "off":
+            obs.enable(device_sync=mode == "sync", install_hooks=False)
+        k1 = semiring_matmul.launches
+        (C, syncs), ks, _ = _kernels(lambda: _syncs(lambda: spgemm_auto(MIN_PLUS, A, A)))
+        return C, syncs, len(ks), semiring_matmul.launches - k1
+
+    try:
+        traced("off")  # warm-up: the duplicate check's memo, the first trace
+        out = {m: [traced(m)] for m in ("off", "on", "sync")}
+        assert obs.registry.get_counter("spgemm.realized_nnz") == int(out["off"][0][0].getnnz())
+        while True:
+            best = max(t[2] for ts in out.values() for t in ts)
+            short = [m for m, ts in out.items() if max(t[2] for t in ts) < best and len(ts) < 8]
+            if not short:
+                break
+            for m in short:
+                out[m].append(traced(m))
+    finally:
+        obs.disable()
+        obs.reset()
+    ref = out["off"][0][0]
+    for ts in out.values():
+        for C, _, _, k1 in ts:
+            for field in ("rows", "cols", "nnz"):
+                assert torch.equal(getattr(C, field), getattr(ref, field))
+            assert torch.equal(C.vals.view(torch.int32), ref.vals.view(torch.int32))
+            assert k1 == out["off"][0][3] >= 1
+    kernels = {m: max(t[2] for t in ts) for m, ts in out.items()}
+    assert len(set(kernels.values())) == 1, {m: [t[2] for t in ts] for m, ts in out.items()}
+    syncs = {m: {t[1] for t in ts} for m, ts in out.items()}
+    assert syncs["on"] == syncs["off"] and len(syncs["off"]) == 1
+    assert syncs["sync"] == {s + 1 for s in syncs["off"]}
+
+
+def test_obs_span_encloses_k1_kernels(cuda_device):
+    """On the profiler's timeline the ``spgemm.auto`` range holds every K1
+    kernel of the call."""
+    from combblas_tpu_torch import obs
+
+    A = _obs_mat(cuda_device)
+    spgemm_auto(MIN_PLUS, A, A)
+    obs.enable(install_hooks=False)
+    try:
+        for _ in range(8):  # a trace may drop device records: trace again
+            k = semiring_matmul.launches
+            _, ks, prof = _kernels(lambda: spgemm_auto(MIN_PLUS, A, A))
+            k1 = [e for e in ks if "semiring_mm" in e.name]
+            if len(k1) == semiring_matmul.launches - k:
+                break
+    finally:
+        obs.disable()
+        obs.reset()
+    spans = [e for e in prof.events() if e.name == "spgemm.auto"
+             and e.device_type.name == "CPU"]
+    assert len(spans) == 1 and len(k1) == semiring_matmul.launches - k >= 1
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    assert all(lo <= k.time_range.start and k.time_range.end <= hi for k in k1)

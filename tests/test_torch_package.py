@@ -22,7 +22,9 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "semantic", "utils.graph500", "utils.rmat", "utils.threefry", "utils.refgen21",
            "parallel.redistribute", "parallel.collectives", "parallel.mesh3d", "models.graph500", "io", "io.mm",
            "io.labels", "utils.checkpoint", "utils.compile_cache", "tuner", "tuner.config",
-           "tuner.store", "tuner.resolve", "tuner.probe"}
+           "tuner.store", "tuner.resolve", "tuner.probe", "obs", "obs.metrics", "obs.spans",
+           "obs.sinks", "obs.trace", "obs.recorder", "obs.export", "obs.fleetlog",
+           "utils.timers"}
 
 
 def test_import_pulls_in_no_jax():

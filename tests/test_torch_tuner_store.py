@@ -71,10 +71,12 @@ KNOBS = [
     ("env_merge", "ENV_MERGE", ["", "sort", "runs", "hash", "bogus"]),
     ("env_spmm_backend", "ENV_SPMM_BACKEND", ["", "scatter", "mxu_gather"]),
     ("dynamic_headroom", "ENV_DYNAMIC_HEADROOM", ["", "0.25", "-1"]),
+    ("obs_trace_sample", "ENV_OBS_TRACE_SAMPLE", ["", "0", "0.25", "2", "-1", "x"]),
 ]
 
 GIVEN = {
     "dynamic_headroom": [0.5, -2.0],
+    "obs_trace_sample": [0.5, 3.0],
 }
 
 
