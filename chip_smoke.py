@@ -264,11 +264,49 @@ Phases (each prints one JSON line):
      ``FlightRecorder`` dump and a ``FleetLog`` read back, and
      ``psum_counters`` on a 2 x 2 grid's counters on the card against
      numpy. Files in ``build/chip_smoke_obs``, removed. K2 never runs.
+ 17. engine: the serving engine and the mutation lane, on the graphs of
+     phases 8 and 10 (kept on the host). (1) ``GraphEngine.from_coo`` on
+     phase 8's scale-20 graph (1 x 1) with weights ``default_rng(7)``
+     1..15 and a seeded F = 64 feature table, all five kinds, timed (the
+     rebuild baseline); ``warmup`` over widths 1-16; 16 roots a kind
+     through ``batcher.assemble`` -> ``execute`` -> ``scatter``, every
+     served lane bit for bit equal to the direct call on the same operands
+     (``bfs_batch``, ``sssp_batch``, ``pagerank_batch``,
+     ``bc_batch_dense_lanes``, the propagate batch), 2 lanes' levels equal
+     to a numpy BFS, a 5-root batch in the 8-lane bucket equal to its 16-lane
+     lanes with inert ``PAD_ROOT`` lanes; ms a batch by kind (host clock,
+     readback inside), plan hits and misses. (2) The reference's churn
+     recipe, cut from 24 to 2 pairs for time (PERF.md §4): disjoint vertex
+     pairs of degree 5-19 (below their class width) that are not edges,
+     inserted one batch each through ``DeltaBuffer`` -> ``drain`` ->
+     ``apply_delta`` -> ``swap``, then deleted; every merge incremental, no plan built after the warm-up;
+     ``E.to_host_coo()`` equal to the expected edge set after the inserts
+     and to the original after the deletes; served BFS on the merged
+     version equal to a bfs-only rebuild of the same edges; the first
+     merge's ms (it bootstraps the merge state) and the others' mean and
+     max, swap ms, buckets uploaded and reused, the uploads' ms, arrays
+     and MB a merge (``_put_buckets``, one ``.to(device)`` an array, timed
+     with a synchronise), amortization (build_s over the others' mean
+     merge). (3) ``refresh`` bfs, cc and pagerank cold on the first
+     version, warm after the first insert and equal to a forced cold run
+     (pagerank in L1 within 2 tol / (1 - alpha) and within 2% at the
+     inserted edge's ends, in no more sweeps; the stale ranks, as a
+     control, must fail the ends' limit), cold with reason
+     ``deletes`` after the first delete. (The merges run on the host, 1.6-1.8
+     s each at scale 20; the phase's budget of 60 s holds 4.) (4) On phase
+     10's scale-18 graph (2 x 2, kinds bfs and pagerank, in
+     ``build/chip_smoke_engine``, removed): a snapshot, 4 batches (cut from
+     8 for time) appended to the WAL and merged, the engine dropped; ``recover`` equal to the last version (every bucket
+     array, E's COO), and with the WAL's last line cut in half to the one
+     before; the recovered version swapped into a warmed replica loaded
+     from the snapshot serves the same BFS with no plan built; one batch
+     past ``dynamic_spill_frac`` rebuilds, equal to a fresh build. Neither
+     K1 nor K2 runs.
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
-spgemm_windowed, apps, graph_input, mesh3d, tuner, obs) and, last,
+spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine) and, last,
 ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -285,6 +323,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import Future
 from pathlib import Path
 
 import numpy as np
@@ -426,6 +465,16 @@ from combblas_tpu_torch.tuner import config as tuner_config
 from combblas_tpu_torch.tuner import probe as tuner_probe
 from combblas_tpu_torch.tuner import store as tuner_store
 from combblas_tpu_torch.utils import threefry
+from combblas_tpu_torch.dynamic import (
+    REFRESH_KINDS,
+    DeltaBatch,
+    DeltaBuffer,
+    apply_delta,
+    open_wal,
+    recover,
+)
+from combblas_tpu_torch.dynamic import merge as merge_mod
+from combblas_tpu_torch.serve import GraphEngine, Request, assemble, scatter
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
 FULL = 1 << SCALE  # the mxu tier's largest tile: 8192
@@ -4843,6 +4892,433 @@ def phase_obs(dev, t_start: float, mxu_min: tuple, E_host: tuple, bfs_host: dict
             "sinks": sinks, "k1": {"min_plus": k1, "max_min": 0}}
 
 
+# --- phase 17: the serving engine and the mutation lane -----------------------------
+
+ENGINE_KINDS = ("bfs", "sssp", "pagerank", "bc", "propagate")
+ENGINE_ROOTS = 16  # of phase 8's roots, served a kind in one 16-lane batch
+ENGINE_WIDTHS = (1, 2, 4, 8, 16)  # the batcher's buckets, warmed up
+ENGINE_PADDED = 5  # a bfs batch of 5 roots in the 8-lane bucket: 3 PAD_ROOT lanes
+ENGINE_HOST_LANES = 2  # lanes also held against a numpy BFS
+CHURN_PAIRS = 2  # insert batches, then as many deletes (the reference's recipe has 24: cut)
+CHURN_DEGREES = (5, 7, 9, 10, 11, 13, 14, 15, 17, 18, 19)  # +1 stays in the class
+DUR_KINDS, DUR_GRID, DUR_BATCHES, DUR_ROOTS = ("bfs", "pagerank"), (2, 2), 4, 4  # 8 batches: cut
+DUR_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_engine"
+REFRESH_PR_L1 = 2.0  # warm vs cold ranks: L1 within this many tol / (1 - alpha)
+# warm vs cold ranks at the inserted edge's ends, relative: an H100 run read
+# 0.0024 for the warm ranks and 0.061 for the stale ones (PERF.md §6)
+REFRESH_PR_END_REL = 0.02
+ENGINE_CAP_S = 60.0  # the phase's time budget
+
+
+def _requests(kind: str, roots) -> list:
+    return [Request(rid=i, kind=kind, root=int(r), future=Future(),
+                    submitted_at=time.monotonic()) for i, r in enumerate(roots)]
+
+
+def _direct_lanes(eng, kind: str, src: np.ndarray) -> dict:
+    """The port's direct batch call of ``kind`` on the engine's current
+    operands: host arrays with the lane axis last, as ``execute`` gives."""
+    if kind == "bfs":
+        p, lv, _ = bfs_batch(eng.E, src, max_iters=eng.max_iters)
+        return {"parents": p.to_global(), "levels": lv.to_global()}
+    if kind == "sssp":
+        return {"dist": sssp_batch(eng.E_weighted, src)[0].to_global()}
+    if kind == "pagerank":
+        alpha, tol, iters = eng.pagerank_opts
+        x, _ = pagerank_batch(eng.P_ell, src, eng.dangling, alpha=alpha, tol=tol,
+                              max_iters=iters)
+        return {"ranks": x.to_global()}
+    if kind == "bc":
+        return {"scores": bc_batch_dense_lanes(eng.E, eng.ET, src).to_global()}
+    hops, normalize = eng.propagate_opts
+    feats = propagate_mod._propagate_batch_impl(
+        eng.ET, eng.version.X, None, src, hops=hops, normalize=normalize,
+        backend=eng._resolve_spmm_backend())
+    return {"features": feats.cpu().numpy()[: eng.version.feat_dim]}
+
+
+def _same_lanes(lanes: list, want: dict) -> None:
+    """Raise unless each request's lane equals ``want``'s lane bit for bit."""
+    for k, lane in enumerate(lanes):
+        for key, w in want.items():
+            got, ref = lane[key], np.ascontiguousarray(w[..., k])
+            if got.dtype != ref.dtype or got.tobytes() != ref.tobytes():
+                raise AssertionError(f"served lane {k} {key} differs from the direct call")
+
+
+def _engine_coo(csr_host: dict):
+    """Phase 8's graph as row-sorted COO (its CSC arrays on one tile: the
+    graph is symmetric) and n."""
+    indptr, rowidx = csr_host["indptr"], csr_host["cols"]
+    n = len(indptr) - 1
+    return np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr)), rowidx.astype(np.int64), n
+
+
+def step_engine_serve(dev, csr_host: dict, roots: np.ndarray) -> dict:
+    """Step 1: the engine on phase 8's graph, warmed up, serving 16 roots a
+    kind through the batcher, each lane held against the direct call."""
+    t = time.perf_counter()
+    rows, cols, n = _engine_coo(csr_host)
+    w = np.random.default_rng(WEIGHT_SEED).integers(1, 16, len(rows)).astype(np.float32)
+    X = np.random.default_rng(SPMM_SEED).standard_normal((n, SPMM_F)).astype(np.float32)
+    spent = {"inputs": time.perf_counter() - t}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device=dev), rows, cols, n, weights=w,
+                               features=X, kinds=ENGINE_KINDS, keep_coo=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    del w, X
+    warm = eng.warmup(widths=ENGINE_WIDTHS)
+    mark = eng.trace_mark()
+    ms, niter, lanes16 = {}, {}, {}
+    spent["direct"] = 0.0
+    for kind in ENGINE_KINDS:
+        reqs = _requests(kind, roots)
+        src = assemble(reqs, ENGINE_WIDTHS)
+        res, sec = host_timed(lambda: eng.execute(kind, src))
+        ms[kind] = sec * 1e3
+        if scatter(reqs, res) != len(reqs):
+            raise AssertionError(f"{kind}: scatter settled fewer requests than it was given")
+        lanes16[kind] = [r.future.result() for r in reqs]
+        niter[kind] = res.get("batch_niter")
+        t = time.perf_counter()
+        _same_lanes(lanes16[kind], _direct_lanes(eng, kind, src))
+        spent["direct"] += time.perf_counter() - t
+    # a padded batch: 5 roots in the 8-lane bucket, equal to their lanes in
+    # the 16-lane batch, the pad lanes inert
+    reqs = _requests("bfs", roots[:ENGINE_PADDED])
+    src = assemble(reqs, ENGINE_WIDTHS)
+    res = eng.execute("bfs", src)
+    scatter(reqs, res)
+    if len(src) != 8 or (src[ENGINE_PADDED:] != PAD_ROOT).any() or (
+            res["levels"][:, ENGINE_PADDED:] != -1).any() or (
+            res["parents"][:, ENGINE_PADDED:] != -1).any():
+        raise AssertionError("the padded bfs batch's pad lanes are not inert")
+    for k, r in enumerate(reqs):
+        for key in ("parents", "levels"):
+            if not np.array_equal(r.future.result()[key], lanes16["bfs"][k][key]):
+                raise AssertionError(f"padded batch lane {k} {key} differs from the 16-lane batch")
+    t = time.perf_counter()
+    for k in range(ENGINE_HOST_LANES):
+        want = host_bfs_levels(csr_host["indptr"], csr_host["cols"], int(roots[k]))
+        if not np.array_equal(lanes16["bfs"][k]["levels"], want):
+            raise AssertionError(f"served bfs lane {k} differs from the numpy BFS")
+    spent["host_bfs"] = time.perf_counter() - t
+    if eng.retraces_since(mark):
+        raise AssertionError("serving built a plan after the warm-up")
+    stats = eng.stats()
+    line = {"phase": "engine", "step": "serve", "scale": BFS_SCALE, "grid": "1x1", "n": n,
+            "nnz": eng.version.nnz, "kinds": list(ENGINE_KINDS), "F": SPMM_F,
+            "build_s": build_s, "device_bytes": eng.version.device_bytes(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "warmup_s": {f"{k}/{w_}": s for (k, w_), s in warm.items()},
+            "warmup_total_s": sum(warm.values()), "spent_s": spent,
+            "W": len(roots), "ms_per_batch": ms, "batch_niter": niter,
+            "plan_hits": stats["plan_hits"], "plan_misses": stats["plan_misses"],
+            "lanes_equal_direct": True, "host_bfs_lanes": ENGINE_HOST_LANES,
+            "padded_batch_lanes": [ENGINE_PADDED, 8]}
+    emit(line)
+    return {"line": line, "eng": eng, "mark": mark, "rows": rows, "cols": cols, "n": n,
+            "build_s": build_s}
+
+
+def churn_pairs(csr_host: dict, deg: np.ndarray, count: int) -> list:
+    """Disjoint vertex pairs (in vertex order) whose degrees sit below
+    their class width and that are not yet edges: the reference's churn
+    recipe (each merge stays in place)."""
+    indptr, nbrs = csr_host["indptr"], csr_host["cols"]
+    pool = np.flatnonzero(np.isin(deg, CHURN_DEGREES)).tolist()
+    pairs = []
+    for a, b in zip(pool[0::2], pool[1::2]):
+        row = nbrs[indptr[a]:indptr[a + 1]]
+        if not (row == b).any():
+            pairs.append((a, b))
+        if len(pairs) == count:
+            return pairs
+    raise AssertionError(f"only {len(pairs)} churn pairs in the graph, want {count}")
+
+
+@contextlib.contextmanager
+def timed_uploads(log: dict):
+    """Time ``dynamic.merge._put_buckets`` (one ``.to(device)`` an array)
+    while the block runs, with a synchronise after each call: seconds,
+    arrays and bytes added to ``log``."""
+    put = merge_mod._put_buckets
+
+    def timed(grid, host_buckets):
+        t = time.perf_counter()
+        out = put(grid, host_buckets)
+        torch.cuda.synchronize()
+        log["s"] += time.perf_counter() - t
+        log["arrays"] += sum(len(triple) for triple in host_buckets)
+        log["bytes"] += sum(a.nbytes for triple in host_buckets for a in triple)
+        return out
+
+    merge_mod._put_buckets = timed
+    try:
+        yield log
+    finally:
+        merge_mod._put_buckets = put
+
+
+def _swap_merge(eng, buf, ops) -> tuple:
+    """One write through the lane: admit, drain, merge, swap. Returns the
+    merge stats and the swap seconds."""
+    buf.add_many(ops)
+    v = eng.apply_delta(buf.drain())
+    st = v.dyn.last_stats
+    if st.mode != "incremental":
+        raise AssertionError(f"churn merge was {st.mode} ({st.reason}), want incremental")
+    return st, eng.swap(v)
+
+
+def _refresh_line(out: dict) -> dict:
+    return {"mode": out["mode"], "reason": out.get("cold_reason", ""), "sweeps": out["niter"],
+            "ms": out["latency_s"] * 1e3}
+
+
+def pagerank_readings(eng, stale, warm, cold, ends) -> dict:
+    """Warm against cold ranks after an insert, beside the same readings
+    of the stale (unrefreshed) ranks as a control: the L1 distance, its
+    limit (both runs stop within tol / (1 - alpha) of the fixed point, in
+    L1), and the largest relative difference at the inserted edge's ends."""
+    alpha, tol, _ = eng.pagerank_opts
+    ends = np.asarray(ends)
+    cold = cold.astype(np.float64)
+
+    def read(x):
+        d = np.abs(x.astype(np.float64) - cold)
+        return float(d.sum()), float((d[ends] / cold[ends]).max())
+
+    (l1, end_rel), (stale_l1, stale_end_rel) = read(warm), read(stale)
+    return {"l1": l1, "l1_limit": REFRESH_PR_L1 * tol / (1 - alpha), "end_rel": end_rel,
+            "stale_l1": stale_l1, "stale_end_rel": stale_end_rel}
+
+
+def step_engine_churn(serve: dict, csr_host: dict, roots: np.ndarray) -> dict:
+    """Steps 2 and 3: the churn through the lane, the refreshes interleaved
+    with its first insert and its first delete."""
+    eng, n = serve["eng"], serve["n"]
+    pairs = churn_pairs(csr_host, np.asarray(eng.version.deg), CHURN_PAIRS)
+    buf = DeltaBuffer(nrows=n, ncols=n)
+    root = int(roots[0])
+    refresh = {"v0": {k: eng.refresh(k, root=root if k == "bfs" else None)
+                      for k in REFRESH_KINDS}}
+    if any(r["mode"] != "cold" for r in refresh["v0"].values()):
+        raise AssertionError("the first refreshes were not cold")
+    stats, swap_s = [], []
+    up = {"s": 0.0, "arrays": 0, "bytes": 0}
+    for k, (a, b) in enumerate(pairs):
+        with timed_uploads(up):
+            st, sw = _swap_merge(eng, buf, [("insert", a, b), ("insert", b, a)])
+        stats.append(st)
+        swap_s.append(sw)
+        if k == 0:
+            warm = {kind: eng.refresh(kind, root=root if kind == "bfs" else None)
+                    for kind in REFRESH_KINDS}
+            cold = {kind: eng.refresh(kind, root=root if kind == "bfs" else None,
+                                      force_cold=True) for kind in REFRESH_KINDS}
+            if any(r["mode"] != "warm" for r in warm.values()):
+                raise AssertionError(f"refresh after an insert: {[r['mode'] for r in warm.values()]}")
+            for kind in ("bfs", "cc"):
+                if not np.array_equal(warm[kind]["result"], cold[kind]["result"]):
+                    raise AssertionError(f"warm {kind} refresh differs from the cold one")
+            pr = pagerank_readings(eng, refresh["v0"]["pagerank"]["result"],
+                                   warm["pagerank"]["result"], cold["pagerank"]["result"], (a, b))
+            if (pr["l1"] > pr["l1_limit"] or pr["end_rel"] > REFRESH_PR_END_REL
+                    or warm["pagerank"]["niter"] > refresh["v0"]["pagerank"]["niter"]):
+                raise AssertionError(f"warm pagerank: {pr}, sweeps {warm['pagerank']['niter']} "
+                                     f"vs cold {refresh['v0']['pagerank']['niter']}")
+            if pr["stale_end_rel"] <= REFRESH_PR_END_REL:
+                raise AssertionError(f"the stale ranks pass the warm pagerank check: {pr}")
+            refresh["insert_warm"], refresh["insert_cold"] = warm, cold
+    # the merged edge set on the card, and served BFS against a rebuild
+    r0, c0 = serve["rows"], serve["cols"]
+    keys0 = r0 * np.int64(n) + c0
+    ins = np.sort([a * n + b for a, b in pairs] + [b * n + a for a, b in pairs])
+    want = np.insert(keys0, np.searchsorted(keys0, ins), ins)
+    (rr, cc, vv), coo_s = host_timed(eng.E.to_host_coo)
+    if not (np.array_equal(rr * np.int64(n) + cc, want) and (vv == 1).all()):
+        raise AssertionError("the merged E differs from the expected edge set")
+    src = assemble(_requests("bfs", roots), ENGINE_WIDTHS)
+    served = eng.execute("bfs", src)
+    t = time.perf_counter()
+    rebuilt = GraphEngine.from_coo(eng.grid, want // n, want % n, n, kinds=("bfs",))
+    rebuild_bfs_s = time.perf_counter() - t
+    again = rebuilt.execute("bfs", src)
+    del rebuilt
+    for key in ("parents", "levels"):
+        if not np.array_equal(served[key], again[key]):
+            raise AssertionError(f"served bfs {key} on the merged version differs from a rebuild")
+    # before the first delete, the cache at its parent version
+    pre = {kind: eng.refresh(kind, root=root if kind == "bfs" else None) for kind in ("bfs", "cc")}
+    for k, (a, b) in enumerate(pairs):
+        with timed_uploads(up):
+            st, sw = _swap_merge(eng, buf, [("delete", a, b), ("delete", b, a)])
+        stats.append(st)
+        swap_s.append(sw)
+        if k == 0:
+            after = {kind: eng.refresh(kind, root=root if kind == "bfs" else None)
+                     for kind in ("bfs", "cc")}
+            if any((r["mode"], r["cold_reason"]) != ("cold", "deletes") for r in after.values()):
+                raise AssertionError(f"refresh after a delete: {after}")
+            refresh["pre_delete"], refresh["delete"] = pre, after
+    rr, cc, vv = eng.E.to_host_coo()
+    if not (np.array_equal(rr, r0) and np.array_equal(cc, c0) and (vv == 1).all()):
+        raise AssertionError("E after the deletes differs from the original")
+    if eng.retraces_since(serve["mark"]):
+        raise AssertionError("the churn built a plan after the warm-up")
+    # the first merge bootstraps the merge state: it is printed apart, and
+    # the mean, the tail and the amortization are those of the others
+    merge_ms = np.array([s.latency_s * 1e3 for s in stats[1:]])
+    line = {"phase": "engine", "step": "churn", "batches": len(stats), "pairs": len(pairs),
+            "modes": sorted({s.mode for s in stats}),
+            "merge_ms_mean": float(merge_ms.mean()), "merge_ms_max": float(merge_ms.max()),
+            "merge_ms_first": stats[0].latency_s * 1e3, "bootstrapped_first": stats[0].bootstrapped,
+            "swap_ms_mean": float(np.mean(swap_s) * 1e3), "swap_ms_max": float(np.max(swap_s) * 1e3),
+            "buckets_uploaded": sum(s.buckets_uploaded for s in stats),
+            "buckets_reused": sum(s.buckets_reused for s in stats),
+            "rows_patched": sum(s.rows_patched for s in stats),
+            "upload_ms_per_merge": up["s"] * 1e3 / len(stats),
+            "upload_arrays_per_merge": up["arrays"] / len(stats),
+            "upload_mb_per_merge": up["bytes"] / 2**20 / len(stats),
+            "upload_gb_per_s": up["bytes"] / max(up["s"], 1e-12) / 1e9,
+            "amortization": serve["build_s"] / (merge_ms.mean() / 1e3),
+            "to_host_coo_ms": coo_s * 1e3, "rebuild_bfs_only_s": rebuild_bfs_s,
+            "plan_builds_after_warmup": 0, "edge_sets_equal": True, "served_bfs_equals_rebuild": True}
+    emit(line)
+    rline = {"phase": "engine", "step": "refresh", "root": root, "pagerank_warm_vs_cold": pr,
+             **{f"{stage}/{kind}": _refresh_line(out) for stage, group in refresh.items()
+                for kind, out in group.items()}}
+    emit(rline)
+    return {"churn": line, "refresh": rline}
+
+
+def _same_version(a, b, what: str) -> None:
+    """Raise unless every bucket array of E and P_ell and E's
+    ``to_host_coo`` are equal (the buckets fix P_ell's COO too)."""
+    for nm in ("E", "P_ell"):
+        x, y = getattr(a, nm), getattr(b, nm)
+        if len(x.buckets) != len(y.buckets) or not all(
+                torch.equal(p, q) for bx, by in zip(x.buckets, y.buckets) for p, q in zip(bx, by)):
+            raise AssertionError(f"{what}: {nm} buckets differ")
+    if not all(np.array_equal(p, q) for p, q in zip(a.E.to_host_coo(), b.E.to_host_coo())):
+        raise AssertionError(f"{what}: E's COO differs")
+
+
+def step_engine_durability(dev, g18: dict) -> dict:
+    """Step 4: WAL + snapshot on phase 10's scale-18 graph on 2x2: crash,
+    recover, torn tail, swap into a warmed replica, a spilling batch."""
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    DUR_DIR.mkdir(parents=True)
+    grid = Grid.make(*DUR_GRID, device=dev)
+    rows, cols = g18["rows"].astype(np.int64), g18["cols"].astype(np.int64)
+    n = len(g18["deg"])
+    t = time.perf_counter()
+    eng = GraphEngine.from_coo(grid, rows, cols, n, kinds=DUR_KINDS, keep_coo=True)
+    build_s = time.perf_counter() - t
+    v = eng.version
+    snap = str(DUR_DIR / checkpoint.snapshot_name(v.wal_seq))
+    t = time.perf_counter()
+    checkpoint.save_version(snap, v)
+    save_s = time.perf_counter() - t
+    # a read-only replica from the snapshot, warmed up
+    replica = GraphEngine(grid, version=checkpoint.load_version(snap, grid, writable=False),
+                          kinds=DUR_KINDS)
+    droots = np.flatnonzero(g18["deg"] > 0)[:DUR_ROOTS].astype(np.int32)
+    replica.warmup(kinds=("bfs",), widths=(DUR_ROOTS,))
+    mark = replica.trace_mark()
+    wal = open_wal(str(DUR_DIR))
+    buf = DeltaBuffer(nrows=n, ncols=n)
+    csr = {"indptr": np.searchsorted(rows, np.arange(n + 1)), "cols": cols}
+    versions = []
+    for a, b in churn_pairs(csr, g18["deg"], DUR_BATCHES):
+        ops = [("insert", a, b, 1.0), ("insert", b, a, 1.0)]
+        last = buf.add_many(ops)
+        wal.append(last - 1, [a, b], [b, a], [1.0, 1.0], [0, 0])
+        batch = buf.drain()
+        v = eng.apply_delta(batch)
+        v.wal_seq = batch.last_seq
+        eng.swap(v)
+        versions.append(v)
+    served = eng.execute("bfs", droots)
+    del eng, wal, buf  # the crash: only the files survive
+    t = time.perf_counter()
+    got = recover(str(DUR_DIR), grid, kinds=DUR_KINDS)
+    recover_s = time.perf_counter() - t
+    _same_version(got, versions[-1], "recovered")
+    replayed = got.recovered_from[2]
+    # a torn final line: recovery gives the version before the last batch
+    walp = DUR_DIR / "wal.jsonl"
+    lines = walp.read_bytes().splitlines(keepends=True)
+    walp.write_bytes(b"".join(lines[:-1]) + lines[-1][: len(lines[-1]) // 2])
+    torn = recover(str(DUR_DIR), grid, kinds=DUR_KINDS)
+    _same_version(torn, versions[-2], "recovered from a torn tail")
+    replica.swap(got)
+    again = replica.execute("bfs", droots)
+    if replica.retraces_since(mark) or not all(
+            np.array_equal(served[k], again[k]) for k in ("parents", "levels")):
+        raise AssertionError("the recovered version built a plan or served another BFS")
+    # one batch past the spill fraction: a rebuild equal to a fresh build
+    frac = tuner_config.dynamic_spill_frac()
+    m = int(frac * got.nnz) + 2
+    rng = np.random.default_rng(GRAPH_SEED)
+    a, b = rng.integers(0, n, m), rng.integers(0, n, m)
+    spill = DeltaBatch(rows=np.concatenate([a, b]), cols=np.concatenate([b, a]),
+                       vals=np.ones(2 * m, np.float32), ops=np.zeros(2 * m, np.int8),
+                       first_seq=0, last_seq=2 * m - 1, oldest_at=0.0)
+    t = time.perf_counter()
+    big = apply_delta(got, spill, kinds=DUR_KINDS)
+    spill_ms = (time.perf_counter() - t) * 1e3
+    st = big.dyn.last_stats
+    if (st.mode, st.reason) != ("rebuild", "threshold"):
+        raise AssertionError(f"the spilling batch merged {st.mode} ({st.reason})")
+    r1, c1, _ = big.host_coo
+    _same_version(big, replica.build_version(r1, c1), "the spill rebuild against a fresh build")
+    line = {"phase": "engine", "step": "durability", "scale": 18, "grid": "x".join(map(str, DUR_GRID)),
+            "n": n, "nnz": int(len(rows)), "kinds": list(DUR_KINDS), "build_s": build_s,
+            "save_s": save_s, "snapshot_mb": os.path.getsize(snap) / 2**20,
+            "batches": DUR_BATCHES, "recover_s": recover_s, "replayed_ops": replayed,
+            "torn_tail_recovers_batch": DUR_BATCHES - 1, "swap_plan_builds": 0,
+            "spill_frac": frac, "spill_ops": 2 * m, "spill_mode": st.mode, "spill_ms": spill_ms,
+            "bit_exact": True}
+    emit(line)
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    return line
+
+
+def phase_engine(dev, t_start: float, csr_host: dict, roots: np.ndarray, g18: dict) -> dict:
+    """Phase 17 (module docstring): steps 1-4 with K1's and K2's launch
+    counts set to 0 just before and read just after; neither runs."""
+    t0 = time.perf_counter()
+    emit({"phase": "engine", "step": "elapsed", "total_s": t0 - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        step_s[name] = time.perf_counter() - t
+        return res
+
+    serve = timed("serve", step_engine_serve, dev, csr_host, roots)
+    churn = timed("churn", step_engine_churn, serve, csr_host, roots)
+    del serve
+    torch.cuda.empty_cache()
+    dur = timed("durability", step_engine_durability, dev, g18)
+    torch.cuda.empty_cache()
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the engine phase launched hand kernels: {launches}")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "engine", "step": "checks", "hand_kernel_launches": launches,
+          "step_s": step_s, "phase_s": phase_s, "cap_s": ENGINE_CAP_S,
+          "within_cap": phase_s <= ENGINE_CAP_S, "total_s": time.perf_counter() - t_start})
+    return {"churn": churn, "durability": dur, "k1": {"min_plus": 0, "max_min": 0}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -4862,7 +5338,7 @@ def main() -> int:
 
 
 def run_phases() -> int:
-    """Phases 1-16 (module docstring), then the ``kernels`` line and the
+    """Phases 1-17 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -4890,8 +5366,9 @@ def run_phases() -> int:
     # ELL structure
     mxu_min = tuple(t.cpu() for t in mxu13["min_plus"])
     E_host = (tuple((bc.cpu(), br.cpu()) for bc, _, br in bfs["E"].buckets), bfs["E"].nrows)
-    # for phase 16, on the host: the graph's CSR arrays and its roots
+    # for phases 16 and 17, on the host: the graph's CSR arrays and its roots
     bfs_host = {**bfs.pop("csr_host"), "roots": bfs_graph["roots"][:OBS_BFS_ROOTS].copy()}
+    engine_roots = bfs_graph["roots"][:ENGINE_ROOTS].copy()
     del bfs, bfs_graph, mxu13
     general.pop("aa")
     torch.cuda.empty_cache()
@@ -4903,7 +5380,10 @@ def run_phases() -> int:
     tuner = phase_tuner(dev, t_start, mxu_min, E_host, mesh3d)
     torch.cuda.empty_cache()
     obs_phase = phase_obs(dev, t_start, mxu_min, E_host, bfs_host)
-    del mxu_min, E_host, bfs_host
+    del mxu_min, E_host
+    torch.cuda.empty_cache()
+    engine = phase_engine(dev, t_start, bfs_host, engine_roots, g18)
+    del bfs_host, g18
     torch.cuda.empty_cache()
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
@@ -4914,7 +5394,7 @@ def run_phases() -> int:
                    "spgemm_windowed": windowed["k1"][sr.name],
                    "apps": apps["k1"], "graph_input": graph_input["k1"],
                    "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name],
-                   "obs": obs_phase["k1"][sr.name]}
+                   "obs": obs_phase["k1"][sr.name], "engine": engine["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),

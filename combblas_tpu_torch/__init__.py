@@ -56,7 +56,12 @@ labelled-tuple files (``io``) and ``.npz`` and sharded checkpoints
 (``utils.checkpoint``); and the measured-plan tuner (``tuner``: the one
 parser of the ``COMBBLAS_*`` knobs, the JSONL plan store beside the
 kernel build cache (``utils.compile_cache``), the probe that measures the
-rungs), which ``spgemm_auto``, ``spgemm3d`` and the SpMM backend consult. All of it is in PyTorch ops as the reference runs
+rungs), which ``spgemm_auto``, ``spgemm3d`` and the SpMM backend consult; and
+the serving engine and the mutation lane (``serve``: ``GraphEngine`` with its
+(kind, width) plan cache over the batch searches, the lane batcher;
+``dynamic``: the delta log, incremental merges into graph versions, warm
+refreshes, the write-ahead log and crash recovery from ``utils.checkpoint``'s
+version snapshots). All of it is in PyTorch ops as the reference runs
 it in XLA ops (the generator and the Matrix Market parser as host C++).
 Entry points run on the card unless the caller passes ``device="cpu"``
 to ``Grid.make``; on the CPU each kernel's plain PyTorch version runs.

@@ -1,0 +1,871 @@
+"""Incremental version builds: fold a delta batch into a ``GraphVersion``;
+counterpart of ``combblas_tpu/dynamic/merge.py``.  The host structure and
+every decision are the reference's numpy, so merged versions, their
+bucket arrays and ``MergeStats`` equal the reference's (a few steps reach
+the same arrays with less host work: ``_vals_pagerank``,
+``_vals_weights``, the merged COO); the device side is one upload per
+touched class array (``_put_buckets``), and untouched classes share the
+parent version's tensors (the same storage).
+
+The read half of dynamic serving (``GraphEngine.swap``) swaps prebuilt
+versions atomically; this module builds those versions INCREMENTALLY.  A full
+``from_coo`` pipeline re-sorts and re-buckets every edge and re-uploads
+every artifact; :func:`apply_delta` instead
+
+1. folds the delta into the retained sorted edge-key set (an O(nnz)
+   merge of two sorted runs — no full re-sort; ``delta.fold_ops``),
+2. patches ONLY the changed rows inside the retained host bucket arrays
+   of the ``EllParMat`` (slot-capacity-aware: a row whose entries still
+   fit its current degree-class slots is rewritten in place; a row that
+   outgrows them claims a free padding slot in a wider class —
+   "re-bucketed"; no free slot anywhere = spill), and
+3. re-uploads only the bucket classes that changed, REUSING the old
+   version's device arrays for every untouched class — so a small delta
+   uploads a small fraction of the graph, and the new version has
+   IDENTICAL operand shapes.
+
+The CSC / transpose / normalized twins ride the same machinery: the
+weighted matrix and the PageRank transition matrix share the structural
+bucket layout (their values are derived per class from the merged
+weights / out-degrees), the transpose twin is patched through a second
+orientation of the same patcher, and the lazy CSC companion is reset to
+rebuild on demand from the carried host COO (it has no compiled-shape
+contract to preserve).
+
+SPILL POLICY — the incremental path falls back to a full rebuild
+(``dynamic.merge.applied{mode=rebuild}``, labeled reason) when:
+
+* the structural change fraction exceeds ``spill_frac``
+  (``COMBBLAS_DYNAMIC_SPILL_FRAC``, default 0.10) — past that point the
+  per-row patching plus class re-uploads cost more than one rebuild;
+* a changed row needs a slot no bucket class can provide
+  (``bucket_full``) — growing a bucket would change operand shapes
+  anyway, so the rebuild is honest about it;
+* the version carries no retained host state and no host COO to
+  bootstrap it from (``no_state``; build the engine with
+  ``keep_coo=True``).
+
+Counters (``dynamic.merge.*``, cataloged in ``obs/metrics.py``) make
+the incremental-vs-rebuild amortization measurable.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import time
+
+import numpy as np
+
+from .. import obs
+from .delta import COMBINES, DeltaBatch, fold_ops
+
+
+class _Spill(Exception):
+    """Internal: abandon the incremental attempt, rebuild instead."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+@dataclasses.dataclass
+class MergeStats:
+    """What one ``apply_delta`` did (also mirrored into obs)."""
+
+    mode: str                  # "incremental" | "rebuild"
+    reason: str = ""           # spill reason when mode == "rebuild"
+    inserted: int = 0          # edges added
+    removed: int = 0           # edges removed
+    value_changed: int = 0     # edges whose weight changed (structure kept)
+    rows_patched: int = 0      # rows rewritten in place (all orientations)
+    rows_rebucketed: int = 0   # rows that claimed a slot in a new class
+    headroom_used: int = 0     # free padding slots claimed by re-bucketing
+    #                            (the headroom reserve paying off)
+    buckets_uploaded: int = 0  # device bucket classes re-uploaded
+    buckets_reused: int = 0    # device bucket classes shared with parent
+    latency_s: float = 0.0
+    bootstrapped: bool = False # host merge state built on this call
+    nnz: int = 0               # edge count after the merge
+
+
+@dataclasses.dataclass
+class _Orientation:
+    """Host bucket structure of one ELL layout (row-major for
+    E/E_weighted/P_ell, transposed for ET).  ``keys`` is the sorted
+    major-order key array (``major * minor_dim + minor``); ``bc``/``br``
+    the per-class host arrays matching the device buckets exactly."""
+
+    keys: np.ndarray
+    nrows: int                 # this orientation's major dim
+    ncols: int                 # this orientation's minor dim
+    lr: int
+    lc: int
+    kbs: list                  # bucket width per class position
+    bc: list                   # [pr, pc, nb, kb] int32 per class
+    br: list                   # [pr, pc, nb] int32 per class
+    ladder: np.ndarray
+    max_k: int
+
+
+@dataclasses.dataclass
+class MergeState:
+    """Retained host-side merge state riding on a ``GraphVersion``
+    (``version.dyn``).  Arrays are shared with the parent version's
+    state until a merge copies-on-write the classes it touches, so
+    branching (applying two different deltas to one version) is safe."""
+
+    row: _Orientation
+    t: _Orientation | None     # transpose twin (ET), or None
+    weights: np.ndarray | None # aligned with row.keys; None = unweighted
+    deg: np.ndarray
+    outdeg: np.ndarray
+    symmetric: bool
+    last_stats: MergeStats | None = None
+    _pv: np.ndarray | None = dataclasses.field(default=None, repr=False)
+
+    def pagerank_col_values(self) -> np.ndarray:
+        """float32 1 / outdeg(col) per column (the column-stochastic value
+        of every slot in that column), computed once per state."""
+        if self._pv is None:
+            self._pv = (1.0 / np.maximum(self.outdeg, 1)).astype(np.float32)
+        return self._pv
+
+
+# -- host structure builders -------------------------------------------------
+
+
+def _orientation_from_buckets(grid, buckets, major, minor,
+                              nrows: int, ncols: int) -> _Orientation:
+    """Assemble an ``_Orientation`` from host ``(bc, bv, br)`` bucket
+    triples + the layout's (major, minor) index arrays — the ONE place
+    the key encoding (``major * ncols + minor``), the fine ladder, and
+    the contiguous-bc/br invariants live (shared by fresh builds and
+    snapshot restores; drift between them silently corrupts merges)."""
+    from ..parallel.ellmat import _width_ladder
+
+    lr, lc = grid.local_rows(nrows), grid.local_cols(ncols)
+    max_k = max(int(lc), 1)
+    keys = np.sort(
+        np.asarray(major, np.int64) * np.int64(ncols)
+        + np.asarray(minor, np.int64)
+    )
+    return _Orientation(
+        keys=keys, nrows=int(nrows), ncols=int(ncols), lr=lr, lc=lc,
+        kbs=[int(bc.shape[-1]) for bc, _bv, _br in buckets],
+        bc=[np.ascontiguousarray(bc) for bc, _bv, _br in buckets],
+        br=[np.ascontiguousarray(br) for _bc, _bv, br in buckets],
+        ladder=_width_ladder(max_k, "fine"), max_k=max_k,
+    )
+
+
+def _is_symmetric(rows, cols, nrows: int, ncols: int) -> bool:
+    """Structural symmetry of a key-sorted deduped COO (the merge
+    state's bc-serving guard input)."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    keys = rows * np.int64(ncols) + cols
+    return bool(
+        int(nrows) == int(ncols)
+        and np.array_equal(np.sort(cols * np.int64(ncols) + rows), keys)
+    )
+
+
+def _build_orientation(grid, rows, cols, nrows: int, ncols: int,
+                       headroom: float | None = None) -> _Orientation:
+    """Host bucket structure for one layout — the SAME deterministic
+    ``EllParMat.host_build`` the loaded matrices came from (INCLUDING
+    the headroom over-allocation: mismatched slack would change bucket
+    shapes and forfeit untouched-class sharing), so untouched classes
+    can be shared with the existing device arrays."""
+    from ..parallel.ellmat import EllParMat
+
+    buckets = EllParMat.host_build(
+        grid, rows, cols, np.ones(len(rows), np.float32), nrows, ncols,
+        headroom=headroom,
+    )
+    return _orientation_from_buckets(
+        grid, buckets, rows, cols, nrows, ncols
+    )
+
+
+def bootstrap_state(version, grid=None) -> MergeState:
+    """Build the retained merge state for a version that lacks one —
+    needs the host COO (``GraphEngine.from_coo(..., keep_coo=True)``).
+    One host re-bucketing pass (no device reads); every later ``apply_delta`` updates the state incrementally."""
+    if version.host_coo is None:
+        raise ValueError(
+            "the mutation lane needs the host edge list: build the "
+            "engine with GraphEngine.from_coo(..., keep_coo=True)"
+        )
+    rows, cols, ncols = version.host_coo
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    nrows = int(version.nrows)
+    ncols = int(ncols)
+    grid = version.E.grid if grid is None else grid
+    hr = getattr(version, "headroom", None)
+    row_o = _build_orientation(grid, rows, cols, nrows, ncols,
+                               headroom=hr)
+    t_o = (
+        _build_orientation(grid, cols, rows, ncols, nrows, headroom=hr)
+        if version.ET is not None else None
+    )
+    weights = getattr(version, "host_weights", None)
+    if weights is not None:
+        weights = np.asarray(weights, np.float32)
+    return MergeState(
+        row=row_o, t=t_o, weights=weights,
+        deg=np.bincount(rows, minlength=nrows).astype(np.int32),
+        outdeg=np.bincount(cols, minlength=ncols).astype(np.int64),
+        symmetric=_is_symmetric(rows, cols, nrows, ncols),
+    )
+
+
+def state_from_host_buckets(grid, row_buckets, t_buckets, host_coo,
+                            host_weights, deg, outdeg) -> MergeState:
+    """Merge state from retained HOST bucket arrays — the snapshot-
+    restore path (round 16, ``utils.checkpoint.load_version``).
+
+    A snapshot of an incrementally merged version carries STICKY-SLOT
+    bucket layouts that a fresh ``host_build`` of the same edge list
+    would NOT reproduce (in-place patching deliberately never moves a
+    shrunk-then-regrown row) — so ``bootstrap_state``'s rebuild-from-
+    COO assumption breaks on restored versions: patching against the
+    wrong slot map corrupts the graph.  This constructor derives the
+    state from the snapshot's own host arrays instead — exactly the
+    device layout, no device reads.
+
+    ``row_buckets`` / ``t_buckets`` are lists of host ``(bc, bv, br)``
+    triples in the E / ET layouts (``t_buckets=None`` for symmetric
+    versions); ``host_coo`` the retained ``(rows, cols, ncols)``.
+    """
+    rows, cols, ncols = host_coo
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    ncols = int(ncols)
+    nrows = int(len(deg))
+    row_o = _orientation_from_buckets(
+        grid, row_buckets, rows, cols, nrows, ncols
+    )
+    t_o = (
+        _orientation_from_buckets(
+            grid, t_buckets, cols, rows, ncols, nrows
+        )
+        if t_buckets is not None else None
+    )
+    return MergeState(
+        row=row_o, t=t_o,
+        weights=(
+            np.asarray(host_weights, np.float32)
+            if host_weights is not None else None
+        ),
+        deg=np.asarray(deg, np.int32),
+        outdeg=(
+            np.asarray(outdeg, np.int64) if outdeg is not None
+            else np.bincount(cols, minlength=ncols).astype(np.int64)
+        ),
+        symmetric=_is_symmetric(rows, cols, nrows, ncols),
+    )
+
+
+# -- per-class value derivation ----------------------------------------------
+
+
+def _class_valid(orient: _Orientation, b: int):
+    """The slot mask of one class's host buckets."""
+    return (orient.bc[b] < orient.lc) & (orient.br[b][..., None] < orient.lr)
+
+
+def _class_cols(orient: _Orientation, b: int):
+    """(gc, valid): global column ids (0 on padding slots) and the slot
+    mask of one class's host buckets."""
+    bc = orient.bc[b]
+    valid = _class_valid(orient, b)
+    gc = np.arange(bc.shape[1], dtype=np.int64)[None, :, None, None] * orient.lc + bc
+    return np.where(valid, gc, 0), valid
+
+
+def _vals_ones(orient, b, state):
+    return _class_valid(orient, b).astype(np.float32)
+
+
+def _vals_weights(orient, b, state):
+    # a bucket row holds a run of consecutive keys of its row from slot 0
+    # on (host_build and the patcher both write a prefix of a sorted run),
+    # so one search a bucket row places all its slots; the reference
+    # searches every slot, for the same positions
+    bc, br = orient.bc[b], orient.br[b]
+    valid = _class_valid(orient, b)
+    pr, pc = bc.shape[0], bc.shape[1]
+    gr = np.arange(pr, dtype=np.int64)[:, None, None] * orient.lr + br
+    gc0 = np.arange(pc, dtype=np.int64)[None, :, None] * orient.lc + bc[..., 0]
+    first = np.searchsorted(orient.keys, gr * np.int64(orient.ncols) + gc0)
+    pos = np.minimum(first[..., None] + np.arange(bc.shape[-1]), max(len(orient.keys) - 1, 0))
+    w = state.weights[pos]
+    return np.where(valid, w, 0.0).astype(np.float32)
+
+
+def _vals_pagerank(orient, b, state):
+    # column-stochastic values: 1 / outdeg(col) per slot (the host-side
+    # DimApply of serve.engine._build_version, derived per class); the
+    # reference divides per slot, the port gathers from a per-column
+    # float32 table: the same values
+    gc, valid = _class_cols(orient, b)
+    return np.where(valid, state.pagerank_col_values()[gc], np.float32(0))
+
+
+# -- the row patcher ---------------------------------------------------------
+
+
+def _dirty_tiles(orient: _Orientation, majors: np.ndarray,
+                 minors: np.ndarray) -> dict:
+    """Group changed (major, minor) coordinates by owning tile:
+    {(i, j): sorted unique local major rows}."""
+    i = majors // orient.lr
+    j = minors // orient.lc
+    lrow = majors - i * orient.lr
+    out: dict = {}
+    for ti, tj, r in zip(i.tolist(), j.tolist(), lrow.tolist()):
+        out.setdefault((ti, tj), set()).add(r)
+    return {k: np.asarray(sorted(v), np.int64) for k, v in out.items()}
+
+
+def _patch_orientation(orient: _Orientation, new_keys: np.ndarray,
+                       tiles: dict, stats: MergeStats) -> set:
+    """Patch every dirty row of one orientation in place (copy-on-write
+    per class).  Returns the set of touched class indices.  Raises
+    ``_Spill("bucket_full")`` when a row cannot be placed."""
+    ncls = len(orient.kbs)
+    lr, lc, ncols = orient.lr, orient.lc, orient.ncols
+    touched: set = set()
+    copied: set = set()
+
+    def ensure_copy(b):
+        if b not in copied:
+            orient.bc[b] = orient.bc[b].copy()
+            orient.br[b] = orient.br[b].copy()
+            copied.add(b)
+        touched.add(b)
+
+    for (i, j) in sorted(tiles):
+        rows_arr = tiles[(i, j)]
+        rowset = set(rows_arr.tolist())
+        slots_of: dict = {r: [] for r in rowset}
+        for b in range(ncls):
+            brt = orient.br[b][i, j]
+            for p in np.nonzero(np.isin(brt, rows_arr))[0]:
+                slots_of[int(brt[p])].append((b, int(p)))
+        freelist: dict = {}
+
+        def free_positions(b):
+            if b not in freelist:
+                freelist[b] = np.nonzero(
+                    orient.br[b][i, j] == lr
+                )[0].tolist()
+            return freelist[b]
+
+        for lrow in rows_arr.tolist():
+            gr = i * lr + lrow
+            lo = np.searchsorted(new_keys, gr * np.int64(ncols) + j * lc)
+            hi = np.searchsorted(
+                new_keys,
+                gr * np.int64(ncols) + min((j + 1) * lc, ncols),
+            )
+            seg = new_keys[lo:hi]
+            cols_local = (seg - gr * np.int64(ncols) - j * lc).astype(
+                np.int32
+            )
+            d = int(hi - lo)
+            # widest slots first so hub rows keep their big chunks;
+            # deterministic tie-break on (class, position)
+            slots = sorted(
+                slots_of[lrow],
+                key=lambda bp: (-orient.kbs[bp[0]], bp[0], bp[1]),
+            )
+            writes = []
+            remaining, off = d, 0
+            for (b, p) in slots:
+                take = min(remaining, orient.kbs[b], orient.max_k)
+                if take > 0:
+                    writes.append((b, p, off, take))
+                    off += take
+                    remaining -= take
+                else:  # surplus slot: release it (degree shrank)
+                    fl = free_positions(b)
+                    ensure_copy(b)
+                    orient.bc[b][i, j, p, :] = lc
+                    orient.br[b][i, j, p] = lr
+                    bisect.insort(fl, p)
+            rebucketed = False
+            while remaining > 0:
+                need = min(remaining, orient.max_k)
+                # tightest class that fits the chunk and has a free
+                # slot; else the widest free slot (partial chunk)
+                cand = [
+                    b for b in range(ncls)
+                    if orient.kbs[b] >= need and free_positions(b)
+                ]
+                if cand:
+                    b = min(cand, key=lambda bb: (orient.kbs[bb], bb))
+                    take = need
+                else:
+                    cand = [b for b in range(ncls) if free_positions(b)]
+                    if not cand:
+                        raise _Spill("bucket_full")
+                    b = max(cand, key=lambda bb: (orient.kbs[bb], -bb))
+                    take = min(remaining, orient.kbs[b])
+                p = free_positions(b).pop(0)
+                writes.append((b, p, off, take))
+                off += take
+                remaining -= take
+                rebucketed = True
+                # every claimed free padding row is headroom paying
+                # off (build-time reserve or natural tile imbalance) —
+                # the counter the headroom= knob is sized against
+                stats.headroom_used += 1
+            for (b, p, o0, take) in writes:
+                ensure_copy(b)
+                orient.bc[b][i, j, p, :take] = cols_local[o0:o0 + take]
+                orient.bc[b][i, j, p, take:] = lc
+                orient.br[b][i, j, p] = lrow
+            stats.rows_patched += 1
+            if rebucketed:
+                stats.rows_rebucketed += 1
+    return touched
+
+
+# -- device assembly ---------------------------------------------------------
+
+
+def _put_buckets(grid, host_buckets):
+    """Upload a list of (bc, bv, br) host triples to the grid's device:
+    one ``.to(device)`` an array. (The reference batches them into one
+    ``device_put``, which pays a multi-device mesh's sharding dispatch
+    once; a grid of tiles on one card has no such dispatch to save.)"""
+    from ..parallel.ellmat import _put
+
+    return [tuple(_put(grid, a) for a in triple) for triple in host_buckets]
+
+
+def _assemble(grid, orient: _Orientation, old_ell, touched: set,
+              vals_fn, state: MergeState, stats: MergeStats):
+    """New ``EllParMat`` mixing freshly-uploaded touched classes with
+    the old version's device arrays for untouched ones."""
+    from ..parallel.ellmat import EllParMat
+
+    to_put = []
+    order = []
+    for b in range(len(orient.kbs)):
+        if b in touched:
+            to_put.append((
+                orient.bc[b], vals_fn(orient, b, state), orient.br[b]
+            ))
+            order.append(b)
+            stats.buckets_uploaded += 1
+        else:
+            stats.buckets_reused += 1
+    fresh = dict(zip(order, _put_buckets(grid, to_put)))
+    buckets = tuple(
+        fresh[b] if b in fresh else old_ell.buckets[b]
+        for b in range(len(orient.kbs))
+    )
+    return EllParMat(
+        buckets=buckets, nrows=orient.nrows, ncols=orient.ncols,
+        grid=grid,
+    )
+
+
+# -- full rebuild ------------------------------------------------------------
+
+
+def _full_build(grid, version, keys: np.ndarray,
+                weights: np.ndarray | None, stats: MergeStats):
+    """Rebuild every artifact from the merged edge set — the spill
+    path.  Mirrors ``serve.engine._build_version`` (which artifacts
+    exist follows the PARENT version, so a swap stays valid) while
+    retaining the host structure as fresh merge state."""
+    from ..parallel.ellmat import EllParMat
+    from ..parallel.vec import DistVec
+    from ..serve.engine import GraphVersion
+
+    nrows, ncols = int(version.nrows), int(version.ncols)
+    rows = (keys // np.int64(ncols)).astype(np.int64)
+    cols = (keys % np.int64(ncols)).astype(np.int64)
+    hr = getattr(version, "headroom", None)
+    row_o = _build_orientation(grid, rows, cols, nrows, ncols,
+                               headroom=hr)
+    t_o = (
+        _build_orientation(grid, cols, rows, ncols, nrows, headroom=hr)
+        if version.ET is not None else None
+    )
+    state = MergeState(
+        row=row_o, t=t_o, weights=weights,
+        deg=np.bincount(rows, minlength=nrows).astype(np.int32),
+        outdeg=np.bincount(cols, minlength=ncols).astype(np.int64),
+        symmetric=bool(
+            nrows == ncols and np.array_equal(
+                np.sort(cols * np.int64(ncols) + rows), keys
+            )
+        ),
+    )
+
+    def build(orient, vals_fn):
+        buckets = tuple(_put_buckets(grid, [
+            (orient.bc[b], vals_fn(orient, b, state), orient.br[b])
+            for b in range(len(orient.kbs))
+        ]))
+        stats.buckets_uploaded += len(buckets)
+        return EllParMat(
+            buckets=buckets, nrows=orient.nrows, ncols=orient.ncols,
+            grid=grid,
+        )
+
+    E = build(row_o, _vals_ones)
+    E_weighted = (
+        build(row_o, _vals_weights)
+        if version.E_weighted is not None and weights is not None
+        else None
+    )
+    P_ell = dangling = None
+    if version.P_ell is not None:
+        P_ell = build(row_o, _vals_pagerank)
+        dangling = DistVec.from_global(
+            grid, (state.outdeg == 0).astype(np.float32), align="col"
+        )
+    ET = build(t_o, _vals_ones) if t_o is not None else None
+    new_version = GraphVersion(
+        nrows=nrows, ncols=ncols, nnz=int(len(keys)), E=E,
+        deg=state.deg, outdeg=state.outdeg, E_weighted=E_weighted,
+        P_ell=P_ell, dangling=dangling, ET=ET,
+        host_coo=(rows, cols, ncols),
+        # the feature table is edge-independent: the rebuilt version
+        # keeps serving the same device arrays (invdeg stays None —
+        # degrees changed, it lazily rebuilds)
+        X=getattr(version, "X", None),
+        feat_dim=int(getattr(version, "feat_dim", 0)),
+        headroom=getattr(version, "headroom", None),
+    )
+    new_version.host_weights = weights
+    new_version.dyn = state
+    return new_version
+
+
+# -- the entry point ---------------------------------------------------------
+
+
+def apply_delta(version, batch: DeltaBatch, *,
+                kinds: tuple | None = None,
+                combine: str | None = None,
+                spill_frac: float | None = None,
+                force_rebuild: bool = False,
+                grid=None):
+    """Merge one delta batch into ``version``; returns the NEXT
+    ``GraphVersion`` (hand it to ``engine.swap`` — this function never touches the serving pointer).  See the module
+    docstring for the incremental/spill contract; the parent version is
+    never mutated (its host state is copied-on-write), so it keeps
+    serving while this builds and remains a valid branch point.
+
+    ``kinds`` (the engine's served kinds) gates the structural-symmetry
+    check a ``bc``-serving symmetric engine relies on; ``combine`` names
+    the upsert monoid (defaults to the ``min`` convention of
+    ``GraphEngine.from_coo``); ``spill_frac`` overrides the env default
+    (``COMBBLAS_DYNAMIC_SPILL_FRAC``).
+    """
+    from ..serve.engine import GraphVersion
+    from ..tuner import config as tuner_config
+
+    t0 = time.perf_counter()
+    grid = version.E.grid if grid is None else grid
+    combine = "min" if combine is None else combine
+    if combine not in COMBINES:
+        raise ValueError(f"unknown combine {combine!r}")
+    spill_frac = (
+        tuner_config.dynamic_spill_frac()
+        if spill_frac is None else float(spill_frac)
+    )
+    stats = MergeStats(mode="incremental")
+    state = getattr(version, "dyn", None)
+    if state is None:
+        # snapshot-restored versions carry a LAZY state constructor
+        # (``dyn_source``, utils/checkpoint.load_version): the merge
+        # state must describe the restored sticky-slot bucket layout
+        # — bootstrap_state's fresh host_build would not reproduce it
+        src = getattr(version, "dyn_source", None)
+        if src is not None:
+            # the source stays on the parent (construction is
+            # idempotent): if THIS merge fails, a retry must rebuild
+            # the restored-layout state again — falling back to
+            # bootstrap_state's fresh host_build would patch the
+            # wrong slot map
+            state = src()
+        else:
+            state = bootstrap_state(version, grid=grid)
+        stats.bootstrapped = True
+        obs.count("dynamic.state.bootstrap")
+    ncols = int(version.ncols)
+    nrows = int(version.nrows)
+    if len(batch) and (
+        int(batch.rows.max()) >= nrows or int(batch.cols.max()) >= ncols
+        or int(batch.rows.min()) < 0 or int(batch.cols.min()) < 0
+    ):
+        raise ValueError(
+            f"delta indices outside [0, {nrows}) x [0, {ncols})"
+        )
+    base_keys = state.row.keys
+    base_w = state.weights
+    uniq, present, fw = fold_ops(batch, base_keys, base_w, ncols, combine)
+    # classify touched keys against the base
+    bpos = np.searchsorted(base_keys, uniq)
+    safe = np.minimum(bpos, max(len(base_keys) - 1, 0))
+    in_base = (
+        (bpos < len(base_keys)) & (base_keys[safe] == uniq)
+        if len(base_keys) else np.zeros(len(uniq), bool)
+    )
+    ins = uniq[present & ~in_base]
+    rem = uniq[~present & in_base]
+    if base_w is not None:
+        wchg = uniq[present & in_base & (fw != base_w[safe])]
+    else:
+        wchg = np.empty(0, np.int64)
+    stats.inserted = int(len(ins))
+    stats.removed = int(len(rem))
+    stats.value_changed = int(len(wchg))
+
+    # merged edge set: delete removed, update changed, insert new —
+    # O(nnz) passes over sorted runs, no full re-sort
+    if len(rem):
+        keep = np.ones(len(base_keys), bool)
+        keep[np.searchsorted(base_keys, rem)] = False
+        new_keys = base_keys[keep]
+        new_w = base_w[keep] if base_w is not None else None
+    else:  # nothing removed: start from the base runs (never written to)
+        new_keys, new_w = base_keys, base_w
+    if base_w is not None and len(wchg):
+        cpos = np.searchsorted(new_keys, wchg)
+        new_w = new_w.copy()
+        new_w[cpos] = fw[np.searchsorted(uniq, wchg)]
+    if len(ins):
+        ipos = np.searchsorted(new_keys, ins)
+        new_keys = np.insert(new_keys, ipos, ins)
+        if new_w is not None:
+            new_w = np.insert(new_w, ipos, fw[np.searchsorted(uniq, ins)])
+
+    # symmetry: a bc- or propagate-serving symmetric engine must STAY
+    # symmetric (the same verification serve.engine._build_version
+    # performs — both kinds reuse E as its own transpose when ET is
+    # absent, so an asymmetric delta would silently flip the edge
+    # direction every served result walks)
+    require_sym = (
+        kinds is not None
+        and ("bc" in kinds or "propagate" in kinds)
+        and version.ET is None
+    )
+    if require_sym and nrows == ncols:
+        def _sym(k):
+            return np.array_equal(
+                np.sort((k % ncols) * np.int64(ncols) + k // ncols), k
+            )
+        # structural check only (like _build_version's): asymmetric
+        # WEIGHTS are fine, bc reads E structurally
+        if not (_sym(ins) and _sym(rem)):
+            raise ValueError(
+                "delta breaks structural symmetry but the engine "
+                "serves 'bc' with E as its own transpose; symmetrize "
+                "the delta or rebuild with symmetric=False"
+            )
+
+    changed_struct = int(len(ins) + len(rem))
+    nnz_ref = max(len(new_keys), len(base_keys), 1)
+    new_deg = state.deg.copy()
+    new_outdeg = state.outdeg.copy()
+    if len(ins):
+        np.add.at(new_deg, ins // ncols, 1)
+        np.add.at(new_outdeg, ins % ncols, 1)
+    if len(rem):
+        np.subtract.at(new_deg, rem // ncols, 1)
+        np.subtract.at(new_outdeg, rem % ncols, 1)
+
+    def _finish(v, mode, reason=""):
+        stats.mode, stats.reason = mode, reason
+        stats.nnz = int(len(new_keys))
+        stats.latency_s = time.perf_counter() - t0
+        v.dyn.last_stats = stats
+        v.delta_from = (
+            int(getattr(version, "vid", 0)),
+            ins.copy(), rem.copy(),
+        )
+        obs.count("dynamic.merge.applied", mode=mode)
+        if reason:
+            obs.count("dynamic.merge.spill", reason=reason)
+        obs.observe("dynamic.merge.latency_s", stats.latency_s)
+        obs.count("dynamic.merge.rows_patched", stats.rows_patched)
+        obs.count("dynamic.merge.rows_rebucketed", stats.rows_rebucketed)
+        obs.count("dynamic.merge.headroom_used", stats.headroom_used)
+        obs.count("dynamic.merge.edges_inserted", stats.inserted)
+        obs.count("dynamic.merge.edges_removed", stats.removed)
+        return v
+
+    if force_rebuild or version.host_coo is None:
+        reason = "forced" if force_rebuild else "no_state"
+        return _finish(
+            _full_build(grid, version, new_keys, new_w, stats),
+            "rebuild", reason,
+        )
+    if changed_struct / nnz_ref > spill_frac:
+        return _finish(
+            _full_build(grid, version, new_keys, new_w, stats),
+            "rebuild", "threshold",
+        )
+
+    # -- incremental attempt ----------------------------------------------
+    touched_keys = np.unique(np.concatenate([ins, rem, wchg]))
+    new_state = MergeState(
+        row=dataclasses.replace(
+            state.row, keys=new_keys,
+            bc=list(state.row.bc), br=list(state.row.br),
+        ),
+        t=(
+            dataclasses.replace(
+                state.t,
+                bc=list(state.t.bc), br=list(state.t.br),
+            )
+            if state.t is not None else None
+        ),
+        weights=new_w, deg=new_deg, outdeg=new_outdeg,
+        symmetric=state.symmetric,
+    )
+    try:
+        r_major = touched_keys // ncols
+        r_minor = touched_keys % ncols
+        tiles = _dirty_tiles(new_state.row, r_major, r_minor)
+        touched_row = _patch_orientation(
+            new_state.row, new_keys, tiles, stats
+        )
+        touched_t: set = set()
+        if new_state.t is not None:
+            # patch the transposed sorted key set with the same
+            # sorted-run passes as the row side (a full re-sort of all
+            # nnz transposed keys would forfeit the incremental win on
+            # directed engines)
+            t_ins = np.sort(
+                (ins % ncols) * np.int64(nrows) + ins // ncols
+            )
+            t_rem = np.sort(
+                (rem % ncols) * np.int64(nrows) + rem // ncols
+            )
+            tk = state.t.keys
+            tkeep = np.ones(len(tk), bool)
+            tkeep[np.searchsorted(tk, t_rem)] = False
+            tk = tk[tkeep]
+            if len(t_ins):
+                tk = np.insert(tk, np.searchsorted(tk, t_ins), t_ins)
+            new_state.t.keys = tk
+            t_dirty = np.sort(
+                r_minor * np.int64(nrows) + r_major
+            )
+            tiles_t = _dirty_tiles(
+                new_state.t, t_dirty // nrows, t_dirty % nrows
+            )
+            touched_t = _patch_orientation(
+                new_state.t, new_state.t.keys, tiles_t, stats
+            )
+    except _Spill as sp:
+        return _finish(
+            _full_build(grid, version, new_keys, new_w, stats),
+            "rebuild", sp.reason,
+        )
+
+    # the merged COO (one division); its columns serve the P_ell scan
+    rows = new_keys // np.int64(ncols)
+    cols = new_keys - rows * np.int64(ncols)
+
+    # PageRank values depend on OUT-DEGREES: every class holding an
+    # edge in a changed column re-derives its values (structure is
+    # untouched for those rows — only the bv upload).  Affected rows
+    # come from ONE pass over the merged keys; class membership is
+    # then a bucket-ROW scan (no slot-level work).
+    touched_p = set(touched_row)
+    if version.P_ell is not None:
+        changed_cols = np.nonzero(new_outdeg != state.outdeg)[0]
+        if len(changed_cols):
+            o = new_state.row
+            mask = np.isin(cols, changed_cols)
+            if mask.any():
+                aff = new_keys[mask]
+                gr_a = aff // ncols
+                gc_a = aff % ncols
+                hit = np.zeros(
+                    (grid.pr, grid.pc, o.lr + 1), bool
+                )
+                hit[gr_a // o.lr, gc_a // o.lc, gr_a % o.lr] = True
+                ii = np.arange(grid.pr)[:, None, None]
+                jj = np.arange(grid.pc)[None, :, None]
+                for b in range(len(o.kbs)):
+                    if b in touched_p:
+                        continue
+                    brb = o.br[b]
+                    if hit[ii, jj, np.minimum(brb, o.lr)].any():
+                        touched_p.add(b)
+
+    E = _assemble(
+        grid, new_state.row, version.E, touched_row, _vals_ones,
+        new_state, stats,
+    )
+    E_weighted = None
+    if version.E_weighted is not None and new_w is not None:
+        E_weighted = _assemble(
+            grid, new_state.row, version.E_weighted, touched_row,
+            _vals_weights, new_state, stats,
+        )
+    P_ell = dangling = None
+    if version.P_ell is not None:
+        P_ell = _assemble(
+            grid, new_state.row, version.P_ell, touched_p,
+            _vals_pagerank, new_state, stats,
+        )
+        old_zero = state.outdeg == 0
+        new_zero = new_outdeg == 0
+        if np.array_equal(old_zero, new_zero):
+            dangling = version.dangling
+        else:
+            from ..parallel.vec import DistVec
+
+            dangling = DistVec.from_global(
+                grid, new_zero.astype(np.float32), align="col"
+            )
+    ET = None
+    if version.ET is not None:
+        ET = _assemble(
+            grid, new_state.t, version.ET, touched_t, _vals_ones,
+            new_state, stats,
+        )
+    new_version = GraphVersion(
+        nrows=nrows, ncols=ncols, nnz=int(len(new_keys)), E=E,
+        deg=new_deg, outdeg=new_outdeg, E_weighted=E_weighted,
+        P_ell=P_ell, dangling=dangling, ET=ET,
+        host_coo=(rows, cols, ncols),
+        # BUGFIX (round 12): the lazy CSC companion is STRUCTURAL
+        # (indptr + row ids, no values) — a fold that touched no edges
+        # (no-op upsert batch, weight-only change) leaves it exactly
+        # valid, so carry it instead of resetting to a full
+        # rebuild-from-COO on next use.  Any structural change still
+        # resets (None -> lazily rebuilt).  coldeg rides the same
+        # argument: out-degrees are untouched when no edge moved.
+        csc=(version.csc if changed_struct == 0 else None),
+        coldeg=(version.coldeg if changed_struct == 0 else None),
+        X=getattr(version, "X", None),
+        feat_dim=int(getattr(version, "feat_dim", 0)),
+        # same argument as csc/coldeg: no edge moved -> degrees are
+        # bit-identical -> the cached 1/deg vector stays valid (a
+        # normalized propagate engine would otherwise rebuild+upload
+        # it under the execution lock on the next batch)
+        invdeg=(
+            getattr(version, "invdeg", None)
+            if changed_struct == 0 else None
+        ),
+        headroom=getattr(version, "headroom", None),
+    )
+    new_version.host_weights = new_w
+    new_version.dyn = new_state
+    return _finish(new_version, "incremental")

@@ -1,0 +1,459 @@
+"""Write-ahead log: acknowledged writes survive the process (round 16);
+counterpart of ``combblas_tpu/dynamic/wal.py``.  Host JSON lines under
+the reference's schema tag, so either package replays the other's log.
+
+The mutation lane's ``DeltaBuffer`` and the merged ``GraphVersion``s
+are memory-only — before this module, a crash lost every acknowledged
+write since boot.  The WAL closes that hole with the same append-only
+JSONL conventions as the plan store (``tuner/store.py``): one fully
+formed line per acknowledged ``submit_update`` batch, written with a
+single ``write`` call so a torn write from a dying process truncates
+to an invalid FINAL line (tolerated at replay), never a poisoned log.
+
+Line format (schema ``combblas_tpu.wal/v1``)::
+
+    {"v": "combblas_tpu.wal/v1", "first_seq": 17, "last_seq": 18,
+     "rows": [3, 9], "cols": [9, 3], "vals": [1.0, 1.0], "ops": [0, 0]}
+
+``first_seq``/``last_seq`` are the ``DeltaBuffer`` sequence numbers the
+batch was admitted under — replay is ordered and deduplicated by them
+(records whose range a snapshot already covers are skipped; a record
+re-appended after a failover whose range is not past the frontier is
+superseded — later lines win, the plan-store stance).  ``ops`` are the
+``delta.OP_INSERT/OP_DELETE/OP_UPSERT`` codes.  Two auxiliary record
+shapes share the schema line: ``{"v": ..., "drop": [a, z]}`` tombstones
+a range whose merge FAILED on the live engine (replay must not
+resurrect writes whose futures were failed), and ``{"v": ...,
+"mark": z}`` records the seqno frontier across a truncation (a fully
+truncated log must never restart sequence numbers).
+
+Durability contract: the write lane (``Server.submit_update``, which
+comes to the port with ``serve/api.py``) appends BEFORE the caller's
+future exists — under ``COMBBLAS_WAL_FSYNC=always`` (the
+default) an acknowledged write is on disk when ``submit_update``
+returns.  ``fsync=off`` trades that for OS-buffered throughput.
+
+:func:`recover_version` is the crash-recovery half: latest valid
+snapshot (``utils.checkpoint.load_latest_version`` — a corrupt newest
+snapshot falls back to the previous retained one) + WAL-suffix replay
+through the existing incremental ``dynamic.merge.apply_delta``,
+property-tested BIT-EXACT (``to_host_coo()`` equal) against a
+never-crashed engine for crashes at every append/merge/checkpoint
+boundary, torn final line included (tests/test_torch_serve_durability.py
+holds it against the reference).
+
+Obs series ``serve.wal.*`` / ``serve.recovery.*`` are cataloged in
+``obs/metrics.py`` (round 16).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+import numpy as np
+
+from .. import obs
+from .delta import DeltaBatch, OP_NAMES
+
+#: JSONL schema tag — bump on any incompatible record layout change;
+#: records carrying another tag are skipped at replay (never guessed
+#: at — the plan-store convention).
+SCHEMA = "combblas_tpu.wal/v1"
+
+#: File name inside the durability directory (``COMBBLAS_WAL``); the
+#: checkpoints (``ckpt-*.npz``) live beside it.
+WAL_FILENAME = "wal.jsonl"
+
+
+class RecoveryError(RuntimeError):
+    """Crash recovery could not produce a version — no valid snapshot
+    in the checkpoint directory (every retained candidate was corrupt
+    or missing).  The message names the directory and what was
+    tried."""
+
+
+def wal_path(dirpath: str) -> str:
+    return os.path.join(dirpath, WAL_FILENAME)
+
+
+def _rec_last(rec: dict) -> int:
+    """Highest sequence number a record accounts for (data record's
+    ``last_seq``; a drop tombstone's range end; a frontier mark's
+    position)."""
+    if "mark" in rec:
+        return int(rec["mark"])
+    return int(rec["drop"][1] if "drop" in rec else rec["last_seq"])
+
+
+class WriteAheadLog:
+    """Append-only JSONL delta log (see module docstring).
+
+    Thread-safe: ``append`` (the write lane) and ``truncate`` (the
+    background checkpointer) serialize on one lock.  ``fsync`` resolves
+    through ``tuner.config.wal_fsync`` (argument >
+    ``COMBBLAS_WAL_FSYNC`` > ``always``).
+    """
+
+    def __init__(self, path: str, fsync: str | None = None):
+        from ..tuner import config as tuner_config
+
+        self.path = str(path)
+        self.fsync = tuner_config.wal_fsync(fsync)
+        self._lock = threading.Lock()
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        # resume at the existing frontier: a reopened log (recovery,
+        # home promotion) continues the seqno lineage, never restarts
+        self._position = -1
+        self.appended = 0
+        self.invalid_lines = 0
+        self._invalid_reported = 0  # obs high-water (reads repeat)
+        self.truncated_records = 0
+        for rec in self._read_records():
+            self._position = max(self._position, _rec_last(rec))
+        self._fd = self._open_append()
+
+    def _open_append(self) -> int:
+        """O_APPEND fd: every record goes down as ONE ``os.write`` of
+        one whole line (round 17) — the kernel's atomic append seek
+        means two PROCESSES sharing a log (or a log file a sibling
+        still holds open across a failover) can never interleave
+        bytes mid-line."""
+        return os.open(
+            self.path, os.O_APPEND | os.O_CREAT | os.O_WRONLY, 0o644
+        )
+
+    # -- write side --------------------------------------------------------
+
+    def append(self, first_seq: int, rows, cols, vals, op_codes) -> int:
+        """Durably record one acknowledged batch; returns the byte
+        offset written at.  One ``write`` call per record (torn-tail
+        tolerance) + fsync per policy."""
+        return self._append_rec({
+            "v": SCHEMA,
+            "first_seq": int(first_seq),
+            "last_seq": int(first_seq) + len(rows) - 1,
+            "rows": [int(r) for r in rows],
+            "cols": [int(c) for c in cols],
+            "vals": [float(v) for v in vals],
+            "ops": [int(o) for o in op_codes],
+        })
+
+    def append_drop(self, first_seq: int, last_seq: int) -> int:
+        """Tombstone a sequence range whose ops were REJECTED on the
+        live engine — a failed merge (futures failed honestly), or an
+        append that reached disk before its fsync raised (the write
+        was rolled back and never acknowledged).  POSITIONAL: a drop
+        kills only records EARLIER in the file, so a later retry that
+        legitimately reuses the rolled-back sequence numbers is
+        untouched.  Without the tombstone, a crash would resurrect
+        writes the callers were told failed."""
+        return self._append_rec({
+            "v": SCHEMA,
+            "drop": [int(first_seq), int(last_seq)],
+        })
+
+    def _append_rec(self, rec: dict) -> int:
+        data = (json.dumps(rec, separators=(",", ":")) + "\n").encode(
+            "utf-8"
+        )
+        last = _rec_last(rec)
+        t0 = time.perf_counter()
+        with self._lock:
+            if self._fd is None:
+                raise ValueError("WAL is closed")
+            off = os.lseek(self._fd, 0, os.SEEK_END)
+            # ONE write syscall for the whole line (the O_APPEND
+            # atomicity contract); a partial count (ENOSPC et al)
+            # leaves a torn tail the loader skips — surface it as an
+            # append failure so the write is REJECTED, never
+            # acknowledged half-durable
+            n = os.write(self._fd, data)
+            if n != len(data):
+                raise OSError(
+                    f"short WAL append ({n}/{len(data)} bytes)"
+                )
+            if self.fsync == "always":
+                os.fsync(self._fd)
+            self._position = max(self._position, int(last))
+            self.appended += 1
+        obs.count("serve.wal.appends")
+        obs.observe("serve.wal.append_s", time.perf_counter() - t0)
+        return off
+
+    def position(self) -> int:
+        """Sequence-number frontier: the highest ``last_seq`` this log
+        holds (or ever held before a truncate), ``-1`` when empty —
+        where a resumed ``DeltaBuffer`` lineage continues from."""
+        with self._lock:
+            return self._position
+
+    # -- read side ---------------------------------------------------------
+
+    def _read_records(self) -> list[dict]:
+        """Parse the file, skipping damage: a torn FINAL line is the
+        expected crash artifact (silently tolerated, counted); an
+        invalid or schema-mismatched interior line is skipped with a
+        counter — a damaged log degrades, it never poisons replay.
+
+        Re-read from disk on every replay/truncate ON PURPOSE: a
+        promotion or recovery opens a SECOND handle on the same file,
+        so an in-memory record cache could silently diverge from the
+        disk truth.  The cost is bounded — checkpoint truncation keeps
+        the file to the suffix since the last snapshot (default: a
+        handful of merge batches), not the full write history."""
+        if not os.path.exists(self.path):
+            return []
+        with open(self.path, encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        out = []
+        invalid = 0
+        for i, line in enumerate(lines):
+            if not line.strip():
+                continue
+            try:
+                rec = json.loads(line)
+                if rec.get("v") != SCHEMA:
+                    raise ValueError(f"schema {rec.get('v')!r}")
+                if "mark" in rec:
+                    int(rec["mark"])  # frontier marker (see truncate)
+                elif "drop" in rec:
+                    a, z = rec["drop"]
+                    if not int(a) <= int(z):
+                        raise ValueError("inconsistent drop record")
+                else:
+                    n = len(rec["rows"])
+                    if not (
+                        len(rec["cols"]) == len(rec["vals"])
+                        == len(rec["ops"]) == n
+                        and n >= 1
+                        and int(rec["last_seq"])
+                        == int(rec["first_seq"]) + n - 1
+                        and all(
+                            0 <= int(o) < len(OP_NAMES)
+                            for o in rec["ops"]
+                        )
+                    ):
+                        raise ValueError("inconsistent record")
+            except (ValueError, KeyError, TypeError):
+                invalid += 1
+                continue
+            out.append(rec)
+        # the file is re-read per replay/truncate: report damage as a
+        # LEVEL (lines currently damaged), count obs once per new line
+        self.invalid_lines = invalid
+        if invalid > self._invalid_reported:
+            obs.count(
+                "serve.wal.invalid", invalid - self._invalid_reported
+            )
+            self._invalid_reported = invalid
+        return out
+
+    def replay(self, after_seq: int = -1) -> list[DeltaBatch]:
+        """The suffix of acknowledged batches past ``after_seq`` (a
+        snapshot's ``wal_seq`` stamp), in sequence order, as
+        ``DeltaBatch``es ready for ``apply_delta``.  Deduplicates
+        overlapping records (later lines win) and slices a record that
+        straddles the frontier to exactly the unreplayed ops."""
+        with self._lock:
+            records = self._read_records()
+        # dropped (rejected) ranges: their ops were failed/rejected
+        # honestly on the live engine and must not resurrect.
+        # POSITIONAL — a tombstone kills only records written BEFORE
+        # it (merge failures and rejected appends both tombstone
+        # after the data line; a later retry reusing the seqs is a
+        # fresh claim the tombstone must not touch).
+        drops = [
+            (idx, int(r["drop"][0]), int(r["drop"][1]))
+            for idx, r in enumerate(records) if "drop" in r
+        ]
+        data = [
+            (idx, r) for idx, r in enumerate(records)
+            if "drop" not in r and "mark" not in r
+        ]
+        # LATER LINES WIN, per op: a record whose range a later record
+        # re-claims was superseded — e.g. an append whose fsync raised
+        # AFTER the line hit disk was ROLLED BACK and rejected, and
+        # the caller's retry legitimately reuses its sequence numbers;
+        # replaying the rejected line instead of the acknowledged
+        # retry would be exactly the acked-write loss the WAL forbids.
+        claimed: set[int] = set()
+        masks: list = [None] * len(data)
+        for i in range(len(data) - 1, -1, -1):
+            pos, rec = data[i]
+            a, z = int(rec["first_seq"]), int(rec["last_seq"])
+            seqs = np.arange(a, z + 1, dtype=np.int64)
+            live = seqs > int(after_seq)
+            for dpos, da, dz in drops:
+                if dpos > pos:  # positional: later tombstones only
+                    live &= (seqs < da) | (seqs > dz)
+            live &= np.asarray(
+                [s not in claimed for s in seqs.tolist()], bool
+            )
+            claimed.update(seqs.tolist())
+            masks[i] = live
+        out = []
+        for (_pos, rec), live in zip(data, masks):
+            if not live.any():
+                continue
+            out.append(DeltaBatch(
+                rows=np.asarray(rec["rows"], np.int64)[live],
+                cols=np.asarray(rec["cols"], np.int64)[live],
+                vals=np.asarray(rec["vals"], np.float32)[live],
+                ops=np.asarray(rec["ops"], np.int8)[live],
+                first_seq=int(rec["first_seq"]),
+                last_seq=int(rec["last_seq"]),
+                oldest_at=0.0,
+            ))
+        return out
+
+    # -- maintenance -------------------------------------------------------
+
+    def truncate(self, through_seq: int) -> int:
+        """Drop the replayed prefix: atomically rewrite the log keeping
+        only records with ``last_seq > through_seq`` (the records a
+        snapshot at ``through_seq`` does NOT cover).  tmp + ``os.replace``
+        — a crash mid-truncate leaves either the old or the new file,
+        both valid.  Returns records dropped."""
+        through = int(through_seq)
+        with self._lock:
+            records = self._read_records()
+            keep = [
+                r for r in records
+                if "mark" not in r and _rec_last(r) > through
+            ]
+            dropped = sum(1 for r in records if "mark" not in r) \
+                - len(keep)
+            if dropped <= 0:
+                return 0
+            tmp = self.path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                # frontier mark FIRST: a fully truncated log must
+                # still remember its seqno lineage — a reopened WAL
+                # whose position regressed to -1 would restart
+                # sequence numbers and corrupt replay dedup
+                mark = {
+                    "v": SCHEMA,
+                    "mark": max(through, self._position),
+                }
+                f.write(json.dumps(mark, separators=(",", ":")))
+                f.write("\n")
+                for rec in keep:
+                    f.write(json.dumps(rec, separators=(",", ":")))
+                    f.write("\n")
+                f.flush()
+                os.fsync(f.fileno())
+            os.close(self._fd)
+            # None across the gap: if the reopen below fails
+            # (EMFILE, permissions), a later append must fail-stop
+            # ("WAL is closed") rather than os.write through a stale
+            # descriptor number another file may have reused
+            self._fd = None
+            os.replace(tmp, self.path)
+            self._fd = self._open_append()
+            self.truncated_records += dropped
+        obs.count("serve.wal.truncated", dropped)
+        return dropped
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fd is not None:
+                os.close(self._fd)
+                self._fd = None
+
+    def stats(self) -> dict:
+        with self._lock:
+            size = (
+                os.path.getsize(self.path)
+                if os.path.exists(self.path) else 0
+            )
+            return {
+                "path": self.path,
+                "fsync": self.fsync,
+                "position": self._position,
+                "appended": self.appended,
+                "invalid_lines": self.invalid_lines,
+                "truncated_records": self.truncated_records,
+                "bytes": size,
+            }
+
+
+def open_wal(dirpath: str, fsync: str | None = None) -> WriteAheadLog:
+    """The durability directory's WAL (``wal.jsonl`` beside the
+    ``ckpt-*.npz`` snapshots)."""
+    return WriteAheadLog(wal_path(dirpath), fsync=fsync)
+
+
+def recover(dirpath: str, grid, *, kinds: tuple | None = None,
+            combine: str | None = None, fsync: str | None = None):
+    """One-call crash recovery from a durability DIRECTORY: opens the
+    WAL, runs :func:`recover_version`, closes the log — the shape
+    every product call site (``Server.from_recovery``, fleet
+    promotion/replacement) actually wants.  Use ``recover_version``
+    directly only when you already hold an open log."""
+    wal = open_wal(dirpath, fsync=fsync)
+    try:
+        return recover_version(
+            dirpath, wal, grid, kinds=kinds, combine=combine
+        )
+    finally:
+        wal.close()
+
+
+def recover_version(checkpoint_dir: str, wal: WriteAheadLog | None,
+                    grid, *, kinds: tuple | None = None,
+                    combine: str | None = None, batch_filter=None):
+    """Crash recovery: latest valid snapshot + WAL-suffix replay.
+
+    Loads the newest loadable snapshot in ``checkpoint_dir`` (a corrupt
+    newest file falls back to the previous retained one — the atomic-
+    write + retention policy guarantees a predecessor exists unless
+    every snapshot was destroyed), then replays every WAL batch past
+    the snapshot's ``wal_seq`` stamp through the incremental
+    ``apply_delta`` — each acknowledged ``submit_update`` batch is one
+    replay unit, so the recovered version is bit-exact
+    (``to_host_coo()`` equal) with a never-crashed engine that merged
+    the same acknowledged ops, whatever batch coalescing its flush
+    timing produced.
+
+    Returns the recovered ``GraphVersion`` (its ``wal_seq`` at the
+    replayed frontier); raises :class:`RecoveryError` when no snapshot
+    is loadable.  ``kinds`` gates the same structural checks the
+    engine's own merges run; ``combine`` is the upsert monoid (the
+    buffer's ``min`` default).
+
+    ``batch_filter`` (sharded recovery, round 20): a callable mapping
+    each replayed :class:`DeltaBatch` to the sub-batch THIS store
+    actually owns (e.g. a row slab, translated to slab coordinates) or
+    ``None`` when nothing in the batch lands here.  The frontier stamp
+    still advances for filtered-out batches — a slice's ``wal_seq``
+    means "every acknowledged write through here is REFLECTED", which
+    for a foreign-row batch is vacuously true; skipping the stamp
+    would force an eternal no-op replay of the same records.
+    """
+    from ..utils import checkpoint as ckpt
+    from . import merge as dyn_merge
+
+    t0 = time.perf_counter()
+    version, snap_path = ckpt.load_latest_version(checkpoint_dir, grid)
+    obs.gauge("serve.recovery.snapshot_seq", int(version.wal_seq))
+    batches = replayed_ops = 0
+    if wal is not None:
+        for batch in wal.replay(after_seq=version.wal_seq):
+            last_seq = batch.last_seq
+            if batch_filter is not None:
+                batch = batch_filter(batch)
+            if batch is not None and len(batch):
+                version = dyn_merge.apply_delta(
+                    version, batch, kinds=kinds, combine=combine,
+                )
+                batches += 1
+                replayed_ops += len(batch)
+            version.wal_seq = last_seq
+    obs.count("serve.recovery.replayed_ops", replayed_ops)
+    obs.observe("serve.recovery.recover_s", time.perf_counter() - t0)
+    obs.count("serve.recovery.runs")
+    version.recovered_from = (snap_path, batches, replayed_ops)
+    return version

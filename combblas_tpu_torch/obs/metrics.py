@@ -13,12 +13,13 @@ enters the registry (call sites convert to ``int``/``float`` first), so a
 metric can never force a device sync.
 
 The catalog below keeps the reference's rows, word for word, for the
-series this package emits; the rows of the serve and dynamic-graph
-layers come with those layers. Where a row speaks of the TPU's machinery
-the port's meaning is its counterpart: ``compile_cache.hits/misses``
-count the hand kernels' library builds (``_build.py``: found built, or
-compiled), ``compile_cache.entries`` the files of the build dir, and the
-``mxu`` tier is the dense tier (K1 for the tropical semirings).
+series this package emits; the rows of the serve layers not ported yet
+(scheduler, api, pool, fleet, net, shard) come with them. Where a row
+speaks of the TPU's machinery the port's meaning is its counterpart:
+``compile_cache.hits/misses`` count the hand kernels' library builds
+(``_build.py``: found built, or compiled), ``compile_cache.entries`` the
+files of the build dir, and the ``mxu`` tier is the dense tier (K1 for
+the tropical semirings).
 
 SpGEMM tier-router series (round 6 — the auto-tiered kernel ladder,
 docs/spgemm.md):
@@ -74,6 +75,23 @@ name                                       kind     meaning
                                                     (outside the oracle
                                                     envelope)
 =========================================  =======  =====================
+
+Serve resilience series (round 8 — fault injection, poisoned-batch
+isolation, circuit breakers, graph hot-swap; docs/serving.md
+"Resilience"):
+
+==============================  =========  ==============================
+name                            kind       meaning
+==============================  =========  ==============================
+``serve.swap.latency_s``        histogram  atomic graph-version swap
+                                           latency (lock wait + pointer
+                                           flip)
+``serve.swap.build_s``          histogram  off-lock build time of the
+                                           next GraphVersion
+``serve.swap.count``            counter    completed hot-swaps
+``serve.graph.version``         gauge      currently-served graph
+                                           version id
+==============================  =========  ==============================
 
 ``serve.requests{status=timeout}`` now also counts EXECUTION-time
 deadline drops (a request already expired when its batch reached the
@@ -199,6 +217,56 @@ docs/dynamic.md):
 ====================================  =========  =======================
 name                                  kind       meaning
 ====================================  =========  =======================
+``dynamic.delta.depth``               gauge      ops pending in a
+                                                 ``DeltaBuffer``
+``dynamic.delta.ops``                 counter    ops admitted (labels:
+                                                 ``op`` = insert /
+                                                 delete / upsert)
+``dynamic.delta.batches``             counter    batches drained
+``dynamic.delta.age_s``               histogram  oldest-op age at drain
+                                                 (write-coalescing
+                                                 latency)
+``dynamic.state.bootstrap``           counter    merge states built
+                                                 from scratch (first
+                                                 ``apply_delta`` on a
+                                                 version without one)
+``dynamic.merge.applied``             counter    ``apply_delta`` calls,
+                                                 labels ``mode`` =
+                                                 incremental / rebuild
+                                                 (the amortization
+                                                 ratio's numerator and
+                                                 denominator)
+``dynamic.merge.spill``               counter    incremental attempts
+                                                 that fell back to a
+                                                 rebuild; labels
+                                                 ``reason`` (threshold /
+                                                 bucket_full / no_state
+                                                 / forced)
+``dynamic.merge.latency_s``           histogram  wall time of one
+                                                 ``apply_delta``
+``dynamic.merge.rows_patched``        counter    rows rewritten in
+                                                 place (degree class
+                                                 survived)
+``dynamic.merge.rows_rebucketed``     counter    rows that claimed a
+                                                 free slot in another
+                                                 degree class
+``dynamic.merge.edges_inserted``      counter    edges added by merges
+``dynamic.merge.edges_removed``       counter    edges removed by merges
+``dynamic.refresh.runs``              counter    ``engine.refresh``
+                                                 calls; labels ``kind``
+                                                 (bfs / cc / pagerank),
+                                                 ``mode`` (cached /
+                                                 warm / cold)
+``dynamic.refresh.iters``             histogram  sweeps/iterations one
+                                                 refresh ran (labels
+                                                 ``kind``, ``mode`` —
+                                                 warm-restart savings)
+``dynamic.refresh.latency_s``         histogram  refresh wall time
+                                                 (labels ``kind``,
+                                                 ``mode``)
+``serve.update.rejected``             counter    write-lane
+                                                 backpressure rejects
+                                                 (full delta buffer)
 ``tuner.store.compacted``             counter    superseded/evicted
                                                  JSONL lines removed by
                                                  the load-time
@@ -229,6 +297,18 @@ name                                  kind     meaning
                                                backend resolution came
                                                from (arg / store / env
                                                / probe / heuristic)
+``serve.propagate.feature_dim``       gauge    TRUE feature width of
+                                               the loaded table (pad
+                                               stripped; the pow2 pad
+                                               width is the compiled
+                                               shape)
+``dynamic.merge.headroom_used``       counter  free padding slots
+                                               claimed by re-bucketing
+                                               rows (the
+                                               ``from_coo(headroom=)``
+                                               reserve paying off
+                                               instead of a
+                                               ``bucket_full`` spill)
 ``tuner.probe.geometry_runs``         counter  windowed block-geometry
                                                candidates measured by
                                                the probe's
@@ -281,6 +361,20 @@ name                                  kind     meaning
                                                program per compiled
                                                trace, same trace-time
                                                convention)
+====================================  =======  =========================
+
+Multi-tenant pool / fleet series (round 14 — the engine pool, WFQ
+scheduling and the replicated serving fleet; docs/serving.md
+"Multi-tenant pool & fleet"):
+
+====================================  =======  =========================
+name                                  kind     meaning
+====================================  =======  =========================
+``serve.checkpoint.save_s``           hist     ``save_version``
+                                               snapshot wall time
+``serve.checkpoint.load_s``           hist     ``load_version``
+                                               restore wall time (one
+                                               device_put per array)
 ====================================  =======  =========================
 
 Pre-existing serve series gain a ``tenant`` label when the emitting
@@ -343,6 +437,21 @@ name                                   kind       meaning
                                                   capacity rerolls
 ``k1.*`` (``k1.<stage>_s``)            histogram  Graph500 kernel-1
                                                   stage seconds
+``serve.plan_cache.hits`` /            counter    engine plan-cache
+``serve.plan_cache.misses``
+                                                  traffic (labels
+                                                  ``kind``, ``width``)
+``serve.requests``                     counter    request dispositions
+                                                  (labels ``kind``,
+                                                  ``status`` = ok /
+                                                  error / timeout /
+                                                  invalid / cancelled)
+``serve.request.latency_s``            histogram  submit-to-settle
+                                                  latency (labels
+                                                  ``kind``)
+``serve.batch.occupancy``              histogram  live lanes / bucket
+                                                  width per batch
+``serve.batch.padding_waste``          histogram  pad lanes per batch
 ``obs.provider_errors``                counter    broken pull-provider
                                                   callbacks (caught)
 =====================================  =========  =====================
@@ -375,8 +484,71 @@ name                                      kind       meaning
                                                      merge_failed /
                                                      slo_breach /
                                                      manual)
+``dynamic.freshness.versions_behind``     gauge      graph versions
+                                                     between a cached
+                                                     analytic and the
+                                                     served version at
+                                                     refresh time
+                                                     (labels ``kind``)
+``dynamic.freshness.repair_ratio``        gauge      warm / (warm +
+                                                     cold) refresh
+                                                     runs on this
+                                                     engine — the
+                                                     repair-vs-cold
+                                                     ratio the
+                                                     streaming bench
+                                                     gates on
 ``obs.scrape.requests``                   counter    HTTP scrape hits
                                                      (labels ``path``)
+========================================  =========  ==================
+
+Durability & self-healing series (round 16 — the write-ahead log,
+crash recovery, replica supervision and write-home failover;
+docs/serving.md "Durability & self-healing"):
+
+========================================  =========  ==================
+name                                      kind       meaning
+========================================  =========  ==================
+``serve.wal.appends``                     counter    WAL records
+                                                     durably appended
+                                                     (data records and
+                                                     drop tombstones;
+                                                     frontier marks
+                                                     are written by
+                                                     truncation, not
+                                                     counted here)
+``serve.wal.append_s``                    histogram  per-append latency
+                                                     (fsync included
+                                                     under policy
+                                                     ``always``)
+``serve.wal.invalid``                     counter    damaged JSONL
+                                                     lines skipped at
+                                                     replay (counted
+                                                     once per line;
+                                                     the expected
+                                                     torn-final-line
+                                                     crash artifact
+                                                     included)
+``serve.wal.truncated``                   counter    replayed-prefix
+                                                     records dropped
+                                                     by checkpoint
+                                                     truncation
+``serve.recovery.runs``                   counter    ``recover_version``
+                                                     completions
+``serve.recovery.replayed_ops``           counter    WAL ops replayed
+                                                     through
+                                                     ``apply_delta``
+                                                     during recovery
+``serve.recovery.recover_s``              histogram  snapshot-load +
+                                                     replay wall time
+``serve.recovery.snapshot_seq``           gauge      ``wal_seq`` stamp
+                                                     of the snapshot
+                                                     recovery loaded
+``serve.recovery.snapshot_rejected``      counter    corrupt/truncated
+                                                     snapshots skipped
+                                                     (fallback to the
+                                                     previous retained
+                                                     one)
 ========================================  =========  ==================
 
 Process-fleet series (round 17 — subprocess replicas with real crash

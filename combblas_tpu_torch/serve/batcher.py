@@ -1,0 +1,185 @@
+"""Deadline-driven micro-batcher: coalesce single-root queries into the
+fixed-width lanes the batch kernels want — counterpart of
+``combblas_tpu/serve/batcher.py``, host only, kept as the reference has
+it.
+
+The batch kernels (``models.bfs.bfs_batch``, ``models.sssp.sssp_batch``,
+``models.pagerank.pagerank_batch``, ``models.bc.bc_batch_dense_lanes``)
+amortize the per-index gather cost across W payload lanes. The engine
+keeps one plan per (kind, W), so serving arbitrary request counts
+directly would build plans constantly. The batcher therefore rounds every
+flush UP to the nearest configured lane bucket (powers of two by
+default), pads the spare lanes with ``models.PAD_ROOT`` (inert by the
+kernels' live-lane guard), and scatters per-lane results back to the
+issuing requests — pad lanes are structurally incapable of leaking into
+user results because scatter walks the REQUEST list, never the lane
+array.
+
+This is the batching half of a continuous-batching inference server:
+lane buckets play the role of padded sequence buckets, the pad sentinel
+the role of the pad token, and occupancy/padding-waste histograms
+(``serve.batch.occupancy`` / ``serve.batch.padding_waste``) make the
+bucket-policy cost measurable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from concurrent.futures import Future, InvalidStateError
+
+import numpy as np
+
+from .. import obs
+from ..models import PAD_ROOT
+
+
+def expire(req: "Request", where: str, on_timeout=None) -> bool:
+    """Settle an expired request with ``TimeoutError`` — the ONE place
+    the timeout message, the ``serve.requests{status=timeout}`` counter,
+    and the optional per-kind accounting hook live (three enforcement
+    points share it: the queue sweep, the pre-execution drop, and the
+    during-execution scatter check). Returns whether WE settled it."""
+    if settle(req.future, exc=TimeoutError(
+        f"request {req.rid} ({req.kind} root={req.root}) {where}"
+    )):
+        obs.count("serve.requests", kind=req.kind, status="timeout")
+        if req.trace is not None:
+            req.trace.finish(status="timeout", stage="expired")
+        if on_timeout is not None:
+            on_timeout(req)
+        return True
+    return False
+
+
+def settle(fut: Future, *, result=None, exc: Exception | None = None
+           ) -> bool:
+    """``set_result``/``set_exception`` tolerating a concurrent
+    client-side ``cancel()`` (these futures never enter RUNNING, so a
+    caller's cancel always wins the done()-check race). Returns whether
+    the future was settled by US."""
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+        return True
+    except InvalidStateError:
+        return False
+
+
+@dataclasses.dataclass
+class Request:
+    """One in-flight single-root query."""
+
+    rid: int
+    kind: str
+    root: int
+    future: Future
+    submitted_at: float
+    deadline: float | None = None  # absolute; None = no timeout
+    attempts: int = 0  # FAILING executions ridden (retry-budget meter)
+    trace: object = None  # sampled obs.trace.RequestTrace, or None
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now >= self.deadline
+
+
+def bucket_width(count: int, widths: tuple[int, ...]) -> int:
+    """Smallest configured lane width >= count (the shape bucket this
+    flush compiles/executes under); counts past the widest bucket clamp
+    to it — the scheduler flushes the remainder in a later batch."""
+    if count <= 0:
+        raise ValueError("bucket_width needs a positive request count")
+    for w in widths:
+        if count <= w:
+            return w
+    return widths[-1]
+
+
+def assemble(requests: list[Request], widths: tuple[int, ...],
+             record: bool = True) -> np.ndarray:
+    """Roots of ``requests`` as one int32 lane vector, padded with
+    ``PAD_ROOT`` up to the bucket width. The batch must FIT the widest
+    bucket — chunking an oversized backlog is the scheduler's job
+    (``pop_ready`` flushes at most the widest width per batch); a
+    direct caller exceeding it gets a ValueError, never a silent
+    truncation. Records the occupancy and padding-waste histograms
+    unless ``record=False`` (bisection-retry sub-batches: re-recording
+    them would misread fault recovery as poor coalescing)."""
+    W = bucket_width(len(requests), widths)
+    if len(requests) > W:
+        raise ValueError(
+            f"{len(requests)} requests exceed the widest lane bucket {W}"
+        )
+    sources = np.full(W, PAD_ROOT, np.int32)
+    for k, r in enumerate(requests):
+        sources[k] = r.root
+    if record:
+        kind = requests[0].kind
+        obs.observe(
+            "serve.batch.occupancy", len(requests) / W, kind=kind
+        )
+        obs.observe(
+            "serve.batch.padding_waste", W - len(requests), kind=kind
+        )
+    return sources
+
+
+def scatter(requests: list[Request], result: dict,
+            now: float | None = None, on_timeout=None,
+            on_ok=None, on_error=None) -> int:
+    """Hand each request its own lane of ``result`` (the engine's
+    column-sliced output dict). Pad lanes are never touched: iteration
+    is over the request list (lane k belongs to requests[k]); the
+    remaining lanes simply have no owner. Requests whose future is
+    already settled (timeout/cancel) are skipped; a request that
+    expired DURING execution is timed out here (``on_timeout(req)``,
+    when given, lets the server keep its per-kind accounting in step
+    with the obs counter; ``on_ok(req)``/``on_error(req)`` are the
+    success- and lane-error-side twins — the SLO budget's good/bad
+    hooks, so a per-lane scatter failure burns the budget like any
+    other user-visible error). Returns the number of futures
+    completed."""
+    now = time.monotonic() if now is None else now
+    done = 0
+    for k, req in enumerate(requests):
+        if req.future.done():
+            continue
+        if req.expired(now):
+            expire(req, "missed its deadline during execution",
+                   on_timeout)
+            continue
+        try:
+            # lane COPIES, not views: a retained view would pin the
+            # whole [n, W] batch buffer for one request's lifetime
+            lane = {
+                key: (
+                    np.ascontiguousarray(val[..., k])
+                    if isinstance(val, np.ndarray) else val
+                )
+                for key, val in result.items()
+            }
+            if settle(req.future, result=lane):
+                done += 1
+                obs.count("serve.requests", kind=req.kind, status="ok")
+                obs.observe(
+                    "serve.request.latency_s", now - req.submitted_at,
+                    kind=req.kind,
+                )
+                if req.trace is not None:
+                    # the scatter stage closes the sampled trace: its
+                    # stage sum now telescopes to the e2e latency
+                    req.trace.finish(status="ok", stage="scatter")
+                if on_ok is not None:
+                    on_ok(req)
+        except Exception as e:  # isolate: one bad lane never kills peers
+            settle(req.future, exc=e)
+            obs.count("serve.requests", kind=req.kind, status="error")
+            if req.trace is not None:
+                req.trace.finish(status="error", stage="scatter")
+            if on_error is not None:
+                on_error(req)
+    return done
+
+

@@ -21,8 +21,8 @@ Resolution precedence, documented once, here:
 Env-var conventions shared by every knob: unset or empty means
 "default"; for the integer knobs ``"0"`` also means default.  Every knob
 is read at each call, never at import.  The knobs here are the ones the
-port's modules read; the reference's serve, pool, fleet, net, WAL, shard,
-checkpoint and dynamic-spill knobs come with the modules that read them.
+port's modules read; the reference's pool, fleet, net, shard, WAL-directory
+and checkpoint-cadence knobs come with the modules that read them.
 """
 
 from __future__ import annotations
@@ -61,6 +61,18 @@ ENV_STORE_COMPACT = "COMBBLAS_PLAN_STORE_COMPACT_MIN"  # superseded-line
 ENV_SPMM_BACKEND = "COMBBLAS_SPMM_BACKEND"
 ENV_DYNAMIC_HEADROOM = "COMBBLAS_DYNAMIC_HEADROOM"
 
+#: Dynamic-graph mutation knobs (round 11, docs/dynamic.md).
+ENV_DYNAMIC_SPILL = "COMBBLAS_DYNAMIC_SPILL_FRAC"
+
+#: Round-16 knob: the write-ahead log's append fsync policy (docs/serving.md
+#: "Durability & self-healing"): ``always`` — every acknowledged write is
+#: on disk before its future exists — or ``off``, the OS-buffered
+#: throughput mode.
+ENV_WAL_FSYNC = "COMBBLAS_WAL_FSYNC"
+
+#: Valid WAL fsync policies (vetted at the knob, the MERGE precedent).
+WAL_FSYNC_POLICIES = ("always", "off")
+
 #: Round-13 knob: the SpGEMM combine-merge tier (sort | runs | hash) —
 #: how partial-product pieces (3D fiber pieces, 2D ESC stage chunks)
 #: fold into one compacted tile.  Resolution: arg > plan-store record
@@ -92,6 +104,10 @@ DEFAULT_STORE_COMPACT_MIN = 32
 #: Default bucket-slot headroom: none (static graphs pay no padding
 #: tax; dynamic engines opt in via from_coo(headroom=) or the env).
 DEFAULT_DYNAMIC_HEADROOM = 0.0
+#: Default structural-change fraction past which a merge rebuilds.
+DEFAULT_DYNAMIC_SPILL_FRAC = 0.10
+#: Default WAL policy: fsync every acknowledged append.
+DEFAULT_WAL_FSYNC = "always"
 
 def _str_env(name: str) -> str | None:
     v = os.environ.get(name)
@@ -253,3 +269,27 @@ def obs_trace_sample(given: float | None = None) -> float:
         v = os.environ.get(ENV_OBS_TRACE_SAMPLE)
         given = float(v) if v else 0.0
     return min(max(float(given), 0.0), 1.0)
+
+
+def wal_fsync(given: str | None = None) -> str:
+    """WAL append fsync policy: explicit argument >
+    ``COMBBLAS_WAL_FSYNC`` > ``always``.  A bogus value raises naming
+    the knob (the MERGE/SPMM_BACKEND vetting precedent) instead of
+    surfacing as a silent durability downgrade."""
+    v = _str_env(ENV_WAL_FSYNC) if given is None else given
+    if v is None:
+        return DEFAULT_WAL_FSYNC
+    if v not in WAL_FSYNC_POLICIES:
+        raise ValueError(
+            f"{ENV_WAL_FSYNC} must be one of "
+            f"{'|'.join(WAL_FSYNC_POLICIES)}; got {v!r}"
+        )
+    return v
+
+
+def dynamic_spill_frac() -> float:
+    """Structural-change fraction above which the incremental merge
+    spills to a full rebuild (``dynamic.merge.spill{reason=threshold}``).
+    """
+    v = os.environ.get(ENV_DYNAMIC_SPILL)
+    return float(v) if v else DEFAULT_DYNAMIC_SPILL_FRAC

@@ -15,11 +15,20 @@ The sharded form (``save_sharded``) writes a directory: one ``torch.save``
 file per tile of each array (``<name>.<i>.<j>.pt`` for an ``SpParMat``,
 ``blocks.<i>.pt`` for a ``DistVec``) and the reference's
 ``cbtpu_meta.json``. The reference writes the same arrays through orbax,
-which the port does not use. The reference's version snapshots (ROADMAP
-items 14 and 15) are not ported yet, and with them its three ``obs`` sites
-(``serve.recovery.snapshot_rejected``, ``serve.checkpoint.save_s`` and
-``serve.checkpoint.load_s``), which sit in ``load_latest_version``,
-``save_version`` and ``load_version``; the ported parts have none.
+which the port does not use.
+
+The serve ``GraphVersion`` snapshots (``save_version``, ``load_version``,
+``load_latest_version``, the ``ckpt-*.npz`` naming and listing) write the
+reference's ``.npz`` layout under its schema tag: the bucket arrays as
+built (sticky slots and headroom padding included), the degree tables,
+the dangling and feature blocks, the retained COO, and a JSON meta with
+the WAL frontier. A snapshot either package writes loads in the other,
+bucket arrays equal bit for bit. Two differences: the port writes the
+archive uncompressed (``np.savez``: a scale-18 snapshot took 0.60 s for
+277 MB on an H100's host, where ``savez_compressed``, the reference's,
+took 15.28 s for 66 MB: 4.2 times the disk for every retained snapshot),
+and where the reference places a restored array
+with a ``NamedSharding``, the port puts it on the grid's device.
 """
 
 from __future__ import annotations
@@ -210,3 +219,291 @@ def load_sharded(path: str, grid: Grid, fill=None):
         blocks = _load_tiles(path, "blocks", (pa,), "cpu").numpy()
         return _restore_vec(blocks, meta, grid, fill)
     raise TypeError(meta["kind"])
+
+
+# --- GraphVersion snapshots (the serving fleet's warm start) --------------
+
+#: Schema tag of ``save_version`` snapshots; a mismatched tag is refused at
+#: load (the reference's tag, so each package loads the other's files).
+VERSION_SCHEMA = "combblas_tpu.graph_version/v1"
+
+#: The EllParMat fields of a GraphVersion, in a fixed serialization
+#: order (absent twins are recorded as null bucket counts).
+_VERSION_MATS = ("E", "E_weighted", "P_ell", "ET")
+
+
+class SnapshotError(ValueError):
+    """A snapshot that must not be loaded: corrupt, truncated, wrong
+    schema, or wrong grid.  The message names the file — and
+    ``load_latest_version`` treats any instance as "fall back to the
+    previous retained snapshot"."""
+
+
+def snapshot_name(wal_seq: int) -> str:
+    """Canonical snapshot file name for a version at WAL frontier
+    ``wal_seq``: zero-padded so lexicographic order IS recovery order."""
+    return f"ckpt-{int(wal_seq) + 1:012d}.npz"
+
+
+def snapshot_seq(path: str) -> int:
+    """The ``wal_seq`` stamp encoded in a snapshot's file name (the
+    inverse of ``snapshot_name``; no file read)."""
+    name = os.path.basename(path)
+    return int(name[len("ckpt-"):-len(".npz")]) - 1
+
+
+def list_snapshots(dirpath: str) -> list[str]:
+    """Retained ``save_version`` snapshots in ``dirpath``, OLDEST first
+    (an in-flight atomic write, ``*.npz.tmp``, is not a snapshot)."""
+    try:
+        names = os.listdir(dirpath)
+    except OSError:
+        return []
+    return sorted(
+        os.path.join(dirpath, nm) for nm in names
+        if nm.startswith("ckpt-") and nm.endswith(".npz")
+        and ".tmp" not in nm
+    )
+
+
+def load_latest_version(dirpath: str, grid, *, writable: bool = True):
+    """The newest LOADABLE snapshot in ``dirpath`` as ``(version,
+    path)`` — a corrupt/truncated newest file falls back to the previous
+    retained snapshot with a warning naming the bad file.  A file that
+    VANISHES between listing and open (a sibling's pruner) is skipped
+    silently, and the directory is re-listed once.  Raises
+    ``dynamic.wal.RecoveryError`` when no candidate loads."""
+    candidates = []
+    errors = []
+    for _attempt in (0, 1):
+        candidates = list_snapshots(dirpath)
+        vanished = 0
+        for path in reversed(candidates):
+            try:
+                return load_version(path, grid, writable=writable), path
+            except FileNotFoundError:
+                vanished += 1
+                continue
+            except SnapshotError as e:
+                errors.append(str(e))
+                from .. import obs
+
+                obs.count("serve.recovery.snapshot_rejected")
+                warnings.warn(
+                    f"skipping unloadable snapshot (falling back to "
+                    f"the previous retained one): {e}",
+                    stacklevel=2,
+                )
+        if vanished == 0:
+            break  # a re-list cannot surface anything new
+    from ..dynamic.wal import RecoveryError
+
+    raise RecoveryError(
+        f"no loadable GraphVersion snapshot in {dirpath!r} "
+        f"({len(candidates)} candidate(s)"
+        + (f"; errors: {errors}" if errors else "")
+        + ")"
+    )
+
+
+def save_version(path: str, version, *, extra_meta: dict | None = None) -> None:
+    """Snapshot a serve ``GraphVersion`` to one self-describing .npz.
+
+    The BUCKET ARRAYS are persisted exactly as built — per-class
+    cols/vals/rowids including the headroom padding rows — so
+    ``load_version`` re-uploads identical shapes with
+    ``EllParMat.from_host_buckets`` (one upload per array, no dedup
+    sort, no host bucket pass).  The host COO/weights ride along when
+    the version retained them (``keep_coo=True``), so a restored
+    version can still take merges.
+
+    The write is ATOMIC — the .npz lands in a sibling tmp file, is
+    fsynced and ``os.replace``d into place — and the version's WAL
+    position (``version.wal_seq``) is stamped into the meta, so recovery
+    replays exactly the log suffix this snapshot does not contain.
+    ``extra_meta``: a JSON-able dict stored under ``meta["extra"]`` and
+    surfaced as ``version.extra_meta`` on load.
+    """
+    import time
+
+    from .. import obs
+
+    t0 = time.perf_counter()
+    meta = {
+        "kind": "GraphVersion",
+        "v": VERSION_SCHEMA,
+        "nrows": int(version.nrows),
+        "ncols": int(version.ncols),
+        "nnz": int(version.nnz),
+        "feat_dim": int(version.feat_dim),
+        "headroom": version.headroom,
+        "wal_seq": int(getattr(version, "wal_seq", -1)),
+        "grid": [version.E.grid.pr, version.E.grid.pc],
+        "mats": {},
+    }
+    if extra_meta is not None:
+        meta["extra"] = extra_meta
+    arrays: dict = {"deg": np.asarray(version.deg)}
+    if version.outdeg is not None:
+        arrays["outdeg"] = np.asarray(version.outdeg)
+    for nm in _VERSION_MATS:
+        M = getattr(version, nm)
+        if M is None:
+            meta["mats"][nm] = None
+            continue
+        meta["mats"][nm] = {
+            "nbuckets": len(M.buckets),
+            "nrows": int(M.nrows),
+            "ncols": int(M.ncols),
+        }
+        for i, (bc, bv, br) in enumerate(M.buckets):
+            arrays[f"{nm}.{i}.c"] = bc.cpu().numpy()
+            arrays[f"{nm}.{i}.v"] = bv.cpu().numpy()
+            arrays[f"{nm}.{i}.r"] = br.cpu().numpy()
+    if version.dangling is not None:
+        arrays["dangling"] = version.dangling.blocks.cpu().numpy()
+    if version.X is not None:
+        arrays["X"] = version.X.blocks.cpu().numpy()
+    if version.host_coo is not None:
+        rows, cols, _nc = version.host_coo
+        arrays["coo_rows"] = np.asarray(rows)
+        arrays["coo_cols"] = np.asarray(cols)
+        if version.host_weights is not None:
+            arrays["coo_weights"] = np.asarray(version.host_weights)
+    # atomic: write a sibling tmp (same filesystem) through a FILE OBJECT
+    # so np.savez cannot append its own .npz suffix, fsync, then replace;
+    # uncompressed (module docstring)
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(
+                f,
+                __meta__=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+                **arrays,
+            )
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    obs.observe("serve.checkpoint.save_s", time.perf_counter() - t0)
+
+
+def load_version(path: str, grid: Grid, *, writable: bool = True):
+    """Restore a ``save_version`` snapshot onto ``grid`` (the SAME grid
+    shape only) as a ``GraphVersion`` ready for ``GraphEngine(grid,
+    version=...)`` or ``engine.swap()``: one upload per persisted array.
+
+    ``writable=False`` skips retaining the host bucket arrays the lazy
+    merge-state derivation needs (a read-only replica never merges).
+    A corrupt or truncated file is REFUSED with a ``SnapshotError``
+    naming it — never half-loaded.
+    """
+    try:
+        return _load_version(path, grid, writable)
+    except SnapshotError:
+        raise  # already diagnostic (schema / grid mismatch)
+    except FileNotFoundError:
+        # vanished between listing and open: not corruption
+        raise
+    except Exception as e:
+        raise SnapshotError(
+            f"refusing corrupt or truncated GraphVersion snapshot "
+            f"{path!r}: {type(e).__name__}: {e}"
+        ) from e
+
+
+def _load_version(path: str, grid: Grid, writable: bool = True):
+    import time
+
+    from .. import obs
+    from ..parallel.ellmat import EllParMat
+    from ..parallel.vec import DistMultiVec
+    from ..serve.engine import GraphVersion
+
+    t0 = time.perf_counter()
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        if meta.get("v") != VERSION_SCHEMA:
+            raise SnapshotError(
+                f"{path!r} is not a GraphVersion snapshot (schema "
+                f"{meta.get('v')!r} != {VERSION_SCHEMA!r})"
+            )
+        pr, pc = meta["grid"]
+        if (pr, pc) != (grid.pr, grid.pc):
+            raise SnapshotError(
+                f"snapshot was taken on a {pr}x{pc} grid; load_version "
+                f"restores onto the SAME grid shape (got {grid.pr}x"
+                f"{grid.pc}) — rebuild from COO to re-shard"
+            )
+        mats = {}
+        host_mats = {}  # host (bc, bv, br) triples for the merge state
+        for nm in _VERSION_MATS:
+            info = meta["mats"].get(nm)
+            if info is None:
+                mats[nm] = None
+                continue
+            host_buckets = [
+                (z[f"{nm}.{i}.c"], z[f"{nm}.{i}.v"], z[f"{nm}.{i}.r"])
+                for i in range(info["nbuckets"])
+            ]
+            host_mats[nm] = host_buckets
+            mats[nm] = EllParMat.from_host_buckets(
+                grid, host_buckets, info["nrows"], info["ncols"]
+            )
+        dangling = None
+        if "dangling" in z:
+            dangling = DistVec(
+                blocks=torch.from_numpy(z["dangling"]).to(grid.device),
+                length=meta["ncols"], align="col", grid=grid,
+            )
+        X = None
+        if "X" in z:
+            X = DistMultiVec(
+                blocks=torch.from_numpy(z["X"]).to(grid.device),
+                length=meta["ncols"], align="row", grid=grid,
+            )
+        host_coo = None
+        host_weights = None
+        if "coo_rows" in z:
+            host_coo = (
+                np.asarray(z["coo_rows"]), np.asarray(z["coo_cols"]),
+                meta["ncols"],
+            )
+            if "coo_weights" in z:
+                host_weights = np.asarray(z["coo_weights"])
+        deg_host = np.asarray(z["deg"])
+        outdeg_host = np.asarray(z["outdeg"]) if "outdeg" in z else None
+    version = GraphVersion(
+        nrows=meta["nrows"], ncols=meta["ncols"], nnz=meta["nnz"],
+        E=mats["E"], deg=deg_host, outdeg=outdeg_host,
+        E_weighted=mats["E_weighted"], P_ell=mats["P_ell"],
+        dangling=dangling, ET=mats["ET"],
+        host_coo=host_coo, host_weights=host_weights,
+        X=X, feat_dim=meta["feat_dim"], headroom=meta["headroom"],
+        wal_seq=int(meta.get("wal_seq", -1)),
+    )
+    version.extra_meta = meta.get("extra")
+    if host_coo is not None and writable:
+        # the merge state must describe the RESTORED bucket layout,
+        # sticky slots included (a fresh host_build of the COO would
+        # patch against the wrong slot map); derived LAZILY on the first
+        # merge, so read-only loads pay nothing for it
+        e_buckets = host_mats["E"]
+        t_buckets = host_mats.get("ET")
+
+        def _dyn_source():
+            from ..dynamic.merge import state_from_host_buckets
+
+            return state_from_host_buckets(
+                grid, e_buckets, t_buckets, host_coo,
+                host_weights, deg_host, outdeg_host,
+            )
+
+        version.dyn_source = _dyn_source
+    obs.observe("serve.checkpoint.load_s", time.perf_counter() - t0)
+    return version

@@ -17,7 +17,9 @@ on the card with K1's launches counted and nothing skipped, then the store
 replays it; the dot backend's windowed rung, the SpMM and the 3D probes),
 and the telemetry's cost contract (obs on adds no kernel and no
 synchronising call to ``spgemm_auto``; the ``spgemm.auto`` range holds K1's
-kernels on the profiler's timeline). Marked ``cuda``; they skip where there is no card. The module runs under a
+kernels on the profiler's timeline), and the serving engine and the
+mutation lane (served lanes of the five kinds, a merge chain, a snapshot
+round trip and a recovery). Marked ``cuda``; they skip where there is no card. The module runs under a
 fresh plan store of its own with probing off, so the routed calls take
 their tiers from the code, not from an ambient store.
 
@@ -1796,3 +1798,99 @@ def test_obs_span_encloses_k1_kernels(cuda_device):
     assert len(spans) == 1 and len(k1) == semiring_matmul.launches - k >= 1
     lo, hi = spans[0].time_range.start, spans[0].time_range.end
     assert all(lo <= k.time_range.start and k.time_range.end <= hi for k in k1)
+
+
+# --- the serving engine and the mutation lane ------------------------------------
+
+
+def _serve_graph():
+    rows, cols = rmat_symmetric_coo_host(3, 8, 8)
+    rng = np.random.default_rng(7)
+    w = rng.integers(1, 16, len(rows)).astype(np.float32)
+    X = rng.integers(0, 3, (256, 6)).astype(np.float32)
+    return rows, cols, w, X
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_engine_lanes_on_card_match_cpu(shape, cuda_device):
+    """Every kind served on the card (a PAD_ROOT lane included) equals the
+    CPU engine: bfs, sssp exactly; pagerank, bc and propagate within
+    rtol 1e-5 (float sums in another order); device_bytes equal."""
+    from combblas_tpu_torch.serve import GraphEngine
+
+    rows, cols, w, X = _serve_graph()
+    live = np.flatnonzero(np.bincount(rows, minlength=256)).astype(np.int32)
+    srcs = np.array([live[0], PAD_ROOT, live[9], live[40]], np.int32)
+    engs = [GraphEngine.from_coo(Grid.make(*shape, device=dev), rows, cols, 256, weights=w,
+                                 features=X) for dev in ("cpu", cuda_device)]
+    assert engs[0].version.device_bytes() == engs[1].version.device_bytes()
+    engs[1].warmup(widths=(4,))
+    mark = engs[1].trace_mark()
+    for kind in engs[0].kinds():
+        a, b = (e.execute(kind, srcs) for e in engs)
+        for k in a:
+            if k in ("ranks", "scores", "features"):
+                np.testing.assert_allclose(b[k], a[k], rtol=1e-5,
+                                           atol=1e-6 * max(float(np.abs(a[k]).max()), 1e-30))
+            else:
+                assert np.array_equal(b[k], a[k]), (kind, k)
+    assert engs[1].retraces_since(mark) == 0
+
+
+def test_merge_chain_and_recovery_on_card_match_cpu(cuda_device, tmp_path):
+    """A chain of incremental merges on the card equals the CPU chain
+    array for array (untouched classes share the parent's tensors); a
+    snapshot written from the card reloads onto the CPU equal; WAL
+    recovery on the card equals the never-crashed version."""
+    from combblas_tpu_torch import dynamic as dyn
+    from combblas_tpu_torch.serve import GraphEngine
+
+    rows, cols, w, X = _serve_graph()
+    engs = [GraphEngine.from_coo(Grid.make(2, 2, device=dev), rows, cols, 256, weights=w,
+                                 keep_coo=True, kinds=("bfs", "sssp", "pagerank"))
+            for dev in ("cpu", cuda_device)]
+    present = set(zip(rows.tolist(), cols.tolist()))
+    pairs = [(a, b) for a in range(256) for b in range(a + 1, 256)
+             if (a, b) not in present][:6]
+    wal = dyn.open_wal(str(tmp_path))
+    engs[1].version.wal_seq = -1
+    checkpoint.save_version(str(tmp_path / checkpoint.snapshot_name(-1)), engs[1].version)
+    vs = [e.version for e in engs]
+    seq = 0
+    for k, (a, b) in enumerate(pairs):
+        ops = [("insert", a, b, 2.0), ("insert", b, a, 2.0)]
+        if k >= 3:
+            c, d = pairs[k - 3]
+            ops += [("delete", c, d), ("delete", d, c)]
+        first = seq
+        wal.append(first, [o[1] for o in ops], [o[2] for o in ops],
+                   [o[3] if len(o) > 3 else 1.0 for o in ops],
+                   [dyn.OP_NAMES.index(o[0]) for o in ops])
+        seq += len(ops)
+        nv = [dyn.apply_delta(v, dyn.DeltaBatch.from_ops(ops, start_seq=first)) for v in vs]
+        for v in nv:
+            v.wal_seq = first + len(ops) - 1
+        st = [v.dyn.last_stats for v in nv]
+        assert st[0].mode == st[1].mode == "incremental"
+        assert (st[0].buckets_uploaded, st[0].buckets_reused) == (
+            st[1].buckets_uploaded, st[1].buckets_reused)
+        for nm in ("E", "E_weighted", "P_ell"):
+            for ta, tb in zip(getattr(nv[0], nm).buckets, getattr(nv[1], nm).buckets):
+                for x, y in zip(ta, tb):
+                    assert y.is_cuda and torch.equal(x, y.cpu()), nm
+        vs = nv
+    wal.close()
+    back = checkpoint.load_version(_save(tmp_path, vs[1]), Grid.make(2, 2, device="cpu"))
+    got = dyn.recover(str(tmp_path), Grid.make(2, 2, device=cuda_device))
+    for v in (back, got):
+        for nm in ("E", "E_weighted", "P_ell"):
+            for ta, tb in zip(getattr(v, nm).buckets, getattr(vs[0], nm).buckets):
+                for x, y in zip(ta, tb):
+                    assert torch.equal(x.cpu(), y), nm
+    assert got.wal_seq == vs[0].wal_seq
+
+
+def _save(d, v):
+    path = str(d / "card.npz")
+    checkpoint.save_version(path, v)
+    return path

@@ -43,11 +43,20 @@ BOTH = (jobs, tobs)
 TIMED = {"ts", "wall_s", "t_s"}
 
 
+def _isolate_providers(monkeypatch):
+    """Both packages' pull providers emptied for one test: the
+    reference's models/bfs.py registers a provider of its cache.bfs.*
+    gauges, which the port leaves out, and a test run earlier on the same
+    worker may have left the port's compile-cache provider registered
+    (``utils.compile_cache.enable_compile_cache``); the comparisons run
+    without either."""
+    monkeypatch.setattr(jobs, "_providers", [])
+    monkeypatch.setattr(tobs, "_providers", [])
+
+
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
-    # the reference's models/bfs.py registers a provider of its cache.bfs.*
-    # gauges, which the port leaves out; the comparisons run without it
-    monkeypatch.setattr(jobs, "_providers", [])
+    _isolate_providers(monkeypatch)
     for o in BOTH:
         o.disable()
         o.reset()
@@ -117,6 +126,27 @@ def test_registry_matches_reference():
     assert tmetrics.RESERVOIR == jmetrics.RESERVOIR == 512
     assert tobs.quantiles([3, 1, 2, 9]) == jobs.quantiles([3, 1, 2, 9])
     assert tobs.quantile_summary([]) == jobs.quantile_summary([])
+
+
+def test_registry_parity_survives_a_leaked_compile_cache_provider(tmp_path, monkeypatch):
+    """Regression: enabling the port's compile cache registers its
+    provider of ``compile_cache.entries`` / ``tuner.store.entries`` gauges,
+    as a test of another file on the same worker may do first. After the
+    isolation every test here starts with, the registry comparison
+    holds."""
+    from combblas_tpu_torch.utils import compile_cache
+
+    saved = compile_cache.configured_dir()
+    compile_cache._reset_for_tests()
+    try:
+        compile_cache.enable_compile_cache(str(tmp_path))
+        assert tobs._providers
+        _isolate_providers(monkeypatch)
+        test_registry_matches_reference()
+    finally:
+        compile_cache._reset_for_tests()
+        if saved is not None:
+            compile_cache.enable_compile_cache(saved)
 
 
 def test_spans_events_and_table_match_reference():
@@ -373,15 +403,25 @@ def test_build_hooks_and_compile_cache_provider(tmp_path):
 
 PKG = os.path.dirname(os.path.abspath(combblas_tpu_torch.__file__))
 _CALL = re.compile(r"""(?:obs|registry)\.(?:count|gauge|observe)\(\s*["']([A-Za-z0-9_.]+)["']""")
-_ROW = re.compile(r"^``([^`]+)``(?: \(``[^`]+``\))?\s+(counter|gauge|histogram)\b", re.M)
+_KIND = r"(counter|gauge|histogram|hist)\b"
+_ROW = re.compile(r"^``([^`]+)``(?: \(``[^`]+``\))?\s+" + _KIND, re.M)
+# a row naming several series, one a line: "``a`` /   kind ...", then
+# "``b`` [/]" lines
+_ROW_SPLIT = re.compile(r"^``([^`]+)`` /\s+" + _KIND + r"[^\n]*((?:\n``[^`]+``[^\n]*)+)", re.M)
 
 
 def _rows(path):
+    """Catalog rows as {series: kind} (the reference abbreviates some
+    histogram rows as ``hist``)."""
+    text = open(path, encoding="utf-8").read()
     rows = {}
-    for name, kind in _ROW.findall(open(path, encoding="utf-8").read()):
+    for name, kind in _ROW.findall(text):
         for n in name.split("/"):
             rows[n if "." in n else name.rsplit(".", 1)[0] + "." + n] = kind
-    return rows
+    for first, kind, more in _ROW_SPLIT.findall(text):
+        for n in [first] + re.findall(r"^``([^`]+)``", more, re.M):
+            rows[n] = kind
+    return {n: "histogram" if k == "hist" else k for n, k in rows.items()}
 
 
 def _port_series():

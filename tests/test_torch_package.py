@@ -24,7 +24,8 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "io.labels", "utils.checkpoint", "utils.compile_cache", "tuner", "tuner.config",
            "tuner.store", "tuner.resolve", "tuner.probe", "obs", "obs.metrics", "obs.spans",
            "obs.sinks", "obs.trace", "obs.recorder", "obs.export", "obs.fleetlog",
-           "utils.timers"}
+           "utils.timers", "serve", "serve.engine", "serve.batcher", "dynamic", "dynamic.delta",
+           "dynamic.merge", "dynamic.refresh", "dynamic.wal"}
 
 
 def test_import_pulls_in_no_jax():

@@ -30,6 +30,7 @@ from combblas_tpu.tuner import config as jcfg
 from combblas_tpu.tuner import store as jst
 from combblas_tpu.utils import compile_cache as jcc
 from combblas_tpu_torch import Grid, SpParMat, _build
+from combblas_tpu_torch import obs as tobs
 from combblas_tpu_torch.tuner import config as tcfg
 from combblas_tpu_torch.tuner import store as tst
 from combblas_tpu_torch.utils import compile_cache as tcc
@@ -72,11 +73,14 @@ KNOBS = [
     ("env_spmm_backend", "ENV_SPMM_BACKEND", ["", "scatter", "mxu_gather"]),
     ("dynamic_headroom", "ENV_DYNAMIC_HEADROOM", ["", "0.25", "-1"]),
     ("obs_trace_sample", "ENV_OBS_TRACE_SAMPLE", ["", "0", "0.25", "2", "-1", "x"]),
+    ("dynamic_spill_frac", "ENV_DYNAMIC_SPILL", ["", "0.25", "1", "x"]),
+    ("wal_fsync", "ENV_WAL_FSYNC", ["", "always", "off", "sometimes"]),
 ]
 
 GIVEN = {
     "dynamic_headroom": [0.5, -2.0],
     "obs_trace_sample": [0.5, 3.0],
+    "wal_fsync": ["off", "always", "bogus"],
 }
 
 
@@ -480,10 +484,15 @@ def test_compaction_skipped_under_contention(monkeypatch, tmp_path):
 
 @pytest.fixture
 def clean_cache():
+    # enable_compile_cache registers the port's compile-cache provider in
+    # combblas_tpu_torch.obs._providers; the list is restored at the end,
+    # so no later test on this worker snapshots the provider's gauges
     prior_t, prior_j = tcc._configured_dir, jcc._configured_dir
+    prior_providers = list(tobs._providers)
     tcc._reset_for_tests()
     yield
     tcc._configured_dir, jcc._configured_dir = prior_t, prior_j
+    tobs._providers[:] = prior_providers
 
 
 def test_compile_cache_idempotence_contract(clean_cache, monkeypatch, tmp_path):

@@ -28,7 +28,12 @@ LEFT_OUT = ("trace.", "cache.bfs.", "/jax/", "compile_cache.")
 
 @contextlib.contextmanager
 def clean():
-    """Both packages' telemetry off and empty around a test."""
+    """Both packages' telemetry off and empty around a test, and their pull
+    providers emptied for it (a test run earlier on the same worker may
+    have left one registered, e.g. the port's compile-cache provider; the
+    lists are restored afterwards)."""
+    saved = (jobs._providers, tobs._providers)
+    jobs._providers, tobs._providers = [], []
     for o in (jobs, tobs):
         o.disable()
         o.reset()
@@ -38,6 +43,7 @@ def clean():
         for o in (jobs, tobs):
             o.disable()
             o.reset()
+        jobs._providers, tobs._providers = saved
 
 
 def series(o):
