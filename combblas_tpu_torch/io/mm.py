@@ -222,6 +222,9 @@ def read_mm_distributed(
     )
 
 
+_MM_WRITE_LINES = 1 << 16  # body lines formatted by one % operation
+
+
 def write_mm(path, mat, *, comment: str | None = None):
     """Write an SpParMat (or (rows, cols, vals, nrows, ncols)) as MM
     coordinate real general — the ``ParallelWriteMM`` equivalent."""
@@ -238,14 +241,14 @@ def write_mm(path, mat, *, comment: str | None = None):
             for ln in comment.splitlines():
                 f.write(f"% {ln}\n")
         f.write(f"{nrows} {ncols} {len(rows)}\n")
-    with open(path, "ab") as f:  # vectorized body append
-        np.savetxt(
-            f,
-            np.column_stack(
-                [rows + 1, cols + 1, np.asarray(vals, np.float64)]
-            ),
-            fmt="%d %d %.10g",
-        )
+    r1 = (np.asarray(rows, np.int64) + 1).tolist()
+    c1 = (np.asarray(cols, np.int64) + 1).tolist()
+    v = np.asarray(vals, np.float64).tolist()
+    with open(path, "ab") as f:  # the lines np.savetxt writes, a block a format
+        for s in range(0, len(r1), _MM_WRITE_LINES):
+            e = min(s + _MM_WRITE_LINES, len(r1))
+            flat = [x for line in zip(r1[s:e], c1[s:e], v[s:e]) for x in line]
+            f.write((("%d %d %.10g\n" * (e - s)) % tuple(flat)).encode("latin1"))
 
 
 def write_binary(path, mat):

@@ -64,6 +64,7 @@ from ..parallel.ellmat import (
     _ell_union_sparse_step,
     _gather_rows,
     _scatter_rows_max,
+    col_blocks,
     dist_spmv_ell_masked_multi,
 )
 from ..parallel.spmat import SpParMat, ones_i32
@@ -344,7 +345,9 @@ def bfs_batch_compact(A: EllParMat, sources, max_iters: int | None = None,
         new = reached > 0
         level += 1
         levels = levels.masked_fill(new, level)
-        x = mk(reached, "row").realign("col").blocks
+        # cut as tile columns (``col_blocks``): the union frontier's
+        # columns line up with ``coldeg`` and the CSC companion
+        x = col_blocks(A, mk(reached, "row").realign("col").blocks)
         active = bool(new.any())
         readbacks += 1
 
@@ -485,6 +488,9 @@ def bfs_single(E: EllParMat, source, csc, *, tiers, csr=None, coldeg=None, rowde
     if coldeg is None:
         coldeg = DistVec(blocks=rowdeg, length=E.nrows, align="row", grid=grid) \
             .realign("col").blocks
+    # the degrees and each level's frontier cut as tile columns
+    # (``col_blocks``): the steps index them by the tiles' local columns
+    coldeg = col_blocks(E, coldeg)
     search = _SingleSearch(E, csc, csr, coldeg, rowdeg, tiers)
     n = E.nrows
     iters = max_iters if max_iters is not None else n
@@ -508,6 +514,7 @@ def bfs_single(E: EllParMat, source, csc, *, tiers, csr=None, coldeg=None, rowde
         y = search.step(step, x, undisc, counts)
         steps.append(step)
         new, parents, levels, x = _advance(E, y, parents, levels, row_gids, level)
+        x = col_blocks(E, x)
         level += 1
     bfs_single.last_run = {"readbacks": readbacks, "steps": steps}
 
@@ -743,7 +750,9 @@ def validate_bfs_device(E: EllParMat, parents: DistMultiVec, levels: DistMultiVe
     dev = grid.device
     prow_all = parents.realign("row").blocks
     lrow_all = levels.realign("row").blocks
-    lcol_all = levels.realign("col").blocks
+    # cut as tile columns (``col_blocks``): the sweep reads block j at the
+    # bucket columns of tile column j
+    lcol_all = col_blocks(E, levels.realign("col").blocks)
     W = prow_all.shape[2]
     lvl_full = lcol_all.reshape(-1, W)[:n]  # per-lane level table for parent lookups
 

@@ -14,7 +14,7 @@ metric can never force a device sync.
 
 The catalog below keeps the reference's rows, word for word, for the
 series this package emits; the rows of the serve layers not ported yet
-(scheduler, api, pool, fleet, net, shard) come with them. Where a row
+(pool, fleet, net, shard) come with them. Where a row
 speaks of the TPU's machinery the port's meaning is its counterpart:
 ``compile_cache.hits/misses`` count the hand kernels' library builds
 (``_build.py``: found built, or compiled), ``compile_cache.entries`` the
@@ -83,6 +83,32 @@ isolation, circuit breakers, graph hot-swap; docs/serving.md
 ==============================  =========  ==============================
 name                            kind       meaning
 ==============================  =========  ==============================
+``serve.faults.injected``       counter    faults fired by the injection
+                                           framework; labels ``point``
+                                           (serve/faults.py
+                                           FAULT_POINTS) and ``rule``
+                                           (script/rate/when)
+``serve.retry.requests``        counter    requests re-executed by the
+                                           poisoned-batch bisection
+                                           retrier (labels: ``kind``)
+``serve.poison.isolated``       counter    requests failed after
+                                           exhausting the retry budget
+                                           (the isolated poison, or
+                                           every rider of a genuinely
+                                           dead engine); labels ``kind``
+``serve.breaker.state``         gauge      per-kind breaker state:
+                                           0 closed / 1 half-open /
+                                           2 open (labels: ``kind``)
+``serve.breaker.opened``        counter    breaker open transitions
+                                           (labels: ``kind``)
+``serve.breaker.fast_fail``     counter    submits rejected by an open
+                                           breaker (labels: ``kind``)
+``serve.worker.errors``         counter    worker-loop (scheduler-bug)
+                                           errors, labeled by
+                                           ``exc_type``
+``serve.worker.backoff_s``      gauge      current worker error backoff
+                                           (exponential, capped, reset
+                                           on success)
 ``serve.swap.latency_s``        histogram  atomic graph-version swap
                                            latency (lock wait + pointer
                                            flip)
@@ -264,9 +290,25 @@ name                                  kind       meaning
 ``dynamic.refresh.latency_s``         histogram  refresh wall time
                                                  (labels ``kind``,
                                                  ``mode``)
+``serve.update.submitted``            counter    ``submit_update``
+                                                 admissions
 ``serve.update.rejected``             counter    write-lane
                                                  backpressure rejects
                                                  (full delta buffer)
+``serve.update.invalid``              counter    malformed update
+                                                 batches (failed their
+                                                 own future)
+``serve.update.merges``               counter    merge+swap cycles run
+                                                 by the mutation
+                                                 thread; labels
+                                                 ``mode``
+``serve.update.failed``               counter    merge cycles that
+                                                 failed (their updates'
+                                                 futures carry the
+                                                 error); labels
+                                                 ``exc_type``
+``serve.update.coalesced``            histogram  ops per merged batch
+                                                 (write coalescing)
 ``tuner.store.compacted``             counter    superseded/evicted
                                                  JSONL lines removed by
                                                  the load-time
@@ -370,6 +412,16 @@ scheduling and the replicated serving fleet; docs/serving.md
 ====================================  =======  =========================
 name                                  kind     meaning
 ====================================  =======  =========================
+``serve.wfq.rounds``                  counter  deficit-round-robin
+                                               scheduling rounds
+``serve.wfq.served``                  counter  requests/ops charged
+                                               per tenant (label
+                                               ``tenant``) — the
+                                               weighted-share property
+                                               is asserted on this
+``serve.wfq.deficit``                 gauge    per-tenant deficit
+                                               balance at round grant
+                                               (label ``tenant``)
 ``serve.checkpoint.save_s``           hist     ``save_version``
                                                snapshot wall time
 ``serve.checkpoint.load_s``           hist     ``load_version``
@@ -441,6 +493,9 @@ name                                   kind       meaning
 ``serve.plan_cache.misses``
                                                   traffic (labels
                                                   ``kind``, ``width``)
+``serve.queue.depth``                  gauge      pending requests
+``serve.queue.rejected``               counter    backpressure rejects
+                                                  (labels ``kind``)
 ``serve.requests``                     counter    request dispositions
                                                   (labels ``kind``,
                                                   ``status`` = ok /
@@ -452,6 +507,8 @@ name                                   kind       meaning
 ``serve.batch.occupancy``              histogram  live lanes / bucket
                                                   width per batch
 ``serve.batch.padding_waste``          histogram  pad lanes per batch
+``serve.batches``                      gauge      total batches
+                                                  executed
 ``obs.provider_errors``                counter    broken pull-provider
                                                   callbacks (caught)
 =====================================  =========  =====================
@@ -484,6 +541,24 @@ name                                      kind       meaning
                                                      merge_failed /
                                                      slo_breach /
                                                      manual)
+``serve.slo.good``                        counter    requests that met
+                                                     the SLO deadline
+                                                     (labels ``kind``
+                                                     [, ``tenant``])
+``serve.slo.bad``                         counter    requests that blew
+                                                     it — timeout,
+                                                     error, poisoned,
+                                                     rejected (labels
+                                                     ``kind``
+                                                     [, ``tenant``])
+``serve.slo.budget_burn``                 gauge      rolling-window bad
+                                                     count over the
+                                                     error budget
+                                                     ``(1 - target) x
+                                                     window total``;
+                                                     >= 1 = budget
+                                                     exhausted (labels
+                                                     [``tenant``])
 ``dynamic.freshness.versions_behind``     gauge      graph versions
                                                      between a cached
                                                      analytic and the
@@ -521,6 +596,12 @@ name                                      kind       meaning
                                                      (fsync included
                                                      under policy
                                                      ``always``)
+``serve.wal.append_failed``               counter    appends that
+                                                     failed — the
+                                                     write was
+                                                     REJECTED, never
+                                                     acknowledged
+                                                     undurable
 ``serve.wal.invalid``                     counter    damaged JSONL
                                                      lines skipped at
                                                      replay (counted
@@ -533,6 +614,17 @@ name                                      kind       meaning
                                                      records dropped
                                                      by checkpoint
                                                      truncation
+``serve.checkpoint.auto``                 counter    snapshots taken
+                                                     (labels
+                                                     ``reason`` =
+                                                     bootstrap / auto /
+                                                     close / manual)
+``serve.checkpoint.failed``               counter    failed snapshot
+                                                     attempts (labels
+                                                     ``exc_type``;
+                                                     previous snapshot
+                                                     + WAL stay
+                                                     intact)
 ``serve.recovery.runs``                   counter    ``recover_version``
                                                      completions
 ``serve.recovery.replayed_ops``           counter    WAL ops replayed

@@ -423,9 +423,37 @@ def _ell_local_spmv_multi(sr: Semiring, buckets, x2: torch.Tensor, lr: int,
     return _ell_local_spmm(sr, buckets, x2, lr, lc, "scatter")
 
 
+def col_blocks(E: EllParMat, blocks: torch.Tensor) -> torch.Tensor:
+    """A col-aligned operand ``[pc, L, ...]`` as tile columns
+    ``[pc, E.local_cols, ...]``: block j then holds global columns
+    ``j·lc .. (j+1)·lc - 1``, the range tile column j's buckets index.
+
+    ``DistVec.realign("col")`` of a row-aligned vector cuts blocks of
+    ``⌈pr·⌈n/pr⌉ / pc⌉``, which is longer than ``⌈n/pc⌉`` on some
+    rectangular grids (4x2 with n = 9, 17, 33; 2x1 with n = 9), so its
+    block j ≥ 1 starts late against tile column j. This re-cuts such an
+    operand from its global order (the flattened blocks), keeping the
+    first ``pc·lc`` slots; the padding slots past n are read by no stored
+    entry. Where the blocks already have ``E.local_cols`` slots (every
+    square grid) it returns ``blocks`` itself: no copy and no kernel.
+
+    Deviation: on those grids the reference's ELL loops raise (its
+    ``while_loop`` carry changes shape) or, in ``sssp_batch``'s step,
+    return wrong distances; the port re-cuts and answers as scipy does.
+    """
+    lc = E.local_cols
+    if blocks.shape[1] == lc:
+        return blocks
+    tail = blocks.shape[2:]
+    flat = blocks.reshape(-1, *tail)[: E.grid.pc * lc]
+    return flat.reshape(E.grid.pc, lc, *tail)
+
+
 def _tile_fold(E: EllParMat, f, x_blocks):
     """The ``local(i, j)`` that ``fold_grid`` takes: ``f(tile (i, j)'s
-    buckets, x_blocks[j])``."""
+    buckets, x_blocks[j])``, the blocks cut as tile columns
+    (``col_blocks``)."""
+    x_blocks = col_blocks(E, x_blocks)
     return lambda i, j: f(_tile_buckets(E, i, j), x_blocks[j])
 
 
@@ -533,6 +561,7 @@ def _ell_levels_step(E: EllParMat, x8: torch.Tensor,
     grid-order fold (``ring=False``) gives the same bits, as max commutes.
     """
     lr, lc = E.local_rows, E.local_cols
+    x8 = col_blocks(E, x8)
     W = x8.shape[2]
     out = []
     for i in range(E.grid.pr):
@@ -561,6 +590,7 @@ def _ell_parents_from_levels(E: EllParMat, levels_col: torch.Tensor,
     matrix with a W-byte gather payload.
     """
     lr, lc = E.local_rows, E.local_cols
+    levels_col = col_blocks(E, levels_col)
     W = levels_col.shape[2]
     out = []
     for i in range(E.grid.pr):
@@ -601,6 +631,7 @@ def _ell_union_sparse_step(
     ``_ell_levels_step``'s.
     """
     lr, lc = E.local_rows, E.local_cols
+    x8 = col_blocks(E, x8)
     W = x8.shape[2]
     dev = x8.device
     cap = csc_rowidx.shape[2]

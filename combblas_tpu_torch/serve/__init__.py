@@ -1,7 +1,7 @@
 """``combblas_tpu_torch.serve`` — batched graph-query serving; counterpart
 of ``combblas_tpu/serve/``.
 
-Ported so far, the two lower layers:
+Ported so far:
 
 1. **engine** (``engine.py``) — ``GraphEngine``: one loaded graph
    (``EllParMat`` + weighted / normalized / transposed twins, CSC
@@ -13,16 +13,49 @@ Ported so far, the two lower layers:
    single-root requests into the nearest power-of-two lane width, pad
    with ``models.PAD_ROOT``, scatter per-lane results back to request
    futures (pad lanes can never leak).
+3. **scheduler** (``scheduler.py``) — admission control: a bounded
+   queue that rejects with a retry-after hint (``BackpressureError``),
+   per-kind flush deadlines, request timeouts, per-kind circuit breakers
+   (``CircuitBreaker``), the policy knobs (``ServeConfig``) and the
+   tenants' fair queue (``DeficitRoundRobin``).
+4. **api** (``api.py``) — ``Server`` (``GraphEngine.serve``): one worker
+   thread owns execution; a failed batch is bisected so a poison request
+   fails alone; ``submit_update`` is the write lane (merge off the
+   execution lock, atomic swap); with a durability directory, the WAL
+   and the background checkpointer, and ``Server.from_recovery``.
+5. **faults** (``faults.py``) and **slo** (``slo.py``) — deterministic
+   fault injection at named points (``FaultInjector``) and the rolling
+   SLO error budget (``ErrorBudget``).
 
-The scheduler, ``Server`` (api), faults, SLO budget, pool, fleet,
-process fleet, network front door and sharded engine of the reference
-come in later slices.
+The pool, fleet, process fleet, network front door and sharded engine of
+the reference come in later slices.
 """
 
 from .batcher import Request, assemble, bucket_width, scatter
 from .engine import KINDS, GraphEngine, GraphVersion
+from .faults import (
+    FAULT_POINTS,
+    FaultInjector,
+    InjectedFault,
+    ProcessFaultPlan,
+)
+from .scheduler import (
+    BackpressureError,
+    CircuitBreaker,
+    CircuitBreakerOpen,
+    DeficitRoundRobin,
+    Scheduler,
+    ServeConfig,
+)
+from .api import Server
+from .slo import ErrorBudget
 
 __all__ = [
-    "GraphEngine", "GraphVersion", "Request", "KINDS",
+    "GraphEngine", "GraphVersion", "Server", "ServeConfig", "Scheduler",
+    "BackpressureError", "CircuitBreaker", "CircuitBreakerOpen",
+    "DeficitRoundRobin",
+    "FaultInjector", "InjectedFault", "ProcessFaultPlan",
+    "FAULT_POINTS", "ErrorBudget",
+    "Request", "KINDS",
     "bucket_width", "assemble", "scatter",
 ]

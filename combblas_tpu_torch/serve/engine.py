@@ -29,8 +29,6 @@ Deviations from the reference, kept on purpose:
 * ``warmup`` synchronises the card where the reference calls
   ``block_until_ready``; ``execute`` returns host numpy with
   ``batch_niter`` a Python int, as the reference does.
-* ``serve()`` (the batched, backpressured ``Server``) comes with
-  ``serve/api.py``.
 
 The loaded state lives on a ``GraphVersion`` and plans resolve their
 operands from the current version at call time, so ``swap()`` replaces
@@ -601,6 +599,16 @@ class GraphEngine:
             )
             self._host_coo = None  # companion built: drop the edge list
         return self.csc
+
+    def serve(self, config=None, tenant: str | None = None):
+        """A ``Server`` (``serve/api.py``) over this engine: batched,
+        backpressured queries on one worker thread, the write lane and,
+        with ``ServeConfig.wal_dir``, the WAL and background
+        checkpointer. It runs on the grid's device."""
+        from .api import Server
+        from .scheduler import ServeConfig
+
+        return Server(self, config or ServeConfig(), tenant=tenant)
 
     # -- plan cache --------------------------------------------------------
 

@@ -21,8 +21,8 @@ Resolution precedence, documented once, here:
 Env-var conventions shared by every knob: unset or empty means
 "default"; for the integer knobs ``"0"`` also means default.  Every knob
 is read at each call, never at import.  The knobs here are the ones the
-port's modules read; the reference's pool, fleet, net, shard, WAL-directory
-and checkpoint-cadence knobs come with the modules that read them.
+port's modules read; the reference's pool-budget, fleet, net and shard
+knobs come with the modules that read them.
 """
 
 from __future__ import annotations
@@ -64,11 +64,18 @@ ENV_DYNAMIC_HEADROOM = "COMBBLAS_DYNAMIC_HEADROOM"
 #: Dynamic-graph mutation knobs (round 11, docs/dynamic.md).
 ENV_DYNAMIC_SPILL = "COMBBLAS_DYNAMIC_SPILL_FRAC"
 
-#: Round-16 knob: the write-ahead log's append fsync policy (docs/serving.md
-#: "Durability & self-healing"): ``always`` — every acknowledged write is
-#: on disk before its future exists — or ``off``, the OS-buffered
-#: throughput mode.
+#: Round-16 knobs, read by ``serve.Server`` (docs/serving.md "Durability &
+#: self-healing"): ``COMBBLAS_WAL`` the durability directory (WAL +
+#: checkpoints; unset/``0``/``off`` disables), ``COMBBLAS_WAL_FSYNC`` the
+#: write-ahead log's append fsync policy (``always`` — every acknowledged
+#: write is on disk before its future exists — or ``off``, the OS-buffered
+#: throughput mode), ``COMBBLAS_CHECKPOINT_EVERY`` the merge count between
+#: automatic background snapshots, ``COMBBLAS_CHECKPOINT_RETAIN`` how many
+#: snapshots are retained (the corrupt-snapshot fallback depth).
+ENV_WAL = "COMBBLAS_WAL"
 ENV_WAL_FSYNC = "COMBBLAS_WAL_FSYNC"
+ENV_CHECKPOINT_EVERY = "COMBBLAS_CHECKPOINT_EVERY"
+ENV_CHECKPOINT_RETAIN = "COMBBLAS_CHECKPOINT_RETAIN"
 
 #: Valid WAL fsync policies (vetted at the knob, the MERGE precedent).
 WAL_FSYNC_POLICIES = ("always", "off")
@@ -86,6 +93,10 @@ ENV_MERGE = "COMBBLAS_SPGEMM_MERGE"
 #: same rate = same sampled set on every replica.  Unset/empty/0 = no
 #: tracing (the zero-cost default).
 ENV_OBS_TRACE_SAMPLE = "COMBBLAS_OBS_TRACE_SAMPLE"
+
+#: Round-14 knob: the weighted-fair-queueing deficit quantum of
+#: ``serve.DeficitRoundRobin`` (requests per round per unit weight).
+ENV_POOL_QUANTUM = "COMBBLAS_POOL_QUANTUM"
 
 #: Valid merge-tier names (parallel/mesh3d re-exports this as
 #: MERGE_TIERS — one definition, vetting and kernel asserts agree).
@@ -108,6 +119,11 @@ DEFAULT_DYNAMIC_HEADROOM = 0.0
 DEFAULT_DYNAMIC_SPILL_FRAC = 0.10
 #: Default WAL policy: fsync every acknowledged append.
 DEFAULT_WAL_FSYNC = "always"
+#: Default deficit quantum of the fair queue.
+DEFAULT_POOL_QUANTUM = 16
+#: Default merges between background snapshots, and snapshots retained.
+DEFAULT_CHECKPOINT_EVERY = 8
+DEFAULT_CHECKPOINT_RETAIN = 2
 
 def _str_env(name: str) -> str | None:
     v = os.environ.get(name)
@@ -269,6 +285,53 @@ def obs_trace_sample(given: float | None = None) -> float:
         v = os.environ.get(ENV_OBS_TRACE_SAMPLE)
         given = float(v) if v else 0.0
     return min(max(float(given), 0.0), 1.0)
+
+
+def pool_quantum(given: int | None = None) -> int:
+    """Weighted-fair-queueing deficit quantum (requests per round per
+    unit weight): explicit argument > ``COMBBLAS_POOL_QUANTUM`` > 16."""
+    if given is not None:
+        return max(int(given), 1)
+    v = _int_env(ENV_POOL_QUANTUM)
+    return DEFAULT_POOL_QUANTUM if v is None else max(v, 1)
+
+
+def wal_dir(given: str | None = None) -> str | None:
+    """The serve durability directory (WAL + checkpoints), or ``None``
+    when durability is disabled: explicit argument >
+    ``COMBBLAS_WAL`` > off.  ``0``/``off``/``none`` (argument or env)
+    disable explicitly — the plan-store convention."""
+    v = os.environ.get(ENV_WAL) if given is None else given
+    if v is None or v.strip().lower() in ("", "0", "off", "none"):
+        return None
+    return os.path.abspath(v)
+
+
+def checkpoint_every(given: int | None = None) -> int:
+    """Merges between automatic background snapshots: explicit
+    argument > ``COMBBLAS_CHECKPOINT_EVERY`` > 8."""
+    if given is not None:
+        return max(int(given), 1)
+    v = _int_env(ENV_CHECKPOINT_EVERY)
+    return DEFAULT_CHECKPOINT_EVERY if v is None else max(v, 1)
+
+
+def checkpoint_retain(given: int | None = None) -> int:
+    """Snapshots retained after an automatic checkpoint: explicit
+    argument > ``COMBBLAS_CHECKPOINT_RETAIN`` > 2.  Clamped >= 1 —
+    retaining zero snapshots would delete the one recovery just
+    needs.
+
+    Disk cost: the port's ``save_version`` writes uncompressed
+    (``np.savez``), about 4.2x the bytes of the reference's compressed
+    snapshot of the same version (277 MB against 66 MB for an R-MAT
+    scale-18 graph on 2x2), so a durability directory holds about
+    ``retain`` times that, plus the WAL tail the oldest retained
+    snapshot does not cover."""
+    if given is not None:
+        return max(int(given), 1)
+    v = _int_env(ENV_CHECKPOINT_RETAIN)
+    return DEFAULT_CHECKPOINT_RETAIN if v is None else max(v, 1)
 
 
 def wal_fsync(given: str | None = None) -> str:

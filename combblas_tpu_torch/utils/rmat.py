@@ -2,12 +2,17 @@
 
 ``rmat_symmetric_coo_host`` is pure numpy, the same draws in the same
 order, so the same seed gives the same edges as the reference.
+``rmat_symmetric_coo_drawn`` gives the same edges with only the draws
+on the host (in pieces, on threads) and the arithmetic on a device.
 ``rmat_edges`` and ``rmat_symmetric_coo`` draw on a device from a
 threefry key (``utils/threefry.py``), the same stream as the reference's
 ``jax.random``, so the same key gives the same edges.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,6 +51,81 @@ def rmat_symmetric_coo_host(
     rows = np.concatenate([src, dst])
     cols = np.concatenate([dst, src])
     return rows, cols
+
+
+def _stream_piece(state: dict, offset: int) -> np.random.Generator:
+    """A generator on a copy of the PCG64 ``state`` advanced by ``offset``
+    64-bit draws: ``random`` and ``uniform`` take one draw a value, so it
+    continues the stream at value ``offset``."""
+    bg = np.random.PCG64()
+    bg.state = state
+    bg.advance(offset)
+    return np.random.Generator(bg)
+
+
+def rmat_symmetric_coo_drawn(
+    seed: int, scale: int, edgefactor: int = 16, noise: bool = True, *,
+    device=None, threads: int | None = None,
+):
+    """``rmat_symmetric_coo_host``'s edges, bit for bit, as int64 (rows,
+    cols) tensors on ``device`` (default: the CUDA card).
+
+    The host makes only the draws: each level's ``u``, ``v`` and noise
+    arrays are cut into ``threads`` pieces (default: the CPU count, at
+    most 8), each drawn by its own generator on a copy of
+    ``default_rng(seed)``'s PCG64 state advanced to the piece's offset in
+    the stream (numpy releases the GIL while it fills), into one pinned
+    buffer reused by every level. The device then takes the bits in
+    float64 with ``rmat_symmetric_coo_host``'s operations one at a time
+    (``b / ab`` a true division, never a reciprocal), the relabeling by
+    ``permutation`` drawn where the stream stands after the levels, and
+    the symmetrization."""
+    dev = torch.device("cuda" if device is None else device)
+    a, b, c = 0.57, 0.19, 0.19
+    d = 1.0 - a - b - c
+    n = 1 << scale
+    nedges = edgefactor * n
+    rng = np.random.default_rng(seed)
+    state = rng.bit_generator.state
+    per_level = 3 if noise else 2
+    pieces = max(1, min(threads or min(os.cpu_count() or 1, 8), nedges))
+    cuts = np.linspace(0, nedges, pieces + 1).astype(np.int64)
+    host_t = torch.empty((per_level, nedges), dtype=torch.float64,
+                         pin_memory=dev.type == "cuda")
+    host = host_t.numpy()
+
+    def fill(level: int, which: int, lo: int, hi: int) -> None:
+        g = _stream_piece(state, (level * per_level + which) * nedges + lo)
+        if which < 2:
+            g.random(out=host[which, lo:hi])
+        else:
+            host[which, lo:hi] = g.uniform(0.95, 1.05, hi - lo)
+
+    b_t = torch.tensor(b, dtype=torch.float64, device=dev)
+    p_src1 = torch.tensor(d / (c + d), dtype=torch.float64, device=dev)
+    src = torch.zeros(nedges, dtype=torch.int64, device=dev)
+    dst = torch.zeros(nedges, dtype=torch.int64, device=dev)
+    with ThreadPoolExecutor(pieces) as pool:
+        for level in range(scale):
+            jobs = [pool.submit(fill, level, which, int(lo), int(hi))
+                    for which in range(per_level) for lo, hi in zip(cuts[:-1], cuts[1:])]
+            for job in jobs:
+                job.result()
+            draws = host_t.to(dev)  # blocking: the next level refills the buffer
+            u, v = draws[0], draws[1]
+            ab = (draws[2] * a if noise else torch.full_like(u, a)) + b
+            src_bit = u >= ab
+            dst_bit = v < torch.where(src_bit, p_src1, torch.div(b_t, ab))
+            del draws, u, v, ab
+            w = 1 << level
+            src += src_bit * w
+            dst += dst_bit * w
+    rng.bit_generator.advance(scale * per_level * nedges)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    src, dst = perm[src], perm[dst]
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    return torch.cat([src, dst]), torch.cat([dst, src])
 
 
 # --- the device generator (``jax.random`` threefry), bit for bit ------------

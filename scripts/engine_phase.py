@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Phase 17 of ``chip_smoke.py`` (the serving engine and the mutation lane)
-alone, on a card.
+"""Phases 17 and 18 of ``chip_smoke.py`` (the serving engine and the
+mutation lane, then the ``Server`` on them) alone, on a card.
 
     python3 scripts/engine_phase.py
 
-Builds the phase's two graphs afresh with ``chip_smoke.py``'s recipe (R-MAT
+Builds phase 17's two graphs afresh with ``chip_smoke.py``'s recipe (R-MAT
 scale 20 with its CSR arrays and roots, as phase 8 keeps them, and the
-scale-18 graph of phase 10), then runs ``chip_smoke.phase_engine``: the same
-steps, checks and JSON lines as in the whole script, in a few minutes
-instead of twenty. Exits 1 without a card.
+scale-18 graph of phase 10), then runs ``chip_smoke.phase_engine`` and
+``chip_smoke.phase_server``: the same steps, checks and JSON lines as in
+the whole script, in a few minutes instead of twenty. Exits 1 without a
+card.
 """
 
 from __future__ import annotations
@@ -43,15 +44,17 @@ def main() -> int:
 
 def run() -> int:
     cs.phase_card()
-    t = time.perf_counter()
-    g = build_graph(cs.BFS_SCALE, cs.BFS_EDGEFACTOR, cs.BFS_NROOTS)
+    dev, t = torch.device("cuda"), time.perf_counter()
+    g = build_graph(cs.BFS_SCALE, cs.BFS_EDGEFACTOR, cs.BFS_NROOTS, device=dev)
     _, (indptr, rowidx) = build_structures(g["rows"], g["cols"], 1 << cs.BFS_SCALE)
     csr_host = {"indptr": indptr[0, 0], "cols": rowidx[0, 0]}
     roots = g["roots"][:cs.ENGINE_ROOTS].copy()
     del g
-    g18 = build_graph(cs.MATCH_SCALE, cs.BFS_EDGEFACTOR, nroots=1)
+    g18 = build_graph(cs.MATCH_SCALE, cs.BFS_EDGEFACTOR, nroots=1, device=dev)
     cs.emit({"driver": "graphs", "s": time.perf_counter() - t})
-    cs.phase_engine(torch.device("cuda"), time.perf_counter(), csr_host, roots, g18)
+    t0 = time.perf_counter()
+    engine = cs.phase_engine(dev, t0, csr_host, roots, g18)
+    cs.phase_server(dev, t0, engine, roots)
     print(json.dumps({"ok": True}))
     return 0
 

@@ -1894,3 +1894,107 @@ def _save(d, v):
     path = str(d / "card.npz")
     checkpoint.save_version(path, v)
     return path
+
+
+def test_server_on_card_matches_cpu_lanes(cuda_device, tmp_path):
+    """A ``Server`` over an engine on the card, fed from 4 client threads:
+    every future settles and equals the CPU engine's lane for its root
+    (bfs and sssp exactly, pagerank and bc within rtol 1e-5); no plan is
+    built after the warm-up; a write merges, is visible, and its delete
+    restores the lanes; ``health()`` stays ``ok`` with no device error;
+    a durable server on the card recovers bit-exact."""
+    import threading
+
+    from combblas_tpu_torch.serve import GraphEngine, ServeConfig, Server
+
+    rows, cols, w, X = _serve_graph()
+    kinds = ("bfs", "sssp", "pagerank", "bc")
+    live = np.flatnonzero(np.bincount(rows, minlength=256)).astype(np.int32)
+    roots = [int(r) for r in live[:8]]
+    engs = [GraphEngine.from_coo(Grid.make(2, 2, device=dev), rows, cols, 256, weights=w,
+                                 kinds=kinds, keep_coo=True) for dev in ("cpu", cuda_device)]
+    srv = engs[1].serve(ServeConfig(lane_widths=(1, 2, 4, 8), max_wait_s=0.002))
+    srv.warmup()
+    mark = engs[1].trace_mark()
+    srv.start()
+    futs, lock = {}, threading.Lock()
+
+    def client(k):
+        for kind in kinds:
+            got = srv.submit_many(kind, roots[k::4])
+            with lock:
+                futs.update({(kind, r): f for r, f in zip(roots[k::4], got)})
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert len(futs) == len(kinds) * len(roots)
+    for (kind, r), f in futs.items():
+        res = f.result(timeout=120)
+        want = engs[0].execute(kind, np.array([r], np.int32))
+        for key, arr in want.items():
+            if not isinstance(arr, np.ndarray):
+                continue
+            if key in ("ranks", "scores"):
+                np.testing.assert_allclose(res[key], arr[..., 0], rtol=1e-5,
+                                           atol=1e-6 * max(float(np.abs(arr).max()), 1e-30))
+            else:
+                assert np.array_equal(res[key], arr[..., 0]), (kind, key)
+    present = set(zip(rows.tolist(), cols.tolist()))
+    a, b = next((x, y) for x in roots for y in range(256) if x != y and (x, y) not in present)
+    assert srv.submit_update([("insert", a, b), ("insert", b, a)]).result(timeout=60)["ops"] == 2
+    assert srv.submit("bfs", a).result(timeout=60)["levels"][b] == 1
+    srv.submit_update([("delete", a, b), ("delete", b, a)]).result(timeout=60)
+    again = srv.submit("bfs", roots[0]).result(timeout=60)
+    want = engs[0].execute("bfs", np.array([roots[0]], np.int32))
+    assert np.array_equal(again["levels"], want["levels"][:, 0])
+    assert engs[1].retraces_since(mark) == 0
+    h = srv.health()
+    assert h["status"] == "ok" and h["device_error"] is None and h["worker_alive"]
+    srv.close()
+    # durability on the card
+    d = str(tmp_path / "dur")
+    cfg = ServeConfig(lane_widths=(1,), wal_dir=d, checkpoint_every=1, checkpoint_retain=2,
+                      update_autostart=False)
+    dur = Server(GraphEngine.from_coo(Grid.make(2, 2, device=cuda_device), rows, cols, 256,
+                                      weights=w, kinds=kinds, keep_coo=True), cfg)
+    dur.submit_update([("insert", a, b), ("insert", b, a)])
+    dur.pump_updates(force=True)
+    dur.close()
+    rec = Server.from_recovery(Grid.make(2, 2, device=cuda_device), cfg, kinds=kinds)
+    assert rec.engine.version.E.buckets[0][0].is_cuda
+    for x, y in zip(rec.engine.version.E.to_host_coo(), dur.engine.version.E.to_host_coo()):
+        assert np.array_equal(x, y)
+    rec.close()
+
+
+def test_rectangular_bfs_on_card_equals_scipy(cuda_device):
+    """The ELL loops on 4x2 with n = 33 (realigned column blocks longer
+    than a tile's columns, re-cut by ``col_blocks``) on the card: the
+    levels of ``bfs_batch``, ``bfs_batch_compact`` and ``bfs`` equal
+    scipy's, and the card's parents equal the CPU's."""
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as cg
+
+    from combblas_tpu_torch.models.bfs import bfs, bfs_batch, bfs_batch_compact
+
+    n = 33
+    rng = np.random.default_rng(9)
+    x, y = rng.integers(0, n, 2 * n), rng.integers(0, n, 2 * n)
+    keys = np.unique(np.concatenate([x * n + y, y * n + x]))
+    r, c = keys // n, keys % n
+    roots = np.array([0, 1, 2, 3], np.int32)
+    dist = cg.shortest_path(sp.csr_matrix((np.ones(len(r)), (r, c)), shape=(n, n)),
+                            unweighted=True, indices=roots)
+    want = np.where(np.isinf(dist), -1, dist).T.astype(np.int64)
+    mats = [EllParMat.from_host_coo(Grid.make(4, 2, device=dev), r, c,
+                                    np.ones(len(r), np.float32), n, n)
+            for dev in ("cpu", cuda_device)]
+    for fn in (bfs_batch, bfs_batch_compact):
+        (pc_, lc_, _), (pg, lg, _) = (fn(E, roots) for E in mats)
+        assert np.array_equal(lg.to_global().astype(np.int64), want)
+        assert np.array_equal(pg.to_global(), pc_.to_global())
+    _, l1, _ = bfs(mats[1], 0)
+    assert np.array_equal(l1.to_global().astype(np.int64), want[:, 0])

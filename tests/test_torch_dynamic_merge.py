@@ -30,6 +30,10 @@ from combblas_tpu_torch import obs as tobs
 from combblas_tpu_torch.dynamic import DeltaBatch, apply_delta
 from combblas_tpu_torch.serve import GraphEngine
 from torch_obs_parity import clean, series
+from torch_serve_parity import own_plan_store  # noqa: F401
+
+# engines record their lanes in the plan store: each test keeps its own
+pytestmark = pytest.mark.usefixtures("own_plan_store")
 
 MATS = ("E", "E_weighted", "P_ell", "ET")
 

@@ -24,6 +24,10 @@ from combblas_tpu_torch import obs as tobs
 from combblas_tpu_torch.dynamic import REFRESH_KINDS, DeltaBatch
 from combblas_tpu_torch.serve import GraphEngine
 from torch_obs_parity import clean, series
+from torch_serve_parity import own_plan_store  # noqa: F401
+
+# engines record their lanes in the plan store: each test keeps its own
+pytestmark = pytest.mark.usefixtures("own_plan_store")
 
 
 @pytest.fixture(autouse=True)

@@ -37,6 +37,10 @@ from combblas_tpu_torch import Grid
 from combblas_tpu_torch import dynamic as tdyn
 from combblas_tpu_torch.serve import GraphEngine
 from combblas_tpu_torch.utils import checkpoint as tck
+from torch_serve_parity import own_plan_store  # noqa: F401
+
+# engines record their lanes in the plan store: each test keeps its own
+pytestmark = pytest.mark.usefixtures("own_plan_store")
 
 N = 64
 WALS = {"port": tdyn, "reference": jdyn}

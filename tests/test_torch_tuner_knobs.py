@@ -4,7 +4,10 @@ with ``combblas_tpu`` on the CPU: ``COMBBLAS_SPGEMM_BACKEND`` through
 ``COMBBLAS_SPGEMM_DISPATCH`` and ``COMBBLAS_SPGEMM_BUCKET_CAPS`` through
 ``spgemm_windowed``, ``COMBBLAS_DYNAMIC_HEADROOM`` through
 ``EllParMat.host_build(headroom=None)``, ``COMBBLAS_SPGEMM_MERGE`` through
-``spgemm3d_windowed``, and ``save_sharded`` /
+``spgemm3d_windowed``, the serve knobs ``COMBBLAS_WAL``,
+``COMBBLAS_CHECKPOINT_EVERY``, ``COMBBLAS_CHECKPOINT_RETAIN`` and
+``COMBBLAS_POOL_QUANTUM`` (the same value from the same environment and
+argument in both packages), and ``save_sharded`` /
 ``load_sharded`` against the reference's ``save_orbax`` / ``load_orbax``
 round trip (that one case skips where orbax is not installed).
 
@@ -27,6 +30,7 @@ from combblas_tpu.parallel import spgemm as jpar
 from combblas_tpu.parallel.grid import Grid as JaxGrid
 from combblas_tpu.parallel.spmat import SpParMat as JaxSpParMat
 from combblas_tpu.parallel.vec import DistVec as JaxDistVec
+from combblas_tpu.tuner import config as jcfg
 from combblas_tpu_torch import MIN_PLUS, PLUS_TIMES, DistVec, EllParMat, Grid, SpParMat
 from combblas_tpu_torch.parallel import mesh3d as tm
 from combblas_tpu_torch.parallel import spgemm as tpar
@@ -188,3 +192,41 @@ def test_spgemm3d_windowed_merge_from_environment(monkeypatch):
             assert tm.spgemm3d_windowed.last_plan["merge"] == want
     tm.spgemm3d_windowed(MIN_PLUS, *t3, block_rows=8, merge="runs")
     assert tm.spgemm3d_windowed.last_plan["merge"] == "runs"
+
+
+SERVE_KNOBS = {
+    "wal_dir": ("ENV_WAL", [None, "", "0", "off", "NONE", " none ", "wal-a", "/tmp/wal-b"],
+                [None, "0", "off", "wal-c"]),
+    "checkpoint_every": ("ENV_CHECKPOINT_EVERY", [None, "", "0", "1", "5", "-3"], [None, 0, 3, -2]),
+    "checkpoint_retain": ("ENV_CHECKPOINT_RETAIN", [None, "", "0", "1", "4", "-1"],
+                          [None, 0, 2, -5]),
+    "pool_quantum": ("ENV_POOL_QUANTUM", [None, "", "0", "1", "32", "-8"], [None, 0, 7, -1]),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(SERVE_KNOBS))
+def test_serve_knobs_match_reference(monkeypatch, knob):
+    """Each serve knob gives the reference's value for every environment
+    and argument: unset, empty, ``0`` and the ``off`` spellings, valid
+    and negative values (clamped), and the argument beating the
+    environment."""
+    env_name, envs, args = SERVE_KNOBS[knob]
+    name = getattr(tcfg, env_name)
+    assert name == getattr(jcfg, env_name)
+    for env in envs:
+        if env is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, env)
+        for arg in args:
+            got = getattr(tcfg, knob)(arg) if arg is not None else getattr(tcfg, knob)()
+            want = getattr(jcfg, knob)(arg) if arg is not None else getattr(jcfg, knob)()
+            assert got == want, (knob, env, arg)
+    monkeypatch.setenv(name, "abc")
+    if knob == "wal_dir":
+        assert tcfg.wal_dir() == jcfg.wal_dir() == os.path.abspath("abc")
+    else:
+        with pytest.raises(ValueError):
+            getattr(jcfg, knob)()
+        with pytest.raises(ValueError):
+            getattr(tcfg, knob)()

@@ -75,12 +75,20 @@ KNOBS = [
     ("obs_trace_sample", "ENV_OBS_TRACE_SAMPLE", ["", "0", "0.25", "2", "-1", "x"]),
     ("dynamic_spill_frac", "ENV_DYNAMIC_SPILL", ["", "0.25", "1", "x"]),
     ("wal_fsync", "ENV_WAL_FSYNC", ["", "always", "off", "sometimes"]),
+    ("wal_dir", "ENV_WAL", ["", "0", "off", " None ", "wal-dir"]),
+    ("checkpoint_every", "ENV_CHECKPOINT_EVERY", ["", "0", "3", "-2", "x"]),
+    ("checkpoint_retain", "ENV_CHECKPOINT_RETAIN", ["", "0", "4", "-1"]),
+    ("pool_quantum", "ENV_POOL_QUANTUM", ["", "0", "8", "-3"]),
 ]
 
 GIVEN = {
     "dynamic_headroom": [0.5, -2.0],
     "obs_trace_sample": [0.5, 3.0],
     "wal_fsync": ["off", "always", "bogus"],
+    "wal_dir": ["off", "other-dir"],
+    "checkpoint_every": [2, 0],
+    "checkpoint_retain": [3, -1],
+    "pool_quantum": [5, 0],
 }
 
 
