@@ -329,11 +329,38 @@ Phases (each prints one JSON line):
      snapshotted by the checkpointer thread, 2 snapshots retained and the
      WAL truncated; after ``close`` a second recovery equal to the served
      version. Neither K1 nor K2 runs.
+ 19. fleet: the tenant pool and the replica fleet (``serve/pool.py``,
+     ``policy.py``, ``fleet.py``) on phase 17's engine and directory (it
+     fails past 75 s; it removes the directory). (1) An ``EnginePool`` on
+     1 x 1: ``big`` (phase 17's scale-20 graph from its retained COO, bfs
+     and sssp, weight 3) and ``a``, ``b`` (scale-18 R-MAT graphs drawn on
+     the card from seeds 5 and 6, weight 1) under a byte budget of big + a
+     + 5%: big's lanes bit for bit equal to phase 17's, a's to its engine's
+     ``execute``; two saturated rounds of the fair queue (quantum 16) serve
+     big 3 : 1 against a; no plan built after the warm-up; a write merged
+     into a; admitting b evicts a (the coldest), resident bytes within the
+     budget after every admit; evicting b gives at least 0.9 of its
+     ``device_bytes`` back to ``memory_allocated``; a re-admitted shows the
+     write, its lanes equal to a fresh build of the merged COO; a scripted
+     fault in a's bfs opens a's breaker and leaves big's closed. (2) A
+     ``save_version`` snapshot of phase 17's engine booting a two-replica
+     ``FleetRouter.from_checkpoint`` (bfs, sssp): after ``warmup``, 64 bfs
+     and 16 sssp reads from 4 client threads, equal to phase 17's lanes,
+     both replicas routed to, no plan built; one write fanned out to
+     replica 1, the edge one hop on both; replica 1 killed through
+     ``replica.death``, ``supervise_once`` replaces it from the home's COO
+     and its lanes equal the home's. (3) ``FleetRouter.from_recovery`` of
+     phase 17's scale-18 directory (2 x 2, two replicas), one acknowledged
+     write, the home killed: ``supervise_once`` promotes the survivor at
+     the WAL frontier and rebuilds the dead slot from checkpoint and WAL,
+     equal to the new home, the write visible on both. Neither K1 nor K2
+     runs.
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
-spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine, server)
+spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine, server,
+fleet)
 and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -504,7 +531,10 @@ from combblas_tpu_torch.dynamic import (
 )
 from combblas_tpu_torch.dynamic import merge as merge_mod
 from combblas_tpu_torch.serve import (
+    EnginePool,
+    FleetRouter,
     GraphEngine,
+    ReplicaDeadError,
     Request,
     ServeConfig,
     Server,
@@ -5704,7 +5734,7 @@ def phase_server(dev, t_start: float, engine: dict, roots: np.ndarray) -> dict:
                       one["lanes"], engine["churn"]["pairs"][0])
         durable = timed("durability", step_server_durability, dur)
     finally:
-        shutil.rmtree(DUR_DIR, ignore_errors=True)
+        # phase 19 runs its durable fleet on DUR_DIR and removes it
         shutil.rmtree(SERVER_DIR, ignore_errors=True)
     launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
     if any(launches.values()):
@@ -5716,6 +5746,420 @@ def phase_server(dev, t_start: float, engine: dict, roots: np.ndarray) -> dict:
     if phase_s > SERVER_CAP_S:
         raise AssertionError(f"the server phase took {phase_s:.1f} s, over its {SERVER_CAP_S} s cap")
     return {"serve": one["line"], "resilience": res, "write": write, "durability": durable,
+            "k1": {"min_plus": 0, "max_min": 0}}
+
+
+# --- phase 19: the tenant pool and the replica fleet ----------------------------
+
+FLEET_CAP_S = 75.0  # the phase's time budget
+POOL_SEEDS = (5, 6)  # the two scale-18 tenants' R-MAT seeds
+POOL_WIDTHS = (1, 2, 4, 8, 16)
+POOL_KINDS = ("bfs", "sssp")
+POOL_WEIGHTS = {"big": 3.0, "a": 1.0, "b": 1.0}
+POOL_QUANTUM = 16  # a round grants big 48 requests, a 16: three 16-lane batches to one
+POOL_ROUNDS = 2  # saturated WFQ rounds
+POOL_BUDGET_SLACK = 1.05  # the budget: big + one scale-18 tenant + 5%
+POOL_FREED_SHARE = 0.9  # memory_allocated must fall by this share of an evicted tenant's bytes
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 4
+FLEET_BFS_REPEATS = 4  # bfs submits of each of the 16 roots (64), plus 16 sssp
+FLEET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"
+
+
+def _lanes_equal(res: dict, want: dict, what: str) -> None:
+    for key, arr in want.items():
+        if isinstance(arr, np.ndarray) and not np.array_equal(res[key], arr):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def _absent_churn_pair(rows: np.ndarray, cols: np.ndarray, n: int, avoid=()) -> tuple:
+    """A churn pair (``churn_pairs``) of a row-sorted COO, not in ``avoid``."""
+    csr = {"indptr": np.searchsorted(rows, np.arange(n + 1)), "cols": cols}
+    deg = np.bincount(rows, minlength=n)
+    for p in churn_pairs(csr, deg, len(avoid) + 1):
+        if tuple(p) not in {tuple(q) for q in avoid}:
+            return tuple(int(x) for x in p)
+    raise AssertionError("no fresh churn pair")
+
+
+def _freed_bytes(fn) -> int:
+    """Bytes ``memory_allocated`` falls by across ``fn()`` and a
+    ``gc.collect()``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fn()
+    gc.collect()
+    torch.cuda.synchronize()
+    return before - torch.cuda.memory_allocated()
+
+
+def step_fleet_pool(dev, serve: dict) -> dict:
+    """Step 1: an ``EnginePool`` on 1 x 1 with phase 17's scale-20 graph
+    (``big``, weight 3) and two scale-18 R-MAT graphs (``a``, ``b``) under
+    a byte budget that holds big and one of them."""
+    from combblas_tpu_torch.utils.rmat import rmat_symmetric_coo_drawn
+
+    eng17 = serve["eng"]
+    rows20, cols20, _ = eng17.version.host_coo
+    w20 = eng17.version.host_weights
+    roots = [int(r) for r in serve["roots"]]
+    lanes17 = {k: dict(zip(roots, serve["lanes16"][k])) for k in POOL_KINDS}
+    graphs = {}
+    for t, seed in zip(("a", "b"), POOL_SEEDS):
+        r, c = rmat_symmetric_coo_drawn(seed, MATCH_SCALE, BFS_EDGEFACTOR, device=dev)
+        graphs[t] = (r.cpu().numpy(), c.cpu().numpy())
+        del r, c
+    n18 = 1 << MATCH_SCALE
+    cfg = ServeConfig(lane_widths=POOL_WIDTHS, update_autostart=False, update_flush=1,
+                      breaker_threshold=1, max_queue=512, max_wait_s=60.0)
+    grid = Grid.make(1, 1, device=dev)
+    pool = EnginePool(grid)
+    psrv = pool.serve(quantum=POOL_QUANTUM)
+    admit_s, resident = {}, []
+
+    def add(t):
+        t0 = time.perf_counter()
+        if t == "big":
+            pool.add_tenant("big", rows20, cols20, serve["n"], weights=w20, kinds=POOL_KINDS,
+                            weight=POOL_WEIGHTS["big"], config=cfg)
+        else:
+            r, c = graphs[t]
+            pool.add_tenant(t, r, c, n18, weights=np.ones(len(r), np.float32), kinds=POOL_KINDS,
+                            weight=POOL_WEIGHTS[t], config=cfg, keep_coo=True)
+        torch.cuda.synchronize()
+        admit_s[t] = time.perf_counter() - t0
+        st = pool.stats()
+        resident.append(st["resident_bytes"])
+        if st["resident_bytes"] > pool.byte_budget > 0:
+            raise AssertionError(f"resident {st['resident_bytes']} past the budget {pool.byte_budget}")
+
+    add("big")
+    add("a")
+    sizes = {t: s["device_bytes"] for t, s in pool.stats()["tenants"].items()}
+    pool.byte_budget = int((sizes["big"] + sizes["a"]) * POOL_BUDGET_SLACK)
+    t = time.perf_counter()
+    warm = psrv.warmup()
+    warm_s = time.perf_counter() - t
+    marks = {t: pool.engine(t).trace_mark() for t in ("big", "a")}
+    # step 1a: each tenant's lanes; big's equal phase 17's, a's its engine's
+    roots18 = [int(x) for x in np.flatnonzero(np.bincount(graphs["a"][0], minlength=n18))[:16]]
+    futs = {(t, k): psrv.submit_many(t, k, rs) for t, rs in (("big", roots), ("a", roots18))
+            for k in POOL_KINDS}
+    while psrv.pump(force=True):
+        pass
+    for (t, k), fs in futs.items():
+        if t == "big":
+            for r, f in zip(roots, fs):
+                _lanes_equal(f.result(timeout=0), lanes17[k][r], f"pool big {k} root {r}")
+        else:
+            direct = pool.engine("a").execute(k, np.asarray(roots18, np.int32))
+            for i, f in enumerate(fs):
+                _lanes_equal(f.result(timeout=0), {key: v[..., i] for key, v in direct.items()
+                                                   if isinstance(v, np.ndarray)},
+                             f"pool a {k} lane {i}")
+    # step 1b: saturated WFQ rounds, 3 : 1
+    sat = {"big": roots * (POOL_ROUNDS * 3), "a": roots18 * POOL_ROUNDS}
+    recs = []
+    t0 = time.monotonic()
+    for name, rs in sat.items():
+        for f in psrv.submit_many(name, "bfs", rs):
+            rec = {"t": name, "t0": t0}
+            f.add_done_callback(lambda _f, rec=rec: rec.__setitem__("t1", time.monotonic()))
+            recs.append((rec, f))
+    served0 = dict(psrv.wfq.describe()["served"])
+    t = time.perf_counter()
+    for _ in range(POOL_ROUNDS):
+        psrv.pump(force=True)
+    wfq_s = time.perf_counter() - t
+    served = {k: v - served0.get(k, 0) for k, v in psrv.wfq.describe()["served"].items()}
+    ratio = served["big"] / max(served["a"], 1)
+    if not 2.4 <= ratio <= 3.6:
+        raise AssertionError(f"WFQ served {served}, ratio {ratio:.2f}, want 3 : 1")
+    while psrv.pump(force=True):
+        pass
+    for rec, f in recs:
+        f.result(timeout=0)
+    lat = {name: [(r["t1"] - r["t0"]) * 1e3 for r, _ in recs if r["t"] == name] for name in sat}
+    for t, m in marks.items():
+        if pool.engine(t).retraces_since(m):
+            raise AssertionError(f"pool tenant {t} built a plan after its warm-up")
+    # step 1c: a write merged into a; the third tenant's admission evicts a
+    rows_a, cols_a = graphs["a"]
+    pa, pb = _absent_churn_pair(rows_a, cols_a, n18)
+    wf = psrv.submit_update("a", [("insert", pa, pb, 1.0), ("insert", pb, pa, 1.0)])
+    while psrv.pump(force=True):
+        pass
+    wres = wf.result(timeout=0)
+    mv = pool.engine("a").version
+    merged = (mv.host_coo[0], mv.host_coo[1], mv.host_weights)
+    del mv
+    pool.engine("big")  # big is warmer than a
+    add("b")
+    st = pool.stats()["tenants"]
+    if st["a"]["resident"] or not st["big"]["resident"] or st["a"]["evictions"] != 1:
+        raise AssertionError(f"admitting b did not evict a: {st}")
+    # step 1d: b evicted explicitly gives its bytes back to the allocator
+    b_bytes = st["b"]["device_bytes"]
+    freed = _freed_bytes(lambda: pool.evict("b"))
+    if freed < POOL_FREED_SHARE * b_bytes:
+        raise AssertionError(f"evicting b freed {freed} of its {b_bytes} device bytes")
+    # step 1e: a re-admitted: the write is there, lanes equal a fresh build
+    t = time.perf_counter()
+    ea = pool.engine("a")
+    torch.cuda.synchronize()
+    admit_s["a_again"] = time.perf_counter() - t
+    resident.append(pool.stats()["resident_bytes"])
+    if resident[-1] > pool.byte_budget:
+        raise AssertionError("re-admitting a left the pool over its budget")
+    got = psrv.submit("a", "bfs", pa)
+    while psrv.pump(force=True):
+        pass
+    got = got.result(timeout=0)
+    if got["levels"][pb] != 1:
+        raise AssertionError("the write into a did not survive its eviction")
+    fresh = GraphEngine.from_coo(grid, merged[0], merged[1], n18, weights=merged[2],
+                                 kinds=POOL_KINDS)
+    src = np.asarray(roots18[:8] + [pa], np.int32)
+    for k in POOL_KINDS:
+        x, y = ea.execute(k, src), fresh.execute(k, src)
+        _lanes_equal(x, {key: v for key, v in y.items() if isinstance(v, np.ndarray)},
+                     f"re-admitted a {k} against a fresh build")
+    del fresh
+    # step 1f: a fault in a's bfs opens a's breaker only
+    psrv.faults("a").when("engine.execute", lambda ctx: ctx.get("kind") == "bfs")
+    fa, fb = psrv.submit("a", "bfs", roots18[0]), psrv.submit("big", "bfs", roots[0])
+    while psrv.pump(force=True):
+        pass
+    psrv.faults("a").clear()
+    h = psrv.health()
+    if (fa.exception(timeout=0) is None or fb.exception(timeout=0) is not None
+            or h["breakers"]["a"]["bfs"]["state"] != "open"
+            or h["breakers"]["big"]["bfs"]["state"] != "closed" or h["device_error"] is not None):
+        raise AssertionError(f"breaker isolation: {h['breakers']}")
+    _lanes_equal(fb.result(timeout=0), lanes17["bfs"][roots[0]], "pool big after a's fault")
+    stats = pool.stats()
+    psrv.close(drain=False)
+    line = {"phase": "fleet", "step": "pool", "grid": "1x1", "tenants": {
+                "big": {"scale": BFS_SCALE, "nnz": int(len(rows20))},
+                "a": {"scale": MATCH_SCALE, "seed": POOL_SEEDS[0]},
+                "b": {"scale": MATCH_SCALE, "seed": POOL_SEEDS[1]}},
+            "weights": POOL_WEIGHTS, "byte_budget": pool.byte_budget, "device_bytes": sizes,
+            "rebuild_s": admit_s, "warmup_s": warm_s, "warmup_lanes": {
+                t: len(v) for t, v in warm.items()},
+            "wfq_rounds": POOL_ROUNDS, "wfq_served": served, "wfq_ratio": ratio,
+            "wfq_s": wfq_s, "requests_per_s": sum(served.values()) / wfq_s,
+            "p50_ms": {t: _pct(v, 50) for t, v in lat.items()},
+            "p99_ms": {t: _pct(v, 99) for t, v in lat.items()},
+            "write": {"pair": [pa, pb], "mode": wres["mode"], "merge_ms": wres["merge_s"] * 1e3},
+            "evictions": {t: s["evictions"] for t, s in stats["tenants"].items()},
+            "resident_bytes_after_admits": resident, "freed_bytes_b": freed,
+            "b_device_bytes": b_bytes, "plan_builds_after_warmup": 0,
+            "breakers": {t: h["breakers"][t]["bfs"]["state"] for t in ("big", "a")},
+            "lanes_equal": True}
+    emit(line)
+    return line
+
+
+def step_fleet_replicas(dev, serve: dict, pair: tuple) -> dict:
+    """Step 2: two replicas booted from a ``save_version`` snapshot of
+    phase 17's scale-20 engine, reads from 4 clients, one write fanned
+    out, a replica killed and replaced from the home's COO."""
+    eng17 = serve["eng"]
+    roots = [int(r) for r in serve["roots"]]
+    lanes17 = {k: dict(zip(roots, serve["lanes16"][k])) for k in POOL_KINDS}
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    path = str(FLEET_DIR / "v.npz")
+    t = time.perf_counter()
+    checkpoint.save_version(path, eng17.version)
+    save_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ServeConfig(lane_widths=ENGINE_WIDTHS, max_wait_s=SERVER_MAX_WAIT_S,
+                      update_flush=1, update_max_delay_s=0.005, flight_recorder=False)
+    grid = Grid.make(1, 1, device=dev)
+    t = time.perf_counter()
+    fr = FleetRouter.from_checkpoint(path, grid, replicas=FLEET_REPLICAS, config=cfg,
+                                     kinds=POOL_KINDS)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t
+    try:
+        t = time.perf_counter()
+        fr.warmup()
+        warm_s = time.perf_counter() - t
+        marks = [s.engine.trace_mark() for s in fr.replicas]
+        plan = [[("bfs", roots)] if k < FLEET_BFS_REPEATS else [] for k in range(FLEET_CLIENTS)]
+        plan[0].append(("sssp", roots))
+        futs, lock = [], threading.Lock()
+
+        def client(jobs):
+            for kind, rs in jobs:
+                t0 = time.monotonic()
+                fs = fr.submit_many(kind, rs)
+                with lock:
+                    for r, f in zip(rs, fs):
+                        rec = {"kind": kind, "root": r, "t0": t0, "f": f}
+                        f.add_done_callback(
+                            lambda _f, rec=rec: rec.__setitem__("t1", time.monotonic()))
+                        futs.append(rec)
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(p,)) for p in plan]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for rec in futs:
+            _lanes_equal(rec["f"].result(timeout=120), lanes17[rec["kind"]][rec["root"]],
+                         f"fleet {rec['kind']} root {rec['root']}")
+        reads_s = time.perf_counter() - t
+        if len(futs) != len(roots) * (FLEET_BFS_REPEATS + 1) or min(fr.submitted) == 0:
+            raise AssertionError(f"{len(futs)} reads, routed {fr.submitted}")
+        for s, m in zip(fr.replicas, marks):
+            if s.engine.retraces_since(m):
+                raise AssertionError("a replica built a plan after its warm-up")
+        lat = {k: [(r["t1"] - r["t0"]) * 1e3 for r in futs if r["kind"] == k] for k in POOL_KINDS}
+        # one write: merged home, fanned out to replica 1
+        a, b = pair
+        t = time.perf_counter()
+        res = fr.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)]).result(timeout=120)
+        write_s = time.perf_counter() - t
+        if res["fanned_out"] != FLEET_REPLICAS - 1 or res["lagging"]:
+            raise AssertionError(f"the write fanned out to {res['fanned_out']}, lagging {res['lagging']}")
+        for i, s in enumerate(fr.replicas):
+            if s.submit("bfs", a).result(timeout=120)["levels"][b] != 1:
+                raise AssertionError(f"replica {i} does not show the new edge")
+        # replica 1 killed, then replaced from the home's retained COO
+        fr.replicas[1].faults.script("replica.death", at=(0,))
+        probe = fr.replicas[1].submit("bfs", a)
+        deadline = time.monotonic() + 30
+        while not fr._dead(1):
+            if time.monotonic() > deadline:
+                raise AssertionError("replica 1's worker did not die")
+            time.sleep(0.005)
+        t = time.perf_counter()
+        out = fr.supervise_once()
+        replace_s = time.perf_counter() - t
+        if out["replaced"] != [1] or not isinstance(probe.exception(timeout=10), ReplicaDeadError):
+            raise AssertionError(f"supervise_once {out}")
+        x = fr.replicas[1].submit_many("bfs", roots[:4] + [a])
+        y = fr.replicas[0].submit_many("bfs", roots[:4] + [a])
+        for i, (f, g) in enumerate(zip(x, y)):
+            _lanes_equal(f.result(timeout=120), g.result(timeout=120), f"replaced lane {i}")
+        h = fr.health()
+        if h["status"] != "ok" or h["device_error"] is not None:
+            raise AssertionError(f"fleet health {h['status']}, device error {h['device_error']}")
+        st = fr.stats()
+    finally:
+        fr.close(drain=False)
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    line = {"phase": "fleet", "step": "replicas", "scale": BFS_SCALE, "grid": "1x1",
+            "replicas": FLEET_REPLICAS, "kinds": list(POOL_KINDS), "save_s": save_s,
+            "from_checkpoint_s": boot_s, "warmup_s": warm_s, "reads": len(futs),
+            "clients": FLEET_CLIENTS, "reads_s": reads_s, "requests_per_s": len(futs) / reads_s,
+            "p50_ms": {k: _pct(v, 50) for k, v in lat.items()},
+            "p99_ms": {k: _pct(v, 99) for k, v in lat.items()},
+            "routed": st["routed"], "spillovers": st["spillovers"],
+            "write_s": write_s, "merge_ms": res["merge_s"] * 1e3, "mode": res["mode"],
+            "fanout_s": write_s - res["merge_s"], "fanned_out": res["fanned_out"],
+            "replace_s": replace_s, "supervise": out, "replacements": st["replacements"],
+            "fanouts": st["fanouts"], "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "plan_builds_after_warmup": 0, "lanes_equal_phase17": True}
+    emit(line)
+    return line
+
+
+def step_fleet_durable(dur: dict) -> dict:
+    """Step 3: ``FleetRouter.from_recovery`` on phase 17's scale-18
+    directory (2 x 2), one acknowledged write, the home killed:
+    ``supervise_once`` promotes the survivor at the WAL frontier and
+    rebuilds the dead slot from checkpoint and WAL."""
+    grid = dur["grid"]
+    cfg = ServeConfig(lane_widths=(1, 2), update_flush=1, update_max_delay_s=0.005,
+                      flight_recorder=False)
+    t = time.perf_counter()
+    fr = FleetRouter.from_recovery(grid, replicas=FLEET_REPLICAS, config=cfg, kinds=DUR_KINDS,
+                                   wal_dir=str(DUR_DIR))
+    boot_s = time.perf_counter() - t
+    try:
+        home = fr.replicas[fr.home].engine.version
+        rows, cols, _ = home.host_coo
+        a, b = _absent_churn_pair(rows, cols, home.nrows, avoid=dur["pairs"])
+        t = time.perf_counter()
+        res = fr.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)]).result(timeout=120)
+        write_s = time.perf_counter() - t
+        if res["fanned_out"] != FLEET_REPLICAS - 1:
+            raise AssertionError(f"the durable write fanned out to {res['fanned_out']}")
+        old = fr.home
+        fr.replicas[old].faults.script("replica.death", at=(0,))
+        fr.replicas[old].submit("bfs", a)
+        deadline = time.monotonic() + 30
+        while not fr._dead(old):
+            if time.monotonic() > deadline:
+                raise AssertionError("the home's worker did not die")
+            time.sleep(0.005)
+        t = time.perf_counter()
+        out = fr.supervise_once()
+        heal_s = time.perf_counter() - t
+        if out["promoted"] is None or fr.home == old or out["replaced"] != [old]:
+            raise AssertionError(f"supervise_once {out}")
+        for i, s in enumerate(fr.replicas):
+            if s.submit("bfs", a).result(timeout=120)["levels"][b] != 1:
+                raise AssertionError(f"replica {i} lost the acknowledged write")
+        _same_version(fr.replicas[old].engine.version, fr.replicas[fr.home].engine.version,
+                      "the rebuilt slot against the promoted home")
+        h = fr.health()
+        if h["status"] != "ok" or not h["durable"]:
+            raise AssertionError(f"durable fleet health {h['status']}")
+        promoted = fr.home
+    finally:
+        fr.close(drain=False)
+    line = {"phase": "fleet", "step": "durable", "scale": 18, "grid": "x".join(map(str, DUR_GRID)),
+            "replicas": FLEET_REPLICAS, "from_recovery_s": boot_s, "write_s": write_s,
+            "merge_ms": res["merge_s"] * 1e3, "mode": res["mode"],
+            "promote_and_replace_s": heal_s, "supervise": out, "new_home": promoted,
+            "write_visible_everywhere": True, "rebuilt_equal_home": True}
+    emit(line)
+    return line
+
+
+def phase_fleet(dev, t_start: float, engine: dict, roots: np.ndarray) -> dict:
+    """Phase 19 (module docstring): steps 1-3 on phase 17's engine and
+    durability directory, with K1's and K2's launch counts set to 0 just
+    before and read just after; neither runs. Removes the directory."""
+    t0 = time.perf_counter()
+    emit({"phase": "fleet", "step": "elapsed", "total_s": t0 - t_start})
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    step_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        step_s[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return res
+
+    serve = {**engine["serve"], "roots": roots}
+    pair = engine["churn"]["pairs"][-1]
+    try:
+        pool = timed("pool", step_fleet_pool, dev, serve)
+        replicas = timed("replicas", step_fleet_replicas, dev, serve, pair)
+        durable = timed("durable", step_fleet_durable, engine["dur"])
+    finally:
+        shutil.rmtree(DUR_DIR, ignore_errors=True)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the fleet phase launched hand kernels: {launches}")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "fleet", "step": "checks", "hand_kernel_launches": launches,
+          "step_s": step_s, "phase_s": phase_s, "cap_s": FLEET_CAP_S,
+          "within_cap": phase_s <= FLEET_CAP_S, "total_s": time.perf_counter() - t_start})
+    if phase_s > FLEET_CAP_S:
+        raise AssertionError(f"the fleet phase took {phase_s:.1f} s, over its {FLEET_CAP_S} s cap")
+    return {"pool": pool, "replicas": replicas, "durable": durable,
             "k1": {"min_plus": 0, "max_min": 0}}
 
 
@@ -5740,11 +6184,12 @@ def main() -> int:
         return run_phases()
     finally:
         faulthandler.cancel_dump_traceback_later()
-        shutil.rmtree(PLAN_STORE_DIR, ignore_errors=True)
+        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR):
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def run_phases() -> int:
-    """Phases 1-18 (module docstring), then the ``kernels`` line and the
+    """Phases 1-19 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -5791,6 +6236,7 @@ def run_phases() -> int:
     engine = phase_engine(dev, t_start, bfs_host, engine_roots, g18)
     del bfs_host, g18
     server = phase_server(dev, t_start, engine, engine_roots)
+    fleet = phase_fleet(dev, t_start, engine, engine_roots)
     del engine["serve"], engine["dur"]
     torch.cuda.empty_cache()
     kernels = []
@@ -5803,7 +6249,7 @@ def run_phases() -> int:
                    "apps": apps["k1"], "graph_input": graph_input["k1"],
                    "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name],
                    "obs": obs_phase["k1"][sr.name], "engine": engine["k1"][sr.name],
-                   "server": server["k1"][sr.name]}
+                   "server": server["k1"][sr.name], "fleet": fleet["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),

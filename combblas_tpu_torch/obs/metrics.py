@@ -412,6 +412,27 @@ scheduling and the replicated serving fleet; docs/serving.md
 ====================================  =======  =========================
 name                                  kind     meaning
 ====================================  =======  =========================
+``serve.pool.resident_bytes``         gauge    device bytes of all
+                                               resident tenant
+                                               versions (the LRU's
+                                               accounting surface —
+                                               ``GraphVersion.
+                                               device_bytes``)
+``serve.pool.resident_tenants``       gauge    tenants whose engine is
+                                               currently on-device
+``serve.pool.admits``                 counter  engine builds/rebuilds
+                                               (label ``tenant``) —
+                                               re-admission after an
+                                               eviction counts here
+``serve.pool.evictions``              counter  device-state evictions
+                                               (label ``tenant``)
+``serve.pool.over_budget``            counter  admits that found no
+                                               idle victim and left
+                                               the pool over its byte
+                                               budget
+``serve.pool.rebuild_s``              hist     admit-time engine build
+                                               latency (the rebuild-
+                                               not-reload cost)
 ``serve.wfq.rounds``                  counter  deficit-round-robin
                                                scheduling rounds
 ``serve.wfq.served``                  counter  requests/ops charged
@@ -422,6 +443,20 @@ name                                  kind     meaning
 ``serve.wfq.deficit``                 gauge    per-tenant deficit
                                                balance at round grant
                                                (label ``tenant``)
+``serve.fleet.replicas``              gauge    replica count behind
+                                               the router
+``serve.fleet.submitted``             counter  queries routed (label
+                                               ``replica``)
+``serve.fleet.spillover``             counter  backpressure re-routes
+                                               to the next replica
+                                               (label ``replica`` =
+                                               the one that rejected)
+``serve.fleet.fanout``                counter  home-merge version
+                                               fan-outs applied fleet-
+                                               wide
+``serve.fleet.fanout_s``              hist     wall time of one full
+                                               fan-out (rebuilds +
+                                               atomic swaps)
 ``serve.checkpoint.save_s``           hist     ``save_version``
                                                snapshot wall time
 ``serve.checkpoint.load_s``           hist     ``load_version``
@@ -641,6 +676,52 @@ name                                      kind       meaning
                                                      (fallback to the
                                                      previous retained
                                                      one)
+``serve.fleet.versions_behind``           gauge      fan-out
+                                                     generations a
+                                                     replica lags the
+                                                     home (labels
+                                                     ``replica``; > 0
+                                                     degrades fleet
+                                                     health)
+``serve.fleet.fanout_failed``             counter    per-replica
+                                                     rebuild/swap
+                                                     failures inside
+                                                     ``fan_out`` —
+                                                     the replica lags,
+                                                     the fleet
+                                                     continues (labels
+                                                     ``replica``)
+``serve.fleet.supervisor``                counter    supervision events
+                                                     (labels
+                                                     ``action`` =
+                                                     detected /
+                                                     replaced / error /
+                                                     warmup_error)
+``serve.fleet.promotions``                counter    home promotions at
+                                                     the WAL frontier
+``serve.fleet.replaced``                  counter    dead replicas
+                                                     rebuilt from
+                                                     checkpoint+WAL
+                                                     and re-admitted
+                                                     (labels
+                                                     ``replica``)
+``serve.fleet.quarantined``               counter    dead servers taken
+                                                     out of service,
+                                                     pending futures
+                                                     failed honestly
+``serve.fleet.read_retry``                counter    reads re-submitted
+                                                     to the next-best
+                                                     replica after an
+                                                     execution-side
+                                                     failure (labels
+                                                     ``replica`` — the
+                                                     retry target)
+``serve.fleet.drained`` /                 counter    rolling-restart
+``serve.fleet.restored`` /                           lifecycle events
+``serve.fleet.rolling_restarts``                     (labels
+                                                     ``replica`` on
+                                                     the per-replica
+                                                     pair)
 ========================================  =========  ==================
 
 Process-fleet series (round 17 — subprocess replicas with real crash

@@ -26,9 +26,19 @@ Ported so far:
 5. **faults** (``faults.py``) and **slo** (``slo.py``) — deterministic
    fault injection at named points (``FaultInjector``) and the rolling
    SLO error budget (``ErrorBudget``).
+6. **pool** (``pool.py``) — ``EnginePool`` + ``PoolServer``: many
+   tenants' graphs behind one card, one worker under weighted fair
+   queueing, byte-budgeted LRU eviction of device state (a re-admitted
+   tenant is rebuilt from its retained host COO).
+7. **policy** (``policy.py``) and **fleet** (``fleet.py``) —
+   ``FleetRouter``: N replicas of one graph behind one router,
+   least-loaded routing with spillover and read retry, writes routed
+   home and fanned out, and a supervisor that quarantines dead replicas
+   (``ReplicaDeadError``), promotes a dead home at the WAL frontier and
+   rebuilds replacements.
 
-The pool, fleet, process fleet, network front door and sharded engine of
-the reference come in later slices.
+The process fleet, network front door and sharded engine of the
+reference come in later slices.
 """
 
 from .batcher import Request, assemble, bucket_width, scatter
@@ -48,12 +58,15 @@ from .scheduler import (
     ServeConfig,
 )
 from .api import Server
+from .pool import EnginePool, PoolServer
+from .fleet import FleetRouter, ReplicaDeadError
 from .slo import ErrorBudget
 
 __all__ = [
     "GraphEngine", "GraphVersion", "Server", "ServeConfig", "Scheduler",
     "BackpressureError", "CircuitBreaker", "CircuitBreakerOpen",
-    "DeficitRoundRobin",
+    "DeficitRoundRobin", "EnginePool", "PoolServer", "FleetRouter",
+    "ReplicaDeadError",
     "FaultInjector", "InjectedFault", "ProcessFaultPlan",
     "FAULT_POINTS", "ErrorBudget",
     "Request", "KINDS",

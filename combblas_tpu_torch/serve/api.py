@@ -50,6 +50,7 @@ Deviations from the reference, kept on purpose:
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import time
@@ -65,6 +66,18 @@ from . import batcher
 from .faults import FaultInjector, InjectedFault
 from .scheduler import BackpressureError, Scheduler, ServeConfig, _bump
 from .slo import ErrorBudget
+
+
+def device_scope(device):
+    """A context in which ``device`` is the current CUDA device (torch
+    keeps the current device per thread, and a new thread starts on
+    device 0); a no-op for a CPU device. Every thread of ``serve/`` that
+    launches kernels or uploads tensors runs its work in one, naming
+    the grid's card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _is_device_error(exc: BaseException) -> bool:
@@ -196,13 +209,8 @@ class Server:
 
     def _on_device(self, fn) -> None:
         """Run a thread's loop with the grid's card as its current CUDA
-        device (torch keeps the current device per thread, and a new
-        thread starts on device 0)."""
-        dev = torch.device(self.engine.grid.device)
-        if dev.type != "cuda":
-            fn()
-            return
-        with torch.cuda.device(dev):
+        device (``device_scope``)."""
+        with device_scope(self.engine.grid.device):
             fn()
 
     def warmup(self, kinds=None, widths=None) -> dict:
@@ -759,6 +767,10 @@ class Server:
             # [fanout ->] swap -> settle; rid keyed by the batch's last
             # sequence number, so sampling is deterministic per op set
             tr = obs.update_trace(f"upd-{last}", tenant=self.tenant)
+            if tr is not None:
+                # the fleet's fan-out callback marks its stage through
+                # this handle (it only ever sees the future)
+                fut._combblas_trace = tr
             self._upd_futs.append((last, fut, tr))
             self.updates_submitted += 1
             obs.count("serve.update.submitted")
@@ -864,6 +876,11 @@ class Server:
                     "ops": len(batch),
                     "merge_s": st.latency_s,
                 }
+                # settle BEFORE finishing the traces: done-callbacks
+                # run synchronously inside settle, and the fleet's
+                # fan-out callback marks its stage through the trace
+                # handle stashed on the future — finishing afterwards
+                # lets that mark land inside the committed record
                 for f, _tr in futs:
                     batcher.settle(f, result=payload)
                 for tr in traces:
@@ -929,7 +946,8 @@ class Server:
             # merge(s) run before the thread exits (close() drains)
             self._merge_once()
 
-    def _stop_mutator(self, drain: bool, timeout: float) -> None:
+    def _stop_mutator(self, drain: bool, timeout: float,
+                      abort_exc: Exception | None = None) -> None:
         futs: list = []
         with self._upd_cond:
             self._upd_stop = True
@@ -947,7 +965,9 @@ class Server:
                 self._upd_futs.clear()
             self._upd_cond.notify_all()
         if not drain:
-            exc = RuntimeError("serve.Server closed without drain")
+            exc = abort_exc if abort_exc is not None else RuntimeError(
+                "serve.Server closed without drain"
+            )
             for f, tr in futs:
                 batcher.settle(f, exc=exc)
                 if tr is not None:  # abandoned writes still close
@@ -1423,6 +1443,30 @@ class Server:
             return False
         w = self._worker
         return w is None or w.is_alive()
+
+    def quarantine(self, exc: Exception, timeout: float = 10.0) -> int:
+        """Take a DEAD replica out of service (the fleet supervisor's
+        cleanup): refuse new admissions, fail every pending read and
+        buffered write future with ``exc`` — honest failure, never a
+        silent drop; with a WAL attached the acknowledged writes
+        themselves are NOT lost (they are on disk, and recovery or
+        promotion replays them) — and stop the mutation and
+        checkpointer threads.  Unlike ``close(drain=True)`` this never
+        executes anything: the worker is presumed dead and the engine's
+        state untrustworthy to drive.  Returns futures failed."""
+        self.scheduler.close()
+        with self._wake:
+            self._stop = True
+            self._wake.notify_all()
+        n = self.scheduler.fail_pending(exc)
+        with self._upd_cond:
+            pending = len(self._upd_futs)
+        self._stop_mutator(drain=False, timeout=timeout, abort_exc=exc)
+        self._stop_checkpointer(timeout)
+        if self._wal is not None:
+            self._wal.close()
+        obs.count("serve.fleet.quarantined")
+        return n + pending
 
     def _durability_stats(self) -> dict | None:
         """WAL + checkpointer disposition (None when durability is

@@ -94,9 +94,15 @@ ENV_MERGE = "COMBBLAS_SPGEMM_MERGE"
 #: tracing (the zero-cost default).
 ENV_OBS_TRACE_SAMPLE = "COMBBLAS_OBS_TRACE_SAMPLE"
 
-#: Round-14 knob: the weighted-fair-queueing deficit quantum of
-#: ``serve.DeficitRoundRobin`` (requests per round per unit weight).
+#: Round-14 knobs: ``COMBBLAS_POOL_BYTE_BUDGET`` caps a serve
+#: ``EnginePool``'s resident device bytes (LRU eviction past it; 0/unset
+#: = unbounded), ``COMBBLAS_POOL_QUANTUM`` is the weighted-fair-queueing
+#: deficit quantum of ``serve.DeficitRoundRobin`` (requests per round
+#: per unit weight), and ``COMBBLAS_FLEET_REPLICAS`` the default
+#: ``FleetRouter`` replica count.
+ENV_POOL_BYTE_BUDGET = "COMBBLAS_POOL_BYTE_BUDGET"
 ENV_POOL_QUANTUM = "COMBBLAS_POOL_QUANTUM"
+ENV_FLEET_REPLICAS = "COMBBLAS_FLEET_REPLICAS"
 
 #: Valid merge-tier names (parallel/mesh3d re-exports this as
 #: MERGE_TIERS — one definition, vetting and kernel asserts agree).
@@ -119,8 +125,12 @@ DEFAULT_DYNAMIC_HEADROOM = 0.0
 DEFAULT_DYNAMIC_SPILL_FRAC = 0.10
 #: Default WAL policy: fsync every acknowledged append.
 DEFAULT_WAL_FSYNC = "always"
-#: Default deficit quantum of the fair queue.
+#: Pool and fleet defaults: unbounded resident bytes (an operator opts
+#: into eviction by setting a budget), a 16-request deficit quantum per
+#: unit weight per round, two replicas.
+DEFAULT_POOL_BYTE_BUDGET = 0
 DEFAULT_POOL_QUANTUM = 16
+DEFAULT_FLEET_REPLICAS = 2
 #: Default merges between background snapshots, and snapshots retained.
 DEFAULT_CHECKPOINT_EVERY = 8
 DEFAULT_CHECKPOINT_RETAIN = 2
@@ -287,6 +297,16 @@ def obs_trace_sample(given: float | None = None) -> float:
     return min(max(float(given), 0.0), 1.0)
 
 
+def pool_byte_budget(given: int | None = None) -> int:
+    """Resident-device-byte budget of a serve ``EnginePool``: explicit
+    argument > ``COMBBLAS_POOL_BYTE_BUDGET`` > unbounded.  0 (and the
+    usual unset/empty) means UNBOUNDED — eviction is opt-in."""
+    if given is not None:
+        return max(int(given), 0)
+    v = _int_env(ENV_POOL_BYTE_BUDGET)
+    return DEFAULT_POOL_BYTE_BUDGET if v is None else max(v, 0)
+
+
 def pool_quantum(given: int | None = None) -> int:
     """Weighted-fair-queueing deficit quantum (requests per round per
     unit weight): explicit argument > ``COMBBLAS_POOL_QUANTUM`` > 16."""
@@ -294,6 +314,16 @@ def pool_quantum(given: int | None = None) -> int:
         return max(int(given), 1)
     v = _int_env(ENV_POOL_QUANTUM)
     return DEFAULT_POOL_QUANTUM if v is None else max(v, 1)
+
+
+def fleet_replicas(given: int | None = None) -> int:
+    """Default ``FleetRouter.build`` / ``from_checkpoint`` /
+    ``from_recovery`` replica count: explicit argument >
+    ``COMBBLAS_FLEET_REPLICAS`` > 2."""
+    if given is not None:
+        return max(int(given), 1)
+    v = _int_env(ENV_FLEET_REPLICAS)
+    return DEFAULT_FLEET_REPLICAS if v is None else max(v, 1)
 
 
 def wal_dir(given: str | None = None) -> str | None:

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Phases 17 and 18 of ``chip_smoke.py`` (the serving engine and the
-mutation lane, then the ``Server`` on them) alone, on a card.
+"""Phases 17, 18 and 19 of ``chip_smoke.py`` (the serving engine and the
+mutation lane, the ``Server`` on them, then the tenant pool and the
+replica fleet) alone, on a card.
 
     python3 scripts/engine_phase.py
 
 Builds phase 17's two graphs afresh with ``chip_smoke.py``'s recipe (R-MAT
 scale 20 with its CSR arrays and roots, as phase 8 keeps them, and the
-scale-18 graph of phase 10), then runs ``chip_smoke.phase_engine`` and
-``chip_smoke.phase_server``: the same steps, checks and JSON lines as in
-the whole script, in a few minutes instead of twenty. Exits 1 without a
-card.
+scale-18 graph of phase 10), then runs ``chip_smoke.phase_engine``,
+``chip_smoke.phase_server`` and ``chip_smoke.phase_fleet``: the same
+steps, checks and JSON lines as in the whole script, in a few minutes
+instead of twenty. Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def main() -> int:
     try:
         return run()
     finally:
-        shutil.rmtree(cs.PLAN_STORE_DIR, ignore_errors=True)
+        for d in (cs.PLAN_STORE_DIR, cs.DUR_DIR, cs.FLEET_DIR):
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def run() -> int:
@@ -55,6 +57,7 @@ def run() -> int:
     t0 = time.perf_counter()
     engine = cs.phase_engine(dev, t0, csr_host, roots, g18)
     cs.phase_server(dev, t0, engine, roots)
+    cs.phase_fleet(dev, t0, engine, roots)
     print(json.dumps({"ok": True}))
     return 0
 

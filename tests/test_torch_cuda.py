@@ -1970,6 +1970,92 @@ def test_server_on_card_matches_cpu_lanes(cuda_device, tmp_path):
     rec.close()
 
 
+def test_pool_and_fleet_on_card(cuda_device):
+    """A two-tenant ``PoolServer`` and a two-replica ``FleetRouter`` on the
+    card: bfs and sssp lanes equal the CPU engines' bit for bit; evicting
+    a tenant gives back its device bytes (``memory_allocated`` falls by at
+    least 0.9 of its ``device_bytes`` after ``gc.collect()``) and its
+    re-admission rebuilds the same edges; a write fans out to the other
+    replica; a replica killed through ``replica.death`` is replaced by
+    ``supervise_once`` and answers as before; health stays free of a
+    device error."""
+    import gc
+    import time
+
+    from combblas_tpu_torch.serve import EnginePool, FleetRouter, GraphEngine, ServeConfig
+
+    rows, cols, w, _ = _serve_graph()
+    rows2, cols2 = rmat_symmetric_coo_host(5, 8, 8)
+    kinds = ("bfs", "sssp")
+    graphs = {"a": (rows, cols, w), "b": (rows2, cols2, np.ones(len(rows2), np.float32))}
+    cpu = {t: GraphEngine.from_coo(Grid.make(1, 1, device="cpu"), r, c, 256, weights=ww,
+                                   kinds=kinds, keep_coo=True)
+           for t, (r, c, ww) in graphs.items()}
+    roots = [int(x) for x in np.flatnonzero(np.bincount(rows, minlength=256))[:4]]
+
+    def same(res, t, kind, r):
+        want = cpu[t].execute(kind, np.array([r], np.int32))
+        for key, arr in want.items():
+            if isinstance(arr, np.ndarray):
+                assert np.array_equal(res[key], arr[..., 0]), (t, kind, key)
+
+    cfg = ServeConfig(lane_widths=(1, 2, 4), update_autostart=False)
+    pool = EnginePool(Grid.make(1, 1, device=cuda_device))
+    for t, (r, c, ww) in graphs.items():
+        pool.add_tenant(t, r, c, 256, weights=ww, kinds=kinds, config=cfg)
+    with pool.serve() as psrv:
+        psrv.warmup()
+        futs = {(t, k, r): psrv.submit(t, k, r) for t in graphs for k in kinds for r in roots}
+        for (t, k, r), f in futs.items():
+            same(f.result(timeout=60), t, k, r)
+        assert psrv.health()["status"] == "ok" and psrv.health()["device_error"] is None
+        nbytes = pool.stats()["tenants"]["b"]["device_bytes"]
+        before_edges = pool.engine("b").version.E.to_host_coo()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        assert pool.evict("b")
+        gc.collect()
+        torch.cuda.synchronize()
+        assert before - torch.cuda.memory_allocated() >= 0.9 * nbytes
+        for x, y in zip(before_edges, pool.engine("b").version.E.to_host_coo()):
+            assert np.array_equal(x, y)
+        same(psrv.submit("b", "bfs", roots[0]).result(timeout=60), "b", "bfs", roots[0])
+
+    fr = FleetRouter.build(Grid.make(1, 1, device=cuda_device), rows, cols, 256, replicas=2,
+                           weights=w, kinds=kinds,
+                           config=ServeConfig(lane_widths=(1, 2), update_flush=1,
+                                              update_max_delay_s=0.005))
+    try:
+        fr.warmup()
+        for k in kinds:
+            for f, r in zip(fr.submit_many(k, roots), roots):
+                same(f.result(timeout=60), "a", k, r)
+        assert all(n > 0 for n in fr.submitted)
+        present = set(zip(rows.tolist(), cols.tolist()))
+        a, b = next((x, y) for x in roots for y in range(256)
+                    if x != y and (x, y) not in present)
+        res = fr.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)]).result(timeout=60)
+        assert res["fanned_out"] == 1
+        for srv in fr.replicas:
+            assert srv.submit("bfs", a).result(timeout=60)["levels"][b] == 1
+        fr.replicas[1].faults.script("replica.death", at=(0,))
+        fr.replicas[1].submit("bfs", roots[0])
+        deadline = time.monotonic() + 10
+        while not fr._dead(1):
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+        assert fr.supervise_once()["replaced"] == [1]
+        assert fr.replicas[1].engine.version.E.buckets[0][0].is_cuda
+        got = fr.replicas[1].submit("bfs", a).result(timeout=60)
+        want = fr.replicas[0].submit("bfs", a).result(timeout=60)
+        assert np.array_equal(got["levels"], want["levels"])
+        h = fr.health()
+        assert h["status"] == "ok" and h["device_error"] is None
+    finally:
+        fr.close(drain=False)
+
+
 def test_rectangular_bfs_on_card_equals_scipy(cuda_device):
     """The ELL loops on 4x2 with n = 33 (realigned column blocks longer
     than a tile's columns, re-cut by ``col_blocks``) on the card: the

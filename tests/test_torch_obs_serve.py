@@ -8,7 +8,9 @@ telescoping to its end-to-end latency, the write lane's stages, the
 JSONL round trip, zero cost with telemetry off, the flight recorder's
 ring and its dump on an injected fault, the SLO accounting in
 ``stats()`` / ``health()``, the freshness gauges after a merged write,
-and the ``/metrics`` / ``/healthz`` / ``/statz`` scrape. Each scenario
+and the ``/metrics`` / ``/healthz`` / ``/statz`` scrape; and
+``tests/test_obs.py``'s gates of the pool, fleet and durability series
+(emitted with telemetry on, nothing recorded with it off). Each scenario
 runs through both packages' ``Server`` on the same graph (48 vertices,
 numpy seed 3, 1x1): the ``serve.*`` and ``dynamic.*`` series (names,
 kinds, labels; counter and gauge values, histogram counts) equal the
@@ -341,4 +343,136 @@ def test_scrape_endpoint_live(engines, tmp_path):
         got[name] = sorted(k for k in P.export.parse_exposition(text)
                            if k[0].startswith("combblas_serve_"))
         P.obs.disable()
+    assert got["torch"] == got["jax"]
+
+
+# --- the pool and fleet series, gated (tests/test_obs.py) -------------------
+
+
+def _gated_series(P):
+    """Series names, kinds and labels with their values, byte gauges
+    aside (the packages' ``device_bytes`` differ by layout)."""
+    return {k: (None if k[1].endswith("_bytes") else v) for k, v in series(P.obs).items()}
+
+
+def test_pool_fleet_counters_gated(tmp_path):
+    """``test_round14_pool_fleet_counters_gated``: the pool's residency
+    series, the WFQ series, the fleet's routing series and the version
+    checkpoint histograms are emitted with telemetry on and cost nothing
+    with it off; the same series in both packages."""
+    rng = np.random.default_rng(0)
+    n = 32
+    r, c = rng.integers(0, n, 120), rng.integers(0, n, 120)
+    rows, cols = np.concatenate([r, c]), np.concatenate([c, r])
+    got = {}
+    for name in NAMES:
+        P = PKG[name]
+        g = grid(name)
+        cfg = P.ServeConfig(lane_widths=(1,), update_autostart=False)
+
+        def exercise(tag, P=P, g=g, cfg=cfg, name=name):
+            pool = P.EnginePool(g)
+            pool.add_tenant("a", rows, cols, n, config=cfg, kinds=("bfs",))
+            psrv = pool.serve()
+            f = psrv.submit("a", "bfs", 1)
+            _pumped(psrv)
+            assert f.exception(timeout=0) is None
+            assert pool.evict("a")
+            pool.admit("a")  # re-admission: the rebuild path
+            path = os.path.join(tmp_path, f"v-{name}-{tag}.npz")
+            P.checkpoint.save_version(path, pool.engine("a").version)
+            P.checkpoint.load_version(path, g)
+            fr = P.FleetRouter([pool.server("a")])
+            fr.submit("bfs", 2)
+            pool.server("a").scheduler.fail_pending(RuntimeError("gate teardown"))
+
+        assert not P.obs.ENABLED
+        exercise("off")
+        assert P.obs.registry.empty()
+        P.obs.enable(install_hooks=False)
+        try:
+            P.obs.reset()
+            exercise("on")
+            reg, cnt = P.obs.registry, P.obs.registry.get_counter
+            assert cnt("serve.pool.admits", tenant="a") == 2
+            assert cnt("serve.pool.evictions", tenant="a") == 1
+            assert reg.get_gauge("serve.pool.resident_bytes") > 0
+            assert reg.get_gauge("serve.pool.resident_tenants") == 1
+            assert reg.get_histogram("serve.pool.rebuild_s")["count"] == 2
+            assert cnt("serve.wfq.rounds") >= 1 and cnt("serve.wfq.served", tenant="a") >= 1
+            assert reg.get_gauge("serve.wfq.deficit", tenant="a") is not None
+            assert cnt("serve.fleet.submitted", replica=0) == 1
+            assert reg.get_gauge("serve.fleet.replicas") == 1
+            assert reg.get_histogram("serve.checkpoint.save_s")["count"] == 1
+            assert reg.get_histogram("serve.checkpoint.load_s")["count"] == 1
+            assert reg.get_gauge("serve.queue.depth", tenant="a") is not None
+            got[name] = _gated_series(P)
+        finally:
+            P.obs.disable()
+            P.obs.reset()
+    assert got["torch"] == got["jax"]
+
+
+def test_durability_and_fleet_counters_gated(tmp_path):
+    """``test_round16_durability_counters_gated``: the WAL, checkpoint
+    and recovery series and the fleet's ``versions_behind`` gauge are
+    emitted with telemetry on and cost nothing with it off; the same
+    series in both packages."""
+    rng = np.random.default_rng(1)
+    n = 32
+    r, c = rng.integers(0, n, 120), rng.integers(0, n, 120)
+    rows, cols = np.concatenate([r, c]), np.concatenate([c, r])
+    present = set(zip(rows.tolist(), cols.tolist()))
+    (a, b), (a2, b2) = [(i, j) for i in range(n) for j in range(i + 1, n)
+                        if (i, j) not in present and (j, i) not in present][:2]
+    got = {}
+    for name in NAMES:
+        P = PKG[name]
+        g = grid(name)
+
+        def exercise(tag, P=P, g=g, name=name):
+            d = os.path.join(tmp_path, f"wal-{name}-{tag}")
+            cfg = P.ServeConfig(lane_widths=(1,), update_autostart=False, update_flush=1,
+                                wal_dir=d, checkpoint_retain=1)
+            eng = P.GraphEngine.from_coo(g, rows, cols, n, kinds=("bfs",), keep_coo=True)
+            srv = P.Server(eng, cfg)  # bootstrap checkpoint
+            f = srv.submit_update([("insert", a, b), ("insert", b, a)])
+            srv.pump_updates(force=True)
+            assert f.exception(timeout=0) is None
+            srv.checkpoint_now()  # truncates the replayed WAL prefix
+            wal = P.wal.open_wal(d)
+            P.wal.recover_version(d, wal, g, kinds=("bfs",))
+            wal.close()
+            srv.scheduler.close()
+            fr = P.FleetRouter.build(g, rows, cols, n, replicas=2, kinds=("bfs",),
+                                     config=P.ServeConfig(lane_widths=(1,), update_flush=1,
+                                                          update_max_delay_s=0.005),
+                                     start=False)
+            fr.replicas[0].submit_update([("insert", a2, b2), ("insert", b2, a2)])
+            fr.replicas[0].pump_updates(force=True)
+            fr.fan_out()
+            fr.close(drain=False)
+
+        assert not P.obs.ENABLED
+        exercise("off")
+        assert P.obs.registry.empty()
+        P.obs.enable(install_hooks=False)
+        try:
+            P.obs.reset()
+            exercise("on")
+            reg, cnt = P.obs.registry, P.obs.registry.get_counter
+            assert cnt("serve.wal.appends") == 1
+            assert reg.get_histogram("serve.wal.append_s")["count"] == 1
+            assert cnt("serve.wal.truncated") >= 1
+            assert cnt("serve.checkpoint.auto", reason="bootstrap") == 1
+            assert cnt("serve.checkpoint.auto", reason="manual") == 1
+            assert cnt("serve.recovery.runs") == 1
+            assert cnt("serve.recovery.replayed_ops") == 0
+            assert reg.get_histogram("serve.recovery.recover_s")["count"] == 1
+            assert reg.get_gauge("serve.fleet.versions_behind", replica=1) == 0
+            assert cnt("serve.fleet.fanout") == 1
+            got[name] = _gated_series(P)
+        finally:
+            P.obs.disable()
+            P.obs.reset()
     assert got["torch"] == got["jax"]

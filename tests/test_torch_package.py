@@ -25,7 +25,8 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "tuner.store", "tuner.resolve", "tuner.probe", "obs", "obs.metrics", "obs.spans",
            "obs.sinks", "obs.trace", "obs.recorder", "obs.export", "obs.fleetlog",
            "utils.timers", "serve", "serve.engine", "serve.batcher", "serve.faults",
-           "serve.slo", "serve.scheduler", "serve.api", "dynamic", "dynamic.delta",
+           "serve.slo", "serve.scheduler", "serve.api", "serve.policy", "serve.pool",
+           "serve.fleet", "dynamic", "dynamic.delta",
            "dynamic.merge", "dynamic.refresh", "dynamic.wal"}
 
 

@@ -5,8 +5,9 @@ with ``combblas_tpu`` on the CPU: ``COMBBLAS_SPGEMM_BACKEND`` through
 ``spgemm_windowed``, ``COMBBLAS_DYNAMIC_HEADROOM`` through
 ``EllParMat.host_build(headroom=None)``, ``COMBBLAS_SPGEMM_MERGE`` through
 ``spgemm3d_windowed``, the serve knobs ``COMBBLAS_WAL``,
-``COMBBLAS_CHECKPOINT_EVERY``, ``COMBBLAS_CHECKPOINT_RETAIN`` and
-``COMBBLAS_POOL_QUANTUM`` (the same value from the same environment and
+``COMBBLAS_CHECKPOINT_EVERY``, ``COMBBLAS_CHECKPOINT_RETAIN``,
+``COMBBLAS_POOL_QUANTUM``, ``COMBBLAS_POOL_BYTE_BUDGET`` and
+``COMBBLAS_FLEET_REPLICAS`` (the same value from the same environment and
 argument in both packages), and ``save_sharded`` /
 ``load_sharded`` against the reference's ``save_orbax`` / ``load_orbax``
 round trip (that one case skips where orbax is not installed).
@@ -201,6 +202,9 @@ SERVE_KNOBS = {
     "checkpoint_retain": ("ENV_CHECKPOINT_RETAIN", [None, "", "0", "1", "4", "-1"],
                           [None, 0, 2, -5]),
     "pool_quantum": ("ENV_POOL_QUANTUM", [None, "", "0", "1", "32", "-8"], [None, 0, 7, -1]),
+    "pool_byte_budget": ("ENV_POOL_BYTE_BUDGET", [None, "", "0", "1", "536870912", "-4096"],
+                         [None, 0, 1 << 20, -1]),
+    "fleet_replicas": ("ENV_FLEET_REPLICAS", [None, "", "0", "1", "3", "-2"], [None, 0, 4, -1]),
 }
 
 

@@ -79,6 +79,8 @@ KNOBS = [
     ("checkpoint_every", "ENV_CHECKPOINT_EVERY", ["", "0", "3", "-2", "x"]),
     ("checkpoint_retain", "ENV_CHECKPOINT_RETAIN", ["", "0", "4", "-1"]),
     ("pool_quantum", "ENV_POOL_QUANTUM", ["", "0", "8", "-3"]),
+    ("pool_byte_budget", "ENV_POOL_BYTE_BUDGET", ["", "0", "4096", "-5", "x"]),
+    ("fleet_replicas", "ENV_FLEET_REPLICAS", ["", "0", "3", "-1", "x"]),
 ]
 
 GIVEN = {
@@ -89,6 +91,8 @@ GIVEN = {
     "checkpoint_every": [2, 0],
     "checkpoint_retain": [3, -1],
     "pool_quantum": [5, 0],
+    "pool_byte_budget": [1 << 20, -1],
+    "fleet_replicas": [4, 0],
 }
 
 

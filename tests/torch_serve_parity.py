@@ -53,6 +53,8 @@ def _api(serve, obs, trace, export, recorder, wal, ckpt, batcher, make_grid):
         DeficitRoundRobin=serve.DeficitRoundRobin, FaultInjector=serve.FaultInjector,
         InjectedFault=serve.InjectedFault, ProcessFaultPlan=serve.ProcessFaultPlan,
         FAULT_POINTS=serve.FAULT_POINTS, ErrorBudget=serve.ErrorBudget,
+        EnginePool=serve.EnginePool, PoolServer=serve.PoolServer,
+        FleetRouter=serve.FleetRouter, ReplicaDeadError=serve.ReplicaDeadError,
         Request=batcher.Request, obs=obs, trace=trace, export=export,
         FlightRecorder=recorder, wal=wal, checkpoint=ckpt, make_grid=make_grid)
 
