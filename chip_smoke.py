@@ -355,12 +355,32 @@ Phases (each prints one JSON line):
      the WAL frontier and rebuilds the dead slot from checkpoint and WAL,
      equal to the new home, the write visible on both. Neither K1 nor K2
      runs.
+ 20. procfleet: the process fleet (``serve/procfleet.py``,
+     ``_procworker.py``, ``frame.py``, ``ipc.py``) on phase 19's scale-20
+     snapshot (it fails past 90 s; it removes the snapshot's directory).
+     The card's free bytes (``mem_get_info``) after ``empty_cache``, then
+     (1) ``ProcessFleet.from_checkpoint`` of two child processes on the
+     card (1 x 1, bfs + sssp, each its own CUDA context), under the run's
+     plan store: 24 bfs and 8 sssp reads from 4 client threads over IPC
+     (phase 19's 80 cut to 32 in its mix), equal to phase 17's lanes, both replicas routed to, no
+     plan built after the children's warm-up; requests/s beside phase 19's
+     thread fleet; (2) one insert through ``submit_update``: the home merges and
+     logs it, spools ``save_version``, replica 1 swaps from the file, the
+     edge one hop on both; (3) replica 1 SIGKILLed through the router's
+     ``ProcessFaultPlan``: the card's free bytes rise by at least 0.9 of
+     its ``device_bytes``, ``supervise_once`` respawns it from checkpoint
+     and WAL, its lanes equal the home's, the write included; (4) the home
+     SIGSTOPped: the heartbeat timeout (2.5 s) detects it, ``supervise_once``
+     promotes replica 1 at the WAL frontier over IPC (the write visible
+     there) and respawns the stopped slot. The largest heartbeat age seen
+     for each replica is printed. K1 and K2 launch 0 times in this process
+     (the children run the serving code of phases 17-19).
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
 spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine, server,
-fleet)
+fleet, procfleet)
 and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -534,6 +554,7 @@ from combblas_tpu_torch.serve import (
     EnginePool,
     FleetRouter,
     GraphEngine,
+    ProcessFleet,
     ReplicaDeadError,
     Request,
     ServeConfig,
@@ -6053,8 +6074,7 @@ def step_fleet_replicas(dev, serve: dict, pair: tuple) -> dict:
             raise AssertionError(f"fleet health {h['status']}, device error {h['device_error']}")
         st = fr.stats()
     finally:
-        fr.close(drain=False)
-        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+        fr.close(drain=False)  # phase 20 boots from the snapshot and removes FLEET_DIR
     line = {"phase": "fleet", "step": "replicas", "scale": BFS_SCALE, "grid": "1x1",
             "replicas": FLEET_REPLICAS, "kinds": list(POOL_KINDS), "save_s": save_s,
             "from_checkpoint_s": boot_s, "warmup_s": warm_s, "reads": len(futs),
@@ -6163,6 +6183,310 @@ def phase_fleet(dev, t_start: float, engine: dict, roots: np.ndarray) -> dict:
             "k1": {"min_plus": 0, "max_min": 0}}
 
 
+# --- phase 20: the process fleet ---------------------------------------------
+
+PROCFLEET_CAP_S = 90.0  # the phase's time budget
+PROCFLEET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_procfleet"
+# half the reference's 5 s default: the largest heartbeat age seen in
+# three runs of this phase on the card was 0.58 s (PERF.md §6, PR 19)
+PROCFLEET_HB_TIMEOUT_S = 2.5
+PROCFLEET_FREED_SHARE = 0.9  # free bytes must rise by this share of a killed child's device_bytes
+# 24 bfs + 8 sssp reads, 6 + 2 a client: phase 19's 80 (64 bfs + 16 sssp)
+# cut to 32 in the same 4 : 1 mix, to keep the phase inside its cap
+# (PERF.md §4, PR 19)
+PROCFLEET_READS_PER_CLIENT = {"bfs": 6, "sssp": 2}
+
+
+class HeartbeatWatch:
+    """The largest heartbeat age seen for each replica slot, sampled every
+    20 ms on a thread of its own; a slot under a scripted fault is paused
+    (its process is dead or stopped on purpose) until its respawn."""
+
+    def __init__(self, fr):
+        self.fr, self.max_age, self.paused = fr, {}, set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            for i, rp in enumerate(list(self.fr.replicas)):
+                if i not in self.paused and not rp.quarantined:
+                    self.max_age[i] = max(self.max_age.get(i, 0.0), rp.heartbeat_age())
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(10)
+        return {str(i): a for i, a in sorted(self.max_age.items())}
+
+
+def _timed_calls(rp, log: dict) -> None:
+    """Accumulate the seconds of ``rp``'s synchronous RPCs in ``log`` by op."""
+    call = rp.call
+
+    def timed(op, *a, **k):
+        t = time.perf_counter()
+        try:
+            return call(op, *a, **k)
+        finally:
+            log[op] = log.get(op, 0.0) + time.perf_counter() - t
+
+    rp.call = timed
+
+
+def _timed_method(fr, name: str, log: dict) -> None:
+    """Accumulate the seconds of ``fr.<name>`` calls in ``log[name]``."""
+    fn = getattr(fr, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            log[name] = log.get(name, 0.0) + time.perf_counter() - t
+
+    setattr(fr, name, timed)
+
+
+def _mem_info() -> tuple:
+    """The card's (free, total) bytes: each child's context and graph
+    count there, and nowhere in this process's ``memory_allocated``."""
+    return torch.cuda.mem_get_info()
+
+
+def _free_bytes() -> int:
+    return _mem_info()[0]
+
+
+def _same_replica_lanes(fr, i: int, j: int, roots: list, what: str) -> None:
+    x = [fr.replicas[i].submit("bfs", r) for r in roots]
+    y = [fr.replicas[j].submit("bfs", r) for r in roots]
+    for k, (f, g) in enumerate(zip(x, y)):
+        _lanes_equal(f.result(timeout=120), g.result(timeout=120), f"{what} lane {k}")
+
+
+def step_procfleet_reads(fr, lanes17: dict, roots: list) -> dict:
+    """Step 1 after the boot: 24 bfs and 8 sssp reads from 4 client
+    threads over IPC (phase 19's mix), equal to phase 17's lanes, both
+    replicas routed to, no plan built after the children's warm-up."""
+    marks = fr.trace_marks()
+    plan = [[(kind, [roots[(k * n + j) % len(roots)] for j in range(n)])
+             for kind, n in PROCFLEET_READS_PER_CLIENT.items()]
+            for k in range(FLEET_CLIENTS)]
+    futs, lock = [], threading.Lock()
+
+    def client(jobs):
+        for kind, rs in jobs:
+            t0 = time.monotonic()
+            fs = fr.submit_many(kind, rs)
+            with lock:
+                for r, f in zip(rs, fs):
+                    rec = {"kind": kind, "root": r, "t0": t0, "f": f}
+                    f.add_done_callback(lambda _f, rec=rec: rec.__setitem__("t1", time.monotonic()))
+                    futs.append(rec)
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(p,)) for p in plan]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for rec in futs:
+        _lanes_equal(rec["f"].result(timeout=120), lanes17[rec["kind"]][rec["root"]],
+                     f"procfleet {rec['kind']} root {rec['root']}")
+    reads_s = time.perf_counter() - t
+    if len(futs) != FLEET_CLIENTS * sum(PROCFLEET_READS_PER_CLIENT.values()) or min(fr.submitted) == 0:
+        raise AssertionError(f"{len(futs)} reads, routed {fr.submitted}")
+    builds = fr.retraces_since(marks)
+    if builds:
+        raise AssertionError(f"the children built {builds} plans after their warm-up")
+    lat = {k: [(r["t1"] - r["t0"]) * 1e3 for r in futs if r["kind"] == k] for k in POOL_KINDS}
+    return {"reads": len(futs), "clients": FLEET_CLIENTS, "reads_s": reads_s,
+            "requests_per_s": len(futs) / reads_s, "routed": list(fr.submitted),
+            "p50_ms": {k: _pct(v, 50) for k, v in lat.items()},
+            "p99_ms": {k: _pct(v, 99) for k, v in lat.items()}, "plan_builds_after_warmup": 0}
+
+
+def step_procfleet_write(fr, pair: tuple, rpc_s: dict) -> dict:
+    """Step 2: one insert through ``submit_update``: the home merges and
+    logs it, spools ``save_version``, replica 1 swaps from the file."""
+    a, b = pair
+    for rp in fr.replicas:
+        _timed_calls(rp, rpc_s)
+    t = time.perf_counter()
+    res = fr.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)]).result(timeout=180)
+    write_s = time.perf_counter() - t
+    if res["fanned_out"] != 1 or res["lagging"]:
+        raise AssertionError(f"the write fanned out to {res['fanned_out']}, lagging {res['lagging']}")
+    for i, rp in enumerate(fr.replicas):
+        if rp.submit("bfs", a).result(timeout=120)["levels"][b] != 1:
+            raise AssertionError(f"replica {i} does not show the new edge")
+    return {"write_s": write_s, "merge_s": res["merge_s"], "mode": res["mode"],
+            "spool_s": rpc_s.get("spool_version"), "swap_s": rpc_s.get("swap_from_checkpoint"),
+            "fanned_out": res["fanned_out"]}
+
+
+def step_procfleet_kill(fr, hb: HeartbeatWatch, pair: tuple, roots: list, heal_s: dict) -> dict:
+    """Step 3: replica 1 SIGKILLed through the router's fault plan; its
+    device memory comes back to the card; ``supervise_once`` respawns it
+    from checkpoint and WAL, and it answers as the home does."""
+    a, b = pair
+    nbytes = fr.replicas[1].boot["device_bytes"]
+    hb.paused.add(1)
+    free_before = _free_bytes()
+    fr.proc_faults.sigkill(fr.proc_faults.calls, replica=1)
+    probe = fr.submit("bfs", roots[0])  # fires the kill, then routes
+    deadline = time.monotonic() + 30
+    while not fr._dead(1):
+        if time.monotonic() > deadline:
+            raise AssertionError("the SIGKILLed replica was not seen dead")
+        time.sleep(0.005)
+    freed = 0
+    deadline = time.monotonic() + 10
+    while freed < PROCFLEET_FREED_SHARE * nbytes and time.monotonic() < deadline:
+        freed = _free_bytes() - free_before
+        time.sleep(0.05)
+    if freed < PROCFLEET_FREED_SHARE * nbytes:
+        raise AssertionError(f"the kill freed {freed} bytes of the card, its child held {nbytes}")
+    t = time.perf_counter()
+    out = fr.supervise_once()
+    respawn_s = time.perf_counter() - t
+    heal_s["kill_supervise"] = respawn_s
+    if out != {"detected": [1], "promoted": None, "replaced": [1]}:
+        raise AssertionError(f"supervise_once after the kill: {out}")
+    child_boot_s = fr.replicas[1].boot["boot_s"]
+    hb.paused.discard(1)
+    want = fr.replicas[0].submit("bfs", roots[0]).result(timeout=120)
+    _lanes_equal(probe.result(timeout=120), want, "the read routed at the kill")
+    if fr.replicas[1].submit("bfs", a).result(timeout=120)["levels"][b] != 1:
+        raise AssertionError("the respawned replica lost the acknowledged write")
+    _same_replica_lanes(fr, 1, 0, roots[:4] + [a], "respawned")
+    return {"device_bytes": nbytes, "freed_bytes": freed, "freed_share": freed / nbytes,
+            "respawn_s": respawn_s, "child_boot_s": child_boot_s, "supervise": out,
+            "probe_settled": True}
+
+
+def step_procfleet_hang(fr, hb: HeartbeatWatch, pair: tuple, roots: list, heal_s: dict) -> dict:
+    """Step 4: the home SIGSTOPped through the router's fault plan; the
+    heartbeat timeout detects it, ``supervise_once`` promotes replica 1
+    at the WAL frontier over IPC and respawns the stopped slot."""
+    a, b = pair
+    old = fr.home
+    hb.paused.add(old)
+    _timed_method(fr, "promote", heal_s)
+    _timed_method(fr, "_spawn", heal_s)
+    fr.proc_faults.sigstop(fr.proc_faults.calls, replica="home")
+    t = time.perf_counter()
+    probe = fr.submit("bfs", roots[1])
+    deadline = time.monotonic() + 30
+    while not fr._dead(old):
+        if time.monotonic() > deadline:
+            raise AssertionError("the stopped home was not seen dead")
+        time.sleep(0.005)
+    detect_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = fr.supervise_once()
+    supervise_s = time.perf_counter() - t
+    if out["detected"] != [old] or out["promoted"] is None or out["replaced"] != [old]:
+        raise AssertionError(f"supervise_once after the hang: {out}")
+    hb.paused.discard(old)
+    new = fr.home
+    if new == old or fr.replicas[new].submit("bfs", a).result(timeout=120)["levels"][b] != 1:
+        raise AssertionError("the promoted home lost the acknowledged write")
+    want = fr.replicas[new].submit("bfs", roots[1]).result(timeout=120)
+    _lanes_equal(probe.result(timeout=120), want, "the read routed at the hang")
+    _same_replica_lanes(fr, old, new, roots[:4] + [a], "respawned home slot")
+    st, h = fr.stats(), fr.health()
+    if (st["promotions"], st["replacements"], st["sigkills"], st["sigstops"]) != (1, 2, 1, 1):
+        raise AssertionError(f"fleet stats {st}")
+    if h["status"] != "ok" or h["device_error"] is not None:
+        raise AssertionError(f"fleet health {h['status']}")
+    return {"detect_s": detect_s, "supervise_s": supervise_s, "promote_s": heal_s.get("promote"),
+            "respawn_s": heal_s.get("_spawn"), "child_boot_s": fr.replicas[old].boot["boot_s"],
+            "supervise": out, "new_home": new,
+            "write_visible_on_new_home": True}
+
+
+def phase_procfleet(dev, t_start: float, p17: dict) -> dict:
+    """Phase 20 (module docstring): the process fleet on phase 19's
+    scale-20 snapshot, with K1's and K2's launch counts (the parent's) set
+    to 0 just before and read just after; neither runs. Removes the
+    snapshot's directory and its own."""
+    t0 = time.perf_counter()
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    roots = [int(r) for r in p17["roots"]]
+    lanes17 = {k: dict(zip(roots, p17["lanes16"][k])) for k in POOL_KINDS}
+    torch.cuda.empty_cache()
+    free0, total = _mem_info()
+    emit({"phase": "procfleet", "step": "elapsed", "total_s": t0 - t_start,
+          "card_free_gb": free0 / 2**30, "card_total_gb": total / 2**30})
+    shutil.rmtree(PROCFLEET_DIR, ignore_errors=True)
+    cfg = ServeConfig(lane_widths=ENGINE_WIDTHS, max_wait_s=SERVER_MAX_WAIT_S,
+                      update_flush=1, update_max_delay_s=0.005, flight_recorder=False)
+    step_s, rpc_s, heal_s = {}, {}, {}
+    try:
+        t = time.perf_counter()
+        fr = ProcessFleet.from_checkpoint(
+            str(FLEET_DIR / "v.npz"), (1, 1), replicas=FLEET_REPLICAS, kinds=POOL_KINDS,
+            config=cfg, wal_dir=str(PROCFLEET_DIR / "wal"), workdir=str(PROCFLEET_DIR / "work"),
+            device=dev, hb_timeout_s=PROCFLEET_HB_TIMEOUT_S)
+        boot_s = time.perf_counter() - t
+        hb = HeartbeatWatch(fr)
+        try:
+            free_boot = _free_bytes()
+            devices = [rp.boot["device"] for rp in fr.replicas]
+            if any(torch.device(d).type != torch.device(dev).type for d in devices):
+                raise AssertionError(f"children on {devices}")
+            reads = step_procfleet_reads(fr, lanes17, roots)
+            step_s["boot_and_reads"] = time.perf_counter() - t
+            emit({"phase": "procfleet", "step": "reads", "scale": BFS_SCALE, "grid": "1x1",
+                  "replicas": FLEET_REPLICAS, "kinds": list(POOL_KINDS), "boot_s": boot_s,
+                  "children": devices, "device_bytes": [rp.boot["device_bytes"] for rp in fr.replicas],
+                  "child_boot_s": [rp.boot["boot_s"] for rp in fr.replicas],
+                  "card_free_gb_after_boot": free_boot / 2**30,
+                  "card_gb_taken_by_children": (free0 - free_boot) / 2**30, **reads,
+                  "thread_fleet_requests_per_s": p17["fleet_requests_per_s"],
+                  "lanes_equal_phase17": True})
+            t = time.perf_counter()
+            write = step_procfleet_write(fr, p17["pair"], rpc_s)
+            step_s["write"] = time.perf_counter() - t
+            emit({"phase": "procfleet", "step": "write", **write})
+            t = time.perf_counter()
+            kill = step_procfleet_kill(fr, hb, p17["pair"], roots, heal_s)
+            step_s["kill"] = time.perf_counter() - t
+            emit({"phase": "procfleet", "step": "kill", **kill})
+            t = time.perf_counter()
+            hang = step_procfleet_hang(fr, hb, p17["pair"], roots, heal_s)
+            step_s["hang"] = time.perf_counter() - t
+            emit({"phase": "procfleet", "step": "hang", **hang})
+        finally:
+            max_age = hb.stop()
+            fr.close(drain=False)
+    except Exception:
+        # the children's own output, for the failure's cause
+        for log in sorted((PROCFLEET_DIR / "work").glob("replica*.log")):
+            print(f"--- {log.name} (tail)\n{log.read_text(errors='replace')[-3000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        for d in (FLEET_DIR, PROCFLEET_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the procfleet phase launched hand kernels: {launches}")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "procfleet", "step": "checks", "hand_kernel_launches_parent": launches,
+          "max_heartbeat_age_s": max_age, "hb_timeout_s": PROCFLEET_HB_TIMEOUT_S,
+          "step_s": step_s, "phase_s": phase_s, "cap_s": PROCFLEET_CAP_S,
+          "within_cap": phase_s <= PROCFLEET_CAP_S, "total_s": time.perf_counter() - t_start})
+    if phase_s > PROCFLEET_CAP_S:
+        raise AssertionError(
+            f"the procfleet phase took {phase_s:.1f} s, over its {PROCFLEET_CAP_S} s cap")
+    return {"reads": reads, "write": write, "kill": kill, "hang": hang,
+            "k1": {"min_plus": 0, "max_min": 0}}
+
+
 WATCHDOG_S = 1100  # short of the 1,200 s the script must finish in
 
 
@@ -6184,12 +6508,12 @@ def main() -> int:
         return run_phases()
     finally:
         faulthandler.cancel_dump_traceback_later()
-        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR):
+        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR, PROCFLEET_DIR):
             shutil.rmtree(d, ignore_errors=True)
 
 
 def run_phases() -> int:
-    """Phases 1-19 (module docstring), then the ``kernels`` line and the
+    """Phases 1-20 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -6237,8 +6561,12 @@ def run_phases() -> int:
     del bfs_host, g18
     server = phase_server(dev, t_start, engine, engine_roots)
     fleet = phase_fleet(dev, t_start, engine, engine_roots)
+    p17 = {"roots": engine_roots, "lanes16": engine["serve"]["lanes16"],
+           "pair": engine["churn"]["pairs"][-1],
+           "fleet_requests_per_s": fleet["replicas"]["requests_per_s"]}
     del engine["serve"], engine["dur"]
     torch.cuda.empty_cache()
+    procfleet = phase_procfleet(dev, t_start, p17)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
@@ -6249,7 +6577,8 @@ def run_phases() -> int:
                    "apps": apps["k1"], "graph_input": graph_input["k1"],
                    "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name],
                    "obs": obs_phase["k1"][sr.name], "engine": engine["k1"][sr.name],
-                   "server": server["k1"][sr.name], "fleet": fleet["k1"][sr.name]}
+                   "server": server["k1"][sr.name], "fleet": fleet["k1"][sr.name],
+                   "procfleet": procfleet["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),

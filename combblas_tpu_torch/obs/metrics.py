@@ -14,7 +14,7 @@ metric can never force a device sync.
 
 The catalog below keeps the reference's rows, word for word, for the
 series this package emits; the rows of the serve layers not ported yet
-(pool, fleet, net, shard) come with them. Where a row
+(net, shard) come with them. Where a row
 speaks of the TPU's machinery the port's meaning is its counterpart:
 ``compile_cache.hits/misses`` count the hand kernels' library builds
 (``_build.py``: found built, or compiled), ``compile_cache.entries`` the
@@ -735,6 +735,83 @@ rows below are process-specific:
 ========================================  =========  ==================
 name                                      kind       meaning
 ========================================  =========  ==================
+``serve.procfleet.replicas``              gauge      subprocess replica
+                                                     count behind the
+                                                     router
+``serve.procfleet.heartbeat_age_s``       gauge      seconds since a
+                                                     replica's last
+                                                     heartbeat (labels
+                                                     ``replica``) —
+                                                     the HANG detector:
+                                                     a SIGSTOPped
+                                                     process is alive
+                                                     but silent, and
+                                                     past the timeout
+                                                     it is quarantined
+                                                     and routed around
+``serve.procfleet.rpc_latency_s``         histogram  per-RPC round-trip
+                                                     over the framed
+                                                     IPC channel
+                                                     (labels ``op``)
+``serve.procfleet.ipc_timeouts``          counter    RPCs that ran out
+                                                     their per-request
+                                                     deadline (labels
+                                                     ``op``) — futures
+                                                     fail; the router
+                                                     never wedges on a
+                                                     hung replica
+``serve.procfleet.quarantined``           counter    replica processes
+                                                     taken out of
+                                                     service (in-flight
+                                                     futures failed
+                                                     honestly, process
+                                                     SIGKILLed; labels
+                                                     ``replica``)
+``serve.procfleet.respawns``              counter    replacement
+                                                     subprocesses
+                                                     booted warm from
+                                                     checkpoint+WAL
+                                                     (labels
+                                                     ``replica``)
+``serve.procfleet.respawn_failed``        counter    failed respawn
+                                                     attempts — the
+                                                     fleet keeps
+                                                     serving degraded
+                                                     on survivors with
+                                                     capped-backoff
+                                                     retry (labels
+                                                     ``replica``)
+``serve.procfleet.promotions``            counter    dead-home
+                                                     promotions at the
+                                                     WAL frontier, over
+                                                     IPC
+``serve.procfleet.sigkills`` /            counter    scripted
+``serve.procfleet.sigstops``                         ``ProcessFaultPlan``
+                                                     signals fired at
+                                                     replica processes
+                                                     (labels
+                                                     ``replica``)
+``serve.procfleet.fanout``                counter    home-merge version
+                                                     fan-outs (spooled
+                                                     checkpoint file +
+                                                     per-replica
+                                                     ``swap_from_
+                                                     checkpoint``)
+``serve.procfleet.fanout_s``              histogram  wall time of one
+                                                     full fan-out
+                                                     (spool + swaps)
+``serve.procfleet.fanout_failed``         counter    per-replica swap
+                                                     failures inside a
+                                                     fan-out — the
+                                                     replica lags, the
+                                                     fleet continues
+                                                     (labels
+                                                     ``replica``)
+``serve.procfleet.versions_behind``       gauge      fan-out
+                                                     generations a
+                                                     replica lags the
+                                                     home (labels
+                                                     ``replica``)
 ``tuner.store.compact_skipped``           counter    plan-store
                                                      compactions
                                                      skipped on
@@ -761,6 +838,35 @@ series additionally arrive in a ``ProcessFleet.serve_metrics()``
 scrape via the heartbeat-piggybacked registry snapshots):
 
 ========================================  =========  ==================
+``serve.ipc.bytes_out`` /                 counter    framed bytes sent/
+``serve.ipc.bytes_in``                               received on one
+                                                     IPC channel, wire
+                                                     size incl. the
+                                                     length prefix —
+                                                     the isolation
+                                                     tax's bandwidth
+                                                     half (labels
+                                                     ``peer``)
+``serve.ipc.encode_s`` /                  histogram  frame encode /
+``serve.ipc.decode_s``                               decode seconds —
+                                                     the serialization
+                                                     half of the
+                                                     isolation tax
+                                                     (labels ``peer``)
+``serve.ipc.deadline_missed``             counter    RPCs that expired
+                                                     in the parent-side
+                                                     deadline sweep (a
+                                                     hung replica's
+                                                     per-request
+                                                     failure; labels
+                                                     ``replica``)
+``serve.procfleet.hb_snapshots``          counter    child registry
+                                                     snapshots
+                                                     piggybacked on
+                                                     heartbeats (the
+                                                     federation wire;
+                                                     emitted INSIDE the
+                                                     child process)
 ``serve.fleetlog.events``                 counter    supervision
                                                      timeline events
                                                      appended to the

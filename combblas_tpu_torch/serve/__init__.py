@@ -36,9 +36,15 @@ Ported so far:
    home and fanned out, and a supervisor that quarantines dead replicas
    (``ReplicaDeadError``), promotes a dead home at the WAL frontier and
    rebuilds replacements.
+8. **process fleet** (``procfleet.py``, ``_procworker.py``, ``frame.py``,
+   ``ipc.py``) — ``ProcessFleet``: the same policy over replica
+   subprocesses, each a ``Server`` with its own CUDA context, behind
+   framed socketpair IPC (``ReplicaProc``, ``IpcTimeoutError``),
+   heartbeats, SIGKILL/SIGSTOP chaos (``ProcessFaultPlan``) and respawn
+   from checkpoint + WAL.
 
-The process fleet, network front door and sharded engine of the
-reference come in later slices.
+The network front door and sharded engine of the reference come in
+later slices.
 """
 
 from .batcher import Request, assemble, bucket_width, scatter
@@ -60,6 +66,7 @@ from .scheduler import (
 from .api import Server
 from .pool import EnginePool, PoolServer
 from .fleet import FleetRouter, ReplicaDeadError
+from .procfleet import IpcTimeoutError, ProcessFleet, ReplicaProc
 from .slo import ErrorBudget
 
 __all__ = [
@@ -67,6 +74,7 @@ __all__ = [
     "BackpressureError", "CircuitBreaker", "CircuitBreakerOpen",
     "DeficitRoundRobin", "EnginePool", "PoolServer", "FleetRouter",
     "ReplicaDeadError",
+    "ProcessFleet", "ReplicaProc", "IpcTimeoutError",
     "FaultInjector", "InjectedFault", "ProcessFaultPlan",
     "FAULT_POINTS", "ErrorBudget",
     "Request", "KINDS",

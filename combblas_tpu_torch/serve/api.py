@@ -308,14 +308,18 @@ class Server:
 
     # -- front door --------------------------------------------------------
 
-    def submit(self, kind: str, root, timeout_s: float | None = None
-               ) -> Future:
+    def submit(self, kind: str, root, timeout_s: float | None = None,
+               trace_rid: int | str | None = None) -> Future:
         """Admit one single-root query. Raises ``BackpressureError``
         when the bounded queue is full (reject + retry-after, never
         unbounded blocking); malformed roots come back as failed
-        futures (error isolation — see scheduler.submit)."""
+        futures (error isolation — see scheduler.submit).
+        ``trace_rid`` adopts an upstream trace-sampling decision
+        (process-fleet stitching) — see scheduler.submit."""
         self.faults.check("scheduler.admit", kind=kind, root=root)
-        fut = self.scheduler.submit(kind, root, timeout_s=timeout_s)
+        fut = self.scheduler.submit(
+            kind, root, timeout_s=timeout_s, trace_rid=trace_rid
+        )
         with self._wake:
             self._wake.notify_all()
         return fut

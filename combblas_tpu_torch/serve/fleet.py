@@ -107,6 +107,10 @@ def _strip_wal(cfg: ServeConfig, keep: str | None) -> ServeConfig:
 class FleetRouter(ReplicaFleetBase):
     """Front door over N replica ``Server``s sharing one plan store."""
 
+    #: Every replica runs on this process's CUDA context: a CUDA error
+    #: is the card's (``policy.py``).
+    _SHARED_CONTEXT = True
+
     def __init__(self, servers, build_kw: dict | None = None):
         if not servers:
             raise ValueError("FleetRouter needs at least one replica")

@@ -5,33 +5,38 @@ A replica fleet is one SERVICE over several replicas of one graph:
 least-loaded read routing with spillover, bounded read retry on the
 next-best replica, one HOME write lane, supervision that detects dead
 replicas, promotes a dead home and rebuilds replacements.
-:class:`ReplicaFleetBase` holds that policy; a front end subclasses it
-and supplies the LIVENESS and HEAL verbs:
+:class:`ReplicaFleetBase` holds that policy; ``FleetRouter``
+(``fleet.py``, thread-hosted replicas) and ``ProcessFleet``
+(``procfleet.py``, subprocess replicas) subclass it and supply the
+LIVENESS and HEAL verbs:
 
 * ``_depth(i)`` / ``_serving(i)`` — routing-time load and liveness;
 * ``_dead(i)`` — supervision-time death;
-* ``promote()`` / ``_replace_replica(i)`` — the heal actions.
+* ``promote()`` / ``_replace_replica(i)`` — the heal actions;
+* ``_replace_allowed`` / ``_replace_failed`` / ``_replace_ok`` — the
+  heal backoff (the process fleet's capped-backoff respawn retry);
+* ``_observe_fleet()`` — a per-tick liveness gauge;
+* ``_fleet_event`` — the supervision timeline.
 
-``FleetRouter`` (``fleet.py``, thread-hosted replicas) is the port's one
-front end so far. The reference's process fleet, and the hooks only it
-overrides (heal backoff, a per-tick liveness gauge), come with its
-slice; ``_fleet_event`` stays, the no-op narration hook that the
-supervision pass and the drain/restore verbs call.
+Obs series are emitted under the subclass's ``_OBS`` prefix
+(``serve.fleet`` / ``serve.procfleet``); the series shapes are the
+``serve.fleet.*`` rows of the obs/metrics.py catalog.
 
-Obs series are the ``serve.fleet.*`` rows of the obs/metrics.py
-catalog.
-
-Deviation from the reference, kept on purpose: every replica in one
-process shares the card's CUDA context, so a CUDA error is the card's,
-not one replica's. One met in a replica's batch or merge is kept by its
-``Server`` as ``device_error``; one met by the fleet's own work (a
-fan-out's rebuild or swap, a promotion, a replacement, a warm-up) is
-kept on the fleet and raised. A read that failed with one is not
-retried on another replica (it would meet the same poisoned context),
-and a supervision pass while either holds one detects, promotes and
-replaces nothing: a rebuild on the broken context would fail, or be
-quarantined again, on every tick. The front end's ``health()`` reports
-``down`` and carries the error.
+Deviation from the reference, kept on purpose: where every replica runs
+in this process it shares the card's CUDA context, so a CUDA error is
+the card's, not one replica's. That rule sits behind one hook,
+``_SHARED_CONTEXT``, which only ``FleetRouter`` sets. There, one met in
+a replica's batch or merge is kept by its ``Server`` as
+``device_error``; one met by the fleet's own work (a fan-out's rebuild
+or swap, a promotion, a replacement, a warm-up) is kept on the fleet and
+raised. A read that failed with one is not retried on another replica
+(it would meet the same poisoned context), and a supervision pass while
+either holds one detects, promotes and replaces nothing: a rebuild on
+the broken context would fail, or be quarantined again, on every tick.
+The front end's ``health()`` reports ``down`` and carries the error.
+A fleet whose replicas each own a context (``ProcessFleet``) keeps the
+reference's rule: a replica's CUDA error is that replica's, its reads
+are retried on the others, and supervision replaces it.
 """
 
 from __future__ import annotations
@@ -50,10 +55,20 @@ READ_RETRY = 1
 
 
 class ReplicaDeadError(RuntimeError):
-    """A replica died (its worker thread) and the supervisor took it out
-    of service: its pending futures fail with this.  With a WAL
-    attached the ACKNOWLEDGED writes themselves are durable (recovery /
-    promotion replays them) — only the futures fail, honestly."""
+    """A replica died (worker thread or OS process) and the supervisor
+    took it out of service: its pending futures fail with this.  With
+    a WAL attached the ACKNOWLEDGED writes themselves are durable
+    (recovery / promotion replays them) — only the futures fail,
+    honestly."""
+
+
+class StaleEpochError(RuntimeError):
+    """A slice was asked to advance a batch epoch it holds no resident
+    loop state for (it respawned or restarted mid-batch).  This is a
+    healthy slice reporting a protocol fact, NOT a death: the router
+    replays the whole batch under a fresh epoch (re-seeding every
+    slice) without quarantining anyone — the round-21 slice-resident
+    hop-state contract."""
 
 
 class ReplicaFleetBase:
@@ -64,6 +79,17 @@ class ReplicaFleetBase:
     ``self.replicas`` and ``self.home``, and implement the liveness /
     heal hooks (module docstring).
     """
+
+    #: Obs series prefix — ``serve.fleet`` (threads) or
+    #: ``serve.procfleet`` (processes); the series shapes match.
+    _OBS = "serve.fleet"
+
+    #: True where every replica runs on this process's CUDA context, so
+    #: that a CUDA error any replica meets is the card's (module
+    #: docstring): ``FleetRouter``. A fleet whose replicas each own a
+    #: context leaves it False, and its own ``_device_error`` is one met
+    #: by the router's own device work.
+    _SHARED_CONTEXT = False
 
     def _init_policy(self) -> None:
         self._rr = itertools.count()
@@ -107,9 +133,10 @@ class ReplicaFleetBase:
         raise NotImplementedError
 
     def device_error(self) -> Exception | None:
-        """The CUDA error the fleet or a replica met, if one did (module
-        docstring)."""
-        if self._device_error is not None:
+        """The CUDA error that stops the whole fleet, if one was met: one
+        the fleet's own work met, or, with ``_SHARED_CONTEXT``, one a
+        replica met (module docstring)."""
+        if self._device_error is not None or not self._SHARED_CONTEXT:
             return self._device_error
         for srv in self.replicas:
             if srv.device_error is not None:
@@ -117,10 +144,12 @@ class ReplicaFleetBase:
         return None
 
     def _keep_device_error(self, exc: BaseException) -> bool:
-        """Keep ``exc`` on the fleet if it is a CUDA error (the first
-        one wins); True when it is, so the caller re-raises or stops
-        instead of counting it as one replica's failure."""
-        if not _is_device_error(exc):
+        """Keep ``exc`` on the fleet if it is a CUDA error on the shared
+        context (the first one wins); True when it is, so the caller
+        re-raises or stops instead of counting it as one replica's
+        failure. Without ``_SHARED_CONTEXT`` nothing is kept: the error
+        is the replica's."""
+        if not self._SHARED_CONTEXT or not _is_device_error(exc):
             return False
         if self._device_error is None:
             self._device_error = exc
@@ -131,6 +160,27 @@ class ReplicaFleetBase:
 
     def _replace_replica(self, i: int) -> None:
         raise NotImplementedError  # pragma: no cover - abstract
+
+    def _replace_allowed(self, i: int) -> bool:
+        """Gate one heal attempt (ProcessFleet: capped-backoff retry
+        after repeated respawn failures — the fleet keeps serving
+        degraded on survivors instead of respawn-storming)."""
+        return True
+
+    def _replace_failed(self, i: int) -> None:
+        """Heal-attempt failure hook (backoff bookkeeping)."""
+
+    def _replace_ok(self, i: int) -> None:
+        """Heal-success hook (backoff reset)."""
+
+    # -- observability hooks -----------------------------------------------
+
+    def _observe_fleet(self) -> None:
+        """Per-supervisor-tick telemetry hook: subclasses gauge their
+        continuously-scrape-visible liveness series here (ProcessFleet:
+        ``serve.procfleet.heartbeat_age_s{replica=}``) so a scrape sees
+        freshness without anyone calling ``health()``.  Default: none —
+        the base class has no liveness signal of its own."""
 
     def _fleet_event(self, name: str, **fields) -> None:
         """Supervision-timeline hook: the policy layer narrates, a front
@@ -184,11 +234,11 @@ class ReplicaFleetBase:
                 # this submit: spill to the next replica either way,
                 # matching the retry path's exception taxonomy
                 self.spillovers += 1
-                obs.count("serve.fleet.spillover", replica=i)
+                obs.count(self._OBS + ".spillover", replica=i)
                 last_exc = e
                 continue
             self.submitted[i] += 1
-            obs.count("serve.fleet.submitted", replica=i)
+            obs.count(self._OBS + ".submitted", replica=i)
             return self._with_read_retry(
                 fut, kind, root, timeout_s, i, READ_RETRY
             )
@@ -201,8 +251,9 @@ class ReplicaFleetBase:
         (bounded by ``budget``); the outer future sees the retried
         outcome.  Admission-level rejections (backpressure/breaker),
         malformed roots (ValueError), expired deadlines (TimeoutError)
-        and CUDA errors (the card's, module docstring) are NOT retried
-        — they would fail identically or lie about the deadline."""
+        and, with ``_SHARED_CONTEXT``, CUDA errors (the card's, module
+        docstring) are NOT retried — they would fail identically or lie
+        about the deadline."""
         outer: Future = Future()
 
         def _done(f):
@@ -212,7 +263,7 @@ class ReplicaFleetBase:
                 return
             if budget <= 0 or isinstance(
                 exc, (BackpressureError, ValueError, TimeoutError)
-            ) or _is_device_error(exc):
+            ) or (self._SHARED_CONTEXT and _is_device_error(exc)):
                 settle(outer, exc=exc)
                 return
             for j in self._route_order():
@@ -226,7 +277,7 @@ class ReplicaFleetBase:
                     continue
                 self.read_retries += 1
                 self.submitted[j] += 1
-                obs.count("serve.fleet.read_retry", replica=j)
+                obs.count(self._OBS + ".read_retry", replica=j)
                 inner = self._with_read_retry(
                     f2, kind, root, timeout_s, j, budget - 1
                 )
@@ -311,7 +362,7 @@ class ReplicaFleetBase:
                 # next tick, visible in the counter — a dead
                 # supervisor would silently stop all self-healing
                 obs.count(
-                    "serve.fleet.supervisor",
+                    self._OBS + ".supervisor",
                     action="error", exc_type=type(e).__name__,
                 )
             self._sup_stop.wait(self._sup_interval)
@@ -322,9 +373,12 @@ class ReplicaFleetBase:
         promote a new home first if the HOME died, then rebuild every
         dead replica and re-admit it.  Returns ``{"detected": [...],
         "promoted": new_home | None, "replaced": [...]}``; nothing is
-        detected while the fleet or a replica holds a CUDA error, and a
-        CUDA error met here ends the pass (module docstring)."""
+        detected while ``device_error()`` holds a CUDA error, and one
+        met here on the shared context ends the pass (module
+        docstring). A slot whose heal is backing off
+        (``_replace_allowed``) waits for a later tick."""
         with self._sup_lock:
+            self._observe_fleet()
             out = {"detected": [], "promoted": None, "replaced": []}
             if self.device_error() is not None:
                 return out
@@ -339,7 +393,7 @@ class ReplicaFleetBase:
             for i in dead:
                 if i not in self._needs_rebuild:
                     obs.count(
-                        "serve.fleet.supervisor", action="detected"
+                        self._OBS + ".supervisor", action="detected"
                     )
                     self._fleet_event(
                         "replica_dead", replica=i, home=(i == self.home)
@@ -362,27 +416,31 @@ class ReplicaFleetBase:
                     # so the write lane comes back instead of
                     # staying down
                     obs.count(
-                        "serve.fleet.supervisor",
+                        self._OBS + ".supervisor",
                         action="promotion_failed",
                     )
                     self._fleet_event(
                         "promotion_failed", replica=self.home
                     )
             for i in dead:
+                if not self._replace_allowed(i):
+                    continue  # backing off: retried on a later tick
                 try:
                     self._replace_replica(i)
                 except Exception as e:
                     if self._keep_device_error(e):
                         return out  # the card's: heal nothing more
                     # stays in _needs_rebuild: retried next tick
+                    self._replace_failed(i)
                     obs.count(
-                        "serve.fleet.supervisor",
+                        self._OBS + ".supervisor",
                         action="replace_error",
                     )
                     self._fleet_event("respawn_failed", replica=i)
                     continue
+                self._replace_ok(i)
                 out["replaced"].append(i)
-                obs.count("serve.fleet.supervisor", action="replaced")
+                obs.count(self._OBS + ".supervisor", action="replaced")
             return out
 
     # -- health folding ----------------------------------------------------

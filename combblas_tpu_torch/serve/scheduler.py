@@ -24,6 +24,7 @@ from collections import deque
 from concurrent.futures import Future
 
 from .. import obs
+from ..obs.trace import RequestTrace
 from .batcher import Request, expire, settle
 
 
@@ -492,13 +493,22 @@ class Scheduler:
             return sum(len(q) for q in self._pending.values())
 
     def submit(self, kind: str, root, timeout_s: float | None = None,
-               now: float | None = None) -> Future:
+               now: float | None = None,
+               trace_rid: int | str | None = None) -> Future:
         """Admit one single-root query; returns its Future.
 
         Raises ``BackpressureError`` when the queue is full and
         ``ValueError`` for an unknown kind (caller bugs, not load). A
         MALFORMED ROOT is isolated instead: its future carries the
         ValueError and the request never enters a batch.
+
+        ``trace_rid`` adopts an upstream sampling decision (round 18):
+        a process-fleet router that already sampled a request forwards
+        its rid over IPC, and the child-side scheduler traces it
+        UNCONDITIONALLY under that rid — re-rolling the local sampler
+        here would decorrelate the stitched trace's two halves.  The
+        trace rides the Future as ``_combblas_trace`` so the IPC reply
+        path can ship its stage marks home.
         """
         if kind not in self._pending:
             raise ValueError(
@@ -587,9 +597,25 @@ class Scheduler:
                 # trace is host-dict work (the queue-depth gauge below
                 # sets the in-lock precedent), disabled obs = one call
                 # + flag check.
-                req.trace = obs.request_trace(
-                    req.rid, kind=kind, tenant=self.tenant
-                )
+                if trace_rid is None:
+                    req.trace = obs.request_trace(
+                        req.rid, kind=kind, tenant=self.tenant
+                    )
+                else:
+                    # adopted upstream decision: trace unconditionally
+                    # (the router already rolled the sampler) under the
+                    # ROUTER's rid, so the stitched halves correlate
+                    req.trace = RequestTrace(
+                        trace_rid, "serve.request",
+                        {
+                            k: v
+                            for k, v in (
+                                ("kind", kind), ("tenant", self.tenant),
+                            )
+                            if v is not None
+                        },
+                    )
+                    fut._combblas_trace = req.trace
                 self._pending[kind].append(req)
                 self.submitted += 1
                 obs.gauge("serve.queue.depth", d + 1, **self._lab())

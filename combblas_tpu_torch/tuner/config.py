@@ -21,8 +21,8 @@ Resolution precedence, documented once, here:
 Env-var conventions shared by every knob: unset or empty means
 "default"; for the integer knobs ``"0"`` also means default.  Every knob
 is read at each call, never at import.  The knobs here are the ones the
-port's modules read; the reference's pool-budget, fleet, net and shard
-knobs come with the modules that read them.
+port's modules read; the reference's net and shard knobs come with the
+modules that read them.
 """
 
 from __future__ import annotations
@@ -104,6 +104,17 @@ ENV_POOL_BYTE_BUDGET = "COMBBLAS_POOL_BYTE_BUDGET"
 ENV_POOL_QUANTUM = "COMBBLAS_POOL_QUANTUM"
 ENV_FLEET_REPLICAS = "COMBBLAS_FLEET_REPLICAS"
 
+#: Round-18 knobs: the fleet observability plane (docs/observability.md
+#: "Process-fleet observability").  ``COMBBLAS_FLEETLOG`` overrides the
+#: supervision-timeline JSONL path the process fleet appends to
+#: (default: ``fleetlog.jsonl`` under the fleet's workdir; unset/``0``/
+#: ``off`` fall through to that default).  ``COMBBLAS_OBS_HB_METRICS_S``
+#: is the minimum seconds between child registry snapshots piggybacked
+#: on replica heartbeats (metrics federation — the fleet-scrape wire
+#: cadence; unset/``0`` = default).
+ENV_FLEETLOG = "COMBBLAS_FLEETLOG"
+ENV_OBS_HB_METRICS_S = "COMBBLAS_OBS_HB_METRICS_S"
+
 #: Valid merge-tier names (parallel/mesh3d re-exports this as
 #: MERGE_TIERS — one definition, vetting and kernel asserts agree).
 MERGE_TIER_NAMES = ("sort", "runs", "hash")
@@ -131,6 +142,9 @@ DEFAULT_WAL_FSYNC = "always"
 DEFAULT_POOL_BYTE_BUDGET = 0
 DEFAULT_POOL_QUANTUM = 16
 DEFAULT_FLEET_REPLICAS = 2
+#: Default seconds between heartbeat-piggybacked child registry
+#: snapshots (metrics federation).
+DEFAULT_OBS_HB_METRICS_S = 1.0
 #: Default merges between background snapshots, and snapshots retained.
 DEFAULT_CHECKPOINT_EVERY = 8
 DEFAULT_CHECKPOINT_RETAIN = 2
@@ -335,6 +349,32 @@ def wal_dir(given: str | None = None) -> str | None:
     if v is None or v.strip().lower() in ("", "0", "off", "none"):
         return None
     return os.path.abspath(v)
+
+
+def fleetlog_path(given: str | None = None) -> str | None:
+    """Supervision-timeline JSONL path override, or ``None`` to use the
+    fleet's own default (``fleetlog.jsonl`` under its workdir):
+    explicit argument > ``COMBBLAS_FLEETLOG`` > fleet default.
+    ``0``/``off``/``none``/empty fall through to the default — the
+    wal_dir convention."""
+    v = os.environ.get(ENV_FLEETLOG) if given is None else given
+    if v is None or v.strip().lower() in ("", "0", "off", "none"):
+        return None
+    return os.path.abspath(v)
+
+
+def obs_hb_metrics_interval(given: float | None = None) -> float:
+    """Minimum seconds between child registry snapshots piggybacked on
+    replica heartbeats (metrics federation): explicit argument >
+    ``COMBBLAS_OBS_HB_METRICS_S`` > 1.0.  Clamped >= 0.05 so a typo
+    cannot turn every heartbeat into a full registry serialization."""
+    if given is None:
+        v = os.environ.get(ENV_OBS_HB_METRICS_S)
+        given = float(v) if v else 0.0
+    given = float(given)
+    if given <= 0.0:
+        return DEFAULT_OBS_HB_METRICS_S
+    return max(given, 0.05)
 
 
 def checkpoint_every(given: int | None = None) -> int:

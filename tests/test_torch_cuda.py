@@ -19,9 +19,11 @@ and the telemetry's cost contract (obs on adds no kernel and no
 synchronising call to ``spgemm_auto``; the ``spgemm.auto`` range holds K1's
 kernels on the profiler's timeline), and the serving engine and the
 mutation lane (served lanes of the five kinds, a merge chain, a snapshot
-round trip and a recovery). Marked ``cuda``; they skip where there is no card. The module runs under a
-fresh plan store of its own with probing off, so the routed calls take
-their tiers from the code, not from an ambient store.
+round trip and a recovery), and the process fleet (two replica processes,
+one kill and one respawn). Marked ``cuda``; they skip where there is no
+card. The module runs under a fresh plan store of its own with probing
+off, so the routed calls take their tiers from the code, not from an
+ambient store.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch (``tests/conftest.py`` imports JAX, hence
@@ -2054,6 +2056,67 @@ def test_pool_and_fleet_on_card(cuda_device):
         assert h["status"] == "ok" and h["device_error"] is None
     finally:
         fr.close(drain=False)
+
+
+def test_process_fleet_on_card(cuda_device, tmp_path):
+    """Two ``ProcessFleet`` replicas on the card, each a child process with
+    its own CUDA context: bfs and sssp reads over IPC equal the CPU
+    engine's bit for bit; a write fans out through the spool; a replica
+    SIGKILLed through the fault plan gives its device memory back to the
+    card (``mem_get_info``) and ``supervise_once`` respawns it from
+    checkpoint and WAL, answering as the home does."""
+    import time
+
+    from combblas_tpu_torch.serve import GraphEngine, ProcessFleet, ServeConfig
+
+    rows, cols, w, _ = _serve_graph()
+    kinds = ("bfs", "sssp")
+    cpu = GraphEngine.from_coo(Grid.make(1, 1, device="cpu"), rows, cols, 256, weights=w,
+                               kinds=kinds, keep_coo=True)
+    roots = [int(x) for x in np.flatnonzero(np.bincount(rows, minlength=256))[:4]]
+    fr = ProcessFleet.build((1, 1), rows, cols, 256, replicas=2, kinds=kinds,
+                            config=ServeConfig(lane_widths=(1, 2), update_flush=1,
+                                               update_max_delay_s=0.005),
+                            wal_dir=str(tmp_path / "wal"), workdir=str(tmp_path / "work"),
+                            device=cuda_device, from_coo_kw={"weights": w})
+    try:
+        assert all(rp.boot["device"].startswith("cuda") for rp in fr.replicas)
+        for k in kinds:
+            for f, r in zip(fr.submit_many(k, roots), roots):
+                want = cpu.execute(k, np.array([r], np.int32))
+                got = f.result(timeout=60)
+                for key, arr in want.items():
+                    if isinstance(arr, np.ndarray):
+                        assert np.array_equal(got[key], arr[..., 0]), (k, key)
+        assert all(n > 0 for n in fr.submitted)
+        present = set(zip(rows.tolist(), cols.tolist()))
+        a, b = next((x, y) for x in roots for y in range(256)
+                    if x != y and (x, y) not in present)
+        res = fr.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)]).result(timeout=120)
+        assert res["fanned_out"] == 1
+        for rp in fr.replicas:
+            assert rp.submit("bfs", a).result(timeout=60)["levels"][b] == 1
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+        fr.proc_faults.sigkill(fr.proc_faults.calls, replica=1)
+        fr.submit("bfs", roots[0]).result(timeout=60)  # fires the kill; settles
+        deadline = time.monotonic() + 30
+        while not fr._dead(1):
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+        deadline = time.monotonic() + 10
+        while torch.cuda.mem_get_info()[0] - free < fr.replicas[1].boot["device_bytes"]:
+            assert time.monotonic() < deadline, "the killed child's memory did not come back"
+            time.sleep(0.05)
+        assert fr.supervise_once() == {"detected": [1], "promoted": None, "replaced": [1]}
+        got = fr.replicas[1].submit("bfs", a).result(timeout=60)
+        want = fr.replicas[0].submit("bfs", a).result(timeout=60)
+        assert np.array_equal(got["levels"], want["levels"]) and got["levels"][b] == 1
+        h = fr.health()
+        assert h["status"] == "ok" and h["device_error"] is None
+    finally:
+        fr.close(drain=False)
+    assert all(rp.proc.poll() is not None for rp in fr.replicas)
 
 
 def test_rectangular_bfs_on_card_equals_scipy(cuda_device):

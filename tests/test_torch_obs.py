@@ -424,7 +424,15 @@ def _rows(path):
     return {n: "histogram" if k == "hist" else k for n, k in rows.items()}
 
 
+# the fleet policy's series, emitted under the front end's prefix
+# (``self._OBS + ".leaf"``); the catalog rows are the ``serve.fleet.*``
+# ones, which the reference's catalog names for both fleets
+_PREFIXED = re.compile(r"""obs\.(?:count|gauge|observe)\(\s*self\._OBS \+ ["']\.([A-Za-z0-9_]+)["']""")
+
+
 def _port_series():
+    from combblas_tpu_torch.serve.policy import ReplicaFleetBase
+
     names = {}
     for dirpath, _dirs, files in os.walk(PKG):
         for fn in files:
@@ -432,6 +440,8 @@ def _port_series():
                 src = open(os.path.join(dirpath, fn), encoding="utf-8").read()
                 for m in _CALL.finditer(src):
                     names.setdefault(m.group(1), set()).add(fn)
+                for m in _PREFIXED.finditer(src):
+                    names.setdefault(ReplicaFleetBase._OBS + "." + m.group(1), set()).add(fn)
     return names
 
 

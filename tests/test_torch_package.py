@@ -26,7 +26,8 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "obs.sinks", "obs.trace", "obs.recorder", "obs.export", "obs.fleetlog",
            "utils.timers", "serve", "serve.engine", "serve.batcher", "serve.faults",
            "serve.slo", "serve.scheduler", "serve.api", "serve.policy", "serve.pool",
-           "serve.fleet", "dynamic", "dynamic.delta",
+           "serve.fleet", "serve.frame", "serve.ipc", "serve.procfleet", "serve._procworker",
+           "dynamic", "dynamic.delta",
            "dynamic.merge", "dynamic.refresh", "dynamic.wal"}
 
 
@@ -85,3 +86,52 @@ def test_owner_math_is_ceil_blocked():
     g = HostGrid(2, 3)
     assert (g.local_rows(10), g.local_cols(10)) == (5, 4)
     assert g.row_owner(10, 9) == 1 and g.col_owner(10, 9) == 2
+
+
+def test_booted_replica_child_pulls_in_no_jax(tmp_path):
+    """A process-fleet child (``serve/_procworker.py``'s receive loop, fed
+    a ``boot`` of a CPU snapshot, one read and ``close`` over a
+    socketpair) in a fresh interpreter loads no ``jax*`` and no
+    ``combblas_tpu`` module."""
+    import numpy as np
+
+    from combblas_tpu_torch.serve import GraphEngine
+    from combblas_tpu_torch.utils import checkpoint
+
+    rows = np.array([0, 1, 1, 2], np.int64)
+    cols = np.array([1, 0, 2, 1], np.int64)
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device="cpu"), rows, cols, 3, kinds=("bfs",))
+    ckpt = str(tmp_path / "boot.npz")
+    checkpoint.save_version(ckpt, eng.version)
+    code = (
+        "import socket, sys, threading\n"
+        "from combblas_tpu_torch.serve._procworker import ProcWorker\n"
+        "from combblas_tpu_torch.serve.ipc import Channel\n"
+        "a, b = socket.socketpair()\n"
+        "w = ProcWorker(Channel(a))\n"
+        "t = threading.Thread(target=w.run)\n"
+        "t.start()\n"
+        "ch = Channel(b)\n"
+        f"ch.send({{'id': 0, 'op': 'boot', 'grid': [1, 1], 'device': 'cpu', 'ckpt': {ckpt!r},\n"
+        f"         'kinds': ['bfs'], 'config': {{'lane_widths': [1]}}, 'wal_dir': None,\n"
+        f"         'hb_interval_s': 0.25, 'metrics_interval_s': 1.0}})\n"
+        "ch.send({'id': 1, 'op': 'submit', 'kind': 'bfs', 'root': 0})\n"
+        "ch.send({'id': 2, 'op': 'close'})\n"
+        "got = {}\n"
+        "while len(got) < 3:\n"
+        "    m = ch.recv(timeout=60)\n"
+        "    if 'id' in m:\n"
+        "        got[m['id']] = m\n"
+        "t.join(60)\n"
+        "assert not t.is_alive() and all(m['ok'] for m in got.values()), got\n"
+        "assert got[0]['result']['device'] == 'cpu'\n"
+        "assert list(got[1]['result']['levels']) == [0, 1, 2]\n"
+        "bad = [m for m in sys.modules if m.startswith('jax')\n"
+        "       or m == 'combblas_tpu' or m.startswith('combblas_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr

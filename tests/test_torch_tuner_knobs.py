@@ -6,9 +6,10 @@ with ``combblas_tpu`` on the CPU: ``COMBBLAS_SPGEMM_BACKEND`` through
 ``EllParMat.host_build(headroom=None)``, ``COMBBLAS_SPGEMM_MERGE`` through
 ``spgemm3d_windowed``, the serve knobs ``COMBBLAS_WAL``,
 ``COMBBLAS_CHECKPOINT_EVERY``, ``COMBBLAS_CHECKPOINT_RETAIN``,
-``COMBBLAS_POOL_QUANTUM``, ``COMBBLAS_POOL_BYTE_BUDGET`` and
-``COMBBLAS_FLEET_REPLICAS`` (the same value from the same environment and
-argument in both packages), and ``save_sharded`` /
+``COMBBLAS_POOL_QUANTUM``, ``COMBBLAS_POOL_BYTE_BUDGET``,
+``COMBBLAS_FLEET_REPLICAS``, ``COMBBLAS_FLEETLOG`` and
+``COMBBLAS_OBS_HB_METRICS_S`` (the same value from the same environment
+and argument in both packages), and ``save_sharded`` /
 ``load_sharded`` against the reference's ``save_orbax`` / ``load_orbax``
 round trip (that one case skips where orbax is not installed).
 
@@ -205,6 +206,10 @@ SERVE_KNOBS = {
     "pool_byte_budget": ("ENV_POOL_BYTE_BUDGET", [None, "", "0", "1", "536870912", "-4096"],
                          [None, 0, 1 << 20, -1]),
     "fleet_replicas": ("ENV_FLEET_REPLICAS", [None, "", "0", "1", "3", "-2"], [None, 0, 4, -1]),
+    "fleetlog_path": ("ENV_FLEETLOG", [None, "", "0", "off", " None ", "fl.jsonl", "/tmp/fl-b"],
+                      [None, "0", "off", "fl-c.jsonl"]),
+    "obs_hb_metrics_interval": ("ENV_OBS_HB_METRICS_S", [None, "", "0", "0.01", "0.5", "-2"],
+                                [None, 0.0, 0.02, 2.5, -1.0]),
 }
 
 
@@ -227,8 +232,8 @@ def test_serve_knobs_match_reference(monkeypatch, knob):
             want = getattr(jcfg, knob)(arg) if arg is not None else getattr(jcfg, knob)()
             assert got == want, (knob, env, arg)
     monkeypatch.setenv(name, "abc")
-    if knob == "wal_dir":
-        assert tcfg.wal_dir() == jcfg.wal_dir() == os.path.abspath("abc")
+    if knob in ("wal_dir", "fleetlog_path"):
+        assert getattr(tcfg, knob)() == getattr(jcfg, knob)() == os.path.abspath("abc")
     else:
         with pytest.raises(ValueError):
             getattr(jcfg, knob)()

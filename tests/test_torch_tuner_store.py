@@ -81,6 +81,8 @@ KNOBS = [
     ("pool_quantum", "ENV_POOL_QUANTUM", ["", "0", "8", "-3"]),
     ("pool_byte_budget", "ENV_POOL_BYTE_BUDGET", ["", "0", "4096", "-5", "x"]),
     ("fleet_replicas", "ENV_FLEET_REPLICAS", ["", "0", "3", "-1", "x"]),
+    ("fleetlog_path", "ENV_FLEETLOG", ["", "0", "off", "fleet.jsonl"]),
+    ("obs_hb_metrics_interval", "ENV_OBS_HB_METRICS_S", ["", "0", "0.01", "2", "x"]),
 ]
 
 GIVEN = {
@@ -93,6 +95,8 @@ GIVEN = {
     "pool_quantum": [5, 0],
     "pool_byte_budget": [1 << 20, -1],
     "fleet_replicas": [4, 0],
+    "fleetlog_path": ["off", "other.jsonl"],
+    "obs_hb_metrics_interval": [0.01, 3.0],
 }
 
 
