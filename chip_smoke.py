@@ -356,15 +356,18 @@ Phases (each prints one JSON line):
      equal to the new home, the write visible on both. Neither K1 nor K2
      runs.
  20. procfleet: the process fleet (``serve/procfleet.py``,
-     ``_procworker.py``, ``frame.py``, ``ipc.py``) on phase 19's scale-20
-     snapshot (it fails past 90 s; it removes the snapshot's directory).
-     The card's free bytes (``mem_get_info``) after ``empty_cache``, then
+     ``_procworker.py``, ``frame.py``, ``ipc.py``) on a ``save_version``
+     snapshot of an unsharded engine (bfs, sssp; phase 17's weight draw)
+     over phase 10's scale-18 graph, the cut from phase 19's scale 20
+     (PERF.md §4) (it fails past 90 s; it removes its directory). The
+     card's free bytes (``mem_get_info``) after ``empty_cache``, then
      (1) ``ProcessFleet.from_checkpoint`` of two child processes on the
      card (1 x 1, bfs + sssp, each its own CUDA context), under the run's
-     plan store: 24 bfs and 8 sssp reads from 4 client threads over IPC
-     (phase 19's 80 cut to 32 in its mix), equal to phase 17's lanes, both replicas routed to, no
-     plan built after the children's warm-up; requests/s beside phase 19's
-     thread fleet; (2) one insert through ``submit_update``: the home merges and
+     plan store: 24 bfs and 8 sssp reads of the graph's first 16 roots
+     with an edge from 4 client threads over IPC (phase 19's 80 cut to 32
+     in its mix), equal to the snapshot engine's lanes, both replicas
+     routed to, no plan built after the children's warm-up; requests/s
+     beside phase 19's thread fleet (at scale 20); (2) one insert through ``submit_update``: the home merges and
      logs it, spools ``save_version``, replica 1 swaps from the file, the
      edge one hop on both; (3) replica 1 SIGKILLed through the router's
      ``ProcessFaultPlan``: the card's free bytes rise by at least 0.9 of
@@ -375,12 +378,39 @@ Phases (each prints one JSON line):
      there) and respawns the stopped slot. The largest heartbeat age seen
      for each replica is printed. K1 and K2 launch 0 times in this process
      (the children run the serving code of phases 17-19).
+ 21. shard: sharded serving (``serve/shard.py``, ``_shardworker.py``) on
+     phase 17's inputs (it fails past 90 s; its home under ``build/`` is
+     removed). (1) ``ShardedEngine.build`` of phase 8's scale-20 graph
+     (phase 17's weights and F = 64 features) over 2 row slabs in this
+     process on the card (bfs, sssp, propagate; warmed at widths 1-16):
+     bfs parents, levels and ``batch_niter`` and sssp distances for phase
+     17's 16 roots bit for bit equal to phase 17's lanes, propagate's
+     features within rtol 1e-4 and 1e-4 of their largest magnitude; each
+     slice's ``device_bytes`` beside phase 17's unsharded engine's; bfs and
+     sssp again under forced ``dense`` and ``sparse`` frontiers (the same
+     answers), the encodings chosen hop by hop and the wire bytes by
+     encoding in each mode. (2) A ``Server`` over it (``serve()``): 13 bfs
+     and 3 sssp reads (16, phase 19's 4 : 1 mix as near as 16 allows)
+     equal to phase 17's lanes; one insert through ``submit_update``
+     acknowledged with the frontier vector at [1, 1] and the edge one hop
+     away from either end; ``checkpoint_now`` delegated to the slices;
+     slice 0 killed, the next read healed by a whole-batch replay equal to
+     before, one replacement, slice 1 untouched. (3) Two ``_shardworker``
+     children on the card (each its own CUDA context) over phase 17's
+     scale-18 graph (the process step's cut, PERF.md §4; unit-to-15
+     weights): one bfs and one sssp batch equal to an unsharded
+     ``GraphEngine`` built on the card from the same COO; slice 0
+     SIGKILLed, the card's free bytes rise by at least 0.9 of its
+     ``device_bytes``, the batch replays equal, no plan built after the
+     warm-up; one two-phase write; ``ShardedEngine.recover(mode="local")``
+     of the same home equal (``to_host_coo``) to the process engine's. K1
+     and K2 launch 0 times in this process.
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
 spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine, server,
-fleet, procfleet)
+fleet, procfleet, shard)
 and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -559,6 +589,7 @@ from combblas_tpu_torch.serve import (
     Request,
     ServeConfig,
     Server,
+    ShardedEngine,
     assemble,
     scatter,
 )
@@ -6074,7 +6105,7 @@ def step_fleet_replicas(dev, serve: dict, pair: tuple) -> dict:
             raise AssertionError(f"fleet health {h['status']}, device error {h['device_error']}")
         st = fr.stats()
     finally:
-        fr.close(drain=False)  # phase 20 boots from the snapshot and removes FLEET_DIR
+        fr.close(drain=False)
     line = {"phase": "fleet", "step": "replicas", "scale": BFS_SCALE, "grid": "1x1",
             "replicas": FLEET_REPLICAS, "kinds": list(POOL_KINDS), "save_s": save_s,
             "from_checkpoint_s": boot_s, "warmup_s": warm_s, "reads": len(futs),
@@ -6169,7 +6200,8 @@ def phase_fleet(dev, t_start: float, engine: dict, roots: np.ndarray) -> dict:
         replicas = timed("replicas", step_fleet_replicas, dev, serve, pair)
         durable = timed("durable", step_fleet_durable, engine["dur"])
     finally:
-        shutil.rmtree(DUR_DIR, ignore_errors=True)
+        for d in (DUR_DIR, FLEET_DIR):
+            shutil.rmtree(d, ignore_errors=True)
     launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
     if any(launches.values()):
         raise AssertionError(f"the fleet phase launched hand kernels: {launches}")
@@ -6187,6 +6219,10 @@ def phase_fleet(dev, t_start: float, engine: dict, roots: np.ndarray) -> dict:
 
 PROCFLEET_CAP_S = 90.0  # the phase's time budget
 PROCFLEET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_procfleet"
+# phase 10's graph: the children's snapshot cut from phase 19's scale 20,
+# whose 1.17 GB loads, spool and swap took the phase to 89-96 s of its
+# cap (PERF.md §4)
+PROCFLEET_SCALE = 18
 # half the reference's 5 s default: the largest heartbeat age seen in
 # three runs of this phase on the card was 0.58 s (PERF.md §6, PR 19)
 PROCFLEET_HB_TIMEOUT_S = 2.5
@@ -6265,10 +6301,36 @@ def _same_replica_lanes(fr, i: int, j: int, roots: list, what: str) -> None:
         _lanes_equal(f.result(timeout=120), g.result(timeout=120), f"{what} lane {k}")
 
 
-def step_procfleet_reads(fr, lanes17: dict, roots: list) -> dict:
+def procfleet_snapshot(dev, g18: dict, path: Path) -> dict:
+    """The children's snapshot: an unsharded engine (bfs, sssp) on phase
+    10's scale-18 graph with phase 17's weight draw, saved with
+    ``save_version``; its lanes for the graph's first 16 roots with an
+    edge are what the children's reads are held to."""
+    rows, cols = g18["rows"].astype(np.int64), g18["cols"].astype(np.int64)
+    n = len(g18["deg"])
+    w = np.random.default_rng(WEIGHT_SEED).integers(1, 16, len(rows)).astype(np.float32)
+    src = np.flatnonzero(g18["deg"] > 0)[:ENGINE_ROOTS].astype(np.int32)
+    # the COO travels in the snapshot: a child's WAL lane merges on it
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device=dev), rows, cols, n, weights=w,
+                               kinds=POOL_KINDS, keep_coo=True)
+    lanes = {}
+    for kind, keys in (("bfs", ("parents", "levels")), ("sssp", ("dist",))):
+        res = eng.execute(kind, src)
+        lanes[kind] = {int(r): {key: np.ascontiguousarray(res[key][..., k]) for key in keys}
+                       for k, r in enumerate(src)}
+    checkpoint.save_version(str(path), eng.version)
+    nbytes = eng.version.device_bytes()
+    del eng
+    torch.cuda.empty_cache()
+    return {"roots": [int(r) for r in src], "lanes": lanes, "n": n, "nnz": len(rows),
+            "device_bytes": nbytes}
+
+
+def step_procfleet_reads(fr, lanes: dict, roots: list) -> dict:
     """Step 1 after the boot: 24 bfs and 8 sssp reads from 4 client
-    threads over IPC (phase 19's mix), equal to phase 17's lanes, both
-    replicas routed to, no plan built after the children's warm-up."""
+    threads over IPC (phase 19's mix), equal to the snapshot engine's
+    lanes, both replicas routed to, no plan built after the children's
+    warm-up."""
     marks = fr.trace_marks()
     plan = [[(kind, [roots[(k * n + j) % len(roots)] for j in range(n)])
              for kind, n in PROCFLEET_READS_PER_CLIENT.items()]
@@ -6292,7 +6354,7 @@ def step_procfleet_reads(fr, lanes17: dict, roots: list) -> dict:
     for th in threads:
         th.join()
     for rec in futs:
-        _lanes_equal(rec["f"].result(timeout=120), lanes17[rec["kind"]][rec["root"]],
+        _lanes_equal(rec["f"].result(timeout=120), lanes[rec["kind"]][rec["root"]],
                      f"procfleet {rec['kind']} root {rec['root']}")
     reads_s = time.perf_counter() - t
     if len(futs) != FLEET_CLIENTS * sum(PROCFLEET_READS_PER_CLIENT.values()) or min(fr.submitted) == 0:
@@ -6407,28 +6469,34 @@ def step_procfleet_hang(fr, hb: HeartbeatWatch, pair: tuple, roots: list, heal_s
             "write_visible_on_new_home": True}
 
 
-def phase_procfleet(dev, t_start: float, p17: dict) -> dict:
-    """Phase 20 (module docstring): the process fleet on phase 19's
-    scale-20 snapshot, with K1's and K2's launch counts (the parent's) set
-    to 0 just before and read just after; neither runs. Removes the
-    snapshot's directory and its own."""
+def phase_procfleet(dev, t_start: float, g18: dict, pair: tuple,
+                    thread_fleet_rps: float) -> dict:
+    """Phase 20 (module docstring): the process fleet on a snapshot of
+    phase 10's scale-18 graph, with K1's and K2's launch counts (the
+    parent's) set to 0 just before and read just after; neither runs.
+    ``pair`` is an edge absent from the graph. Removes its directory."""
     t0 = time.perf_counter()
     semiring_matmul.launches = 0
     flat_to_tuples_arrays.launches = 0
-    roots = [int(r) for r in p17["roots"]]
-    lanes17 = {k: dict(zip(roots, p17["lanes16"][k])) for k in POOL_KINDS}
-    torch.cuda.empty_cache()
-    free0, total = _mem_info()
-    emit({"phase": "procfleet", "step": "elapsed", "total_s": t0 - t_start,
-          "card_free_gb": free0 / 2**30, "card_total_gb": total / 2**30})
+    emit({"phase": "procfleet", "step": "elapsed", "total_s": t0 - t_start})
     shutil.rmtree(PROCFLEET_DIR, ignore_errors=True)
+    PROCFLEET_DIR.mkdir(parents=True)
+    step_s = {}
+    t = time.perf_counter()
+    snap = procfleet_snapshot(dev, g18, PROCFLEET_DIR / "v.npz")
+    step_s["snapshot"] = time.perf_counter() - t
+    roots = snap["roots"]
+    free0, total = _mem_info()
+    emit({"phase": "procfleet", "step": "snapshot", "scale": PROCFLEET_SCALE, "n": snap["n"],
+          "nnz": snap["nnz"], "device_bytes": snap["device_bytes"], "snapshot_s": step_s["snapshot"],
+          "card_free_gb": free0 / 2**30, "card_total_gb": total / 2**30})
     cfg = ServeConfig(lane_widths=ENGINE_WIDTHS, max_wait_s=SERVER_MAX_WAIT_S,
                       update_flush=1, update_max_delay_s=0.005, flight_recorder=False)
-    step_s, rpc_s, heal_s = {}, {}, {}
+    rpc_s, heal_s = {}, {}
     try:
         t = time.perf_counter()
         fr = ProcessFleet.from_checkpoint(
-            str(FLEET_DIR / "v.npz"), (1, 1), replicas=FLEET_REPLICAS, kinds=POOL_KINDS,
+            str(PROCFLEET_DIR / "v.npz"), (1, 1), replicas=FLEET_REPLICAS, kinds=POOL_KINDS,
             config=cfg, wal_dir=str(PROCFLEET_DIR / "wal"), workdir=str(PROCFLEET_DIR / "work"),
             device=dev, hb_timeout_s=PROCFLEET_HB_TIMEOUT_S)
         boot_s = time.perf_counter() - t
@@ -6438,26 +6506,26 @@ def phase_procfleet(dev, t_start: float, p17: dict) -> dict:
             devices = [rp.boot["device"] for rp in fr.replicas]
             if any(torch.device(d).type != torch.device(dev).type for d in devices):
                 raise AssertionError(f"children on {devices}")
-            reads = step_procfleet_reads(fr, lanes17, roots)
+            reads = step_procfleet_reads(fr, snap["lanes"], roots)
             step_s["boot_and_reads"] = time.perf_counter() - t
-            emit({"phase": "procfleet", "step": "reads", "scale": BFS_SCALE, "grid": "1x1",
+            emit({"phase": "procfleet", "step": "reads", "scale": PROCFLEET_SCALE, "grid": "1x1",
                   "replicas": FLEET_REPLICAS, "kinds": list(POOL_KINDS), "boot_s": boot_s,
                   "children": devices, "device_bytes": [rp.boot["device_bytes"] for rp in fr.replicas],
                   "child_boot_s": [rp.boot["boot_s"] for rp in fr.replicas],
                   "card_free_gb_after_boot": free_boot / 2**30,
                   "card_gb_taken_by_children": (free0 - free_boot) / 2**30, **reads,
-                  "thread_fleet_requests_per_s": p17["fleet_requests_per_s"],
-                  "lanes_equal_phase17": True})
+                  "thread_fleet_scale20_requests_per_s": thread_fleet_rps,
+                  "lanes_equal_snapshot_engine": True})
             t = time.perf_counter()
-            write = step_procfleet_write(fr, p17["pair"], rpc_s)
+            write = step_procfleet_write(fr, pair, rpc_s)
             step_s["write"] = time.perf_counter() - t
             emit({"phase": "procfleet", "step": "write", **write})
             t = time.perf_counter()
-            kill = step_procfleet_kill(fr, hb, p17["pair"], roots, heal_s)
+            kill = step_procfleet_kill(fr, hb, pair, roots, heal_s)
             step_s["kill"] = time.perf_counter() - t
             emit({"phase": "procfleet", "step": "kill", **kill})
             t = time.perf_counter()
-            hang = step_procfleet_hang(fr, hb, p17["pair"], roots, heal_s)
+            hang = step_procfleet_hang(fr, hb, pair, roots, heal_s)
             step_s["hang"] = time.perf_counter() - t
             emit({"phase": "procfleet", "step": "hang", **hang})
         finally:
@@ -6470,8 +6538,7 @@ def phase_procfleet(dev, t_start: float, p17: dict) -> dict:
                   file=sys.stderr)
         raise
     finally:
-        for d in (FLEET_DIR, PROCFLEET_DIR):
-            shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(PROCFLEET_DIR, ignore_errors=True)
     launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
     if any(launches.values()):
         raise AssertionError(f"the procfleet phase launched hand kernels: {launches}")
@@ -6484,6 +6551,318 @@ def phase_procfleet(dev, t_start: float, p17: dict) -> dict:
         raise AssertionError(
             f"the procfleet phase took {phase_s:.1f} s, over its {PROCFLEET_CAP_S} s cap")
     return {"reads": reads, "write": write, "kill": kill, "hang": hang,
+            "k1": {"min_plus": 0, "max_min": 0}}
+
+
+# --- phase 21: sharded serving --------------------------------------------------
+
+SHARD_CAP_S = 90.0  # the phase's time budget
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_shard"
+SHARD_SLICES = 2
+SHARD_KINDS = ("bfs", "sssp", "propagate")
+SHARD_MODES = ("dense", "sparse")  # forced encodings, beside step 1's auto
+SHARD_READS = {"bfs": 13, "sssp": 3}  # 16 reads, 4 : 1 as near as 16 allows
+SHARD_PROC_SCALE = 18  # the process step's cut (PERF.md §4)
+SHARD_PROC_ROOTS = 16
+# propagate: float32 sums of 2-hop path counts in another order
+SHARD_FEAT_RTOL = 1e-4
+
+
+def _same_batch(res: dict, lanes: list, keys: tuple, what: str) -> None:
+    """Raise unless each lane of ``res`` equals the phase 17 lane bit for bit
+    (and ``batch_niter`` equals phase 17's)."""
+    for k, want in enumerate(lanes):
+        for key in keys:
+            got = np.ascontiguousarray(res[key][..., k])
+            if got.dtype != want[key].dtype or got.tobytes() != want[key].tobytes():
+                raise AssertionError(f"{what}: lane {k} {key} differs from phase 17")
+        if int(res["batch_niter"]) != int(want["batch_niter"]):
+            raise AssertionError(f"{what}: batch_niter {res['batch_niter']} against "
+                                 f"phase 17's {want['batch_niter']}")
+
+
+def _wire(st: dict) -> dict:
+    return {"hops": st["hops"], "enc_hops": dict(st["enc_hops"]),
+            "bytes_by_enc": dict(st["bytes_by_enc"]), "frontier_nnz": list(st["frontier_nnz"]),
+            "bytes_out": st["bytes_out"], "bytes_in": st["bytes_in"],
+            "hop_wall_s": st["hop_wall_s"]}
+
+
+def step_shard_local(dev, p21: dict) -> dict:
+    """Step 1: the 2-slice local engine at scale 20, held against phase
+    17's lanes, under the auto, dense and sparse frontier encodings."""
+    t = time.perf_counter()
+    rows, cols, n = _engine_coo(p21["csr_host"])
+    w = np.random.default_rng(WEIGHT_SEED).integers(1, 16, len(rows)).astype(np.float32)
+    X = np.random.default_rng(SPMM_SEED).standard_normal((n, SPMM_F)).astype(np.float32)
+    inputs_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sh = ShardedEngine.build(rows, cols, nrows=n, nslices=SHARD_SLICES, weights=w, features=X,
+                             kinds=SHARD_KINDS, symmetric=True, home=str(SHARD_DIR / "local"),
+                             mode="local", device=dev, warmup_widths=ENGINE_WIDTHS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t  # with each slice's warm-up (a respawn warms too)
+    del w, X
+    plans = sh.stats()["plans"]
+    mark = sh.trace_mark()
+    lanes = p21["lanes16"]
+    src = np.asarray(p21["roots"], np.int32)
+    ms, wire = {}, {}
+    for kind in SHARD_KINDS:
+        res, sec = host_timed(lambda: sh.execute(kind, src))
+        ms[f"{kind}/auto"] = sec * 1e3
+        if kind == "propagate":
+            want = np.stack([lane["features"] for lane in lanes[kind]], axis=-1)
+            err = float(np.abs(res["features"] - want).max())
+            scale = float(np.abs(want).max())
+            if not np.allclose(res["features"], want, rtol=SHARD_FEAT_RTOL,
+                               atol=SHARD_FEAT_RTOL * scale):
+                raise AssertionError(f"sharded propagate off phase 17's by {err} (max {scale})")
+            feat_err = {"max_abs_err": err, "max_abs": scale}
+        else:
+            keys = ("parents", "levels") if kind == "bfs" else ("dist",)
+            _same_batch(res, lanes[kind], keys, f"sharded {kind} (auto)")
+            wire[f"{kind}/auto"] = _wire(sh.last_exec_stats)
+    for mode in SHARD_MODES:
+        sh.frontier_mode = mode
+        for kind, keys in (("bfs", ("parents", "levels")), ("sssp", ("dist",))):
+            res, sec = host_timed(lambda: sh.execute(kind, src))
+            ms[f"{kind}/{mode}"] = sec * 1e3
+            _same_batch(res, lanes[kind], keys, f"sharded {kind} ({mode})")
+            st = sh.last_exec_stats
+            if set(st["enc_hops"]) != {mode}:
+                raise AssertionError(f"forced {mode}: hops went {st['enc_hops']}")
+            wire[f"{kind}/{mode}"] = _wire(st)
+    sh.frontier_mode = "auto"
+    if sh.retraces_since(mark):
+        raise AssertionError("the sharded engine built a plan after its warm-up")
+    for kind in ("bfs", "sssp"):
+        sparse = wire[f"{kind}/sparse"]["bytes_by_enc"]["sparse"]
+        dense = wire[f"{kind}/dense"]["bytes_by_enc"]["dense"]
+        if not sparse < dense:
+            raise AssertionError(f"{kind}: sparse hop bytes {sparse} not below dense {dense}")
+    per_slice = list(sh.version.device_bytes_per_slice)
+    line = {"phase": "shard", "step": "local", "scale": BFS_SCALE, "n": n, "nnz": sh.version.nnz,
+            "slices": SHARD_SLICES, "bounds": [list(b) for b in sh.spec.bounds],
+            "kinds": list(SHARD_KINDS), "F": SPMM_F, "inputs_s": inputs_s, "build_s": build_s,
+            "plans_warmed": len(plans), "device_bytes_per_slice": per_slice,
+            "device_bytes_unsharded_phase17": p21["device_bytes17"],
+            "slice_over_unsharded": max(per_slice) / p21["device_bytes17"],
+            "W": len(src), "ms_per_batch": ms, "propagate": feat_err, "wire": wire,
+            "lanes_equal_phase17": True, "plan_builds_after_warmup": 0}
+    emit(line)
+    return {"sh": sh, "line": line}
+
+
+def step_shard_server(sh, p21: dict) -> dict:
+    """Step 2: a Server over the local engine: reads, one write, the
+    delegated checkpoint, a killed slice healed by a replay."""
+    roots = [int(r) for r in p21["roots"]]
+    lanes = {k: dict(zip(roots, p21["lanes16"][k])) for k in POOL_KINDS}
+    srv = sh.serve(ServeConfig(lane_widths=ENGINE_WIDTHS, max_wait_s=SERVER_MAX_WAIT_S,
+                               update_flush=1, update_max_delay_s=0.005,
+                               flight_recorder=False))
+    srv.start()
+    try:
+        if not srv.durable:
+            raise AssertionError("a Server over a sharded engine is not durable")
+        mark = sh.trace_mark()
+        t = time.perf_counter()
+        futs = [(kind, r, f) for kind, k in SHARD_READS.items()
+                for r, f in zip(roots[:k], srv.submit_many(kind, roots[:k]))]
+        for kind, r, f in futs:
+            _lanes_equal(f.result(timeout=120), lanes[kind][r], f"served sharded {kind} root {r}")
+        reads_s = time.perf_counter() - t
+        a, b = p21["pair"]
+        t = time.perf_counter()
+        res = srv.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)]).result(timeout=120)
+        write_s = time.perf_counter() - t
+        if sh.version.frontier != [1] * SHARD_SLICES or res["ops"] != 2:
+            raise AssertionError(f"after the write: frontier {sh.version.frontier}, {res}")
+        owners = [sh.spec.owner_of(a), sh.spec.owner_of(b)]
+        for x, y in ((a, b), (b, a)):
+            if srv.submit("bfs", x).result(timeout=120)["levels"][y] != 1:
+                raise AssertionError(f"the inserted edge {x} -> {y} is not one hop away")
+        t = time.perf_counter()
+        ck = srv.checkpoint_now(reason="phase21")
+        checkpoint_s = time.perf_counter() - t
+        if ck is None or ck["frontier"] != [1] * SHARD_SLICES or len(ck["slices"]) != SHARD_SLICES:
+            raise AssertionError(f"the delegated checkpoint: {ck}")
+        before = srv.submit("bfs", roots[0]).result(timeout=120)
+        survivor = sh.slices[1]
+        sh.slices[0].kill()
+        t = time.perf_counter()
+        after = srv.submit("bfs", roots[0]).result(timeout=120)
+        heal_s = time.perf_counter() - t
+        _lanes_equal(after, before, "the read healed by a replay")
+        if sh.replacements != 1 or sh.slices[1] is not survivor:
+            raise AssertionError(f"replacements {sh.replacements}, slice 1 replaced")
+        if sh.retraces_since(mark):
+            raise AssertionError("the served sharded engine built a plan after its warm-up")
+        h = srv.health()
+        if h["status"] != "ok" or h["device_error"] is not None:
+            raise AssertionError(f"server health {h['status']}")
+    finally:
+        srv.close(drain=False)
+    return {"reads": len(futs), "mix": dict(SHARD_READS), "reads_s": reads_s,
+            "requests_per_s": len(futs) / reads_s, "write_s": write_s,
+            "merge_s": res["merge_s"], "frontier": list(sh.version.frontier),
+            "pair_owners": owners, "checkpoint_s": checkpoint_s,
+            "checkpoint_seq": [s_["wal_seq"] for s_ in ck["slices"].values()],
+            "heal_read_s": heal_s, "replacements": sh.replacements, "survivor_untouched": True}
+
+
+def step_shard_process(dev, p21: dict) -> dict:
+    """Step 3: two slice processes on the card at scale 18 against an
+    unsharded engine; SIGKILL, replay, a write, and a local recovery of
+    the same home."""
+    g18 = p21["g18"]
+    rows, cols = g18["rows"].astype(np.int64), g18["cols"].astype(np.int64)
+    n = len(g18["deg"])
+    w = np.random.default_rng(WEIGHT_SEED).integers(1, 16, len(rows)).astype(np.float32)
+    kinds = POOL_KINDS
+    src = np.flatnonzero(g18["deg"] > 0)[:SHARD_PROC_ROOTS].astype(np.int32)
+    home = SHARD_DIR / "proc"
+    out = {}
+    t = time.perf_counter()
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device=dev), rows, cols, n, weights=w,
+                               kinds=kinds)
+    want = {k: eng.execute(k, src) for k in kinds}
+    out["unsharded_s"] = time.perf_counter() - t
+    unsharded_bytes = eng.version.device_bytes()
+    del eng
+    torch.cuda.empty_cache()
+    free0 = _free_bytes()
+    t = time.perf_counter()
+    sh = ShardedEngine.build(rows, cols, nrows=n, nslices=SHARD_SLICES, weights=w, kinds=kinds,
+                             home=str(home), mode="process", device=dev,
+                             warmup_widths=(SHARD_PROC_ROOTS,))
+    out["boot_s"] = time.perf_counter() - t
+    try:
+        out["child_boot_s"] = [sl.boot_info["boot_s"] for sl in sh.slices]
+        out["children"] = [sl.boot_info["device"] for sl in sh.slices]
+        out["device_bytes_per_slice"] = [sl.boot_info["device_bytes"] for sl in sh.slices]
+        out["device_bytes_unsharded"] = unsharded_bytes
+        out["card_gb_taken_by_children"] = (free0 - _free_bytes()) / 2**30
+        mark = sh.trace_mark()
+        ms = {}
+        for kind in kinds:
+            got, sec = host_timed(lambda: sh.execute(kind, src))
+            ms[kind] = sec * 1e3
+            same_result_bits(got, want[kind], f"process-mode {kind}")
+        out["ms_per_batch"] = ms
+        nbytes = sh.slices[0].boot_info["device_bytes"]
+        torch.cuda.empty_cache()
+        free_before = _free_bytes()
+        sh.slices[0].kill()
+        freed = 0
+        deadline = time.monotonic() + 10
+        while freed < PROCFLEET_FREED_SHARE * nbytes and time.monotonic() < deadline:
+            freed = _free_bytes() - free_before
+            time.sleep(0.05)
+        if freed < PROCFLEET_FREED_SHARE * nbytes:
+            raise AssertionError(f"the kill freed {freed} bytes of the card, the slice held {nbytes}")
+        t = time.perf_counter()
+        got = sh.execute("bfs", src)
+        out["replay_s"] = time.perf_counter() - t
+        same_result_bits(got, want["bfs"], "the replayed bfs batch")
+        if sh.replacements != 1 or sh.retraces_since(mark):
+            raise AssertionError(f"replacements {sh.replacements}, plans built "
+                                 f"{sh.retraces_since(mark)}")
+        out["respawned_child_boot_s"] = sh.slices[0].boot_info["boot_s"]
+        out["freed_bytes"], out["freed_share"] = freed, freed / nbytes
+        a, b = p21["pair18"]
+        batch = DeltaBatch.from_ops([("insert", a, b, 1.0), ("insert", b, a, 1.0)], start_seq=0)
+        t = time.perf_counter()
+        v = sh.apply_delta(batch)
+        sh.swap(v)
+        out["write_s"] = time.perf_counter() - t
+        if v.frontier != [1] * SHARD_SLICES:
+            raise AssertionError(f"the two-phase write left the frontier at {v.frontier}")
+        coo = sh.to_host_coo()
+    finally:
+        sh.close()
+    t = time.perf_counter()
+    rec = ShardedEngine.recover(str(home), mode="local", device=dev)
+    try:
+        out["recover_local_s"] = time.perf_counter() - t
+        got = rec.to_host_coo()
+        if not all(np.array_equal(x, y) for x, y in zip(got[:2], coo[:2])) or not np.array_equal(
+                got[2], coo[2]):
+            raise AssertionError("the local recovery's COO differs from the process engine's")
+        out["recovered_frontier"] = list(rec.version.frontier)
+    finally:
+        rec.close()
+    out["scale"], out["n"], out["nnz"] = SHARD_PROC_SCALE, n, int(len(coo[0]))
+    return out
+
+
+def same_result_bits(got: dict, want: dict, what: str) -> None:
+    for key, arr in want.items():
+        if isinstance(arr, np.ndarray):
+            if got[key].dtype != arr.dtype or got[key].tobytes() != arr.tobytes():
+                raise AssertionError(f"{what}: {key} differs from the unsharded engine")
+        elif int(got[key]) != int(arr):
+            raise AssertionError(f"{what}: {key} {got[key]} against {arr}")
+
+
+def shard_inputs(p17: dict, engine: dict, csr_host: dict, g18: dict) -> dict:
+    """What phase 21 takes from phases 8, 10 and 17, on the host: the
+    scale-20 CSR arrays, the scale-18 COO, phase 17's roots, lanes and
+    unsharded ``device_bytes``, its churn pair and one of the scale-18
+    graph."""
+    r18, c18 = g18["rows"].astype(np.int64), g18["cols"].astype(np.int64)
+    return {"roots": p17["roots"], "lanes16": p17["lanes16"], "pair": p17["pair"],
+            "csr_host": csr_host, "g18": g18,
+            "device_bytes17": engine["serve"]["line"]["device_bytes"],
+            "pair18": _absent_churn_pair(r18, c18, len(g18["deg"]))}
+
+
+def phase_shard(dev, t_start: float, p21: dict) -> dict:
+    """Phase 21 (module docstring): sharded serving, with K1's and K2's
+    launch counts set to 0 just before and read just after; neither runs.
+    Removes its home."""
+    t0 = time.perf_counter()
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    emit({"phase": "shard", "step": "elapsed", "total_s": t0 - t_start})
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    step_s = {}
+    try:
+        t = time.perf_counter()
+        local = step_shard_local(dev, p21)
+        step_s["local"] = time.perf_counter() - t
+        sh = local["sh"]
+        try:
+            t = time.perf_counter()
+            served = step_shard_server(sh, p21)
+            step_s["server"] = time.perf_counter() - t
+            emit({"phase": "shard", "step": "server", **served})
+        finally:
+            sh.close()
+        del sh, local["sh"]
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        proc = step_shard_process(dev, p21)
+        step_s["process"] = time.perf_counter() - t
+        emit({"phase": "shard", "step": "process", **proc})
+    except Exception:
+        for log in sorted((SHARD_DIR / "proc").glob("slice*.log")):
+            print(f"--- {log.name} (tail)\n{log.read_text(errors='replace')[-3000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the shard phase launched hand kernels: {launches}")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "shard", "step": "checks", "hand_kernel_launches": launches,
+          "step_s": step_s, "phase_s": phase_s, "cap_s": SHARD_CAP_S,
+          "within_cap": phase_s <= SHARD_CAP_S, "total_s": time.perf_counter() - t_start})
+    if phase_s > SHARD_CAP_S:
+        raise AssertionError(f"the shard phase took {phase_s:.1f} s, over its {SHARD_CAP_S} s cap")
+    return {"local": local["line"], "server": served, "process": proc,
             "k1": {"min_plus": 0, "max_min": 0}}
 
 
@@ -6508,12 +6887,12 @@ def main() -> int:
         return run_phases()
     finally:
         faulthandler.cancel_dump_traceback_later()
-        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR, PROCFLEET_DIR):
+        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR, PROCFLEET_DIR, SHARD_DIR):
             shutil.rmtree(d, ignore_errors=True)
 
 
 def run_phases() -> int:
-    """Phases 1-20 (module docstring), then the ``kernels`` line and the
+    """Phases 1-21 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -6558,15 +6937,17 @@ def run_phases() -> int:
     del mxu_min, E_host
     torch.cuda.empty_cache()
     engine = phase_engine(dev, t_start, bfs_host, engine_roots, g18)
-    del bfs_host, g18
     server = phase_server(dev, t_start, engine, engine_roots)
     fleet = phase_fleet(dev, t_start, engine, engine_roots)
     p17 = {"roots": engine_roots, "lanes16": engine["serve"]["lanes16"],
-           "pair": engine["churn"]["pairs"][-1],
-           "fleet_requests_per_s": fleet["replicas"]["requests_per_s"]}
-    del engine["serve"], engine["dur"]
+           "pair": engine["churn"]["pairs"][-1]}
+    p21 = shard_inputs(p17, engine, bfs_host, g18)
+    del engine["serve"], engine["dur"], bfs_host, g18
     torch.cuda.empty_cache()
-    procfleet = phase_procfleet(dev, t_start, p17)
+    procfleet = phase_procfleet(dev, t_start, p21["g18"], p21["pair18"],
+                                fleet["replicas"]["requests_per_s"])
+    torch.cuda.empty_cache()
+    shard = phase_shard(dev, t_start, p21)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
@@ -6578,7 +6959,7 @@ def run_phases() -> int:
                    "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name],
                    "obs": obs_phase["k1"][sr.name], "engine": engine["k1"][sr.name],
                    "server": server["k1"][sr.name], "fleet": fleet["k1"][sr.name],
-                   "procfleet": procfleet["k1"][sr.name]}
+                   "procfleet": procfleet["k1"][sr.name], "shard": shard["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),

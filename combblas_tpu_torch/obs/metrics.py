@@ -13,8 +13,10 @@ enters the registry (call sites convert to ``int``/``float`` first), so a
 metric can never force a device sync.
 
 The catalog below keeps the reference's rows, word for word, for the
-series this package emits; the rows of the serve layers not ported yet
-(net, shard) come with them. Where a row
+series this package emits; the rows of the serve layer not ported yet
+(net) come with it. Spans (``serve.shard.batch``) have no row, and the
+port counts no traces (``trace.serve.shard``: a plan is built, not
+traced). Where a row
 speaks of the TPU's machinery the port's meaning is its counterpart:
 ``compile_cache.hits/misses`` count the hand kernels' library builds
 (``_build.py``: found built, or compiled), ``compile_cache.entries`` the
@@ -873,6 +875,114 @@ scrape via the heartbeat-piggybacked registry snapshots):
                                                      ``combblas_tpu.
                                                      fleetlog/v1`` log
                                                      (labels ``event``)
+========================================  =========  ==================
+
+Sharded serving (round 20, serve/shard.py + serve/_shardworker.py —
+one graph partitioned over N slice processes, served as one engine;
+slice-side series carry a ``slice=`` label):
+
+========================================  =========  ==================
+``serve.shard.slices``                    gauge      live slice count
+                                                     (0 after close)
+``serve.shard.hops``                      counter    bulk-synchronous
+                                                     hop rounds fanned
+                                                     to every slice
+``serve.shard.hop_s``                     histogram  slice-side wall of
+                                                     one hop program
+``serve.shard.exec_retries``              counter    whole-batch
+                                                     replays after a
+                                                     mid-batch slice
+                                                     death + heal
+``serve.shard.writes``                    counter    two-phase write
+                                                     batches committed
+                                                     on every slice
+``serve.shard.write_aborts``              counter    phase-1 append
+                                                     failures (batch
+                                                     tombstoned, write
+                                                     rejected)
+``serve.shard.wal_appends`` /             counter    per-slice phase-1
+``serve.shard.wal_aborts``                           appends / abort
+                                                     tombstones
+``serve.shard.commits``                   counter    per-slice phase-2
+                                                     applies (frontier
+                                                     advances)
+``serve.shard.merge_s``                   histogram  slice-side slab
+                                                     merge latency
+``serve.shard.frontier_min``              gauge      vector frontier
+                                                     minimum (the
+                                                     scalar wal_seq
+                                                     projection)
+``serve.shard.frontier_lag``              gauge      max-min frontier
+                                                     spread right after
+                                                     a commit round
+``serve.shard.checkpoints``               counter    slab snapshots
+                                                     (labels ``reason``)
+``serve.shard.checkpoint_failed``         counter    failed slab
+                                                     auto-snapshots
+                                                     (previous snapshot
+                                                     + WAL intact)
+``serve.shard.recoveries``                counter    slice boots via
+                                                     slab snapshot +
+                                                     filtered WAL-
+                                                     suffix replay
+``serve.shard.slice_deaths``              counter    slices quarantined
+                                                     (dead / hung /
+                                                     failed RPC)
+``serve.shard.replacements``              counter    successful slice
+                                                     respawns
+``serve.shard.respawn_failed``            counter    respawn attempts
+                                                     that failed (next
+                                                     try after capped
+                                                     backoff)
+``serve.shard.heal_wait_s``               histogram  wall spent driving
+                                                     supervision until
+                                                     all slices serve
+``serve.shard.supervisor_errors``         counter    supervisor-loop
+                                                     tick exceptions
+``serve.shard.hb_snapshots``              counter    slice-worker
+                                                     heartbeat metric
+                                                     snapshots
+                                                     federated to the
+                                                     router
+========================================  =========  ==================
+
+Sharded hop wire protocol (round 21, serve/shard.py — sparse frontier
+triples + slice-resident loop state; see docs/serving.md "Sharded hop
+wire protocol"):
+
+========================================  =========  ==================
+``serve.shard.hop_bytes``                 counter    logical payload
+                                                     bytes per fan
+                                                     (labels
+                                                     ``direction``
+                                                     out|in,
+                                                     ``encoding``
+                                                     sparse|dense|
+                                                     final|collect)
+``serve.shard.frontier_nnz``              histogram  router-side
+                                                     frontier entries
+                                                     per hop (label
+                                                     ``kind``)
+``serve.shard.encoding``                  counter    per-hop router
+                                                     encoding decision
+                                                     (label ``choice``
+                                                     sparse|dense;
+                                                     frontier hops
+                                                     only)
+``serve.shard.stale_epochs``              counter    healthy-slice
+                                                     resident-state
+                                                     misses that forced
+                                                     a whole-batch
+                                                     replay (label
+                                                     ``kind``)
+``serve.shard.wire_quant_err``            histogram  router-side max
+                                                     abs bf16
+                                                     quantization error
+                                                     per outbound dense
+                                                     payload (only
+                                                     under
+                                                     COMBBLAS_SHARD_
+                                                     WIRE=bf16)
 ========================================  =========  ==================
 """
 

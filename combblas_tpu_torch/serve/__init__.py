@@ -42,9 +42,14 @@ Ported so far:
    framed socketpair IPC (``ReplicaProc``, ``IpcTimeoutError``),
    heartbeats, SIGKILL/SIGSTOP chaos (``ProcessFaultPlan``) and respawn
    from checkpoint + WAL.
+9. **shard** (``shard.py``, ``_shardworker.py``) — ``ShardedEngine``:
+   one graph's row space partitioned over N slices (``plan_partition``),
+   each a rectangular slab on its own grid, in-process or a subprocess
+   with its own CUDA context, served as one engine through the router's
+   bulk-synchronous hop loops (``ShardedGraphVersion`` carries the
+   per-slice WAL frontier vector; durability is engine-owned).
 
-The network front door and sharded engine of the reference come in
-later slices.
+The network front door of the reference comes in a later slice.
 """
 
 from .batcher import Request, assemble, bucket_width, scatter
@@ -68,6 +73,7 @@ from .pool import EnginePool, PoolServer
 from .fleet import FleetRouter, ReplicaDeadError
 from .procfleet import IpcTimeoutError, ProcessFleet, ReplicaProc
 from .slo import ErrorBudget
+from .shard import ShardedEngine, ShardedGraphVersion, plan_partition
 
 __all__ = [
     "GraphEngine", "GraphVersion", "Server", "ServeConfig", "Scheduler",
@@ -75,6 +81,7 @@ __all__ = [
     "DeficitRoundRobin", "EnginePool", "PoolServer", "FleetRouter",
     "ReplicaDeadError",
     "ProcessFleet", "ReplicaProc", "IpcTimeoutError",
+    "ShardedEngine", "ShardedGraphVersion", "plan_partition",
     "FaultInjector", "InjectedFault", "ProcessFaultPlan",
     "FAULT_POINTS", "ErrorBudget",
     "Request", "KINDS",

@@ -46,6 +46,12 @@ Deviations from the reference, kept on purpose:
   thread fails its merge's futures, one met by the checkpointer fails
   that snapshot, and both are kept as ``device_error`` the same way.
   Nothing carries on on the CPU.
+* An engine whose device work runs in other processes
+  (``ShardedEngine`` in process mode, ``shares_context`` False) reports
+  a child's CUDA error as text; the ``Server`` over it treats that as a
+  failed batch (or merge, or snapshot), never as a loss of its own
+  context. The worker threads of a ``Server`` over an engine without a
+  grid (the sharded router) run on the device the engine names.
 """
 
 from __future__ import annotations
@@ -78,6 +84,14 @@ def device_scope(device):
     if dev.type != "cuda":
         return contextlib.nullcontext()
     return torch.cuda.device(dev)
+
+
+def _engine_device(engine):
+    """The device an engine's work runs on: its grid's, or, for the
+    sharded router (no grid), the one it names (``ShardedEngine.device``:
+    the slices' card in local mode, the CPU in process mode)."""
+    grid = getattr(engine, "grid", None)
+    return grid.device if grid is not None else engine.device
 
 
 def _is_device_error(exc: BaseException) -> bool:
@@ -210,8 +224,16 @@ class Server:
     def _on_device(self, fn) -> None:
         """Run a thread's loop with the grid's card as its current CUDA
         device (``device_scope``)."""
-        with device_scope(self.engine.grid.device):
+        with device_scope(_engine_device(self.engine)):
             fn()
+
+    def _own_device_error(self, exc: BaseException) -> bool:
+        """A CUDA error on this process's context. An engine whose
+        device work runs in child processes (``shares_context`` False)
+        reports a child's error, which is that child's, not ours."""
+        return getattr(self.engine, "shares_context", True) and (
+            _is_device_error(exc)
+        )
 
     def warmup(self, kinds=None, widths=None) -> dict:
         """Warm every (kind, lane width) plan the configured buckets can
@@ -368,7 +390,10 @@ class Server:
             # frontier also covers non-durable merges made before an
             # attach_durability)
             start_seq=(
-                self._wal_frontier + 1 if self._wal is not None else 0
+                self._wal_frontier + 1
+                if (self._wal is not None
+                    or getattr(self.engine, "owns_durability", False))
+                else 0
             ),
         )
 
@@ -426,6 +451,23 @@ class Server:
             d = tuner_config.wal_dir(self.config.wal_dir)
         else:
             d = os.path.abspath(d)  # idempotence compares abspaths
+        if getattr(self.engine, "owns_durability", False):
+            # engine-owned durability (the sharded engine): writes are
+            # logged PER-SLICE inside the engine's own two-phase
+            # protocol — a server-level scalar WAL stacked on top would
+            # double-log every write on a second lineage and re-apply
+            # it at recovery.  The seqno frontier still seeds from the
+            # engine's (vector-min) stamp so the delta buffer continues
+            # the shared sequence line.
+            if d is not None:
+                raise ValueError(
+                    f"wal_dir {d!r} configured, but the engine owns "
+                    "its own durability (per-slice WALs); remove "
+                    "wal_dir / COMBBLAS_WAL for sharded serving"
+                )
+            self._wal_frontier = int(self.engine.version.wal_seq)
+            self._wal_applied = self._wal_frontier
+            return
         if d is None:
             return
         if self.engine.version.host_coo is None:
@@ -488,7 +530,9 @@ class Server:
 
     @property
     def durable(self) -> bool:
-        return self._wal is not None
+        return self._wal is not None or getattr(
+            self.engine, "owns_durability", False
+        )
 
     def checkpoint_now(self, reason: str = "manual",
                        _raise: bool = False) -> dict | None:
@@ -503,6 +547,18 @@ class Server:
         import os
 
         if self._ckpt_dir is None:
+            if getattr(self.engine, "owns_durability", False):
+                # delegate: the sharded engine snapshots every slice
+                # at its own frontier and re-writes the manifest
+                try:
+                    return self.engine.checkpoint_now(reason=reason)
+                except Exception as e:
+                    self.checkpoint_failures += 1
+                    if self._own_device_error(e):
+                        self._device_lost(e)
+                    if _raise:
+                        raise
+                    return None
             return None
         from ..tuner import config as tuner_config
         from ..utils import checkpoint as ckpt
@@ -550,7 +606,7 @@ class Server:
                     "serve.checkpoint.failed",
                     exc_type=type(e).__name__,
                 )
-                if _is_device_error(e):
+                if self._own_device_error(e):
                     self._device_lost(e)
                 else:
                     self._flight_dump("checkpoint_failed", error=repr(e))
@@ -915,7 +971,7 @@ class Server:
                         "serve.merge", ops=len(batch),
                         outcome="error", error=repr(e),
                     )
-                if _is_device_error(e):
+                if self._own_device_error(e):
                     self._device_lost(e)
                 else:
                     self._flight_dump(
@@ -1152,7 +1208,7 @@ class Server:
                     self._flight_dump(
                         "breaker_open", query=kind, error=repr(e)
                     )
-            if _is_device_error(e):
+            if self._own_device_error(e):
                 self._device_failed(live, e)
                 return
             self._recover(live, e)

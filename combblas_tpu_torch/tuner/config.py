@@ -21,8 +21,8 @@ Resolution precedence, documented once, here:
 Env-var conventions shared by every knob: unset or empty means
 "default"; for the integer knobs ``"0"`` also means default.  Every knob
 is read at each call, never at import.  The knobs here are the ones the
-port's modules read; the reference's net and shard knobs come with the
-modules that read them.
+port's modules read; the reference's net knobs come with the modules
+that read them.
 """
 
 from __future__ import annotations
@@ -115,6 +115,27 @@ ENV_FLEET_REPLICAS = "COMBBLAS_FLEET_REPLICAS"
 ENV_FLEETLOG = "COMBBLAS_FLEETLOG"
 ENV_OBS_HB_METRICS_S = "COMBBLAS_OBS_HB_METRICS_S"
 
+#: Round-21 knobs: the sharded hop wire protocol (docs/serving.md
+#: "Sharded hop wire protocol").  ``COMBBLAS_SHARD_FRONTIER`` picks
+#: the frontier encoding the router stamps on each bulk-synchronous
+#: hop: ``sparse`` (COO triples of the live frontier), ``dense`` (the
+#: r20 ``[n, W]`` operand), or ``auto`` (sparse until the frontier
+#: crosses the density threshold, then dense per hop — the diropt
+#: regime switch applied at the wire).  ``COMBBLAS_SHARD_DENSITY`` is
+#: that threshold as a frontier-nnz fraction of ``n*W`` (auto mode
+#: only).  ``COMBBLAS_SHARD_WIRE`` opts propagate's inherently-dense
+#: ``q`` into bf16 wire encoding (``f32`` | ``bf16``; the router
+#: obs-tracks the quantization error as
+#: ``serve.shard.wire_quant_err``).
+ENV_SHARD_FRONTIER = "COMBBLAS_SHARD_FRONTIER"
+ENV_SHARD_DENSITY = "COMBBLAS_SHARD_DENSITY"
+ENV_SHARD_WIRE = "COMBBLAS_SHARD_WIRE"
+
+#: Valid sharded frontier encodings / wire dtypes (vetted at the knob,
+#: the MERGE/WAL_FSYNC precedent).
+SHARD_FRONTIER_MODES = ("auto", "sparse", "dense")
+SHARD_WIRE_MODES = ("f32", "bf16")
+
 #: Valid merge-tier names (parallel/mesh3d re-exports this as
 #: MERGE_TIERS — one definition, vetting and kernel asserts agree).
 MERGE_TIER_NAMES = ("sort", "runs", "hash")
@@ -148,6 +169,15 @@ DEFAULT_OBS_HB_METRICS_S = 1.0
 #: Default merges between background snapshots, and snapshots retained.
 DEFAULT_CHECKPOINT_EVERY = 8
 DEFAULT_CHECKPOINT_RETAIN = 2
+#: Sharded-wire defaults (round 21): adaptive frontier encoding with
+#: dense fallback once the live frontier fills a quarter of the
+#: ``[n, W]`` operand (past ~0.25 the per-entry triple overhead —
+#: 5-9 B vs 4 B — plus scatter work loses to the dense memcpy), and
+#: f32 on the wire (bf16 is the explicit opt-in: it halves propagate's
+#: hop bytes but trades bit-exactness for allclose).
+DEFAULT_SHARD_FRONTIER = "auto"
+DEFAULT_SHARD_DENSITY = 0.25
+DEFAULT_SHARD_WIRE = "f32"
 
 def _str_env(name: str) -> str | None:
     v = os.environ.get(name)
@@ -375,6 +405,63 @@ def obs_hb_metrics_interval(given: float | None = None) -> float:
     if given <= 0.0:
         return DEFAULT_OBS_HB_METRICS_S
     return max(given, 0.05)
+
+
+def shard_frontier(given: str | None = None) -> str:
+    """Sharded hop frontier encoding: explicit argument >
+    ``COMBBLAS_SHARD_FRONTIER`` > ``auto``.  A bogus value raises
+    naming the knob (the WAL_FSYNC/MERGE vetting precedent) instead of
+    surfacing as a silently-dense wire."""
+    v = _str_env(ENV_SHARD_FRONTIER) if given is None else given
+    if v is None:
+        return DEFAULT_SHARD_FRONTIER
+    if v not in SHARD_FRONTIER_MODES:
+        raise ValueError(
+            f"{ENV_SHARD_FRONTIER} must be one of "
+            f"{'|'.join(SHARD_FRONTIER_MODES)}; got {v!r}"
+        )
+    return v
+
+
+def shard_density(given: float | str | None = None) -> float:
+    """Auto-mode dense-fallback threshold as a frontier-nnz fraction
+    of ``n*W``: explicit argument > ``COMBBLAS_SHARD_DENSITY`` > 0.25.
+    ``0``/unset = default; vetted to (0, 1] — a fraction above 1 can
+    never trigger and reads as a typo'd percentage."""
+    v = os.environ.get(ENV_SHARD_DENSITY) if given is None else given
+    if v is None or v == "":
+        return DEFAULT_SHARD_DENSITY
+    try:
+        f = float(v)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{ENV_SHARD_DENSITY} must be a fraction in (0, 1]; "
+            f"got {v!r}"
+        ) from None
+    if f == 0:
+        return DEFAULT_SHARD_DENSITY
+    if not (0.0 < f <= 1.0):
+        raise ValueError(
+            f"{ENV_SHARD_DENSITY} must be a fraction in (0, 1]; "
+            f"got {v!r}"
+        )
+    return f
+
+
+def shard_wire(given: str | None = None) -> str:
+    """Sharded dense-payload wire dtype (propagate's ``q``): explicit
+    argument > ``COMBBLAS_SHARD_WIRE`` > ``f32``.  A bogus value
+    raises naming the knob instead of surfacing as a silent precision
+    downgrade."""
+    v = _str_env(ENV_SHARD_WIRE) if given is None else given
+    if v is None:
+        return DEFAULT_SHARD_WIRE
+    if v not in SHARD_WIRE_MODES:
+        raise ValueError(
+            f"{ENV_SHARD_WIRE} must be one of "
+            f"{'|'.join(SHARD_WIRE_MODES)}; got {v!r}"
+        )
+    return v
 
 
 def checkpoint_every(given: int | None = None) -> int:

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Phases 17, 18, 19 and 20 of ``chip_smoke.py`` (the serving engine and
-the mutation lane, the ``Server`` on them, the tenant pool and the replica
-fleet, then the process fleet) alone, on a card.
+"""Phases 17 to 21 of ``chip_smoke.py`` (the serving engine and the
+mutation lane, the ``Server`` on them, the tenant pool and the replica
+fleet, the process fleet, then sharded serving) alone, on a card.
 
     python3 scripts/engine_phase.py
 
 Builds phase 17's two graphs afresh with ``chip_smoke.py``'s recipe (R-MAT
 scale 20 with its CSR arrays and roots, as phase 8 keeps them, and the
 scale-18 graph of phase 10), then runs ``chip_smoke.phase_engine``,
-``chip_smoke.phase_server``, ``chip_smoke.phase_fleet`` and
-``chip_smoke.phase_procfleet`` (on the scale-20 snapshot phase 19 keeps
-for it): the same steps, checks and JSON lines as in the whole script, in
+``chip_smoke.phase_server``, ``chip_smoke.phase_fleet``,
+``chip_smoke.phase_procfleet`` (on a snapshot of the scale-18 graph) and
+``chip_smoke.phase_shard`` (on both graphs and phase 17's lanes): the same steps, checks and JSON lines as in the whole script, in
 a few minutes instead of twenty. Exits 1 without a card.
 """
 
@@ -41,7 +41,7 @@ def main() -> int:
     try:
         return run()
     finally:
-        for d in (cs.PLAN_STORE_DIR, cs.DUR_DIR, cs.FLEET_DIR, cs.PROCFLEET_DIR):
+        for d in (cs.PLAN_STORE_DIR, cs.DUR_DIR, cs.FLEET_DIR, cs.PROCFLEET_DIR, cs.SHARD_DIR):
             shutil.rmtree(d, ignore_errors=True)
 
 
@@ -60,11 +60,13 @@ def run() -> int:
     cs.phase_server(dev, t0, engine, roots)
     fleet = cs.phase_fleet(dev, t0, engine, roots)
     p17 = {"roots": roots, "lanes16": engine["serve"]["lanes16"],
-           "pair": engine["churn"]["pairs"][-1],
-           "fleet_requests_per_s": fleet["replicas"]["requests_per_s"]}
-    del engine["serve"], engine["dur"]
+           "pair": engine["churn"]["pairs"][-1]}
+    p21 = cs.shard_inputs(p17, engine, csr_host, g18)
+    del engine["serve"], engine["dur"], g18
     torch.cuda.empty_cache()
-    cs.phase_procfleet(dev, t0, p17)
+    cs.phase_procfleet(dev, t0, p21["g18"], p21["pair18"], fleet["replicas"]["requests_per_s"])
+    torch.cuda.empty_cache()
+    cs.phase_shard(dev, t0, p21)
     print(json.dumps({"ok": True}))
     return 0
 

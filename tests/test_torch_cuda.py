@@ -20,7 +20,8 @@ synchronising call to ``spgemm_auto``; the ``spgemm.auto`` range holds K1's
 kernels on the profiler's timeline), and the serving engine and the
 mutation lane (served lanes of the five kinds, a merge chain, a snapshot
 round trip and a recovery), and the process fleet (two replica processes,
-one kill and one respawn). Marked ``cuda``; they skip where there is no
+one kill and one respawn), and sharded serving (two slices in this process
+and two slice processes, against the unsharded engine). Marked ``cuda``; they skip where there is no
 card. The module runs under a fresh plan store of its own with probing
 off, so the routed calls take their tiers from the code, not from an
 ambient store.
@@ -2117,6 +2118,41 @@ def test_process_fleet_on_card(cuda_device, tmp_path):
     finally:
         fr.close(drain=False)
     assert all(rp.proc.poll() is not None for rp in fr.replicas)
+
+
+def test_sharded_engine_on_card(cuda_device, tmp_path):
+    """A 2-slice ``ShardedEngine`` on the card, in this process and as two
+    slice processes each with its own CUDA context: bfs parents, levels
+    and ``batch_niter`` and sssp distances equal an unsharded
+    ``GraphEngine`` on the card bit for bit, and propagate's features
+    within rtol 1e-5; each slice holds fewer device bytes than the
+    unsharded engine."""
+    from combblas_tpu_torch.serve import GraphEngine, ShardedEngine
+
+    rows, cols, w, X = _serve_graph()
+    kinds = ("bfs", "sssp", "propagate")
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device=cuda_device), rows, cols, 256,
+                               weights=w, features=X, kinds=kinds)
+    roots = np.flatnonzero(np.bincount(rows, minlength=256))[:4].astype(np.int32)
+    want = {k: eng.execute(k, roots) for k in kinds}
+    for mode, k in (("local", kinds), ("process", ("bfs", "sssp"))):
+        sh = ShardedEngine.build(rows, cols, nrows=256, nslices=2, weights=w, features=X,
+                                 symmetric=True, kinds=k, home=str(tmp_path / mode),
+                                 mode=mode, device=cuda_device, warmup_widths=(4,))
+        try:
+            assert sh.shares_context == (mode == "local")
+            assert max(sh.version.device_bytes_per_slice) < eng.version.device_bytes()
+            for kind in k:
+                got = sh.execute(kind, roots)
+                for key, arr in want[kind].items():
+                    if key == "features":
+                        np.testing.assert_allclose(got[key], arr, rtol=1e-5, atol=1e-5)
+                    elif isinstance(arr, np.ndarray):
+                        assert arr.dtype == got[key].dtype and np.array_equal(got[key], arr)
+                    else:
+                        assert got[key] == arr, (mode, kind, key)
+        finally:
+            sh.close()
 
 
 def test_rectangular_bfs_on_card_equals_scipy(cuda_device):

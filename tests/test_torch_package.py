@@ -27,7 +27,7 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "utils.timers", "serve", "serve.engine", "serve.batcher", "serve.faults",
            "serve.slo", "serve.scheduler", "serve.api", "serve.policy", "serve.pool",
            "serve.fleet", "serve.frame", "serve.ipc", "serve.procfleet", "serve._procworker",
-           "dynamic", "dynamic.delta",
+           "serve.shard", "serve._shardworker", "dynamic", "dynamic.delta",
            "dynamic.merge", "dynamic.refresh", "dynamic.wal"}
 
 
@@ -126,6 +126,55 @@ def test_booted_replica_child_pulls_in_no_jax(tmp_path):
         "assert not t.is_alive() and all(m['ok'] for m in got.values()), got\n"
         "assert got[0]['result']['device'] == 'cpu'\n"
         "assert list(got[1]['result']['levels']) == [0, 1, 2]\n"
+        "bad = [m for m in sys.modules if m.startswith('jax')\n"
+        "       or m == 'combblas_tpu' or m.startswith('combblas_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+
+
+def test_booted_shard_child_pulls_in_no_jax(tmp_path):
+    """A sharded-serving child (``serve/_shardworker.py``'s receive loop,
+    fed a ``boot`` of a slab COO on the CPU, one bfs hop, ``collect`` and
+    ``close`` over a socketpair) in a fresh interpreter loads no ``jax*``
+    and no ``combblas_tpu`` module."""
+    home = tmp_path / "slice0"
+    home.mkdir()
+    code = (
+        "import socket, sys, threading\n"
+        "import numpy as np\n"
+        "from combblas_tpu_torch.serve._shardworker import ShardWorker\n"
+        "from combblas_tpu_torch.serve.frame import SparseFrontier\n"
+        "from combblas_tpu_torch.serve.ipc import Channel\n"
+        "a, b = socket.socketpair()\n"
+        "w = ShardWorker(Channel(a))\n"
+        "t = threading.Thread(target=w.run)\n"
+        "t.start()\n"
+        "ch = Channel(b)\n"
+        f"coo = {str(home / 'slab_coo.npz')!r}\n"
+        "np.savez(coo, rows=np.array([0, 1, 1]), cols=np.array([1, 0, 2]))\n"
+        "ch.send({'id': 0, 'op': 'boot', 'device': 'cpu', 'idx': 0, 'row0': 0, 'row1': 2,\n"
+        f"         'nrows': 3, 'ncols': 3, 'coo': coo, 'kinds': ['bfs'], 'home': {str(home)!r},\n"
+        "         'warmup': True, 'warmup_widths': [1], 'hb_interval_s': 0.25})\n"
+        "ch.send({'id': 1, 'op': 'hop', 'kind': 'bfs', 'width': 1, 'epoch': 1, 'seed': True,\n"
+        "         'enc': 'sparse', 'level': 0,\n"
+        "         'xs': SparseFrontier(3, 1, np.array([0]), np.array([0]))})\n"
+        "ch.send({'id': 2, 'op': 'collect', 'kind': 'bfs', 'epoch': 1})\n"
+        "ch.send({'id': 3, 'op': 'close'})\n"
+        "got = {}\n"
+        "while len(got) < 4:\n"
+        "    m = ch.recv(timeout=60)\n"
+        "    if 'id' in m:\n"
+        "        got[m['id']] = m\n"
+        "t.join(60)\n"
+        "assert not t.is_alive() and all(m['ok'] for m in got.values()), got\n"
+        "assert got[0]['result']['device'] == 'cpu'\n"
+        "assert got[1]['result']['xs'].rows.tolist() == [1]\n"
+        "assert got[2]['result']['levels'][:, 0].tolist() == [0, 1]\n"
         "bad = [m for m in sys.modules if m.startswith('jax')\n"
         "       or m == 'combblas_tpu' or m.startswith('combblas_tpu.')]\n"
         "assert not bad, bad\n"

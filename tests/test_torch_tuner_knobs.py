@@ -210,6 +210,11 @@ SERVE_KNOBS = {
                       [None, "0", "off", "fl-c.jsonl"]),
     "obs_hb_metrics_interval": ("ENV_OBS_HB_METRICS_S", [None, "", "0", "0.01", "0.5", "-2"],
                                 [None, 0.0, 0.02, 2.5, -1.0]),
+    "shard_density": ("ENV_SHARD_DENSITY", [None, "", "0", "0.05", "0.25", "1"],
+                      [None, 0, 0.5, "0.75", 1.0]),
+    "shard_frontier": ("ENV_SHARD_FRONTIER", [None, "", "auto", "sparse", "dense"],
+                       [None, "auto", "sparse", "dense"]),
+    "shard_wire": ("ENV_SHARD_WIRE", [None, "", "f32", "bf16"], [None, "f32", "bf16"]),
 }
 
 

@@ -83,6 +83,9 @@ KNOBS = [
     ("fleet_replicas", "ENV_FLEET_REPLICAS", ["", "0", "3", "-1", "x"]),
     ("fleetlog_path", "ENV_FLEETLOG", ["", "0", "off", "fleet.jsonl"]),
     ("obs_hb_metrics_interval", "ENV_OBS_HB_METRICS_S", ["", "0", "0.01", "2", "x"]),
+    ("shard_frontier", "ENV_SHARD_FRONTIER", ["", "auto", "sparse", "dense", "bogus"]),
+    ("shard_density", "ENV_SHARD_DENSITY", ["", "0", "0.1", "1", "1.5", "-0.2", "x"]),
+    ("shard_wire", "ENV_SHARD_WIRE", ["", "f32", "bf16", "f16"]),
 ]
 
 GIVEN = {
@@ -97,6 +100,9 @@ GIVEN = {
     "fleet_replicas": [4, 0],
     "fleetlog_path": ["off", "other.jsonl"],
     "obs_hb_metrics_interval": [0.01, 3.0],
+    "shard_frontier": ["sparse", "dense", "bogus"],
+    "shard_density": [0.5, "0.3", 0, 2.0, "x"],
+    "shard_wire": ["bf16", "f32", "f16"],
 }
 
 
