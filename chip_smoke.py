@@ -405,12 +405,35 @@ Phases (each prints one JSON line):
      warm-up; one two-phase write; ``ShardedEngine.recover(mode="local")``
      of the same home equal (``to_host_coo``) to the process engine's. K1
      and K2 launch 0 times in this process.
+ 22. net: the network front door (``serve/net/``) over a ``Server`` on
+     phase 17's scale-20 engine, rebuilt from the host arrays (bfs, sssp;
+     phase 17's weights; widths 1-16, SLO deadline 10 s), telemetry on; a
+     ``NetFrontend`` on an ephemeral port (it fails past 60 s; no child
+     process). (1) 16 bfs and 16 sssp single-root submits over 4
+     ``NetClient`` connections and one ``submit_many`` of 4 bfs roots (a
+     frame holds 64 MiB, a scale-20 bfs reply 8 MiB), every answer bit for
+     bit equal to phase 17's lanes and to ``Server.submit``'s; requests/s,
+     ``serve.net.bytes_in`` / ``bytes_out``, no reply dropped. (2) An
+     unknown kind answers ``invalid`` (``ValueError``), a 1 ms deadline
+     ``timeout`` (``TimeoutError``), a 16-root bfs ``submit_many`` past the
+     frame cap ``unavailable`` (``RuntimeError``), and a second frontend
+     with ``max_conns=1`` rejects a second hello with ``backpressure``
+     (``BackpressureError``). (3) Phase 17's absent churn pair inserted
+     with ``submit_update`` over the wire, then a bfs from one end until
+     the other is at level 1: submit to visible ms. (4) ``loadgen.run``
+     over the Server: seeded Poisson arrivals at 24 requests/s (about 0.8
+     of phase 18's rate) over 8 connections for 5 s, roots from phase 17's
+     16, deadline 10 s, every request traced: achieved requests/s, p50 /
+     p99, availability, status counts, no plan built, no stranded future,
+     the mean ms of each trace stage (``net_accept``, ``net_read``,
+     ``queue_wait``, ``assemble``, ``execute``, ``net_write``); the run's
+     gate ``ok``. K1 and K2 launch 0 times.
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
 spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine, server,
-fleet, procfleet, shard)
+fleet, procfleet, shard, net; K2's: k2_path, net)
 and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -580,10 +603,14 @@ from combblas_tpu_torch.dynamic import (
     recover,
 )
 from combblas_tpu_torch.dynamic import merge as merge_mod
+from combblas_tpu_torch.obs import trace as obs_trace
 from combblas_tpu_torch.serve import (
+    BackpressureError,
     EnginePool,
     FleetRouter,
     GraphEngine,
+    NetClient,
+    NetFrontend,
     ProcessFleet,
     ReplicaDeadError,
     Request,
@@ -593,6 +620,7 @@ from combblas_tpu_torch.serve import (
     assemble,
     scatter,
 )
+from combblas_tpu_torch.serve.net import loadgen
 
 SCALE, EDGEFACTOR, GRAPH_SEED, WEIGHT_SEED = 13, 16, 42, 7
 FULL = 1 << SCALE  # the mxu tier's largest tile: 8192
@@ -6866,6 +6894,244 @@ def phase_shard(dev, t_start: float, p21: dict) -> dict:
             "k1": {"min_plus": 0, "max_min": 0}}
 
 
+# --- phase 22: the network front door ----------------------------------------------
+
+NET_CAP_S = 60.0  # the phase's time budget
+NET_KINDS = POOL_KINDS  # bfs and sssp, phase 17's weights
+NET_CLIENTS = 4
+# a bfs reply at scale 20 carries 8 MiB (int32 levels and parents) and a frame
+# holds 64 MiB, so one submit_many takes 4 roots (PERF.md §4); the 16-root one
+# is step 2's oversized reply
+NET_MANY = 4
+NET_SHORT_DEADLINE_S = 0.001  # no scale-20 bfs meets it
+NET_RATE = 24.0  # open loop: about 0.8 of phase 18's 28.75-29.97 requests/s
+NET_CONNS = 8
+NET_SECONDS = 5.0
+NET_LOADGEN_SEED = 7
+
+
+def _net_series(name: str) -> float:
+    """The sum of a counter's values over its labels, from the registry."""
+    return sum(r["value"] for r in obs.metrics_snapshot() if r["name"] == name)
+
+
+def _net_status_counts() -> dict:
+    return {r["labels"]["code"]: r["value"] for r in obs.metrics_snapshot()
+            if r["name"] == "serve.net.status"}
+
+
+def step_net_setup(dev, p21: dict) -> dict:
+    """Phase 17's scale-20 engine (bfs, sssp) rebuilt from the host arrays,
+    a ``Server`` over it with phase 18's widths and SLO deadline, and a
+    ``NetFrontend`` on an ephemeral port."""
+    t = time.perf_counter()
+    rows, cols, n = _engine_coo(p21["csr_host"])
+    w = np.random.default_rng(WEIGHT_SEED).integers(1, 16, len(rows)).astype(np.float32)
+    inputs_s = time.perf_counter() - t
+    t = time.perf_counter()
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device=dev), rows, cols, n, weights=w,
+                               kinds=NET_KINDS, keep_coo=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    del rows, cols, w
+    srv = eng.serve(ServeConfig(lane_widths=SERVER_WIDTHS, max_wait_s=SERVER_MAX_WAIT_S,
+                                slo_deadline_s=SERVER_SLO_S, update_flush=1,
+                                update_max_delay_s=0.005, flight_recorder=False))
+    t = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t
+    srv.start()
+    fe = NetFrontend(srv)
+    return {"eng": eng, "srv": srv, "fe": fe, "n": n,
+            "line": {"inputs_s": inputs_s, "build_s": build_s, "warmup_s": warm_s,
+                     "port": fe.port, "device_bytes": eng.version.device_bytes()}}
+
+
+def step_net_wire(srv, fe, p21: dict, clients: list) -> dict:
+    """Step 1: 16 bfs and 16 sssp single-root submits over 4 connections and
+    one submit_many, equal to phase 17's lanes and to ``Server.submit``'s."""
+    roots = [int(r) for r in p21["roots"]]
+    lanes = {k: dict(zip(roots, p21["lanes16"][k])) for k in NET_KINDS}
+    direct = {}
+    for kind in NET_KINDS:
+        for r, f in zip(roots, srv.submit_many(kind, roots)):
+            direct[kind, r] = f.result(timeout=120)
+            _settled_lane(direct[kind, r], lanes[kind][r], kind, r)
+    b_in, b_out = _net_series("serve.net.bytes_in"), _net_series("serve.net.bytes_out")
+    t = time.perf_counter()
+    futs = [(kind, r, clients[i % len(clients)].submit_nowait(kind, r))
+            for i, (kind, r) in enumerate((k, r) for k in NET_KINDS for r in roots)]
+    many = clients[0].submit_many_nowait("bfs", roots[:NET_MANY])
+    for kind, r, f in futs:
+        res = f.result(timeout=120)
+        _settled_lane(res, lanes[kind][r], f"wire {kind}", r)
+        _lanes_equal(res, direct[kind, r], f"wire {kind} root {r} against Server.submit")
+    entries = many.result(timeout=120)
+    wire_s = time.perf_counter() - t
+    if [e["status"] for e in entries] != ["ok"] * NET_MANY:
+        raise AssertionError(f"submit_many over the wire: {[e['status'] for e in entries]}")
+    for r, e in zip(roots[:NET_MANY], entries):
+        _settled_lane(e["result"], lanes["bfs"][r], "wire submit_many bfs", r)
+    if fe.reply_drops:
+        raise AssertionError(f"{fe.reply_drops} replies dropped")
+    requests = len(futs) + 1
+    return {"requests": requests, "roots_answered": len(futs) + NET_MANY,
+            "clients": len(clients), "wire_s": wire_s, "requests_per_s": requests / wire_s,
+            "bytes_in": _net_series("serve.net.bytes_in") - b_in,
+            "bytes_out": _net_series("serve.net.bytes_out") - b_out,
+            "reply_drops": fe.reply_drops, "lanes_equal_phase17": True,
+            "equal_server_submit": True}
+
+
+def step_net_typed(srv, fe, p21: dict, client) -> dict:
+    """Step 2: an unknown kind, a deadline no batch meets, a connection past
+    ``max_conns`` and a reply past the frame cap, each a typed reply that the
+    client raises as the in-process exception type."""
+    roots = [int(r) for r in p21["roots"]]
+    seen = {}
+
+    def typed(what, fut, want):
+        exc = fut.exception(timeout=120)
+        if type(exc) is not want:
+            raise AssertionError(f"{what}: {exc!r}, want {want.__name__}")
+        seen[what] = type(exc).__name__
+
+    typed("unknown_kind", client.submit_nowait("nope", roots[0]), ValueError)
+    typed("short_deadline",
+          client.submit_nowait("bfs", roots[0], deadline_s=NET_SHORT_DEADLINE_S), TimeoutError)
+    t = time.perf_counter()
+    typed("oversized_reply", client.submit_many_nowait("bfs", roots), RuntimeError)
+    oversized_s = time.perf_counter() - t
+    fe2 = NetFrontend(srv, max_conns=1)
+    try:
+        first = NetClient("127.0.0.1", fe2.port)
+        try:
+            try:
+                NetClient("127.0.0.1", fe2.port, max_retries=0)
+            except BackpressureError:
+                seen["connection_limit"] = "BackpressureError"
+            else:
+                raise AssertionError("a second hello past max_conns=1 was admitted")
+            if fe2.rejected_conns != 1 or first.ping()["pong"] is not True:
+                raise AssertionError(f"rejected {fe2.rejected_conns}, the admitted one gone")
+        finally:
+            first.close()
+    finally:
+        fe2.close()
+    return {"typed": seen, "status_counts": _net_status_counts(),
+            "oversized_reply_s": oversized_s}
+
+
+def step_net_write(client, p21: dict) -> dict:
+    """Step 3: phase 17's absent churn pair inserted over the wire, then a bfs
+    from one end until the other is one hop away."""
+    a, b = p21["pair"]
+    t = time.perf_counter()
+    res = client.submit_update([("insert", a, b, 1.0), ("insert", b, a, 1.0)])
+    ack_s = time.perf_counter() - t
+    polls = 0
+    while True:
+        polls += 1
+        if int(client.submit("bfs", a)["levels"][b]) == 1:
+            break
+        if time.perf_counter() - t > 30:
+            raise AssertionError(f"the inserted edge {a} -> {b} not visible after 30 s")
+    return {"pair": [a, b], "ack_s": ack_s, "submit_to_visible_ms": (time.perf_counter() - t) * 1e3,
+            "bfs_polls": polls, "version": res["version"], "mode": res["mode"],
+            "merge_s": res.get("merge_s")}
+
+
+def step_net_open_loop(eng, srv, p21: dict) -> dict:
+    """Step 4: ``loadgen.run`` over the Server: seeded Poisson arrivals at
+    about 0.8 of phase 18's rate, 8 connections, 5 s."""
+    mark = eng.trace_mark()
+    n_traces0 = len(obs_trace.records())
+    out = loadgen.run(rate=NET_RATE, conns=NET_CONNS, seconds=NET_SECONDS, kind="bfs",
+                      deadline_s=SERVER_SLO_S, trace_rate=1.0, backend=srv,
+                      roots=p21["roots"], seed=NET_LOADGEN_SEED)
+    builds = eng.retraces_since(mark)
+    recs = [r for r in obs_trace.records()[n_traces0:] if r["labels"].get("transport") == "net"]
+    # net_accept is charged to a connection's first request, one of loadgen's
+    # 8 blocking warm-up reads (its frontend's traces net1 to net8); the other
+    # stages are the scheduled requests', as loadgen's decomposition counts them
+    accept = [st["s"] for r in recs for st in r["stages"] if st["stage"] == "net_accept"]
+    recs = [r for r in recs if int(str(r["rid"])[3:]) > 8]
+    stages = {k: v["mean_s"] * 1e3 for k, v in obs_trace.stage_summary(recs).items()}
+    stages["net_accept"] = float(np.mean(accept)) * 1e3 if accept else None
+    line = {k: out[k] for k in ("offered_qps", "achieved_qps", "requests", "conns", "p50_ms",
+                                "p99_ms", "availability", "status_counts", "untyped_failures",
+                                "stranded_futures", "retraces_after_warmup", "send_lag_max_ms",
+                                "sent_wall_s", "wall_s", "slo", "ok")}
+    line.update({"plan_builds_after_warmup": builds, "traced": len(recs),
+                 "stage_mean_ms": stages, "decomposition": out["decomposition"]})
+    if not out["ok"] or builds or out["stranded_futures"] or out["retraces_after_warmup"]:
+        raise AssertionError(f"the open loop: {line}")
+    return line
+
+
+def phase_net(dev, t_start: float, p21: dict) -> dict:
+    """Phase 22 (module docstring): the network front door over a Server, with
+    K1's and K2's launch counts set to 0 just before and read just after;
+    neither runs."""
+    t0 = time.perf_counter()
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    emit({"phase": "net", "step": "elapsed", "total_s": t0 - t_start})
+    obs.enable(install_hooks=False)
+    step_s, out = {}, {}
+    setup = clients = None
+    try:
+        t = time.perf_counter()
+        setup = step_net_setup(dev, p21)
+        step_s["setup"] = time.perf_counter() - t
+        emit({"phase": "net", "step": "setup", "scale": BFS_SCALE, "n": setup["n"],
+              "kinds": list(NET_KINDS), **setup["line"]})
+        srv, fe = setup["srv"], setup["fe"]
+        clients = [NetClient("127.0.0.1", fe.port) for _ in range(NET_CLIENTS)]
+        for name, fn in (("wire", lambda: step_net_wire(srv, fe, p21, clients)),
+                         ("typed", lambda: step_net_typed(srv, fe, p21, clients[0])),
+                         ("write", lambda: step_net_write(clients[1], p21)),
+                         ("open_loop", lambda: step_net_open_loop(setup["eng"], srv, p21))):
+            t = time.perf_counter()
+            out[name] = fn()
+            step_s[name] = time.perf_counter() - t
+            emit({"phase": "net", "step": name, **out[name]})
+        if fe.reply_drops:
+            raise AssertionError(f"{fe.reply_drops} replies dropped")
+        # step 2's timeout is a bad request of the SLO budget (target 0.999),
+        # so the Server may report its SLO breached; nothing else may be off
+        h = fe.health()
+        back = h["backend"]
+        if (h["status"] not in ("ok", "degraded") or back["device_error"] is not None
+                or back["worker_errors"]
+                or any(b["state"] != "closed" for b in back["breakers"].values())):
+            raise AssertionError(f"the net phase's Server: health {h['status']}, "
+                                 f"device error {back['device_error']}")
+        out["health"] = {"status": h["status"], "slo_breached": bool(
+            back["slo"] and back["slo"]["breached"]), "connections": h["net"]["connections"]}
+    finally:
+        for c in clients or ():
+            c.close()
+        if setup is not None:
+            setup["fe"].close()
+            setup["srv"].close(drain=False)
+            del setup
+        obs.disable()
+        obs.reset()
+        obs_trace.clear()
+        torch.cuda.empty_cache()
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the net phase launched hand kernels: {launches}")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "net", "step": "checks", "hand_kernel_launches": launches,
+          "health": out.get("health"), "step_s": step_s, "phase_s": phase_s, "cap_s": NET_CAP_S,
+          "within_cap": phase_s <= NET_CAP_S, "total_s": time.perf_counter() - t_start})
+    if phase_s > NET_CAP_S:
+        raise AssertionError(f"the net phase took {phase_s:.1f} s, over its {NET_CAP_S} s cap")
+    return {**out, "k1": {"min_plus": 0, "max_min": 0}, "k2": launches["k2"]}
+
+
 WATCHDOG_S = 1100  # short of the 1,200 s the script must finish in
 
 
@@ -6892,7 +7158,7 @@ def main() -> int:
 
 
 def run_phases() -> int:
-    """Phases 1-21 (module docstring), then the ``kernels`` line and the
+    """Phases 1-22 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -6948,6 +7214,8 @@ def run_phases() -> int:
                                 fleet["replicas"]["requests_per_s"])
     torch.cuda.empty_cache()
     shard = phase_shard(dev, t_start, p21)
+    torch.cuda.empty_cache()
+    net = phase_net(dev, t_start, p21)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
@@ -6959,7 +7227,8 @@ def run_phases() -> int:
                    "mesh3d": mesh3d["k1"][sr.name], "tuner": tuner["k1"][sr.name],
                    "obs": obs_phase["k1"][sr.name], "engine": engine["k1"][sr.name],
                    "server": server["k1"][sr.name], "fleet": fleet["k1"][sr.name],
-                   "procfleet": procfleet["k1"][sr.name], "shard": shard["k1"][sr.name]}
+                   "procfleet": procfleet["k1"][sr.name], "shard": shard["k1"][sr.name],
+                   "net": net["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
@@ -6984,6 +7253,7 @@ def run_phases() -> int:
     kernels.append({
         "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",
         "source": K2_SOURCE, "replaces": K2_TPU_KERNEL, "launches": k2_path["launches"]["k2"],
+        "launches_by_path": {"k2_path": k2_path["launches"]["k2"], "net": net["k2"]},
         "max_abs_err": max(v["max_abs_err"] for v in k2_path["per_kind"].values()),
         "ms": k2["k2_ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],

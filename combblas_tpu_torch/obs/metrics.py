@@ -13,8 +13,7 @@ enters the registry (call sites convert to ``int``/``float`` first), so a
 metric can never force a device sync.
 
 The catalog below keeps the reference's rows, word for word, for the
-series this package emits; the rows of the serve layer not ported yet
-(net) come with it. Spans (``serve.shard.batch``) have no row, and the
+series this package emits. Spans (``serve.shard.batch``) have no row, and the
 port counts no traces (``trace.serve.shard``: a plan is built, not
 traced). Where a row
 speaks of the TPU's machinery the port's meaning is its counterpart:
@@ -875,6 +874,48 @@ scrape via the heartbeat-piggybacked registry snapshots):
                                                      ``combblas_tpu.
                                                      fleetlog/v1`` log
                                                      (labels ``event``)
+========================================  =========  ==================
+
+Network front door (round 19, serve/net/ — the TCP frontend; wire
+byte/serialization accounting rides the shared ``serve.ipc.*`` series
+above with ``peer="net"`` / ``peer="netclient"``, one codec for both
+transports):
+
+========================================  =========  ==================
+``serve.net.connections``                 gauge      currently-open
+                                                     admitted
+                                                     connections
+``serve.net.accept_queue``                gauge      connections
+                                                     accepted but still
+                                                     mid-handshake
+                                                     (hello pending)
+``serve.net.requests``                    counter    request frames
+                                                     dispatched (labels
+                                                     ``op``)
+``serve.net.bytes_in`` /                  counter    wire bytes per
+``serve.net.bytes_out``                              reply direction
+                                                     incl. the length
+                                                     prefix (derived
+                                                     from the channel
+                                                     byte totals)
+``serve.net.status``                      counter    replies by
+                                                     protocol status
+                                                     code (labels
+                                                     ``code`` — the
+                                                     error-taxonomy
+                                                     wire mapping;
+                                                     rejections are
+                                                     COUNTED wire
+                                                     replies, never
+                                                     dropped
+                                                     connections)
+``serve.net.reply_drops``                 counter    replies whose
+                                                     connection was
+                                                     gone at send time
+                                                     (the request still
+                                                     settled — dropped
+                                                     reply, not a
+                                                     stranded future)
 ========================================  =========  ==================
 
 Sharded serving (round 20, serve/shard.py + serve/_shardworker.py —

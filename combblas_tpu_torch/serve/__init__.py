@@ -48,8 +48,11 @@ Ported so far:
    with its own CUDA context, served as one engine through the router's
    bulk-synchronous hop loops (``ShardedGraphVersion`` carries the
    per-slice WAL frontier vector; durability is engine-owned).
-
-The network front door of the reference comes in a later slice.
+10. **net** (``net/``) — ``NetFrontend``: the TCP front door over any of
+    the backends above (versioned hello, pipelined requests, the typed
+    status taxonomy of ``net/protocol.py``), ``NetClient`` (the
+    blocking, retrying client) and ``net/loadgen.py`` (the open-loop
+    Poisson load generator).
 """
 
 from .batcher import Request, assemble, bucket_width, scatter
@@ -74,6 +77,7 @@ from .fleet import FleetRouter, ReplicaDeadError
 from .procfleet import IpcTimeoutError, ProcessFleet, ReplicaProc
 from .slo import ErrorBudget
 from .shard import ShardedEngine, ShardedGraphVersion, plan_partition
+from .net import NetClient, NetFrontend
 
 __all__ = [
     "GraphEngine", "GraphVersion", "Server", "ServeConfig", "Scheduler",
@@ -82,6 +86,7 @@ __all__ = [
     "ReplicaDeadError",
     "ProcessFleet", "ReplicaProc", "IpcTimeoutError",
     "ShardedEngine", "ShardedGraphVersion", "plan_partition",
+    "NetClient", "NetFrontend",
     "FaultInjector", "InjectedFault", "ProcessFaultPlan",
     "FAULT_POINTS", "ErrorBudget",
     "Request", "KINDS",

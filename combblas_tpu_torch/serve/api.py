@@ -331,16 +331,18 @@ class Server:
     # -- front door --------------------------------------------------------
 
     def submit(self, kind: str, root, timeout_s: float | None = None,
-               trace_rid: int | str | None = None) -> Future:
+               trace_rid: int | str | None = None, trace=None) -> Future:
         """Admit one single-root query. Raises ``BackpressureError``
         when the bounded queue is full (reject + retry-after, never
         unbounded blocking); malformed roots come back as failed
         futures (error isolation — see scheduler.submit).
         ``trace_rid`` adopts an upstream trace-sampling decision
-        (process-fleet stitching) — see scheduler.submit."""
+        (process-fleet stitching); ``trace`` adopts a live trace
+        object (net-frontend stitching) — see scheduler.submit."""
         self.faults.check("scheduler.admit", kind=kind, root=root)
         fut = self.scheduler.submit(
-            kind, root, timeout_s=timeout_s, trace_rid=trace_rid
+            kind, root, timeout_s=timeout_s, trace_rid=trace_rid,
+            trace=trace,
         )
         with self._wake:
             self._wake.notify_all()

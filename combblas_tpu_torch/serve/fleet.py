@@ -73,8 +73,6 @@ Deviations from the reference, kept on purpose:
   whose fan-out meets one fails); supervision heals nothing while the
   fleet or a replica holds one, and ``health()`` reports ``down`` with
   the error.
-* ``submit`` takes no trace object: the network front door that passes
-  one is not ported yet.
 """
 
 from __future__ import annotations

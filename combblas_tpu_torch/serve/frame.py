@@ -3,9 +3,8 @@ counterpart of ``combblas_tpu/serve/frame.py``, the same wire format
 byte for byte.
 
 ONE implementation serves the process fleet's parent<->child
-``socketpair`` channels (``serve/procfleet.py``); the reference's
-network front door (``serve/net/``) speaks it too and comes with its
-slice.  Every frame is::
+``socketpair`` channels (``serve/procfleet.py``) and the network front
+door's TCP connections (``serve/net/``).  Every frame is::
 
     [4B total_len] [4B header_len] [header JSON] [binary blobs]
 

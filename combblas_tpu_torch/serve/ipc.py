@@ -2,8 +2,8 @@
 counterpart of ``combblas_tpu/serve/ipc.py``.
 
 The length-prefixed JSON+binary codec lives in ``serve/frame.py`` so the
-process fleet and the reference's network front door (``serve/net/``,
-a later slice here) share ONE implementation — one codec, two
+process fleet and the network front door (``serve/net/``) share ONE
+implementation — one codec, two
 transports, no copy-paste drift.  This module is the procfleet-facing
 alias kept for its import sites (``from .ipc import Channel,
 ChannelClosed``) and for the obs series names, which stay

@@ -210,7 +210,8 @@ class ReplicaFleetBase:
             key=lambda i: (depths[i], (i - off) % len(self.replicas)),
         )
 
-    def submit(self, kind: str, root, timeout_s: float | None = None):
+    def submit(self, kind: str, root, timeout_s: float | None = None,
+               trace=None):
         """Route one query to the least-loaded serving replica,
         spilling to the next on backpressure/breaker rejection; raises
         the LAST rejection only when every replica refused.
@@ -221,12 +222,20 @@ class ReplicaFleetBase:
         deadline or CUDA errors) is re-submitted once per budget unit
         to the next-best OTHER replica before the caller sees the
         failure.  Reads only — writes have exactly one home lineage
-        and never retry implicitly."""
+        and never retry implicitly.
+
+        ``trace`` forwards the net frontend's live trace object to the
+        replica that ADMITS the request (spillover attempts carry it
+        along; read-retries do not — the trace narrates the original
+        execution).  Passed as a conditional keyword so replica classes
+        with the narrower signature (ReplicaProc, which stitches by rid
+        instead) stay untouched when no trace rides."""
+        tr_kw = {} if trace is None else {"trace": trace}
         last_exc: Exception | None = None
         for i in self._route_order():
             try:
                 fut = self.replicas[i].submit(
-                    kind, root, timeout_s=timeout_s
+                    kind, root, timeout_s=timeout_s, **tr_kw
                 )
             except (BackpressureError, RuntimeError) as e:
                 # backpressure/breaker — or a replica quarantined/

@@ -558,13 +558,15 @@ class PoolServer:
     # -- front door --------------------------------------------------------
 
     def submit(self, tenant: str, kind: str, root,
-               timeout_s: float | None = None):
+               timeout_s: float | None = None, trace=None):
         """Admit one query for ``tenant`` — the tenant's own bounded
         queue, SLO budget, breaker and fault injector decide
-        (rejections name the tenant); no device work happens here."""
+        (rejections name the tenant); no device work happens here.
+        ``trace`` adopts the net frontend's live trace object (round
+        19 — see scheduler.submit)."""
         t = self.pool._get(tenant)
         srv = self.pool.server(tenant)
-        fut = srv.submit(kind, root, timeout_s=timeout_s)
+        fut = srv.submit(kind, root, timeout_s=timeout_s, trace=trace)
         t.last_used = time.monotonic()
         with self._wake:
             self._wake.notify_all()

@@ -74,8 +74,8 @@ Deviations from the reference, kept on purpose:
   are all dead) spools no file: the reference writes one nobody swaps
   from (4.4 s at scale 20 on the card); respawns recover from the WAL
   directory either way.
-* ``submit`` takes no trace object (the network front door that passes
-  one is not ported yet); the IPC deadline, boot deadline and respawn
+* ``submit`` takes no ``read_retry`` argument (the budget is
+  ``policy.READ_RETRY``); the IPC deadline, boot deadline and respawn
   backoff are the reference's defaults, as class constants; ``warmup``
   and the context manager, which no caller uses, are left out (the
   children warm up at boot).
@@ -748,15 +748,23 @@ class ProcessFleet(ReplicaFleetBase):
 
     # -- read path: the shared policy + scripted process chaos -------------
 
-    def submit(self, kind: str, root, timeout_s: float | None = None):
+    def submit(self, kind: str, root, timeout_s: float | None = None,
+               trace=None):
         for signame, rep in self.proc_faults.step():
             self._apply_fault(signame, rep)
         # cross-process trace stitching: one deterministic sampling
         # decision at the FRONT DOOR (obs.request_trace gates on
         # ENABLED + sample rate), handed to the routed replica via
         # thread-local; the child traces unconditionally under this
-        # rid, so both halves of the stitched record correlate
-        tr = obs.request_trace(next(self._trace_rid), kind=kind)
+        # rid, so both halves of the stitched record correlate.
+        # When the NET frontend already opened (and holds) a trace at
+        # the socket, adopt it — the sampler rolled once at the
+        # outermost door, and the child's marks stitch into the same
+        # record that carries net_accept/net_read/net_write.
+        tr = (
+            trace if trace is not None
+            else obs.request_trace(next(self._trace_rid), kind=kind)
+        )
         if tr is None:
             return super().submit(kind, root, timeout_s=timeout_s)
         tr.annotate(fleet="process")

@@ -494,7 +494,8 @@ class Scheduler:
 
     def submit(self, kind: str, root, timeout_s: float | None = None,
                now: float | None = None,
-               trace_rid: int | str | None = None) -> Future:
+               trace_rid: int | str | None = None,
+               trace=None) -> Future:
         """Admit one single-root query; returns its Future.
 
         Raises ``BackpressureError`` when the queue is full and
@@ -509,6 +510,13 @@ class Scheduler:
         here would decorrelate the stitched trace's two halves.  The
         trace rides the Future as ``_combblas_trace`` so the IPC reply
         path can ship its stage marks home.
+
+        ``trace`` adopts an upstream trace OBJECT (round 19): the net
+        frontend opens (and holds) the trace at the socket, charges
+        its ``net_accept``/``net_read`` stages, and hands the same
+        object down so the scheduler's queue/assemble/execute/scatter
+        marks land in one record — same-process stitching, no rid
+        forwarding needed.  Mutually exclusive with ``trace_rid``.
         """
         if kind not in self._pending:
             raise ValueError(
@@ -597,7 +605,14 @@ class Scheduler:
                 # trace is host-dict work (the queue-depth gauge below
                 # sets the in-lock precedent), disabled obs = one call
                 # + flag check.
-                if trace_rid is None:
+                if trace is not None:
+                    # round 19: adopt the transport's live trace —
+                    # the frontend already rolled the sampler and
+                    # charged its ingress stages; ride the future so
+                    # worker/sweep settle paths find it as usual
+                    req.trace = trace
+                    fut._combblas_trace = trace
+                elif trace_rid is None:
                     req.trace = obs.request_trace(
                         req.rid, kind=kind, tenant=self.tenant
                     )

@@ -20,9 +20,8 @@ Resolution precedence, documented once, here:
 
 Env-var conventions shared by every knob: unset or empty means
 "default"; for the integer knobs ``"0"`` also means default.  Every knob
-is read at each call, never at import.  The knobs here are the ones the
-port's modules read; the reference's net knobs come with the modules
-that read them.
+is read at each call, never at import.  Every knob of the reference is
+here, with its parser.
 """
 
 from __future__ import annotations
@@ -115,6 +114,25 @@ ENV_FLEET_REPLICAS = "COMBBLAS_FLEET_REPLICAS"
 ENV_FLEETLOG = "COMBBLAS_FLEETLOG"
 ENV_OBS_HB_METRICS_S = "COMBBLAS_OBS_HB_METRICS_S"
 
+#: Round-19 knobs: the network front door (docs/serving.md "Network
+#: front door").  ``COMBBLAS_NET_PORT`` is the TCP listen port
+#: (unset/``0`` = OS-assigned ephemeral — read the bound port back
+#: from ``NetFrontend.port``); ``COMBBLAS_NET_MAX_CONNS`` caps open
+#: connections (past it a hello gets a typed ``backpressure`` wire
+#: reply, never a silent close); ``COMBBLAS_NET_ACCEPT_BACKLOG`` is
+#: the kernel ``listen()`` queue depth.  The ``BENCH_NET_*`` knobs
+#: parameterize the open-loop load generator
+#: (``serve/net/loadgen.py``): target arrival rate (req/s),
+#: concurrent connections, and run length — parsed HERE (not inline
+#: in the bench) so the vetting and "0 means default" semantics match
+#: every other knob.
+ENV_NET_PORT = "COMBBLAS_NET_PORT"
+ENV_NET_MAX_CONNS = "COMBBLAS_NET_MAX_CONNS"
+ENV_NET_ACCEPT_BACKLOG = "COMBBLAS_NET_ACCEPT_BACKLOG"
+ENV_BENCH_NET_RATE = "BENCH_NET_RATE"
+ENV_BENCH_NET_CONNS = "BENCH_NET_CONNS"
+ENV_BENCH_NET_SECONDS = "BENCH_NET_SECONDS"
+
 #: Round-21 knobs: the sharded hop wire protocol (docs/serving.md
 #: "Sharded hop wire protocol").  ``COMBBLAS_SHARD_FRONTIER`` picks
 #: the frontier encoding the router stamps on each bulk-synchronous
@@ -169,6 +187,19 @@ DEFAULT_OBS_HB_METRICS_S = 1.0
 #: Default merges between background snapshots, and snapshots retained.
 DEFAULT_CHECKPOINT_EVERY = 8
 DEFAULT_CHECKPOINT_RETAIN = 2
+#: Net front-door defaults (round 19): ephemeral port, 512 connection
+#: slots (a thread apiece — thread-per-connection's practical ceiling,
+#: not a protocol limit), a 128-deep kernel accept queue.
+DEFAULT_NET_PORT = 0
+DEFAULT_NET_MAX_CONNS = 512
+DEFAULT_NET_ACCEPT_BACKLOG = 128
+#: Open-loop load-generator defaults (round 19): 200 req/s offered
+#: over 128 connections for 8 seconds — small enough for a laptop,
+#: large enough that coordinated omission would be visible if the
+#: harness had it.
+DEFAULT_BENCH_NET_RATE = 200.0
+DEFAULT_BENCH_NET_CONNS = 128
+DEFAULT_BENCH_NET_SECONDS = 8.0
 #: Sharded-wire defaults (round 21): adaptive frontier encoding with
 #: dense fallback once the live frontier fills a quarter of the
 #: ``[n, W]`` operand (past ~0.25 the per-entry triple overhead —
@@ -405,6 +436,105 @@ def obs_hb_metrics_interval(given: float | None = None) -> float:
     if given <= 0.0:
         return DEFAULT_OBS_HB_METRICS_S
     return max(given, 0.05)
+
+
+def _vet_int(name: str, v, what: str) -> int:
+    """Integer-knob vetting shared by the round-19 net knobs: a bogus
+    value raises NAMING the knob (the WAL_FSYNC/MERGE precedent)
+    instead of surfacing as a bare ``int()`` traceback from deep
+    inside socket setup."""
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{name} must be {what}; got {v!r}"
+        ) from None
+
+
+def net_port(given: int | str | None = None) -> int:
+    """The front door's TCP listen port: explicit argument >
+    ``COMBBLAS_NET_PORT`` > 0 (OS-assigned ephemeral).  Vetted to
+    [0, 65535], raising naming the knob."""
+    v = os.environ.get(ENV_NET_PORT) if given is None else given
+    if v is None or v == "":
+        return DEFAULT_NET_PORT
+    p = _vet_int(ENV_NET_PORT, v, "an integer port (0 = ephemeral)")
+    if not (0 <= p <= 65535):
+        raise ValueError(
+            f"{ENV_NET_PORT} must be in [0, 65535]; got {v!r}"
+        )
+    return p
+
+
+def net_max_conns(given: int | str | None = None) -> int:
+    """Open-connection cap of the net frontend: explicit argument >
+    ``COMBBLAS_NET_MAX_CONNS`` > 512.  ``0``/unset = default; clamped
+    >= 1 (a zero-slot front door would reject its own hello)."""
+    v = os.environ.get(ENV_NET_MAX_CONNS) if given is None else given
+    if v is None or v == "":
+        return DEFAULT_NET_MAX_CONNS
+    n = _vet_int(ENV_NET_MAX_CONNS, v, "an integer connection cap")
+    return DEFAULT_NET_MAX_CONNS if n == 0 else max(n, 1)
+
+
+def net_accept_backlog(given: int | str | None = None) -> int:
+    """Kernel ``listen()`` backlog: explicit argument >
+    ``COMBBLAS_NET_ACCEPT_BACKLOG`` > 128.  ``0``/unset = default;
+    clamped >= 1."""
+    v = (
+        os.environ.get(ENV_NET_ACCEPT_BACKLOG)
+        if given is None else given
+    )
+    if v is None or v == "":
+        return DEFAULT_NET_ACCEPT_BACKLOG
+    n = _vet_int(ENV_NET_ACCEPT_BACKLOG, v, "an integer backlog")
+    return DEFAULT_NET_ACCEPT_BACKLOG if n == 0 else max(n, 1)
+
+
+def bench_net_rate(given: float | str | None = None) -> float:
+    """Open-loop offered arrival rate (req/s): explicit argument >
+    ``BENCH_NET_RATE`` > 200.  ``0``/unset = default; a bogus value
+    raises naming the knob."""
+    v = os.environ.get(ENV_BENCH_NET_RATE) if given is None else given
+    if v is None or v == "":
+        return DEFAULT_BENCH_NET_RATE
+    try:
+        r = float(v)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{ENV_BENCH_NET_RATE} must be a request rate in req/s; "
+            f"got {v!r}"
+        ) from None
+    return DEFAULT_BENCH_NET_RATE if r == 0 else max(r, 0.1)
+
+
+def bench_net_conns(given: int | str | None = None) -> int:
+    """Open-loop concurrent connection count: explicit argument >
+    ``BENCH_NET_CONNS`` > 128.  ``0``/unset = default; clamped >= 1."""
+    v = os.environ.get(ENV_BENCH_NET_CONNS) if given is None else given
+    if v is None or v == "":
+        return DEFAULT_BENCH_NET_CONNS
+    n = _vet_int(ENV_BENCH_NET_CONNS, v, "an integer connection count")
+    return DEFAULT_BENCH_NET_CONNS if n == 0 else max(n, 1)
+
+
+def bench_net_seconds(given: float | str | None = None) -> float:
+    """Open-loop run length in seconds: explicit argument >
+    ``BENCH_NET_SECONDS`` > 8.  ``0``/unset = default."""
+    v = (
+        os.environ.get(ENV_BENCH_NET_SECONDS)
+        if given is None else given
+    )
+    if v is None or v == "":
+        return DEFAULT_BENCH_NET_SECONDS
+    try:
+        s = float(v)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{ENV_BENCH_NET_SECONDS} must be a duration in seconds; "
+            f"got {v!r}"
+        ) from None
+    return DEFAULT_BENCH_NET_SECONDS if s == 0 else max(s, 0.1)
 
 
 def shard_frontier(given: str | None = None) -> str:

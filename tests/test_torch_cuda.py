@@ -21,8 +21,9 @@ kernels on the profiler's timeline), and the serving engine and the
 mutation lane (served lanes of the five kinds, a merge chain, a snapshot
 round trip and a recovery), and the process fleet (two replica processes,
 one kill and one respawn), and sharded serving (two slices in this process
-and two slice processes, against the unsharded engine). Marked ``cuda``; they skip where there is no
-card. The module runs under a fresh plan store of its own with probing
+and two slice processes, against the unsharded engine), and the network
+front door (wire answers against the CPU engine, a short open loop).
+Marked ``cuda``; they skip where there is no card. The module runs under a fresh plan store of its own with probing
 off, so the routed calls take their tiers from the code, not from an
 ambient store.
 
@@ -2153,6 +2154,65 @@ def test_sharded_engine_on_card(cuda_device, tmp_path):
                         assert got[key] == arr, (mode, kind, key)
         finally:
             sh.close()
+
+
+def test_net_frontend_on_card_matches_cpu(cuda_device):
+    """A ``NetFrontend`` over a ``Server`` on the card: bfs and sssp
+    answers over the wire (single roots from two connections and a
+    ``submit_many``) equal the CPU engine's lanes bit for bit and arrive
+    as host arrays; an unknown kind comes back as ``ValueError``; a short
+    open loop over the card is ``ok`` with no plan built after the
+    warm-up; no reply is dropped."""
+    from combblas_tpu_torch import obs
+    from combblas_tpu_torch.serve import (GraphEngine, NetClient, NetFrontend,
+                                          ServeConfig)
+    from combblas_tpu_torch.serve.net import loadgen
+
+    rows, cols, w, _X = _serve_graph()
+    kinds = ("bfs", "sssp")
+    live = np.flatnonzero(np.bincount(rows, minlength=256)).astype(np.int32)
+    roots = [int(r) for r in live[:8]]
+    cpu = GraphEngine.from_coo(Grid.make(1, 1, device="cpu"), rows, cols, 256, weights=w,
+                               kinds=kinds)
+    eng = GraphEngine.from_coo(Grid.make(1, 1, device=cuda_device), rows, cols, 256,
+                               weights=w, kinds=kinds)
+    srv = eng.serve(ServeConfig(lane_widths=(1, 2, 4, 8), max_wait_s=0.002))
+    srv.warmup()
+    mark = eng.trace_mark()
+    srv.start()
+    fe = NetFrontend(srv)
+    clients = [NetClient("127.0.0.1", fe.port) for _ in range(2)]
+    try:
+        futs = [(kind, r, clients[i % 2].submit_nowait(kind, r))
+                for i, (kind, r) in enumerate((k, r) for k in kinds for r in roots)]
+        many = clients[0].submit_many("sssp", roots)
+        for kind, r, f in futs:
+            res = f.result(timeout=120)
+            want = cpu.execute(kind, np.array([r], np.int32))
+            for key, arr in want.items():
+                if isinstance(arr, np.ndarray):
+                    assert isinstance(res[key], np.ndarray)
+                    assert res[key].dtype == arr.dtype
+                    assert np.array_equal(res[key], arr[..., 0]), (kind, r, key)
+        want = cpu.execute("sssp", np.array(roots, np.int32))["dist"]
+        for k, entry in enumerate(many):
+            assert entry["status"] == "ok"
+            assert np.array_equal(entry["result"]["dist"], want[:, k])
+        with pytest.raises(ValueError):
+            clients[1].submit("nope", roots[0])
+        out = loadgen.run(rate=40, conns=2, seconds=1, kind="bfs", deadline_s=30.0,
+                          backend=srv, roots=roots)
+        assert out["ok"], out
+        assert eng.retraces_since(mark) == 0 and fe.reply_drops == 0
+        h = fe.health()
+        assert h["status"] == "ok" and h["backend"]["device_error"] is None
+    finally:
+        for c in clients:
+            c.close()
+        fe.close()
+        srv.close()
+        obs.disable()  # loadgen.run turns telemetry on, as the reference's does
+        obs.reset()
 
 
 def test_rectangular_bfs_on_card_equals_scipy(cuda_device):

@@ -27,7 +27,8 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "utils.timers", "serve", "serve.engine", "serve.batcher", "serve.faults",
            "serve.slo", "serve.scheduler", "serve.api", "serve.policy", "serve.pool",
            "serve.fleet", "serve.frame", "serve.ipc", "serve.procfleet", "serve._procworker",
-           "serve.shard", "serve._shardworker", "dynamic", "dynamic.delta",
+           "serve.shard", "serve._shardworker", "serve.net", "serve.net.protocol",
+           "serve.net.client", "serve.net.frontend", "serve.net.loadgen", "dynamic", "dynamic.delta",
            "dynamic.merge", "dynamic.refresh", "dynamic.wal"}
 
 

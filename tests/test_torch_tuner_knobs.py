@@ -7,9 +7,12 @@ with ``combblas_tpu`` on the CPU: ``COMBBLAS_SPGEMM_BACKEND`` through
 ``spgemm3d_windowed``, the serve knobs ``COMBBLAS_WAL``,
 ``COMBBLAS_CHECKPOINT_EVERY``, ``COMBBLAS_CHECKPOINT_RETAIN``,
 ``COMBBLAS_POOL_QUANTUM``, ``COMBBLAS_POOL_BYTE_BUDGET``,
-``COMBBLAS_FLEET_REPLICAS``, ``COMBBLAS_FLEETLOG`` and
-``COMBBLAS_OBS_HB_METRICS_S`` (the same value from the same environment
-and argument in both packages), and ``save_sharded`` /
+``COMBBLAS_FLEET_REPLICAS``, ``COMBBLAS_FLEETLOG``,
+``COMBBLAS_OBS_HB_METRICS_S``, the shard knobs and the net knobs
+(``COMBBLAS_NET_PORT``, ``COMBBLAS_NET_MAX_CONNS``,
+``COMBBLAS_NET_ACCEPT_BACKLOG``, ``BENCH_NET_RATE``, ``BENCH_NET_CONNS``,
+``BENCH_NET_SECONDS``; the same value from the same environment and
+argument in both packages), and ``save_sharded`` /
 ``load_sharded`` against the reference's ``save_orbax`` / ``load_orbax``
 round trip (that one case skips where orbax is not installed).
 
@@ -215,6 +218,15 @@ SERVE_KNOBS = {
     "shard_frontier": ("ENV_SHARD_FRONTIER", [None, "", "auto", "sparse", "dense"],
                        [None, "auto", "sparse", "dense"]),
     "shard_wire": ("ENV_SHARD_WIRE", [None, "", "f32", "bf16"], [None, "f32", "bf16"]),
+    "net_port": ("ENV_NET_PORT", [None, "", "0", "1", "8080", "65535"], [None, 0, 4242, "17"]),
+    "net_max_conns": ("ENV_NET_MAX_CONNS", [None, "", "0", "1", "64", "-3"], [None, 0, 2, -1]),
+    "net_accept_backlog": ("ENV_NET_ACCEPT_BACKLOG", [None, "", "0", "1", "16", "-2"],
+                           [None, 0, 8, -4]),
+    "bench_net_rate": ("ENV_BENCH_NET_RATE", [None, "", "0", "0.05", "50", "-4"],
+                       [None, 0, 12.5, "3", -1.0]),
+    "bench_net_conns": ("ENV_BENCH_NET_CONNS", [None, "", "0", "1", "8", "-1"], [None, 0, 3, -2]),
+    "bench_net_seconds": ("ENV_BENCH_NET_SECONDS", [None, "", "0", "0.01", "2.5", "-1"],
+                          [None, 0, 1.5, "0.001", -2.0]),
 }
 
 

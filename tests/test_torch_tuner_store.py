@@ -86,6 +86,12 @@ KNOBS = [
     ("shard_frontier", "ENV_SHARD_FRONTIER", ["", "auto", "sparse", "dense", "bogus"]),
     ("shard_density", "ENV_SHARD_DENSITY", ["", "0", "0.1", "1", "1.5", "-0.2", "x"]),
     ("shard_wire", "ENV_SHARD_WIRE", ["", "f32", "bf16", "f16"]),
+    ("net_port", "ENV_NET_PORT", ["", "0", "8080", "65535", "65536", "-1", "x"]),
+    ("net_max_conns", "ENV_NET_MAX_CONNS", ["", "0", "1", "64", "-3", "x"]),
+    ("net_accept_backlog", "ENV_NET_ACCEPT_BACKLOG", ["", "0", "16", "-2", "x"]),
+    ("bench_net_rate", "ENV_BENCH_NET_RATE", ["", "0", "50", "0.01", "-4", "x"]),
+    ("bench_net_conns", "ENV_BENCH_NET_CONNS", ["", "0", "8", "-1", "x"]),
+    ("bench_net_seconds", "ENV_BENCH_NET_SECONDS", ["", "0", "2.5", "0.01", "x"]),
 ]
 
 GIVEN = {
@@ -103,6 +109,12 @@ GIVEN = {
     "shard_frontier": ["sparse", "dense", "bogus"],
     "shard_density": [0.5, "0.3", 0, 2.0, "x"],
     "shard_wire": ["bf16", "f32", "f16"],
+    "net_port": [0, 9000, "123", 70000, "x"],
+    "net_max_conns": [0, 2, "5", -1, "x"],
+    "net_accept_backlog": [0, 4, "7", -1],
+    "bench_net_rate": [0, 12.5, "3", -1.0, "x"],
+    "bench_net_conns": [0, 3, "9", -2],
+    "bench_net_seconds": [0, 1.5, "0.001", "x"],
 }
 
 
