@@ -190,7 +190,8 @@ Phases (each prints one JSON line):
      the 2 x 2 matrix loaded onto 2 x 2 (verbatim) and 1 x 1; its degree
      vector through ``write_vec`` / ``read_vec``; every round trip gives the
      data back exactly. The files live in ``build/chip_smoke_io`` and are
-     removed. K1 and K2 never run.
+     removed, but for the Matrix Market file, moved to
+     ``build/chip_smoke_multiproc`` for phase 23. K1 and K2 never run.
  14. mesh3d, the 3D (layered) tier on 2 x 2 x 2 (layers emulated on the
      card): (1) phase 10's A·A recipe through ``spgemm3d(tier="esc")`` with
      each fiber merge tier (sort, runs, hash), min_plus and plus_times,
@@ -428,12 +429,34 @@ Phases (each prints one JSON line):
      the mean ms of each trace stage (``net_accept``, ``net_read``,
      ``queue_wait``, ``assemble``, ``execute``, ``net_write``); the run's
      gate ``ok``. K1 and K2 launch 0 times.
+ 23. multiproc: the grid over several processes (``parallel/multihost.py``)
+     on the card (it fails past 60 s; its directory under ``build/`` is
+     removed). The parent writes phase 8's scale-20 graph (phase 17's
+     weights 1..15, a seeded x of integers 0..7 in float32, so that every
+     plus_times sum is exact whatever the order of ``index_add_`` on the
+     card) and phase 5's scale-13 graph as
+     ``.npy`` files beside phase 13's scale-18 Matrix Market file, and runs
+     every step on a one-process 2 x 2 grid on the card for the results to
+     match; then ``multihost.launch`` starts two ranks (each its own CUDA
+     context on the card, gloo on CUDA tensors: NCCL takes one rank a card)
+     that run the same steps on the global 2 x 2 grid, each holding its two
+     tiles: ``dist_spmv`` plus_times and min_plus at scale 20 (a warm-up,
+     then 5 calls timed, the exchange's bytes, collectives and seconds a
+     call), ``summa_spgemm_mxu`` min_plus at scale 13 with
+     ``spgemm_auto``'s overflow rerun (K1 launched on both ranks as often as
+     on one process, the same capacities), ``spgemm`` (ESC, min_plus) at
+     scale 13, ``read_mm_distributed`` of the scale-18 file (each rank
+     parses its byte range); every result bit for bit equal to the
+     one-process grid's (tile by tile digests; the read's entries sorted
+     within each tile), each rank's matrix bytes beside the one-process
+     matrix's. K1's launches are the ranks'; the parent launches none while
+     they run, K2 never.
 The plan store of the whole run is ``build/chip_smoke_plans`` (probing off,
 so phases 1-14 route as without a store), removed at the end. Each path
 runs with every launch count set to 0 just before it and read just after.
 Then the ``kernels`` line (K1's launches by path: main_path, spgemm_general,
 spgemm_windowed, apps, graph_input, mesh3d, tuner, obs, engine, server,
-fleet, procfleet, shard, net; K2's: k2_path, net)
+fleet, procfleet, shard, net, multiproc; K2's: k2_path, net)
 and, last, ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero; without a CUDA card it exits 1
 before printing any result.
@@ -443,6 +466,7 @@ from __future__ import annotations
 
 import contextlib
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -564,6 +588,7 @@ from combblas_tpu_torch import (
     validate_bfs_device,
 )
 from combblas_tpu_torch import _build, obs
+from combblas_tpu_torch.io.mm import _mm_header_span, read_mm_range
 from combblas_tpu_torch.models.bfs import bfs_levels_instrumented
 from combblas_tpu_torch.obs import export as obs_export
 from combblas_tpu_torch.obs.fleetlog import FleetLog
@@ -579,6 +604,7 @@ from combblas_tpu_torch.models import propagate as propagate_mod
 from combblas_tpu_torch.models.matching import maximum_matching_device
 from combblas_tpu_torch.parallel import ellmat
 from combblas_tpu_torch.parallel import mesh3d as mesh3d_mod
+from combblas_tpu_torch.parallel import multihost
 from combblas_tpu_torch.parallel.mesh3d import spgemm3d_windowed
 from combblas_tpu_torch.parallel.spgemm import (
     _PALLAS_KINDS,
@@ -587,6 +613,8 @@ from combblas_tpu_torch.parallel.spgemm import (
     _mxu_dot,
     _pad128,
     _shift_rowblock,
+    coo_has_duplicates,
+    summa_spgemm_mxu,
 )
 from combblas_tpu_torch.parallel.spmm import SPMM_BACKENDS, dist_spmm_ell, resolve_spmm_backend
 from combblas_tpu_torch.parallel.spmv import spmspv_counts
@@ -1122,7 +1150,7 @@ def phase_main_path(dev) -> dict:
         emit({"phase": "main_path", "semiring": sr.name, "exact": True,
               **per_kind[sr.name]})
     mats = {name: (run[0], run[1]) for name, run in runs.items()}
-    return {"launches": launches, "per_kind": per_kind, "mats": mats}
+    return {"launches": launches, "per_kind": per_kind, "mats": mats, "host": (r, c, v)}
 
 
 def stage_product(sr, da: torch.Tensor) -> torch.Tensor:
@@ -3833,6 +3861,8 @@ def step_io(dev, A20: SpParMat, g18: dict) -> dict:
                                 "parse_mb_per_s": size / read_s / 1e6,
                                 "read_distributed_s": read_dist_s}
         emit({"phase": "graph_input", "step": "matrix_market", **out["matrix_market"]})
+        MULTIPROC_DIR.mkdir(parents=True, exist_ok=True)
+        os.replace(mm, MULTIPROC_MM)  # phase 23 reads it across two processes
 
         # binary at scale 20: kernel 1's matrix
         R, C, V = A20.to_global_coo()
@@ -7131,6 +7161,263 @@ def phase_net(dev, t_start: float, p21: dict) -> dict:
         raise AssertionError(f"the net phase took {phase_s:.1f} s, over its {NET_CAP_S} s cap")
     return {**out, "k1": {"min_plus": 0, "max_min": 0}, "k2": launches["k2"]}
 
+# --- phase 23: the grid over several processes ----------------------------------
+
+MULTIPROC_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_multiproc"
+MULTIPROC_MM = MULTIPROC_DIR / "g18.mtx"  # phase 13's Matrix Market file, kept for phase 23
+MULTIPROC_CAP_S = 60.0  # the phase's time budget
+MULTIPROC_RANKS, MULTIPROC_P = 2, 2  # two ranks on one card, a 2 x 2 grid
+MULTIPROC_REPS = 5  # timed dist_spmv calls a semiring
+MULTIPROC_TIMEOUT_S = 45.0  # the ranks' run, and each of their collectives
+MULTIPROC_X_SEED = 23
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tile_digests(M: SpParMat) -> dict:
+    """The tiles this process holds, each as a digest of its arrays (indices,
+    values and count; padding slots included), by ``"i,j"``."""
+    out = {}
+    for i, j in M.grid.owned_tiles():
+        t = M.local_tile(i, j)
+        out[f"{i},{j}"] = _digest(t.rows, t.cols, t.vals, t.nnz.view(1))
+    return out
+
+
+def entry_digests(M: SpParMat) -> dict:
+    """The tiles this process holds, each as a digest of its valid entries
+    sorted by (row, col), by ``"i,j"``: equal for the same entries in
+    another slot order."""
+    out = {}
+    for i, j in M.grid.owned_tiles():
+        t = M.local_tile(i, j)
+        m = t.valid_mask()
+        r, c, v = t.rows[m].long(), t.cols[m].long(), t.vals[m]
+        order = torch.argsort(r * M.local_cols + c)
+        out[f"{i},{j}"] = _digest(r[order], c[order], v[order])
+    return out
+
+
+def matrix_bytes(M: SpParMat) -> int:
+    return sum(x.numel() * x.element_size() for x in (M.rows, M.cols, M.vals, M.nnz))
+
+
+def mxu_with_rerun(sr, A: SpParMat):
+    """``summa_spgemm_mxu`` as ``spgemm_auto``'s mxu tier calls it: the
+    next power of two above the input capacity, then, on an overflow (over
+    every rank), once more at the power of two above it. Returns (C,
+    capacities tried)."""
+    cap = 1 << (max(A.capacity, 64) - 1).bit_length()
+    tried = []
+    for _ in range(2):
+        tried.append(cap)
+        C, over = summa_spgemm_mxu(sr, A, A, out_capacity=cap)
+        over = int(over)
+        if over <= 0:
+            return C, tried
+        cap = 1 << (cap + over - 1).bit_length()
+    raise AssertionError(f"summa_spgemm_mxu still overflows by {over} at {tried}")
+
+
+def multiproc_spmv(A: SpParMat, x: DistVec) -> dict:
+    """``dist_spmv`` for plus_times and min_plus: a warm-up (its digest),
+    then ``MULTIPROC_REPS`` calls on the host clock, synchronised, with
+    this process's exchange a call (``multihost.STATS``)."""
+    out = {}
+    for sr in (PLUS_TIMES, MIN_PLUS):
+        y = dist_spmv(sr, A, x)
+        torch.cuda.synchronize()
+        s0 = dict(multihost.STATS)
+        t0 = time.perf_counter()
+        for _ in range(MULTIPROC_REPS):
+            dist_spmv(sr, A, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / MULTIPROC_REPS * 1e3
+        out[sr.name] = {
+            "digest": _digest(y.blocks), "ms": ms,
+            "exchange_bytes": (multihost.STATS["bytes"] - s0["bytes"]) / MULTIPROC_REPS,
+            "exchange_collectives": (multihost.STATS["collectives"] - s0["collectives"])
+            / MULTIPROC_REPS,
+            "exchange_ms": (multihost.STATS["seconds"] - s0["seconds"]) / MULTIPROC_REPS * 1e3}
+    return out
+
+
+def multiproc_steps(grid: Grid, d: Path) -> dict:
+    """Phase 23's steps on ``grid`` (one process or a rank's share of two),
+    from the host arrays in ``d``: digests, times, bytes and K1's launches
+    of the mxu step."""
+    out = {}
+    r20, c20, v20, x20 = (np.load(d / f"{k}20.npy") for k in "rcvx")
+    n = len(x20)
+    t0 = time.perf_counter()
+    A = SpParMat.from_global_coo(grid, r20, c20, v20, n, n)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["nnz"] = int(A.getnnz())
+    out["matrix_bytes"] = matrix_bytes(A)
+    out["capacity"] = A.capacity
+    out["spmv"] = multiproc_spmv(A, DistVec.from_global(grid, x20, align="col"))
+    del A, r20, c20, v20
+    torch.cuda.empty_cache()
+    r13, c13, v13 = (np.load(d / f"{k}13.npy") for k in "rcv")
+    A13 = SpParMat.from_global_coo(grid, r13, c13, v13, FULL, FULL, dedup_sr=MIN_PLUS)
+    if coo_has_duplicates(A13):
+        raise AssertionError("the scale-13 tiles hold duplicates after dedup")
+    semiring_matmul.launches = 0
+    (C, tried), ms, _ = timed_call(lambda: mxu_with_rerun(MIN_PLUS, A13))
+    out["mxu"] = {"launches": semiring_matmul.launches, "capacities": tried, "ms": ms,
+                  "digests": tile_digests(C), "nnz": int(C.getnnz())}
+    del C
+    semiring_matmul.launches = 0
+    C, ms, _ = timed_call(lambda: spgemm(MIN_PLUS, A13, A13))
+    out["esc"] = {"ms": ms, "capacities": list(spgemm.last_capacities),
+                  "digests": tile_digests(C), "nnz": int(C.getnnz()),
+                  "k1_launches": semiring_matmul.launches}
+    del C, A13
+    torch.cuda.empty_cache()
+    M, _, read_s = timed_call(lambda: read_mm_distributed(grid, str(MULTIPROC_MM)))
+    out["read"] = {"s": read_s, "digests": entry_digests(M), "nnz": int(M.getnnz())}
+    return out
+
+
+def multiproc_rank(workdir: str) -> dict:
+    """A rank of phase 23 (``multihost.launch`` runs it on each rank, which
+    has joined the group over gloo on the card): ``multiproc_steps`` on the
+    global 2 x 2 grid, and what the byte-range parse of this rank's share of
+    the file takes alone."""
+    grid = multihost.make_global_grid(MULTIPROC_P, MULTIPROC_P)
+    out = {"rank": grid.rank, "owned": grid.owned_tiles(), "device": str(grid.device),
+           "backend": torch.distributed.get_backend(),
+           **multiproc_steps(grid, Path(workdir))}
+    span_lo = _mm_header_span(MULTIPROC_MM)[0]
+    span = MULTIPROC_MM.stat().st_size - span_lo
+    lo = span_lo + span * grid.rank // grid.world
+    hi = span_lo + span * (grid.rank + 1) // grid.world
+    t0 = time.perf_counter()
+    part = read_mm_range(MULTIPROC_MM, lo, hi)
+    out["parse_s"], out["parse_entries"] = time.perf_counter() - t0, len(part[0])
+    out["stats"] = dict(multihost.STATS)
+    return out
+
+
+def phase_multiproc(dev, t_start: float, p21: dict, host13: tuple) -> dict:
+    """Phase 23 (module docstring): the grid over two processes on the
+    card, against the one-process grid, with K1's launch count set to 0
+    just before the ranks run and their counts read just after. Removes
+    its directory."""
+    t0 = time.perf_counter()
+    semiring_matmul.launches = 0
+    flat_to_tuples_arrays.launches = 0
+    emit({"phase": "multiproc", "step": "elapsed", "total_s": t0 - t_start})
+    step_s = {}
+    try:
+        t = time.perf_counter()
+        rows, cols, n = _engine_coo(p21["csr_host"])
+        arrays = {
+            "r20": rows.astype(np.int32), "c20": cols.astype(np.int32),
+            "v20": np.random.default_rng(WEIGHT_SEED).integers(1, 16, len(rows)).astype(np.float32),
+            # integer x: every plus_times sum below 2^24, exact in any order
+            "x20": np.random.default_rng(MULTIPROC_X_SEED).integers(0, 8, n).astype(np.float32),
+            "r13": host13[0], "c13": host13[1], "v13": host13[2]}
+        for k, a in arrays.items():
+            np.save(MULTIPROC_DIR / f"{k}.npy", a)
+        del rows, cols, arrays
+        step_s["inputs"] = time.perf_counter() - t
+
+        # the one-process grid on the same card: the results the ranks must give
+        t = time.perf_counter()
+        whole_s = timed_call(lambda: read_mm(str(MULTIPROC_MM)))[2]
+        one = multiproc_steps(Grid.make(MULTIPROC_P, MULTIPROC_P, device=dev), MULTIPROC_DIR)
+        one_launches = one["mxu"]["launches"]
+        torch.cuda.empty_cache()
+        step_s["one_process"] = time.perf_counter() - t
+
+        # the two ranks, each its own CUDA context on the card, over gloo
+        semiring_matmul.launches = 0
+        t = time.perf_counter()
+        ranks = multihost.launch(
+            f"{Path(__file__).resolve()}:multiproc_rank", MULTIPROC_RANKS,
+            kwargs={"workdir": str(MULTIPROC_DIR)}, device="cuda", backend="gloo",
+            timeout_s=MULTIPROC_TIMEOUT_S, workdir=MULTIPROC_DIR / "ranks")
+        step_s["ranks"] = time.perf_counter() - t
+        if semiring_matmul.launches:
+            raise AssertionError("the parent launched K1 while the ranks ran")
+    finally:
+        shutil.rmtree(MULTIPROC_DIR, ignore_errors=True)
+
+    owned = [tuple(map(tuple, r["owned"])) for r in ranks]
+    if sorted(t for o in owned for t in o) != [(i, j) for i in range(MULTIPROC_P)
+                                               for j in range(MULTIPROC_P)]:
+        raise AssertionError(f"the ranks' tiles {owned} do not cover the grid once")
+    if any(r["backend"] != "gloo" or r["device"] != "cuda:0" for r in ranks):
+        raise AssertionError("a rank ran off the card or off gloo")
+    for sr in ("plus_times", "min_plus"):
+        if any(r["spmv"][sr]["digest"] != one["spmv"][sr]["digest"] for r in ranks):
+            raise AssertionError(f"dist_spmv {sr} on two ranks differs from one process")
+    for step, key in (("mxu", "digests"), ("esc", "digests"), ("read", "digests")):
+        got = {k: v for r in ranks for k, v in r[step][key].items()}
+        if got != one[step][key]:
+            raise AssertionError(f"{step} on two ranks differs from one process")
+        if any(r[step]["nnz"] != one[step]["nnz"] for r in ranks):
+            raise AssertionError(f"{step}: the ranks' global nnz differs from one process")
+    two_launches = sum(r["mxu"]["launches"] for r in ranks)
+    if two_launches != one_launches or any(r["mxu"]["capacities"] != one["mxu"]["capacities"]
+                                           for r in ranks):
+        raise AssertionError(f"K1 launched {two_launches} times on two ranks, {one_launches} on "
+                             "one, or the ranks took other capacities")
+    if any(r["esc"]["capacities"] != one["esc"]["capacities"] or r["esc"]["k1_launches"]
+           for r in ranks):
+        raise AssertionError("spgemm's capacities differ on two ranks, or it launched K1")
+
+    def worst(step, key="ms"):
+        return max(r[step][key] for r in ranks)
+
+    for sr in ("plus_times", "min_plus"):
+        emit({"phase": "multiproc", "step": "dist_spmv", "semiring": sr, "scale": BFS_SCALE,
+              "grid": "2x2", "ranks": MULTIPROC_RANKS, "bit_equal": True,
+              "one_process_ms": one["spmv"][sr]["ms"],
+              "two_rank_ms": max(r["spmv"][sr]["ms"] for r in ranks),
+              "exchange_bytes_per_call": [r["spmv"][sr]["exchange_bytes"] for r in ranks],
+              "exchange_collectives_per_call": [r["spmv"][sr]["exchange_collectives"]
+                                                for r in ranks],
+              "exchange_ms_per_call": [r["spmv"][sr]["exchange_ms"] for r in ranks]})
+    emit({"phase": "multiproc", "step": "matrix", "scale": BFS_SCALE, "nnz": one["nnz"],
+          "one_process_bytes": one["matrix_bytes"],
+          "rank_bytes": [r["matrix_bytes"] for r in ranks], "capacity": one["capacity"],
+          "rank_capacity": [r["capacity"] for r in ranks],
+          "one_process_build_s": one["build_s"], "rank_build_s": [r["build_s"] for r in ranks]})
+    emit({"phase": "multiproc", "step": "mxu", "semiring": "min_plus", "scale": SCALE,
+          "bit_equal": True, "k1_launches_one_process": one_launches,
+          "k1_launches_by_rank": [r["mxu"]["launches"] for r in ranks],
+          "capacities": one["mxu"]["capacities"], "nnz": one["mxu"]["nnz"],
+          "one_process_ms": one["mxu"]["ms"], "two_rank_ms": worst("mxu")})
+    emit({"phase": "multiproc", "step": "esc", "semiring": "min_plus", "scale": SCALE,
+          "bit_equal": True, "capacities": one["esc"]["capacities"], "nnz": one["esc"]["nnz"],
+          "one_process_ms": one["esc"]["ms"], "two_rank_ms": worst("esc")})
+    emit({"phase": "multiproc", "step": "read_mm_distributed", "scale": GI_IO_SCALE,
+          "same_entries": True, "nnz": one["read"]["nnz"], "whole_file_parse_s": whole_s,
+          "one_process_s": one["read"]["s"], "two_rank_s": worst("read", "s"),
+          "rank_range_parse_s": [r["parse_s"] for r in ranks],
+          "rank_range_entries": [r["parse_entries"] for r in ranks]})
+    launches = {"k1": semiring_matmul.launches, "k2": flat_to_tuples_arrays.launches}
+    if launches["k2"]:
+        raise AssertionError(f"the multiproc phase launched K2: {launches}")
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "multiproc", "step": "checks", "k1_launches_by_rank":
+          [r["mxu"]["launches"] for r in ranks], "step_s": step_s,
+          "rank_exchange": [r["stats"] for r in ranks], "phase_s": phase_s,
+          "cap_s": MULTIPROC_CAP_S, "within_cap": phase_s <= MULTIPROC_CAP_S,
+          "total_s": time.perf_counter() - t_start})
+    if phase_s > MULTIPROC_CAP_S:
+        raise AssertionError(f"the multiproc phase took {phase_s:.1f} s, over its "
+                             f"{MULTIPROC_CAP_S} s cap")
+    return {"k1": {"min_plus": two_launches, "max_min": 0}}
+
 
 WATCHDOG_S = 1100  # short of the 1,200 s the script must finish in
 
@@ -7153,12 +7440,12 @@ def main() -> int:
         return run_phases()
     finally:
         faulthandler.cancel_dump_traceback_later()
-        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR, PROCFLEET_DIR, SHARD_DIR):
+        for d in (PLAN_STORE_DIR, DUR_DIR, FLEET_DIR, PROCFLEET_DIR, SHARD_DIR, MULTIPROC_DIR):
             shutil.rmtree(d, ignore_errors=True)
 
 
 def run_phases() -> int:
-    """Phases 1-22 (module docstring), then the ``kernels`` line and the
+    """Phases 1-23 (module docstring), then the ``kernels`` line and the
     contract's last line."""
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -7172,6 +7459,7 @@ def run_phases() -> int:
     # phase 5's products, as live entries, for phase 11's single-tile forms
     mxu13 = {name: live_entries(C) for name, (_, C) in path["mats"].items()}
     k2_path = phase_k2_path(path.pop("mats"))
+    host13 = path.pop("host")  # phase 5's graph, on the host, for phase 23
     times = phase_times(dev, full, loops)
     bfs = phase_bfs_path(dev, t_start)
     A20, bfs_graph = bfs["spmat"].pop("A"), bfs["g"]
@@ -7216,6 +7504,8 @@ def run_phases() -> int:
     shard = phase_shard(dev, t_start, p21)
     torch.cuda.empty_cache()
     net = phase_net(dev, t_start, p21)
+    torch.cuda.empty_cache()
+    multiproc = phase_multiproc(dev, t_start, p21, host13)
     kernels = []
     for sr in (MIN_PLUS, MAX_MIN):  # the kinds the main path and phase 11 launch
         kind = _PALLAS_KINDS[sr.name]
@@ -7228,7 +7518,7 @@ def run_phases() -> int:
                    "obs": obs_phase["k1"][sr.name], "engine": engine["k1"][sr.name],
                    "server": server["k1"][sr.name], "fleet": fleet["k1"][sr.name],
                    "procfleet": procfleet["k1"][sr.name], "shard": shard["k1"][sr.name],
-                   "net": net["k1"][sr.name]}
+                   "net": net["k1"][sr.name], "multiproc": multiproc["k1"][sr.name]}
         kernels.append({
             "name": f"semiring_mm_{kind}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNEL, "launches": sum(by_path.values()),
@@ -7249,6 +7539,9 @@ def run_phases() -> int:
     if (sum(k["launches_by_path"]["obs"] for k in kernels) != sum(obs_phase["k1"].values())
             or obs_phase["k1"]["min_plus"] < 1):
         raise AssertionError("K1's launch counts do not add up on the obs path")
+    if (sum(k["launches_by_path"]["multiproc"] for k in kernels)
+            != sum(multiproc["k1"].values()) or multiproc["k1"]["min_plus"] < 1):
+        raise AssertionError("K1's launch counts do not add up on the multiproc path")
     k2 = k2_path["per_kind"]["min_plus"]
     kernels.append({
         "name": "dense_to_tuples_f32", "variant": k2["k2_variant"], "route": "cuda",

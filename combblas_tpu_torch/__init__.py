@@ -89,7 +89,7 @@ from .io import (
     write_vec,
 )
 from .models.graph500 import isolated_compression_perm, kernel1_device, permute_vertices
-from .parallel.collectives import axis_ring_reduce
+from .parallel.collectives import axis_reduce, axis_reduce_scatter, axis_ring_reduce
 from .parallel.redistribute import from_device_coo, redistribute_coo
 from .models import PAD_ROOT
 from .models.bc import (
@@ -193,7 +193,8 @@ from .parallel.ellmat import (
     upload_csc_companion,
 )
 from .parallel.dense import DenseParMat
-from .parallel.grid import Grid, HostGrid
+from .parallel.grid import Grid, HostGrid, LocalOnlyError
+from .parallel.multihost import init_distributed, make_global_grid
 from .parallel.mesh3d import Grid3D, SpParMat3D, spgemm3d
 from .parallel.indexing import col_selector, row_selector, spasgn, subsref
 from .parallel.spgemm import (
@@ -302,6 +303,11 @@ __all__ = [
     "Grid",
     "Grid3D",
     "HostGrid",
+    "LocalOnlyError",
+    "init_distributed",
+    "make_global_grid",
+    "axis_reduce",
+    "axis_reduce_scatter",
     "MAX_MIN",
     "MIN_PLUS",
     "MXU_MAX_TILE_DIM",

@@ -46,6 +46,15 @@ def _load_native():
         ctypes.c_int64,
         ctypes.c_int,
     ]
+    lib.mm_parse_range.restype = ctypes.c_int64
+    lib.mm_parse_range.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.c_int64,
+        ctypes.c_int,
+    ]
     return lib
 
 
@@ -145,6 +154,40 @@ def read_mm(path, *, expand_symmetric: bool = True, nthreads: int | None = None)
     return rows, cols, vals, nrows, ncols
 
 
+def read_mm_range(path, lo: int, hi: int, *, expand_symmetric: bool = True,
+                  nthreads: int | None = None):
+    """The entries of a ``coordinate`` file whose lines START in the byte
+    range ``[lo, hi)`` (the newline rule of the reference's
+    ``ParallelReadMM``: a partial first line belongs to the range before,
+    the last line is read to its end), parsed by the native parser over
+    ``nthreads`` threads. Returns (rows, cols, vals) as ``read_mm`` does;
+    ranges that tile the body give every entry once."""
+    path = os.fspath(path)
+    lib = _load_native()
+    hdr = (ctypes.c_int64 * 6)()
+    rc = lib.mm_header(path.encode(), hdr)
+    if rc != 0:
+        raise ValueError(f"mm_header failed ({rc}) for {path}")
+    nnz, sym = int(hdr[2]), int(hdr[4])
+    cap = max(min(nnz, (max(hi - lo, 0)) // 4 + 2), 1)  # a line holds at least "1 1\n"
+    rows = np.empty(cap, np.int64)
+    cols = np.empty(cap, np.int64)
+    vals = np.empty(cap, np.float64)
+    got = lib.mm_parse_range(
+        path.encode(), int(lo), int(hi),
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        cap, nthreads or min(os.cpu_count() or 1, 16),
+    )
+    if got < 0:
+        raise ValueError(f"mm_parse_range failed ({got}) for {path} [{lo}, {hi})")
+    rows, cols, vals = rows[:got], cols[:got], vals[:got]
+    if expand_symmetric and sym:
+        rows, cols, vals = _expand_symmetric(rows, cols, vals, sym)
+    return rows, cols, vals
+
+
 def read_mm_spmat(grid, path, dtype=np.float32, dedup_sr=None, **kw):
     """read_mm → SpParMat on ``grid`` (the ParallelReadMM equivalent)."""
     from ..parallel.spmat import SpParMat
@@ -193,25 +236,45 @@ def read_mm_distributed(
     dedup_sr=None,
 ):
     """Matrix Market read whose tuples reach their owner tiles on the
-    device: the file is parsed whole (``read_mm``), cut into one chunk a
-    tile in the grid's row-major tile order (padding slots (nrows, ncols,
-    0)), uploaded as ``[pr, pc, chunk]`` arrays and routed by
-    ``redistribute.from_device_coo``. This is the reference's
-    single-process case; its byte-range read over several processes
-    (``mm.py:238-338``) comes with the grids over several cards (ROADMAP
-    item 12c). Returns an SpParMat on ``grid``.
+    device (≈ ``ParallelReadMM``, SpParMat.cpp:3980-4127). Returns an
+    SpParMat on ``grid``.
+
+    On one process the file is parsed whole (``read_mm``), cut into one
+    chunk a tile in the grid's row-major tile order (padding slots (nrows,
+    ncols, 0)), uploaded as ``[pr, pc, chunk]`` arrays and routed by
+    ``redistribute.from_device_coo``. On a grid over several processes
+    (the reference's ``mm.py:238-338``) each rank parses only its byte
+    range of the data section (``read_mm_range``: a range owns a line iff
+    the line starts inside it), the ranks agree on one chunk (the largest
+    over ranks of a rank's entries over its tiles), each rank uploads its
+    entries as ``[k, chunk]`` arrays for its k tiles, and
+    ``from_device_coo``'s two hops route every tuple to its owner tile.
+    The tiles then hold the same entries as the one-process read's, in
+    another slot order.
     """
     from ..parallel.redistribute import from_device_coo
 
-    _mm_header_span(path)  # the reference's header checks (coordinate only)
-    rows, cols, vals, nrows, ncols = read_mm(path, expand_symmetric=expand_symmetric)
-    ntiles = grid.size
-    chunk = max(-(-len(rows) // ntiles), 1)
+    data_off, nrows, ncols, _nnz, _pattern, _sym = _mm_header_span(path)
+    if grid.is_distributed:
+        from ..parallel import multihost
+
+        span = os.path.getsize(path) - data_off
+        lo = data_off + (span * grid.rank) // grid.world
+        hi = data_off + (span * (grid.rank + 1)) // grid.world
+        rows, cols, vals = read_mm_range(path, lo, hi, expand_symmetric=expand_symmetric)
+        nmine = len(grid.owned_tiles())
+        chunk = max(multihost.agree(grid, -(-len(rows) // nmine)), 1)
+        shape = (nmine, chunk)
+        ntiles = nmine
+    else:
+        rows, cols, vals, nrows, ncols = read_mm(path, expand_symmetric=expand_symmetric)
+        ntiles = grid.size
+        chunk = max(-(-len(rows) // ntiles), 1)
+        shape = (grid.pr, grid.pc, chunk)
     pr_ = np.full((ntiles * chunk,), nrows, np.int64)
     pc_ = np.full((ntiles * chunk,), ncols, np.int64)
     pv_ = np.zeros((ntiles * chunk,), np.float64)
     pr_[: len(rows)], pc_[: len(rows)], pv_[: len(rows)] = rows, cols, vals
-    shape = (grid.pr, grid.pc, chunk)
 
     def up(arr, dt):
         return torch.from_numpy(np.ascontiguousarray(arr.astype(dt)).reshape(shape)).to(grid.device)

@@ -1,7 +1,9 @@
 // Native Matrix Market parser — the performance path of the port's I/O.
 //
-// The port's own copy of combblas_tpu/io/native/mmparse.cpp, unchanged but
-// for this header; built at first use by combblas_tpu_torch/_build.py:
+// The port's own copy of combblas_tpu/io/native/mmparse.cpp, with one
+// addition: mm_parse_range, the body lines that start inside one byte range
+// of the file (a process's share of a read over several processes, the
+// reference's newline rule). Built at first use by combblas_tpu_torch/_build.py:
 // build_host (g++ -O3 -std=c++17 -shared -fPIC -pthread) into
 // build/combblas_tpu_torch/.
 //
@@ -115,6 +117,76 @@ int mm_header(const char* path, int64_t* out) {
     return 0;
 }
 
+// Parse `bodylen` bytes of body text in `buf` (NUL-terminated) with
+// `nthreads` threads into caller-allocated arrays of capacity `cap`. Returns
+// entries parsed, or -4 when they pass `cap`.
+static int64_t parse_buffer(const char* data, int64_t bodylen, bool pattern, int64_t* rows,
+                            int64_t* cols, double* vals, int64_t cap, int nthreads) {
+    if (nthreads < 1) nthreads = 1;
+
+    // Byte-range split with newline realignment (the FetchBatch scheme).
+    std::vector<int64_t> starts(nthreads + 1);
+    starts[0] = 0;
+    starts[nthreads] = bodylen;
+    for (int t = 1; t < nthreads; ++t) {
+        int64_t guess = bodylen * t / nthreads;
+        while (guess < bodylen && data[(size_t)guess] != '\n') ++guess;
+        starts[t] = guess < bodylen ? guess + 1 : bodylen;
+    }
+    // Count entries (newline-terminated non-empty lines) per range so each
+    // thread writes to a disjoint slice.
+    std::vector<int64_t> counts(nthreads, 0);
+    {
+        std::vector<std::thread> th;
+        for (int t = 0; t < nthreads; ++t) {
+            th.emplace_back([&, t] {
+                int64_t n = 0;
+                const char* p = data + starts[t];
+                const char* end = data + starts[t + 1];
+                while (p < end) {
+                    while (p < end && isspace((unsigned char)*p)) ++p;
+                    if (p >= end) break;
+                    ++n;
+                    while (p < end && *p != '\n') ++p;
+                }
+                counts[t] = n;
+            });
+        }
+        for (auto& x : th) x.join();
+    }
+    std::vector<int64_t> offs(nthreads + 1, 0);
+    for (int t = 0; t < nthreads; ++t) offs[t + 1] = offs[t] + counts[t];
+    if (offs[nthreads] > cap) return -4;  // caller's buffer too small
+
+    std::vector<int64_t> parsed(nthreads, 0);
+    {
+        std::vector<std::thread> th;
+        for (int t = 0; t < nthreads; ++t) {
+            th.emplace_back([&, t] {
+                parsed[t] = parse_range(data, starts[t], starts[t + 1],
+                                        pattern, rows, cols, vals, offs[t],
+                                        offs[t] + counts[t]);
+            });
+        }
+        for (auto& x : th) x.join();
+    }
+    int64_t total = 0;
+    for (int t = 0; t < nthreads; ++t) total += parsed[t];
+    // Compact if any range parsed fewer than counted (malformed lines).
+    if (total != offs[nthreads]) {
+        int64_t w = 0;
+        for (int t = 0; t < nthreads; ++t) {
+            int64_t s = offs[t];
+            for (int64_t k = 0; k < parsed[t]; ++k, ++w) {
+                rows[w] = rows[s + k];
+                cols[w] = cols[s + k];
+                vals[w] = vals[s + k];
+            }
+        }
+    }
+    return total;
+}
+
 // Parse the whole body with `nthreads` threads into caller-allocated arrays
 // of capacity `cap`. Returns entries parsed, or negative on error.
 int64_t mm_parse(const char* path, int64_t* rows, int64_t* cols, double* vals,
@@ -136,69 +208,46 @@ int64_t mm_parse(const char* path, int64_t* rows, int64_t* cols, double* vals,
         return -3;
     }
     fclose(f);
-    if (nthreads < 1) nthreads = 1;
+    return parse_buffer(buf.data(), bodylen, h.pattern, rows, cols, vals, cap, nthreads);
+}
 
-    // Byte-range split with newline realignment (the FetchBatch scheme).
-    std::vector<int64_t> starts(nthreads + 1);
-    starts[0] = 0;
-    starts[nthreads] = bodylen;
-    for (int t = 1; t < nthreads; ++t) {
-        int64_t guess = bodylen * t / nthreads;
-        while (guess < bodylen && buf[(size_t)guess] != '\n') ++guess;
-        starts[t] = guess < bodylen ? guess + 1 : bodylen;
+// Parse the body lines that START in the file's byte range [lo, hi) (clamped
+// to the body): a partial first line belongs to the range before, and the
+// last line is read to its end past hi. Returns entries parsed, or negative
+// on error (-4: more than `cap`).
+int64_t mm_parse_range(const char* path, int64_t lo, int64_t hi, int64_t* rows,
+                       int64_t* cols, double* vals, int64_t cap, int nthreads) {
+    FILE* f = fopen(path, "rb");
+    if (!f) return -1;
+    Header h;
+    if (parse_header(f, &h)) { fclose(f); return -2; }
+    fseek(f, 0, SEEK_END);
+    int64_t fsize = ftell(f);
+    if (lo < h.body_offset) lo = h.body_offset;
+    if (hi > fsize) hi = fsize;
+    int64_t start = lo;
+    if (lo > h.body_offset) {  // skip to the first line that starts at or after lo
+        fseek(f, lo - 1, SEEK_SET);
+        int c = fgetc(f);
+        start = lo;
+        while (c != EOF && c != '\n') { c = fgetc(f); ++start; }
+        if (c == EOF) start = fsize;
     }
-    // Count entries (newline-terminated non-empty lines) per range so each
-    // thread writes to a disjoint slice.
-    std::vector<int64_t> counts(nthreads, 0);
-    {
-        std::vector<std::thread> th;
-        for (int t = 0; t < nthreads; ++t) {
-            th.emplace_back([&, t] {
-                int64_t n = 0;
-                const char* p = buf.data() + starts[t];
-                const char* end = buf.data() + starts[t + 1];
-                while (p < end) {
-                    while (p < end && isspace((unsigned char)*p)) ++p;
-                    if (p >= end) break;
-                    ++n;
-                    while (p < end && *p != '\n') ++p;
-                }
-                counts[t] = n;
-            });
-        }
-        for (auto& x : th) x.join();
+    if (start >= hi) { fclose(f); return 0; }
+    int64_t stop = hi;  // the last line that starts before hi runs to its newline
+    fseek(f, hi - 1, SEEK_SET);
+    int c = fgetc(f);
+    while (c != EOF && c != '\n') { c = fgetc(f); ++stop; }
+    if (stop > fsize) stop = fsize;
+    int64_t len = stop - start;
+    std::vector<char> buf((size_t)len + 1, '\0');
+    fseek(f, start, SEEK_SET);
+    if (len > 0 && fread(buf.data(), 1, (size_t)len, f) != (size_t)len) {
+        fclose(f);
+        return -3;
     }
-    std::vector<int64_t> offs(nthreads + 1, 0);
-    for (int t = 0; t < nthreads; ++t) offs[t + 1] = offs[t] + counts[t];
-    if (offs[nthreads] > cap) return -4;  // caller's buffer too small
-
-    std::vector<int64_t> parsed(nthreads, 0);
-    {
-        std::vector<std::thread> th;
-        for (int t = 0; t < nthreads; ++t) {
-            th.emplace_back([&, t] {
-                parsed[t] = parse_range(buf.data(), starts[t], starts[t + 1],
-                                        h.pattern, rows, cols, vals, offs[t],
-                                        offs[t] + counts[t]);
-            });
-        }
-        for (auto& x : th) x.join();
-    }
-    int64_t total = 0;
-    for (int t = 0; t < nthreads; ++t) total += parsed[t];
-    // Compact if any range parsed fewer than counted (malformed lines).
-    if (total != offs[nthreads]) {
-        int64_t w = 0;
-        for (int t = 0; t < nthreads; ++t) {
-            int64_t s = offs[t];
-            for (int64_t k = 0; k < parsed[t]; ++k, ++w) {
-                rows[w] = rows[s + k];
-                cols[w] = cols[s + k];
-                vals[w] = vals[s + k];
-            }
-        }
-    }
-    return total;
+    fclose(f);
+    return parse_buffer(buf.data(), len, h.pattern, rows, cols, vals, cap, nthreads);
 }
 
 }  // extern "C"

@@ -21,7 +21,7 @@ import torch
 
 from ..parallel.dense import DenseParMat
 from ..parallel.ellmat import dist_spmv_ell_multi
-from ..parallel.grid import Grid
+from ..parallel.grid import Grid, require_local
 from ..parallel.spgemm import spgemm
 from ..parallel.spmat import SpParMat
 from ..parallel.vec import DistMultiVec, DistVec
@@ -64,6 +64,7 @@ def bc_batch(A: SpParMat, sources, AT: SpParMat | None = None) -> DistVec:
     dependency sums, endpoints excluded as Brandes does. ``AT``: Aᵀ, when
     the caller already has it. The forward loop reads the fringe's entry
     count back once a level (``last_run["readbacks"]``)."""
+    require_local(A.grid, "bc_batch", 4)
     grid, n = A.grid, A.nrows
     if AT is None:
         AT = A.transpose()
@@ -103,6 +104,7 @@ def betweenness_centrality(A: SpParMat, batch_size: int | None = None, sources=N
     """Exact (all sources) or sampled BC: ``sources`` (default: every
     vertex) in batches of ``batch_size`` (default: one batch). An
     undirected graph counts every pair twice; ``normalize=True`` halves."""
+    require_local(A.grid, "betweenness_centrality", 4)
     n = A.nrows
     srcs = np.arange(n) if sources is None else np.asarray(sources)
     if len(srcs) == 0:

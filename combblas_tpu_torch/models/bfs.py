@@ -67,6 +67,7 @@ from ..parallel.ellmat import (
     col_blocks,
     dist_spmv_ell_masked_multi,
 )
+from ..parallel.grid import require_local
 from ..parallel.spmat import SpParMat, ones_i32
 from ..parallel.spmv import csc_tiles, dist_spmspv_masked, dist_spmv_masked, spmspv_counts
 from ..parallel.vec import DistMultiVec, DistVec
@@ -120,6 +121,7 @@ def bfs(A, source, max_iters: int | None = None, sr: Semiring = SELECT2ND_MAX):
     terminal empty level included (the reference returns an int32 array).
     ``bfs.last_run`` holds the readbacks (one a level).
     """
+    require_local(A.grid, "bfs", 1)
     grid = A.grid
     n = A.nrows
     iters = max_iters if max_iters is not None else n
@@ -157,6 +159,7 @@ def bfs_levels_instrumented(A, source, max_iters: int | None = None,
     dispatches). Returns ``(parents, levels, num_levels)`` like ``bfs``,
     the terminal empty level counted.
     """
+    require_local(A.grid, "bfs_levels_instrumented", 1)
     grid = A.grid
     n = A.nrows
     iters = max_iters if max_iters is not None else n
@@ -196,6 +199,7 @@ def bfs_diropt(A: SpParMat, source, *, frontier_capacity: int, exp_capacity: int
     that ends the loop), the step of each level and each level's frontier
     statistics.
     """
+    require_local(A.grid, "bfs_diropt", 1)
     grid = A.grid
     n = A.nrows
     iters = max_iters if max_iters is not None else n
@@ -248,6 +252,7 @@ bfs_diropt.last_run = None
 def bfs_diropt_auto(A: SpParMat, source, max_iters: int | None = None):
     """``bfs_diropt`` with the reference's default budgets: lc/8 frontier
     columns and an eighth of the tile capacity in walked entries."""
+    require_local(A.grid, "bfs_diropt_auto", 1)
     lc = A.grid.local_cols(A.ncols)
     cap = A.capacity
     fc = min(max(64, lc // 8 + 1), lc)
@@ -259,6 +264,7 @@ def traversed_edges(A, parents: DistVec) -> torch.Tensor:
     """Graph500 kernel-2 edge count (0-dim int32): the structural degrees
     of the discovered vertices, summed in int32 as the reference does, /
     2 (each undirected edge is stored twice)."""
+    require_local(A.grid, "traversed_edges", 1)
     deg = A.reduce(PLUS_TIMES, "cols", map_fn=ones_i32).blocks
     disc = parents.realign("row").blocks >= 0
     return torch.where(disc, deg, 0).sum(dtype=torch.int32) // 2
@@ -293,7 +299,8 @@ def bfs_batch_compact(A: EllParMat, sources, max_iters: int | None = None,
     device, where the ring (the reference's ``BitMapCarousel`` analog) and
     the grid-order fold give the same bits, so each dense level folds a
     grid row's tiles in the ring's order (``collectives.axis_ring_reduce``)
-    for both values. The ring schedule across cards comes with item 12c.
+    for both values. The ring schedule across ranks comes with ROADMAP item
+    12c.1.
     """
     grid = A.grid
     n = A.nrows

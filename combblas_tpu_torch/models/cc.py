@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.grid import require_local
 from ..parallel.spmat import ones_i32
 from ..parallel.spmv import dist_spmv
 from ..parallel.vec import DistVec
@@ -49,6 +50,7 @@ def connected_components(A):
     slots carry their own ids and never touch a real vertex) and the
     hooking rounds run. ``connected_components.last_run`` holds the
     readbacks."""
+    require_local(A.grid, "connected_components", 4)
     grid = A.grid
     n = A.nrows
 
@@ -81,6 +83,7 @@ def lacc(A):
     deviations of the reference, kept: a uniform star-tracking path in the
     first round (marking extra vertices NONSTAR is safe, star detection
     promotes them again), and hooks that collide resolve by the minimum."""
+    require_local(A.grid, "lacc", 4)
     grid = A.grid
     n = A.nrows
 

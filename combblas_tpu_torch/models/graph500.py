@@ -27,7 +27,7 @@ import time
 import torch
 
 from .. import obs
-from ..parallel.grid import Grid
+from ..parallel.grid import Grid, require_local
 from ..parallel.redistribute import from_device_coo
 from ..parallel.spmat import SpParMat
 from ..parallel.vec import DistVec
@@ -44,6 +44,7 @@ def permute_vertices(A: SpParMat, p: DistVec, *, slack: float = 2.0,
     ``p``, then ``from_device_coo`` routes them to their new owners (with
     its capacity-doubling retry). Reference: ``DistEdgeList::RenameVertices``
     / ``PermEdges``."""
+    require_local(A.grid, "permute_vertices", 4)
     if A.nrows != A.ncols:
         raise ValueError("vertex permutation needs a square matrix")
     n = A.nrows
@@ -70,6 +71,7 @@ def isolated_compression_perm(A: SpParMat) -> tuple[DistVec, torch.Tensor]:
     their order, and the others into [nkeep, n) in theirs. Padding slots
     of the degree blocks count as isolated, as in the reference. Returns
     (p, nkeep): a col-aligned DistVec and a 0-dim int32 tensor."""
+    require_local(A.grid, "isolated_compression_perm", 4)
     deg = A.nnz_per_column().blocks  # [pc, lc]
     has = (deg > 0).to(torch.int32)
     iso = 1 - has
@@ -116,6 +118,7 @@ def kernel1_device(
     ``degree_s``) with ``dropped_dev``, the routing's drop count as a
     device tensor: the routing defers its check, and the caller must see
     it 0."""
+    require_local(grid, "kernel1_device", 4)
     dev = grid.device
     timings: dict = {}
     n = 1 << scale

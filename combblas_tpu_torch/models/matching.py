@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..parallel.grid import require_local
 from ..parallel.spmat import SpParMat, ones_f32
 from ..parallel.spmv import dist_spmv
 from ..parallel.vec import DistVec
@@ -148,6 +149,7 @@ def maximal_matching(A: SpParMat, *, karp_sipser: bool = True,
     ``weighted`` proposes heaviest edges (AWPM's initialisation). One
     readback a round; ``maximal_matching.last_run`` counts the rounds.
     Reference: ``BPMaximalMatching.h``."""
+    require_local(A.grid, "maximal_matching", 4)
     grid = A.grid
     nr, nc = A.nrows, A.ncols
     Aid = _colid_matrix(A)
@@ -283,6 +285,7 @@ def maximum_matching_device(A: SpParMat, init: tuple | None = None) -> tuple[Dis
     BFS's). ``maximum_matching_device.last_run`` records the phases, the
     BFS depth of each and the readbacks. Reference:
     ``BPMaximumMatching.cpp:124-188``."""
+    require_local(A.grid, "maximum_matching_device", 4)
     mate_row, mate_col = init if init is not None else maximal_matching(A)
     AT = A.transpose().apply(ones_f32)
     depths, readbacks = [], 0
@@ -306,6 +309,7 @@ def maximum_matching(A: SpParMat, init: tuple | None = None, *,
     ``device=True``: ``maximum_matching_device``. ``device=False``: the
     host-augmentation oracle (a distributed structural sweep a layer, a
     serial augment on the host over gathered pointer arrays)."""
+    require_local(A.grid, "maximum_matching", 4)
     if device:
         return maximum_matching_device(A, init=init)
     grid = A.grid
@@ -386,6 +390,7 @@ def awpm(A: SpParMat) -> tuple[DistVec, DistVec]:
     """Approximate-weight perfect matching: heaviest-edge Karp-Sipser
     initialisation + cardinality augmentation (the composition of the
     reference's AWPM application, ``ApproxWeightPerfectMatching.h``)."""
+    require_local(A.grid, "awpm", 4)
     init = maximal_matching(A, karp_sipser=True, weighted=True)
     return maximum_matching(A, init=init)
 

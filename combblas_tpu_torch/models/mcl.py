@@ -56,6 +56,7 @@ import torch
 
 from .. import obs
 from ..ops.spgemm import dense_support_nnz, sparsify_windowed
+from ..parallel.grid import require_local
 from ..parallel.mesh3d import (
     Grid3D,
     SpParMat3D,
@@ -115,6 +116,7 @@ def _pow_fn(power: float):
 def make_col_stochastic(A: SpParMat) -> SpParMat:
     """Scale each column to sum 1 (empty columns unchanged). Reference:
     ``MakeColStochastic`` (MCL.cpp:390)."""
+    require_local(A.grid, "make_col_stochastic", 4)
     sums = A.reduce(PLUS_TIMES, "rows")
     return A.dim_apply(sums, _stochastic_scale, "cols")
 
@@ -123,6 +125,7 @@ def chaos(A: SpParMat) -> torch.Tensor:
     """max over columns of nnz_j · (column max − column sum of squares), a
     0-dim tensor: zero exactly when every column is idempotent. Assumes A
     is column-stochastic. Reference: ``Chaos`` (MCL.cpp:408-422)."""
+    require_local(A.grid, "chaos", 4)
     colmax = A.reduce(MAX_MIN, "rows")
     colssq = A.reduce(PLUS_TIMES, "rows", map_fn=_square)
     nnzc = A.nnz_per_column()
@@ -135,6 +138,7 @@ def chaos(A: SpParMat) -> torch.Tensor:
 def inflate(A: SpParMat, power: float) -> SpParMat:
     """Hadamard power + column re-normalization. Reference: ``Inflate``
     (MCL.cpp:447)."""
+    require_local(A.grid, "inflate", 4)
     return make_col_stochastic(A.apply(_pow_fn(power)))
 
 
@@ -153,6 +157,7 @@ def mcl_prune_recovery_select(
     ``recover_num``. ``device_gate=False`` reads back whether any column
     needs recovery and skips the second ``kselect`` when none does;
     ``device_gate=True`` always computes it and blends with ``where``."""
+    require_local(C.grid, "mcl_prune_recovery_select", 4)
     if hard_threshold > 0:
         C = C.prune(_lt_pred(float(hard_threshold)))
     s_th = C.kselect(select_num)
@@ -204,6 +209,7 @@ def mcl(
     then, as in the reference. ``mcl.last_run`` records the loop and the
     chaos of each iteration or sync (and the dense loop's kicks, the block
     loops' rerolls and capacities)."""
+    require_local(A.grid, "mcl", 4)
     if add_self_loops:
         A = A.add_loops(1)
     A = make_col_stochastic(A)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.grid import require_local
 from ..parallel.spmv import dist_spmv
 from ..parallel.vec import DistVec
 from ..semiring import SELECT2ND_MAX, SELECT2ND_MIN
@@ -32,6 +33,7 @@ def mis(A, generator: torch.Generator | None = None):
     excluded, padding -1) and the rounds run. ``generator`` draws the
     priorities on its own device; when None, the default generator of the
     grid's device draws them there."""
+    require_local(A.grid, "mis", 4)
     gids = DistVec.iota(A.grid, A.nrows, torch.int32, align="row").blocks
     dev = generator.device if generator is not None else gids.device
     prio = torch.randperm(gids.numel(), generator=generator, device=dev)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.grid import require_local
 from ..parallel.indexing import col_selector
 from ..parallel.spgemm import spgemm
 from ..parallel.spmat import SpParMat, ones_f32, ones_i32
@@ -28,6 +29,7 @@ def pseudo_peripheral_vertex(A: SpParMat, max_probes: int = 6) -> int:
     least-degree vertex of the last level until the eccentricity stops
     growing (``RCM.cpp``'s FindPeripheral loop). Ties go to the least id
     (numpy ``argmin``)."""
+    require_local(A.grid, "pseudo_peripheral_vertex", 4)
     deg = np.asarray(A.reduce(PLUS_TIMES, "rows", map_fn=ones_i32).to_global())
     # least degree among the non-isolated vertices (isolated ones order last)
     noniso = np.nonzero(deg > 0)[0]
@@ -65,6 +67,7 @@ def rcm_ordering(A: SpParMat, root: int | None = None) -> DistVec:
     """RCM permutation: ``perm[k]`` is the old vertex id placed at new
     position k (row-aligned; apply with ``indexing.subsref(A, p, p)``).
     Without ``root``, the pseudo-peripheral probe picks it."""
+    require_local(A.grid, "rcm_ordering", 4)
     grid = A.grid
     n = A.nrows
     if root is None:
@@ -88,6 +91,7 @@ def minimum_degree_ordering(A: SpParMat, max_steps: int | None = None) -> DistVe
     id on ties), joins its live neighbours into a clique (the structural
     outer product by ``spgemm``, added with ``ewise_add``) and masks v out.
     O(n) host steps, each with readbacks: for small graphs."""
+    require_local(A.grid, "minimum_degree_ordering", 4)
     n = A.nrows
     grid = A.grid
     work = A.apply(ones_f32).remove_loops()

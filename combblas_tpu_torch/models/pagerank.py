@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.ellmat import EllParMat, dist_spmv_ell_multi
+from ..parallel.grid import require_local
 from ..parallel.spmat import SpParMat, ones_f32
 from ..parallel.spmv import dist_spmv
 from ..parallel.vec import DistMultiVec, DistVec
@@ -35,6 +36,7 @@ def pagerank(A: SpParMat, alpha: float = 0.85, tol: float = 1e-6, max_iters: int
     j links to i): ``(ranks, num_iters)``, a row-aligned float32 DistVec
     summing to 1 and the rounds run. ``pagerank.last_run`` holds the
     readbacks (one a round)."""
+    require_local(A.grid, "pagerank", 4)
     grid = A.grid
     n = A.nrows
     outdeg = A.reduce(PLUS_TIMES, axis="rows", map_fn=ones_f32)  # entries per column

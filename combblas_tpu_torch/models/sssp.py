@@ -15,6 +15,7 @@ import torch
 
 from ..operations import minimum
 from ..parallel.ellmat import EllParMat, dist_spmv_ell_multi
+from ..parallel.grid import require_local
 from ..parallel.spmv import dist_spmv
 from ..parallel.vec import DistMultiVec, DistVec
 from ..semiring import MIN_PLUS
@@ -28,6 +29,7 @@ def sssp(A, source):
     unreachable; MIN_PLUS's ``+`` saturates there) and the number of
     rounds as an int, at most n. ``sssp.last_run`` holds the readbacks
     (one a round)."""
+    require_local(A.grid, "sssp", 1)
     grid = A.grid
     n = A.nrows
     gids = DistVec.iota(grid, n, torch.int32, align="row").blocks

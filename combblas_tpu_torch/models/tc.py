@@ -34,6 +34,7 @@ from ..ops.spgemm import (
     pack_support_bits,
     popcount_pair_counts,
 )
+from ..parallel.grid import require_local
 from ..parallel.spgemm import spgemm
 from ..parallel.spmat import SpParMat, ones_f32
 from ..semiring import PLUS_TIMES
@@ -155,6 +156,7 @@ def triangle_count(A: SpParMat, kernel: str = "auto") -> int:
     kernels deduplicate on the device; ``sparse`` expects an edge list
     without repeats (its values are wedge counts, summed in float32 as the
     reference's: exact below 2^24 triangles). Reference: TC.cpp."""
+    require_local(A.grid, "triangle_count", 4)
     p = A.grid.pr
     nmax = max(A.nrows, A.ncols)
     dist_bits_cap = int(EDGE_HARVEST_BITS_MAX_DIM * (p / 2) ** 0.5)

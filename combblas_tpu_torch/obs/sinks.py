@@ -38,7 +38,9 @@ counters and histograms add across processes, gauges and spans keep a
 (inside a timed section, no readback), ``psum_counters`` reduces a
 per-tile counter block over the grid with the add monoid, on the device
 (the MPI_Allreduce-on-MPI_SUM analog of the reference's TIMING reduction;
-the tiles of a grid live on one device, so it is the tile loop's fold).
+on one process the tiles of a grid live on one device, so it is the tile
+loop's fold; on a grid over several processes the rank's own tiles are
+folded, then summed over the ranks by one integer ``all_reduce``).
 """
 
 from __future__ import annotations
@@ -349,13 +351,35 @@ def psum_counters(grid, local_counts):
     reduces over the mesh's row axis, then its column axis
     (``axis_reduce`` under ``shard_map``); the port's tiles live on one
     device, so the same two folds run as a loop over the tiles, in the
-    same order. The NCCL form over several cards comes with the
-    multi-card grid.
+    same order.
+
+    On a grid over several processes ``local_counts`` is ``[k_own, k]``,
+    the rank's own tiles in ``grid.owned_tiles()`` order: they are folded
+    in the same column-major order, then summed over the ranks by one
+    ``all_reduce`` (SUM), which is exact for the integer counters it takes
+    (floats raise ``TypeError``: their sum would take the backend's order).
+    Every rank gets the totals.
     """
     import torch
 
     x = torch.as_tensor(local_counts)
     pr, pc = grid.pr, grid.pc
+    if getattr(grid, "is_distributed", False):
+        from ..parallel import multihost
+
+        owned = grid.owned_tiles()
+        if tuple(x.shape[:1]) != (len(owned),) or x.dim() != 2:
+            raise ValueError(f"local_counts is {tuple(x.shape)}, want [{len(owned)}, k] "
+                             f"for the rank's {len(owned)} tiles")
+        if x.is_floating_point() or x.is_complex():
+            raise TypeError(f"psum_counters sums integer counters over ranks, got {x.dtype}")
+        slot = {t: n for n, t in enumerate(owned)}
+        total = torch.zeros_like(x[0])
+        for j in range(pc):
+            for i in range(pr):
+                if (i, j) in slot:
+                    total = total + x[slot[i, j]]
+        return multihost.all_reduce_(total.contiguous(), "sum")
     if tuple(x.shape[:2]) != (pr, pc):
         raise ValueError(f"local_counts is {tuple(x.shape)}, want [{pr}, {pc}, k]")
     total = None

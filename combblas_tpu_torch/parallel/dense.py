@@ -18,7 +18,7 @@ import torch
 from ..ops.segment import DROP_SPREAD, fold_dim, spread_drops
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring
-from .grid import Grid, fold_grid
+from .grid import Grid, fold_grid, require_local
 from .spmat import SpParMat
 from .vec import DistVec
 
@@ -31,6 +31,9 @@ class DenseParMat:
     nrows: int
     ncols: int
     grid: Grid
+
+    def __post_init__(self):
+        require_local(self.grid, "DenseParMat", 4)
 
     @property
     def local_rows(self) -> int:

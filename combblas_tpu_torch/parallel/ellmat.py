@@ -36,7 +36,7 @@ from ..ops.segment import expand_ranges, fix_signed_zeros, float_bits, segment_r
 from ..semiring import SELECT2ND_MAX, Semiring
 from ..tuner import config as tuner_config
 from .collectives import axis_ring_reduce
-from .grid import Grid, HostGrid, check_length, fold_grid
+from .grid import Grid, HostGrid, check_length, fold_grid, require_local
 from .spmat import bucket_by_tile
 from .vec import DistMultiVec, DistVec
 
@@ -72,6 +72,9 @@ class EllParMat:
     nrows: int
     ncols: int
     grid: Grid
+
+    def __post_init__(self):
+        require_local(self.grid, "EllParMat", 1)
 
     @property
     def local_rows(self) -> int:
@@ -201,6 +204,7 @@ class EllParMat:
     def from_spmat(A, max_k: int | None = None, ladder: str = "fine") -> "EllParMat":
         """Convert a ``SpParMat`` (read back to the host, then
         ``from_host_coo``)."""
+        require_local(A.grid, "EllParMat", 1)
         r, c, v = A.to_global_coo()
         return EllParMat.from_host_coo(
             A.grid, r, c, v, A.nrows, A.ncols, max_k=max_k, ladder=ladder

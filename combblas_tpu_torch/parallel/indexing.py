@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..semiring import OR_AND, PLUS_TIMES, Semiring
-from .grid import Grid
+from .grid import Grid, require_local
 from .spgemm import spgemm
 from .spmat import SpParMat
 from .vec import DistVec
@@ -58,6 +58,7 @@ def col_selector(grid: Grid, ci, nrows: int, dtype) -> SpParMat:
 def subsref(A: SpParMat, ri, ci) -> SpParMat:
     """``B = A(ri, ci)``: ``B[k, l] = A[ri[k], ci[l]]``, repeated indices
     allowed, by ``P · A`` then ``· Q``. Reference: ``SpParMat::SubsRef_SR``."""
+    require_local(A.grid, "subsref", 4)
     sr = _select_sr(A)
     P = row_selector(A.grid, ri, A.nrows, A.dtype)
     Q = col_selector(A.grid, ci, A.ncols, A.dtype)
@@ -68,6 +69,7 @@ def spasgn(A: SpParMat, ri, ci, B: SpParMat) -> SpParMat:
     """``A(ri, ci) = B``: the (ri × ci) block of A cleared, then B added
     there (``Pᵀ · B · Qᵀ``). ri and ci must be free of repeats. Returns a new
     matrix. Reference: ``SpParMat::SpAsgn``."""
+    require_local(A.grid, "spasgn", 4)
     ri = _ids(ri, A.nrows, "row")
     ci = _ids(ci, A.ncols, "col")
     if len(np.unique(ri)) != len(ri):

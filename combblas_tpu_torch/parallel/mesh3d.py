@@ -75,7 +75,7 @@ from ..semiring import Semiring, _minval
 from ..tuner import config as tuner_config
 from ..tuner import store as tuner_store
 from ..tuner.resolve import resolve_merge
-from .grid import Grid, combine_tiles
+from .grid import Grid, combine_tiles, require_local
 from .spgemm import (
     _PALLAS_KINDS,
     WINDOWED_CHUNK_W,
@@ -1232,6 +1232,7 @@ def spmat3d_from_spmat(A, grid3: Grid3D, split: str = "col", *, slack: float = 2
     them (``redistribute_coo3d``'s hops, retried with doubled capacities).
     The 2D grid may have any shape; the 3D split dim must divide over the
     layers."""
+    require_local(A.grid, "the 2D to 3D conversion", 3)
     ndev3 = grid3.size
     gr, gc, gv = _globalize2d(A)
     cap = -(-gr.numel() // ndev3)
@@ -1245,6 +1246,7 @@ def spmat_from_spmat3d(A3: SpParMat3D, grid2: Grid, *, slack: float = 2.0,
                        max_retries: int = 3):
     """3D → 2D on the device: globalize, re-split the chunks over the 2D
     grid's tiles, route with the 2D ``redistribute_coo``'s two hops."""
+    require_local(grid2, "the 3D to 2D conversion", 3)
     gr, gc, gv = _globalize3d(A3)
     cap = -(-gr.numel() // grid2.size)
     idx, r, c, v = (x.to(grid2.device) for x in _valid_flat(gr, gc, gv, A3.nrows))

@@ -12,6 +12,15 @@ grid lives on one device. Tuples past a full bucket or a full tile are
 dropped and counted, as in the reference: callers check the count (or let
 ``from_device_coo`` retry with doubled capacities).
 
+On a grid over several processes each rank passes ``[k, chunk]`` arrays,
+the chunks of its own k tiles, and the exchange is real: after each hop a
+tile's buckets go from its owner to the ranks of its grid row (hop 1) or
+column (hop 2) by ``broadcast`` (``multihost.share_line``), where the
+reference's ``all_to_all`` sends each rank only its own bucket. Every
+rank routes its own tiles, so the drop count is summed over the ranks,
+and every rank retries together. Given the same global chunks, the tiles
+are the one-process result's bit for bit.
+
 Telemetry (the reference's sites): ``from_device_coo`` gauges
 ``redistribute.stage_capacity`` / ``redistribute.tile_capacity`` on the
 deferred path, and otherwise runs in a ``redistribute`` span with a
@@ -30,6 +39,7 @@ from .. import obs
 from ..ops.segment import DROP_SPREAD, spread_drops
 from ..ops.tuples import SpTuples
 from ..semiring import Semiring
+from . import multihost
 from .grid import Grid
 from .spmat import SpParMat
 
@@ -68,17 +78,18 @@ def _bucket_route(dest, rows, cols, vals, ndest: int, cap: int, pad_row: int, pa
 
 def _route_tiles(dest, rows, cols, vals, ndest: int, cap: int, pad_row: int, pad_col: int):
     """``_bucket_route`` of every tile at once: ``dest`` etc. are ``[pr,
-    pc, m]``; returns ``[pr, pc, ndest, cap]`` buckets and the total drop
-    count. Tile t's ids become ``t·ndest + dest``, so one stable sort ranks
-    every tile's tuples as the per-tile sorts would."""
-    pr_, pc_, m = dest.shape
-    ntiles = pr_ * pc_
-    tile = torch.arange(ntiles, dtype=torch.int32, device=dest.device).view(pr_, pc_, 1)
+    pc, m]`` (or ``[k, m]``, a rank's k tiles); returns ``[pr, pc, ndest,
+    cap]`` (``[k, ndest, cap]``) buckets and the total drop count. Tile t's
+    ids become ``t·ndest + dest``, so one stable sort ranks every tile's
+    tuples as the per-tile sorts would."""
+    lead = tuple(dest.shape[:-1])
+    ntiles = int(np.prod(lead))
+    tile = torch.arange(ntiles, dtype=torch.int32, device=dest.device).view(*lead, 1)
     ok = (dest >= 0) & (dest < ndest)
     flat = torch.where(ok, tile * ndest + dest.to(torch.int32), ntiles * ndest).reshape(-1)
     br, bc, bv, dropped = _bucket_route(flat, rows.reshape(-1), cols.reshape(-1),
                                         vals.reshape(-1), ntiles * ndest, cap, pad_row, pad_col)
-    shape = (pr_, pc_, ndest, cap)
+    shape = (*lead, ndest, cap)
     return br.view(shape), bc.view(shape), bv.view(shape), dropped
 
 
@@ -102,28 +113,23 @@ def redistribute_coo(
     int32 tensor on the grid's device). With ``dedup_sr`` each tile's
     duplicates combine (``SpTuples.compact``) and the tile-overflow term
     counts DISTINCT keys, so a zero count always means a complete matrix.
+
+    On a grid over several processes rows/cols/vals are ``[k, chunk]``, the
+    rank's own tiles' chunks, and the count is over every rank.
     """
     lr, lc = grid.local_rows(nrows), grid.local_cols(ncols)
     pr_, pc_ = grid.pr, grid.pc
     cap = stage_capacity
-    # hop 1: by owner column along each grid row; tile (i, j') receives the
-    # j'-bucket of every (i, j), in order of j
-    oj = torch.where(rows < nrows, torch.div(cols, lc, rounding_mode="floor"), pc_)
-    br, bc, bv, drop1 = _route_tiles(oj, rows, cols, vals, pc_, cap, nrows, ncols)
-    r1, c1, v1 = (x.transpose(1, 2).reshape(pr_, pc_, pc_ * cap) for x in (br, bc, bv))
-    del br, bc, bv
-    # hop 2: by owner row along each grid column; tile (i', j) receives the
-    # i'-bucket of every (i, j), in order of i
-    oi = torch.where(r1 < nrows, torch.div(r1, lr, rounding_mode="floor"), pr_)
-    br, bc, bv, drop2 = _route_tiles(oi, r1, c1, v1, pr_, cap, nrows, ncols)
-    del r1, c1, v1
-    r2, c2, v2 = (x.permute(2, 1, 0, 3).reshape(pr_, pc_, pr_ * cap) for x in (br, bc, bv))
-    del br, bc, bv
+    if grid.is_distributed:
+        r2, c2, v2, drop12 = _two_hops_distributed(grid, rows, cols, vals, nrows, ncols, cap)
+    else:
+        r2, c2, v2, drop12 = _two_hops(grid, rows, cols, vals, nrows, ncols, cap)
     drop3 = torch.zeros((), dtype=torch.int64, device=rows.device)
 
     def tile(i: int, j: int) -> SpTuples:
         nonlocal drop3
-        r, c, v = r2[i, j], c2[i, j], v2[i, j]
+        k = grid.tile_index(i, j)
+        r, c, v = r2[k], c2[k], v2[k]
         ok = r < nrows
         t = SpTuples(
             rows=torch.where(ok, r - i * lr, lr).to(torch.int32),
@@ -140,7 +146,60 @@ def redistribute_coo(
         return t._select(ok).with_capacity(tile_capacity)
 
     mat = SpParMat.assemble(grid, nrows, ncols, tile)
-    return mat, (drop1 + drop2 + drop3).to(torch.int32)
+    dropped = drop12 + drop3
+    if grid.is_distributed:
+        dropped = multihost.all_reduce_(dropped.to(torch.int64).view(1), "sum")[0]
+    return mat, dropped.to(torch.int32)
+
+
+def _two_hops(grid: Grid, rows, cols, vals, nrows: int, ncols: int, cap: int):
+    """The two hops on one process: ``[pr, pc, pc·cap]`` then ``[pr, pc,
+    pr·cap]`` arrays, the second the tiles' routed tuples, and the two
+    hops' drop count."""
+    lr, lc = grid.local_rows(nrows), grid.local_cols(ncols)
+    pr_, pc_ = grid.pr, grid.pc
+    # hop 1: by owner column along each grid row; tile (i, j') receives the
+    # j'-bucket of every (i, j), in order of j
+    oj = torch.where(rows < nrows, torch.div(cols, lc, rounding_mode="floor"), pc_)
+    br, bc, bv, drop1 = _route_tiles(oj, rows, cols, vals, pc_, cap, nrows, ncols)
+    r1, c1, v1 = (x.transpose(1, 2).reshape(pr_, pc_, pc_ * cap) for x in (br, bc, bv))
+    del br, bc, bv
+    # hop 2: by owner row along each grid column; tile (i', j) receives the
+    # i'-bucket of every (i, j), in order of i
+    oi = torch.where(r1 < nrows, torch.div(r1, lr, rounding_mode="floor"), pr_)
+    br, bc, bv, drop2 = _route_tiles(oi, r1, c1, v1, pr_, cap, nrows, ncols)
+    del r1, c1, v1
+    r2, c2, v2 = (x.permute(2, 1, 0, 3).reshape(pr_, pc_, pr_ * cap) for x in (br, bc, bv))
+    return r2, c2, v2, drop1 + drop2
+
+
+def _two_hops_distributed(grid: Grid, rows, cols, vals, nrows: int, ncols: int, cap: int):
+    """``_two_hops`` across ranks on ``[k, chunk]`` arrays: each rank routes
+    its own tiles, the buckets go along grid rows (hop 1) and columns (hop
+    2), and tile (i, j') gathers bucket j' of every (i, j) in order of j,
+    then tile (i', j) bucket i' of every (i, j) in order of i, as the
+    one-process transposes do. Returns ``[k, pr·cap]`` arrays and the
+    rank's drop count."""
+    lr, lc = grid.local_rows(nrows), grid.local_cols(ncols)
+    pr_, pc_ = grid.pr, grid.pc
+    owned = grid.owned_tiles()
+    oj = torch.where(rows < nrows, torch.div(cols, lc, rounding_mode="floor"), pc_)
+    br, bc, bv, drop1 = _route_tiles(oj, rows, cols, vals, pc_, cap, nrows, ncols)
+    got = multihost.share_line(grid, {t: (br[k], bc[k], bv[k]) for k, t in enumerate(owned)},
+                               "row")
+    del br, bc, bv
+    r1, c1, v1 = (torch.stack([torch.cat([got[i, j][x][jd] for j in range(pc_)])
+                               for i, jd in owned]) for x in range(3))
+    del got
+    oi = torch.where(r1 < nrows, torch.div(r1, lr, rounding_mode="floor"), pr_)
+    br, bc, bv, drop2 = _route_tiles(oi, r1, c1, v1, pr_, cap, nrows, ncols)
+    del r1, c1, v1
+    got = multihost.share_line(grid, {t: (br[k], bc[k], bv[k]) for k, t in enumerate(owned)},
+                               "col")
+    del br, bc, bv
+    r2, c2, v2 = (torch.stack([torch.cat([got[i, j][x][idst] for i in range(pr_)])
+                               for idst, j in owned]) for x in range(3))
+    return r2, c2, v2, drop1 + drop2
 
 
 def from_device_coo(

@@ -39,6 +39,19 @@ internal: they are sized from exact counts read back and cut to their
 valid slots before the merge, which gives the same outputs, padding slots
 included, with less memory.
 
+On a grid over several processes (``multihost.make_global_grid``) the ESC
+tier (``spgemm``, ``summa_spgemm``), its symbolic pass
+(``summa_stage_flops``, ``summa_capacities``) and the mxu tier
+(``summa_spgemm_mxu``) run across ranks: each rank computes only its own
+output tiles, after fetching the stage tiles they need from their owners
+(A's tile (i, s) along grid row i, B's tile (s, j) along grid column j:
+``_stage_sources``), and every count that sizes or routes work (the
+symbolic pass, the mxu overflow, ``coo_has_duplicates``) is reduced over
+the ranks first, so that all of them take the same branch. The results
+are the one-process grid's bit for bit. The other tiers and forms (scan,
+windowed, phased, blocked, ``spgemm_auto``) raise ``LocalOnlyError``
+there (ROADMAP item 12c.2).
+
 Telemetry (``obs``), at the reference's sites and under its gates: the
 symbolic pass's ``spgemm.symbolic_fill_slots`` / ``spgemm.load_imbalance``,
 the ``spgemm``, ``spgemm.scan``, ``spgemm.phase`` and ``spgemm.auto``
@@ -89,6 +102,8 @@ from ..ops.tuples import SpTuples
 from ..semiring import Semiring
 from ..tuner import config as tuner_config
 from ..tuner import store as tuner_store
+from . import multihost
+from .grid import require_local
 from .spmat import SpParMat
 
 #: Above this local tile dimension the reference leaves the dense tier.
@@ -114,7 +129,7 @@ TIERS = ("mxu", "windowed", "scan", "esc", "windowed3d")
 
 
 def host_value(x: torch.Tensor) -> np.ndarray:
-    """The host value of a device tensor (one process holds every tile)."""
+    """The host value of a device tensor (a value every rank holds)."""
     return x.cpu().numpy()
 
 
@@ -180,12 +195,13 @@ def summa_spgemm_mxu(
     pm, pk, pn = _pad128(lrA), _pad128(lcA), _pad128(lcB)
     zero = float(sr.zero_fn(A.dtype))
     worst = [torch.zeros((), dtype=torch.long, device=A.grid.device)]
+    a_tile, b_tile = _stage_sources(A, B)
 
     def tile(i, j):
         acc = torch.full((pm, pn), zero, dtype=A.dtype, device=A.grid.device)
         for s in range(p):
-            da = densify(A.local_tile(i, s), pm, pk, zero)
-            db = densify(B.local_tile(s, j), pk, pn, zero)
+            da = densify(a_tile(i, s), pm, pk, zero)
+            db = densify(b_tile(s, j), pk, pn, zero)
             if kind == "plus_times":
                 prod = _mxu_dot(da, db, mode, acc.dtype)
             else:
@@ -196,35 +212,59 @@ def summa_spgemm_mxu(
         return out
 
     C = SpParMat.assemble(A.grid, A.nrows, B.ncols, tile)
+    if A.grid.is_distributed:  # the overflow that decides a rerun: over every rank
+        return C, multihost.all_reduce_(worst[0].view(1), "max")[0]
     return C, worst[0]
 
 
 def coo_has_duplicates(M: SpParMat) -> bool:
     """True iff some tile holds a repeated (row, col) entry — the guard of
     the mxu tier's unique-entries precondition (``densify``). One host
-    readback."""
+    readback (on a grid over several processes, of the count summed over
+    the ranks)."""
     lr = M.local_rows
     found = torch.zeros((), dtype=torch.long, device=M.grid.device)
-    for i in range(M.grid.pr):
-        for j in range(M.grid.pc):
-            rows, _, dup = coo_sort_dedup(M.rows[i, j], M.cols[i, j])
-            # padding slots (row == lr) repeat each other — not duplicates
-            found = found + (dup & (rows < lr)).sum()
+    for i, j in M.grid.owned_tiles():
+        t = M.local_tile(i, j)
+        rows, _, dup = coo_sort_dedup(t.rows, t.cols)
+        # padding slots (row == lr) repeat each other — not duplicates
+        found = found + (dup & (rows < lr)).sum()
+    if M.grid.is_distributed:
+        return multihost.agree(M.grid, int(found), "sum") > 0
     return bool(found > 0)
 
 
 # --- the stage schedule ------------------------------------------------------
 
 
-def _gather_stage_tiles(M: SpParMat, index: int, axis: str) -> list[SpTuples]:
+def _stage_sources(A: SpParMat, B: SpParMat):
+    """``(a_tile(i, s), b_tile(s, j))``, where a SUMMA stage loop reads its
+    operands: the tiles themselves on one process. On a grid over several
+    processes, the tiles this rank's output tiles need, fetched before the
+    loop (``multihost.fetch_tiles``): the owner of A's tile (i, s) sends it
+    along grid row i, the owner of B's tile (s, j) along grid column j, as
+    the reference all-gathers them over a mesh axis."""
+    g = A.grid
+    if not g.is_distributed:
+        return A.local_tile, B.local_tile
+    mine = [[(i, j) for i in range(g.pr) for j in range(g.pc) if g.owner(i, j) == r]
+            for r in range(g.world)]
+    ta = multihost.fetch_tiles(A, lambda r: {(i, s) for i, _ in mine[r] for s in range(g.pc)})
+    tb = multihost.fetch_tiles(B, lambda r: {(s, j) for _, j in mine[r] for s in range(g.pr)})
+    return (lambda i, s: ta[i, s]), (lambda s, j: tb[s, j])
+
+
+def _gather_stage_tiles(M: SpParMat, index: int, axis: str, tile=None) -> list[SpTuples]:
     """The tiles a SUMMA stage loop walks: ``axis="row"``, grid row
     ``index`` of M (A's tiles (i, s)); ``axis="col"``, grid column
-    ``index`` (B's tiles (s, j)). The reference all-gathers them over a
-    mesh axis."""
+    ``index`` (B's tiles (s, j)), read through ``tile`` (default:
+    ``M.local_tile``; ``_stage_sources`` gives the fetched ones). The
+    reference all-gathers them over a mesh axis."""
+    tile = tile or M.local_tile
     if axis == "row":
-        return [M.local_tile(index, s) for s in range(M.grid.pc)]
+        return [tile(index, s) for s in range(M.grid.pc)]
     if axis == "col":
-        return [M.local_tile(s, index) for s in range(M.grid.pr)]
+        return [tile(s, index) for s in range(M.grid.pr)]
     raise ValueError(f"axis must be 'row' or 'col', got {axis!r}")
 
 
@@ -262,14 +302,17 @@ def _carousel_stages(p: int):
         a_cur, b_cur = _permute(a_cur, rot_a), _permute(b_cur, rot_b)
 
 
-def _stage_operands(A: SpParMat, B: SpParMat, i: int, j: int, ring: bool):
+def _stage_operands(A: SpParMat, B: SpParMat, i: int, j: int, ring: bool, src=None):
     """Output tile (i, j)'s stage operands in the reference's order: stage
     s multiplies ``A_is · B_sj``, or with ``ring`` the carousel's
-    ``A_ik · B_kj``, k = (i + j + s) % p."""
+    ``A_ik · B_kj``, k = (i + j + s) % p. ``src``: ``_stage_sources``'
+    readers (default: the tiles themselves)."""
     p = A.grid.pr
+    a_tile, b_tile = src or (A.local_tile, B.local_tile)
     if not ring:
-        return list(zip(_gather_stage_tiles(A, i, "row"), _gather_stage_tiles(B, j, "col")))
-    return [(A.local_tile(*a[i * p + j]), B.local_tile(*b[i * p + j]))
+        return list(zip(_gather_stage_tiles(A, i, "row", a_tile),
+                        _gather_stage_tiles(B, j, "col", b_tile)))
+    return [(a_tile(*a[i * p + j]), b_tile(*b[i * p + j]))
             for _, a, b in _carousel_stages(p)]
 
 
@@ -313,10 +356,11 @@ def summa_spgemm(sr: Semiring, A: SpParMat, B: SpParMat, *, flop_capacity: int,
     p = A.grid.pr
     if obs.ENABLED and ring and p > 1:
         obs.count("spgemm.pipeline.stages_overlapped", p - 1)
+    src = _stage_sources(A, B)
 
     def tile(i, j):
         chunks = [_stage_chunk(sr, a, b, flop_capacity)
-                  for a, b in _stage_operands(A, B, i, j, ring)]
+                  for a, b in _stage_operands(A, B, i, j, ring, src)]
         if merge == "runs":
             merged = merge_sorted_runs([ch.sort_rowmajor() for ch in chunks])
             return merged.compact(sr, capacity=out_capacity, assume_sorted=True)
@@ -331,11 +375,18 @@ def summa_stage_flops(A: SpParMat, B: SpParMat, padded: bool = True) -> torch.Te
     (each B-row walk rounded up to ``CHUNK_W`` lanes, what ``expand``
     fills), ``padded=False`` true scalar multiplies. Counted exactly in
     int64 and rounded to float32 once (the reference's float32 sums can
-    round past 2^24). Reference: ``EstimateFLOP``."""
+    round past 2^24). Reference: ``EstimateFLOP``.
+
+    On a grid over several processes each rank counts its own tiles' rows
+    of B (and columns of A) and the counts go to every rank
+    (``multihost.gather_tiles``), so that every rank holds the whole
+    ``[p, pr, pc]`` table, the one-process table exactly."""
     _check_compat(A, B)
     p = A.grid.pr
     lrA, lrB = A.local_rows, B.local_rows
     dev = A.grid.device
+    if A.grid.is_distributed:
+        return _stage_flops_distributed(A, B, padded)
     blens = {}
     for s in range(p):
         for j in range(p):
@@ -351,6 +402,34 @@ def summa_stage_flops(A: SpParMat, B: SpParMat, padded: bool = True) -> torch.Te
             valid = t.rows < lrA
             for j in range(p):
                 out[s, i, j] = torch.where(valid, blens[s, j][k], 0).sum()
+    return out.to(torch.float32)
+
+
+def _stage_flops_distributed(A: SpParMat, B: SpParMat, padded: bool) -> torch.Tensor:
+    """``summa_stage_flops`` across ranks: per tile, B's row lengths
+    (rounded to ``CHUNK_W`` when ``padded``) and the histogram of A's
+    valid columns, exchanged, then ``out[s, i, j] = Σ_k hist_a(i, s)[k] ·
+    blen(s, j)[k]`` on every rank, in int64 (the same integers as the
+    one-process walk)."""
+    p, lrA, lrB = A.grid.pr, A.local_rows, B.local_rows
+
+    def blen(s, j):
+        t = B.local_tile(s, j)
+        n = torch.bincount(torch.clamp(t.rows, max=lrB).long(), minlength=lrB + 1)[:lrB]
+        return -(-n // CHUNK_W) * CHUNK_W if padded else n
+
+    def hist(i, s):
+        t = A.local_tile(i, s)
+        k = torch.where(t.rows < lrA, torch.clamp(t.cols, max=lrB).long(), lrB)
+        return torch.bincount(k, minlength=lrB + 1)[:lrB]
+
+    blens = multihost.gather_tiles(B.grid, blen)
+    hists = multihost.gather_tiles(A.grid, hist)
+    out = torch.zeros((p, p, p), dtype=torch.int64, device=A.grid.device)
+    for s in range(p):
+        for i in range(p):
+            for j in range(p):
+                out[s, i, j] = (hists[i, s] * blens[s, j]).sum()
     return out.to(torch.float32)
 
 
@@ -390,7 +469,10 @@ def _record_realized_nnz(C: SpParMat) -> None:
     where the port has already read the count back — so that telemetry
     never adds a readback a caller did not ask for."""
     if obs.ENABLED and obs.DEVICE_SYNC:
-        obs.count("spgemm.realized_nnz", int(host_value(C.nnz).sum()))
+        nnz = int(host_value(C.nnz).sum())
+        if C.grid.is_distributed:  # the rank's own tiles' count, summed over the ranks
+            nnz = multihost.agree(C.grid, nnz, "sum")
+        obs.count("spgemm.realized_nnz", nnz)
 
 
 def summa_stage_flops_host(grid, rows_a, cols_a, rows_b, cols_b, nrows_a: int,
@@ -492,6 +574,7 @@ def mem_efficient_spgemm(sr: Semiring, A: SpParMat, B: SpParMat, phases: int, *,
     ``col_concatenate``. A phase count that does not divide the local
     columns moves up to the nearest divisor (``PhaseAdjustedWarning``),
     within 4 times the request. Reference: ``MemEfficientSpGEMM``."""
+    require_local(A.grid, "mem_efficient_spgemm", 2)
     lc = B.local_cols
     if phases > 1 and B.ncols != lc * B.grid.pc:
         raise ValueError(
@@ -536,6 +619,7 @@ def block_spgemm(sr: Semiring, A: SpParMat, B: SpParMat, row_blocks: int = 1,
     """Yields ``((i, j), C_ij)`` with ``C_ij = A[row block i, :] ⊗ B[:,
     col block j]`` (local splits, as ``col_split``), one block's expansion
     live at a time. Reference: ``BlockSpGEMM``."""
+    require_local(A.grid, "block_spgemm", 2)
     a_rows = A.row_split(row_blocks) if row_blocks > 1 else [A]
     b_cols = B.col_split(col_blocks) if col_blocks > 1 else [B]
     b_cols = [b.shrink_to_fit() for b in b_cols]
@@ -590,6 +674,7 @@ def summa_spgemm_scan(sr: Semiring, A: SpParMat, B: SpParMat, *, flop_capacity: 
     when C is exact). Once a stage truncates, its dropped keys leave the
     later counts, so a positive overflow is a lower bound of the
     shortfall."""
+    require_local(A.grid, "summa_spgemm_scan", 2)
     _check_compat(A, B)
     if obs.ENABLED and ring and A.grid.pr > 1:
         obs.count("spgemm.pipeline.stages_overlapped", A.grid.pr - 1)
@@ -619,6 +704,7 @@ def spgemm_scan(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
     cheap; each retry grows it to the power of two above ``out_capacity +
     overflow``, and at least doubles it, since the overflow is a lower
     bound. One readback an attempt."""
+    require_local(A.grid, "spgemm_scan", 2)
     with obs.span("spgemm.scan", sr=sr.name):
         flop_cap, flops_out_cap = summa_capacities(A, B, slack)
         if out_capacity is None:
@@ -1253,6 +1339,7 @@ def summa_spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows:
     block; ``ring=True`` in the carousel's order, stage by stage with every
     block's accumulator live. ``pipeline`` changes no output: eager torch
     has no rotation to overlap."""
+    require_local(A.grid, "summa_spgemm_windowed", 2)
     p = A.grid.pr
     if obs.ENABLED and ring and pipeline and p > 1:
         obs.count("spgemm.pipeline.stages_overlapped", p - 1)
@@ -1286,6 +1373,7 @@ def local_spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows:
     schedule on the one tile (one stage: occupied blocks in order, each
     block's live windows in order). ``backend="dot"`` takes the 2D plan,
     ``block_cols`` and ``panel_cap``."""
+    require_local(A.grid, "local_spgemm_windowed", 2)
     if A.grid.size != 1 or B.grid.size != 1:
         raise ValueError("local_spgemm_windowed runs on a 1x1 grid")
     if backend == "dot" and (block_cols is None or panel_cap is None):
@@ -1325,6 +1413,7 @@ def summa_spgemm_windowed_blocked(sr: Semiring, A: SpParMat, B: SpParMat, *, blo
     each block's chunk written after the last into every tile. Same plan
     and output layout as the fused form; with no occupied block, an empty
     matrix of capacity 1, as the reference's."""
+    require_local(A.grid, "summa_spgemm_windowed_blocked", 2)
     win = _windows(sr, A, B, block_rows=block_rows, flop_caps=flop_caps, out_caps=out_caps,
                    skip=skip, backend="scatter", mode="f32", chunk_w=chunk_w, block_cols=None,
                    panel_cap=None)
@@ -1392,6 +1481,7 @@ def spgemm_windowed(sr: Semiring, A: SpParMat, B: SpParMat, *, block_rows: int |
     runs fused. ``ring``: the carousel's stage order. ``pipeline``:
     accepted, no effect (eager torch has no rotation to overlap).
     ``spgemm_windowed.last_plan`` records the last call's plan."""
+    require_local(A.grid, "spgemm_windowed", 2)
     backend = resolve_spgemm_backend(backend)
     dispatch = tuner_config.resolve_dispatch(dispatch)
     if bucket is None:
@@ -1583,6 +1673,7 @@ def choose_spgemm_tier(sr: Semiring, A: SpParMat, B: SpParMat, *, backend: str |
     Given a layered grid (``grid3`` with more than one layer) whose layout
     fits the product (``mesh3d.summa3d_compatible``), ``windowed`` becomes
     ``"windowed3d"``; the other tiers stay 2D."""
+    require_local(A.grid, "choose_spgemm_tier", 2)
     tier = _choose_spgemm_tier_2d(sr, A, B, backend=backend, assume_unique=assume_unique)
     if grid3 is not None and tier == "windowed":
         from .mesh3d import summa3d_compatible
@@ -1669,6 +1760,7 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
     not apply the probe's geometry; the next call, from the store, does.
     ``spgemm_auto.last_run`` records ``tier``, ``plan_source`` (``arg``,
     ``store``, ``env``, ``probe`` or ``heuristic``) and ``merge_source``."""
+    require_local(A.grid, "spgemm_auto", 2)
     plan_source = "arg" if tier is not None else None
     merge_source = "arg" if merge is not None else None
     store = key = rec = None

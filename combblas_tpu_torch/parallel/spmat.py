@@ -15,6 +15,21 @@ per-column select and prune family (``nnz_per_column``, ``kselect``,
 tiles are walked in a loop where the reference runs one program per
 device; ``reduce`` and ``kselect`` combine over the grid as the reference's
 collectives do on the CPU (``grid.fold_grid``).
+
+On a grid over several processes (``multihost.make_global_grid``) a rank
+holds only its own tiles, as ``[k, cap]`` tensors (``[k]`` counts) in
+``grid.owned_tiles()`` order: device memory grows with the owned tiles,
+never with the whole grid. ``local_tile`` is the one accessor of a tile
+and raises for a tile another rank holds; ``assemble`` and the tile maps
+build only the owned tiles, after the ranks agree on the capacity (a max
+over ranks: the reference's matrix is one array of one capacity);
+``from_global_coo`` keeps each rank's tiles of the same global COO,
+``to_global_coo`` gathers every tile's entries on every rank, ``getnnz``
+and ``load_imbalance`` are global, and ``reduce`` folds over the ranks
+(``grid.fold_grid``). The methods that need tiles across ranks
+(``kselect``, ``kselect2``, ``transpose``, ``shrink_to_fit``, the splits,
+``col_concatenate``, ``induced_subgraphs``) raise ``LocalOnlyError``
+there (ROADMAP item 12c.4).
 """
 
 from __future__ import annotations
@@ -30,13 +45,16 @@ from ..ops.ewise import ewise_mult as _ewise_mult
 from ..ops.segment import segment_reduce, spread_drops
 from ..ops.tuples import SpTuples
 from ..semiring import PLUS_TIMES, Semiring, _minval
-from .grid import Grid, HostGrid, fold_grid
+from . import multihost
+from .grid import Grid, HostGrid, fold_grid, guard_distributed
 from .vec import DistVec
 
 
 @dataclasses.dataclass(frozen=True)
 class SpParMat:
-    """rows/cols: int32[pr, pc, cap]; vals: [pr, pc, cap]; nnz: int32[pr, pc]."""
+    """rows/cols: int32[pr, pc, cap]; vals: [pr, pc, cap]; nnz: int32[pr, pc]
+    (on a grid over several processes ``[k, cap]`` and ``[k]``, the rank's
+    own k tiles)."""
 
     rows: torch.Tensor
     cols: torch.Tensor
@@ -48,7 +66,7 @@ class SpParMat:
 
     @property
     def capacity(self) -> int:
-        return self.rows.shape[2]
+        return self.rows.shape[-1]
 
     @property
     def local_rows(self) -> int:
@@ -71,23 +89,32 @@ class SpParMat:
         return spread_drops(self.rows, self.rows < self.local_rows, self.local_rows)
 
     def getnnz(self) -> torch.Tensor:
-        """Total nonzeros (a 0-dim device tensor)."""
-        return self.nnz.sum()
+        """Total nonzeros (a 0-dim device tensor; over every rank)."""
+        total = self.nnz.sum()
+        if self.grid.is_distributed:
+            total = multihost.all_reduce_(total.to(torch.int64).view(1), "sum")[0]
+        return total
 
     def load_imbalance(self) -> torch.Tensor:
         """The largest tile's nnz over the mean tile's (a 0-dim float32
         tensor; 0 for an empty matrix, as the reference divides by
         max(total, 1)). Reference: ``SpParMat::LoadImbalance``."""
+        if self.grid.is_distributed:
+            top = multihost.all_reduce_(self.nnz.max().to(torch.int64).view(1), "max")[0]
+            total = torch.clamp(self.getnnz(), min=1)
+            return (top * self.grid.size).float() / total.float()
         total = torch.clamp(self.nnz.sum(), min=1)
         return (self.nnz.max() * self.grid.size).float() / total.float()
 
     def local_tile(self, i: int, j: int) -> SpTuples:
-        """Tile (i, j) as an SpTuples with tile-local indices."""
+        """Tile (i, j) as an SpTuples with tile-local indices (raises
+        ``LocalOnlyError`` for a tile another rank holds)."""
+        k = self.grid.tile_index(i, j)
         return SpTuples(
-            rows=self.rows[i, j],
-            cols=self.cols[i, j],
-            vals=self.vals[i, j],
-            nnz=self.nnz[i, j],
+            rows=self.rows[k],
+            cols=self.cols[k],
+            vals=self.vals[k],
+            nnz=self.nnz[k],
             nrows=self.local_rows,
             ncols=self.local_cols,
         )
@@ -96,18 +123,23 @@ class SpParMat:
     def assemble(grid: Grid, nrows: int, ncols: int, tile_fn) -> "SpParMat":
         """The matrix whose tile (i, j) is ``tile_fn(i, j)``, each tile
         written into the ``[pr, pc, cap]`` arrays as it comes (every tile
-        holds one capacity), so that the tiles are never held twice."""
-        out = None
-        for i in range(grid.pr):
-            for j in range(grid.pc):
-                t = tile_fn(i, j)
-                if out is None:
-                    out = [x.new_empty((grid.pr, grid.pc, t.capacity))
-                           for x in (t.rows, t.cols, t.vals)]
-                    out.append(torch.empty((grid.pr, grid.pc), dtype=torch.int32,
-                                           device=t.rows.device))
-                for dst, x in zip(out, (t.rows, t.cols, t.vals, t.nnz)):
-                    dst[i, j] = x
+        holds one capacity), so that the tiles are never held twice. On a
+        grid over several processes only the rank's own tiles are made,
+        into ``[k, cap]`` arrays whose capacity is the largest over the
+        ranks (a smaller tile grows to it)."""
+        out, cap = None, None
+        for i, j in grid.owned_tiles():
+            t = tile_fn(i, j)
+            if out is None:
+                cap = multihost.agree(grid, t.capacity) if grid.is_distributed else t.capacity
+                out = [x.new_empty((*grid.tiles_shape, cap)) for x in (t.rows, t.cols, t.vals)]
+                out.append(torch.empty(grid.tiles_shape, dtype=torch.int32,
+                                       device=t.rows.device))
+            if grid.is_distributed and t.capacity < cap:
+                t = t.with_capacity(cap)
+            k = grid.tile_index(i, j)
+            for dst, x in zip(out, (t.rows, t.cols, t.vals, t.nnz)):
+                dst[k] = x
         return SpParMat(rows=out[0], cols=out[1], vals=out[2], nnz=out[3], nrows=int(nrows),
                         ncols=int(ncols), grid=grid)
 
@@ -481,30 +513,36 @@ class SpParMat:
         dedup_sr: Semiring | None = None,
     ) -> "SpParMat":
         """Bucket global host tuples by owner tile, upload, and with
-        ``dedup_sr`` combine duplicates per tile (``SpTuples.compact``)."""
+        ``dedup_sr`` combine duplicates per tile (``SpTuples.compact``).
+        On a grid over several processes every rank passes the same global
+        COO and keeps its own tiles."""
         vals = np.asarray(vals)
         rows, cols, order, counts, starts, cap, lr, lc = bucket_by_tile(
             grid, rows, cols, nrows, ncols, capacity
         )
         vals = vals[order]
-        pr_, pc_ = grid.pr, grid.pc
-        R = np.full((pr_, pc_, cap), lr, dtype=np.int32)
-        C = np.full((pr_, pc_, cap), lc, dtype=np.int32)
-        V = np.zeros((pr_, pc_, cap), dtype=vals.dtype)
-        for t in range(grid.size):
-            i, j = divmod(t, pc_)
+        pc_ = grid.pc
+        if grid.is_distributed:
+            cap = multihost.agree(grid, cap)
+        owned = grid.owned_tiles()
+        shape = (*grid.tiles_shape, cap)
+        R = np.full(shape, lr, dtype=np.int32)
+        C = np.full(shape, lc, dtype=np.int32)
+        V = np.zeros(shape, dtype=vals.dtype)
+        for i, j in owned:
+            t = i * pc_ + j
+            k = grid.tile_index(i, j)
             s, e = starts[t], starts[t + 1]
             n = e - s
-            R[i, j, :n] = rows[s:e] - i * lr
-            C[i, j, :n] = cols[s:e] - j * lc
-            V[i, j, :n] = vals[s:e]
+            R[k][:n] = rows[s:e] - i * lr
+            C[k][:n] = cols[s:e] - j * lc
+            V[k][:n] = vals[s:e]
+        own_counts = np.array([counts[i * pc_ + j] for i, j in owned], np.int32)
         mat = SpParMat(
             rows=torch.from_numpy(R).to(grid.device),
             cols=torch.from_numpy(C).to(grid.device),
             vals=torch.from_numpy(V).to(grid.device),
-            nnz=torch.from_numpy(counts.reshape(pr_, pc_).astype(np.int32)).to(
-                grid.device
-            ),
+            nnz=torch.from_numpy(own_counts.reshape(grid.tiles_shape)).to(grid.device),
             nrows=int(nrows),
             ncols=int(ncols),
             grid=grid,
@@ -523,8 +561,12 @@ class SpParMat:
         )
 
     def to_global_coo(self):
-        """Host (rows, cols, vals) of every valid entry, tile by tile."""
+        """Host (rows, cols, vals) of every valid entry, tile by tile (on a
+        grid over several processes, every tile's, gathered on every
+        rank)."""
         lr, lc = self.local_rows, self.local_cols
+        if self.grid.is_distributed:
+            return self._gather_global_coo()
         R = self.rows.cpu().numpy()
         C = self.cols.cpu().numpy()
         V = self.vals.cpu().numpy()
@@ -542,11 +584,41 @@ class SpParMat:
                 out_v.append(V[i, j, m])
         return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
 
+    def _gather_global_coo(self):
+        lr, lc = self.local_rows, self.local_cols
+
+        def entries(i, j):
+            t = self.local_tile(i, j)
+            m = t.rows < lr
+            if int(m.sum()) != int(t.nnz):
+                raise ValueError(
+                    f"tile ({i}, {j}) holds {int(m.sum())} valid slots, nnz says {int(t.nnz)}")
+            return torch.stack([t.rows[m].long() + i * lr, t.cols[m].long() + j * lc]), t.vals[m]
+
+        got = multihost.gather_entries(self.grid, entries)
+        tiles = [got[i, j] for i in range(self.grid.pr) for j in range(self.grid.pc)]
+        ints = torch.cat([x for x, _ in tiles], dim=1).cpu().numpy()
+        return ints[0], ints[1], torch.cat([v for _, v in tiles]).cpu().numpy()
+
     def to_dense(self) -> np.ndarray:
         r, c, v = self.to_global_coo()
         out = np.zeros((self.nrows, self.ncols), dtype=v.dtype)
         np.add.at(out, (r, c), v)
         return out
+
+
+#: What a grid over several processes carries of ``SpParMat``: the tile
+#: loop and what runs through it, the global reductions, the host round
+#: trips and the products (``spgemm``). Every other public method raises
+#: ``LocalOnlyError`` there (ROADMAP item 12c.4).
+CARRIED = frozenset({
+    "getnnz", "load_imbalance", "local_tile", "assemble", "tile_map_ij", "tile_map",
+    "tile_map_indexed", "keep_ij", "tril", "triu", "remove_loops", "apply", "prune",
+    "reduce", "dim_apply", "tile_zip", "ewise_mult", "ewise_apply", "ewise_add", "add_loops",
+    "nnz_per_column", "prune_column", "prune_rowcol", "with_capacity", "square",
+    "from_global_coo", "from_dense", "to_global_coo", "to_dense",
+})
+guard_distributed(SpParMat, CARRIED)
 
 
 def bucket_by_tile(

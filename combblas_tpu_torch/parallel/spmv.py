@@ -18,6 +18,12 @@ way. The walk's per-tile counts (active columns and walked entries, cut at
 the budgets) are read back once a call, or passed in (``counts=``) by a
 caller that read them with its own readback.
 
+On a grid over several processes ``dist_spmv`` and ``dist_spmv_masked``
+compute each rank's own tiles and fold the exchanged partials in grid
+order (``grid.fold_grid``): the one-process result bit for bit, on every
+rank. ``dist_spmspv`` and ``dist_spmspv_masked`` raise ``LocalOnlyError``
+there (ROADMAP item 12c.1).
+
 Telemetry: each entry point counts ``spmv.dispatch{kernel}``, as the
 reference does. The reference's ``dist_spmspv`` and
 ``dist_spmspv_masked`` are jitted, and its other entries are often called
@@ -35,7 +41,7 @@ from ..ops.segment import expand_ranges
 from ..ops.spmv import spmspv_dense_out, spmv
 from ..semiring import Semiring
 from .ellmat import EllParMat, dist_spmv_ell, dist_spmv_ell_masked
-from .grid import check_length, fold_grid
+from .grid import check_length, fold_grid, require_local
 from .spmat import SpParMat
 from .vec import DistVec
 
@@ -47,7 +53,8 @@ def _row_vec(A: SpParMat, blocks: torch.Tensor) -> DistVec:
 def _local_spmv(sr: Semiring, A: SpParMat, xb: torch.Tensor):
     """The ``local(i, j)`` that ``fold_grid`` takes: tile (i, j)'s ``spmv``
     over x block j."""
-    return lambda i, j: spmv(sr, A.local_tile(i, j), xb[j], A.fold_rows[i, j])
+    return lambda i, j: spmv(sr, A.local_tile(i, j), xb[j],
+                             A.fold_rows[A.grid.tile_index(i, j)])
 
 
 def dist_spmv(sr: Semiring, A, x: DistVec) -> DistVec:
@@ -80,6 +87,7 @@ def dist_spmspv(sr: Semiring, A: SpParMat, x: DistVec, x_active: DistVec):
     (``dist_spmv`` of x with its inactive slots at ``sr.zero``), y_active
     the rows with an entry in an active column, nnz their count (0-dim
     int32)."""
+    require_local(A.grid, "dist_spmspv", 1)
     check_length(A, x)
     if obs.ENABLED:
         obs.count("spmv.dispatch", kernel="dist_spmspv")
@@ -135,6 +143,7 @@ def dist_spmspv_masked(sr: Semiring, A: SpParMat, x: DistVec, x_active: DistVec,
     ``csc``: ``csc_tiles(A)``, built here when None. ``counts``:
     ``spmspv_counts``' values as host ints, read back here when None.
     """
+    require_local(A.grid, "dist_spmspv_masked", 1)
     check_length(A, x)
     if obs.ENABLED:
         obs.count("spmv.dispatch", kernel="dist_spmspv_masked")

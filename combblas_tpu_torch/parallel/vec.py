@@ -26,6 +26,14 @@ reference's permutation when it takes a threefry key; a
 Scatters that the reference runs with ``mode="drop"`` send the dropped
 slots to a spread of sink slots past the end, cut off afterwards
 (``segment_reduce_dropping``).
+
+On a grid over several processes a vector's ``[pa, L]`` blocks are
+replicated on every rank: ``from_global``, ``full`` and ``iota`` make
+them whole on each rank, ``to_global`` reads the rank's copy and
+``realign`` stays local. That costs n slots a rank where the reference
+holds n/pr (its blocks sharded over a mesh axis); sharded vectors are
+ROADMAP item 12c.5. The op pack (``apply`` ... ``randperm``) and
+``concatenate`` raise ``LocalOnlyError`` there (item 12c.4).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from ..ops.segment import float_bits, fold_dim, segment_reduce_dropping
 from ..semiring import PLUS_TIMES, Semiring
 from ..utils import threefry
 from ..utils.threefry import ThreefryKey
-from .grid import Grid, combine_tiles
+from .grid import Grid, combine_tiles, guard_distributed, require_local
 
 
 def _nblocks(grid: Grid, align: str) -> int:
@@ -293,6 +301,7 @@ def concatenate(vecs, grid: Grid | None = None, align: str | None = None, fill=0
     the result moves to the target grid's."""
     if not vecs:
         raise ValueError("concatenate needs at least one vector")
+    require_local(grid or vecs[0].grid, "concatenate", 4)
     grid = grid or vecs[0].grid
     align = align or vecs[0].align
     pa = _nblocks(grid, align)
@@ -301,6 +310,12 @@ def concatenate(vecs, grid: Grid | None = None, align: str | None = None, fill=0
     L = -(-total // pa)
     flat = torch.cat([flat, flat.new_full((pa * L - total,), fill)])
     return DistVec(blocks=flat.view(pa, L), length=total, align=align, grid=grid)
+
+
+#: What a grid over several processes carries of ``DistVec``: the
+#: replicated blocks' constructors, ``to_global`` and ``realign``.
+CARRIED = frozenset({"from_global", "full", "iota", "to_global", "realign"})
+guard_distributed(DistVec, CARRIED)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,9 @@ mutation lane (served lanes of the five kinds, a merge chain, a snapshot
 round trip and a recovery), and the process fleet (two replica processes,
 one kill and one respawn), and sharded serving (two slices in this process
 and two slice processes, against the unsharded engine), and the network
-front door (wire answers against the CPU engine, a short open loop).
+front door (wire answers against the CPU engine, a short open loop), and
+the grid over two processes (two ranks on the card over gloo, each its own
+CUDA context, against the one-process grid on the card).
 Marked ``cuda``; they skip where there is no card. The module runs under a fresh plan store of its own with probing
 off, so the routed calls take their tiers from the code, not from an
 ambient store.
@@ -46,6 +48,7 @@ non-integer data to the CPU's result within ``rtol=1e-5, atol=1e-6``
 """
 
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -2243,3 +2246,59 @@ def test_rectangular_bfs_on_card_equals_scipy(cuda_device):
         assert np.array_equal(pg.to_global(), pc_.to_global())
     _, l1, _ = bfs(mats[1], 0)
     assert np.array_equal(l1.to_global().astype(np.int64), want[:, 0])
+
+
+def test_two_rank_grid_on_card(cuda_device, tmp_path):
+    """``tests/_torch_multihost_worker.py``'s steps on two ranks on the card
+    (``multihost.launch``: each rank its own CUDA context on the card, gloo
+    on CUDA tensors) equal the one-process grid's on the card bit for bit
+    (the Matrix Market read as sorted entries; float plus_times sums within
+    ``rtol=1e-5, atol=1e-6``, as ``index_add_`` on the card adds in no
+    fixed order); K1's launches on the two
+    ranks sum to the one-process count; the calls outside the slice raise
+    ``LocalOnlyError``."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_multihost_worker as worker
+
+    from combblas_tpu_torch import LocalOnlyError  # noqa: F401 - named in the guard records
+    from combblas_tpu_torch.io.mm import write_mm
+    from combblas_tpu_torch.parallel import multihost
+
+    r, c, v = worker.matrix("plus_times")
+    mm = str(tmp_path / "g.mtx")
+    write_mm(mm, (r, c, v, worker.N, worker.N))
+    ranks = multihost.launch(f"{worker.__file__}:job", 2, kwargs={"mm_path": mm},
+                             device="cuda", backend="gloo", timeout_s=240.0,
+                             workdir=tmp_path / "ranks")
+    semiring_matmul.launches = 0
+    one = worker.one_process(mm, device="cuda")
+    one_launches = semiring_matmul.launches
+
+    def same(a, b, close):
+        if isinstance(a, tuple):
+            return len(a) == len(b) and all(same(x, y, close) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            a, b = np.asarray(a), np.asarray(b)
+            if a.dtype != b.dtype or a.shape != b.shape:
+                return False
+            if close and a.dtype.kind == "f":
+                return np.allclose(a, b, rtol=1e-5, atol=1e-6)
+            return np.array_equal(a.view(np.uint8), b.view(np.uint8))
+        return a == b
+
+    # float plus_times sums: index_add_ on the card adds in no fixed order
+    float_sums = ("/plus_times/", "/op/reduce_rows", "/op/summa_spgemm_ring")
+    for res in ranks:
+        for k, want in one.items():
+            if k.endswith("/mm"):
+                got = res[k]
+                og, ow = np.lexsort((got[1], got[0])), np.lexsort((want[1], want[0]))
+                assert all(np.array_equal(g[og], w[ow]) for g, w in zip(got[:3], want[:3])), k
+            else:
+                assert same(res[k], want, any(f in k for f in float_sums)), k
+        for k, rec in res.items():
+            if k.startswith("guard/"):
+                assert rec[0] == "LocalOnlyError", (k, rec)
+    assert one_launches > 0 and sum(res["k1_launches"] for res in ranks) == one_launches

@@ -29,7 +29,8 @@ MODULES = {"convert", "operations", "semiring", "models", "models.bfs", "models.
            "serve.fleet", "serve.frame", "serve.ipc", "serve.procfleet", "serve._procworker",
            "serve.shard", "serve._shardworker", "serve.net", "serve.net.protocol",
            "serve.net.client", "serve.net.frontend", "serve.net.loadgen", "dynamic", "dynamic.delta",
-           "dynamic.merge", "dynamic.refresh", "dynamic.wal"}
+           "dynamic.merge", "dynamic.refresh", "dynamic.wal", "parallel.multihost",
+           "parallel._rankworker"}
 
 
 def test_import_pulls_in_no_jax():
@@ -185,3 +186,17 @@ def test_booted_shard_child_pulls_in_no_jax(tmp_path):
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_rank_worker_child_pulls_in_no_jax(tmp_path):
+    """The ranks of a job on several processes (``multihost.launch``: two
+    ``parallel/_rankworker.py`` children over gloo on the CPU, running
+    ``tests/_torch_multihost_worker.py``'s ``loaded_jax``) load no ``jax*``
+    and no ``combblas_tpu`` module, after building a grid over both and
+    running ``dist_spmv`` on it."""
+    from combblas_tpu_torch.parallel import multihost
+
+    worker = REPO / "tests" / "_torch_multihost_worker.py"
+    got = multihost.launch(f"{worker}:loaded_jax", 2, device="cpu", timeout_s=60.0,
+                           workdir=tmp_path)
+    assert got == [[], []]
