@@ -442,9 +442,9 @@ Phases (each prints one JSON line):
      that run the same steps on the global 2 x 2 grid, each holding its two
      tiles: ``dist_spmv`` plus_times and min_plus at scale 20 (a warm-up,
      then 5 calls timed, the exchange's bytes, collectives and seconds a
-     call), ``summa_spgemm_mxu`` min_plus at scale 13 with
-     ``spgemm_auto``'s overflow rerun (K1 launched on both ranks as often as
-     on one process, the same capacities), ``spgemm`` (ESC, min_plus) at
+     call), ``spgemm_mxu`` (``spgemm_auto``'s mxu tier: ``summa_spgemm_mxu``
+     with its overflow rerun) min_plus at scale 13 (K1 launched on both
+     ranks as often as on one process, the same capacities), ``spgemm`` (ESC, min_plus) at
      scale 13, ``read_mm_distributed`` of the scale-18 file (each rank
      parses its byte range); every result bit for bit equal to the
      one-process grid's (tile by tile digests; the read's entries sorted
@@ -614,7 +614,7 @@ from combblas_tpu_torch.parallel.spgemm import (
     _pad128,
     _shift_rowblock,
     coo_has_duplicates,
-    summa_spgemm_mxu,
+    spgemm_mxu,
 )
 from combblas_tpu_torch.parallel.spmm import SPMM_BACKENDS, dist_spmm_ell, resolve_spmm_backend
 from combblas_tpu_torch.parallel.spmv import spmspv_counts
@@ -7207,23 +7207,6 @@ def matrix_bytes(M: SpParMat) -> int:
     return sum(x.numel() * x.element_size() for x in (M.rows, M.cols, M.vals, M.nnz))
 
 
-def mxu_with_rerun(sr, A: SpParMat):
-    """``summa_spgemm_mxu`` as ``spgemm_auto``'s mxu tier calls it: the
-    next power of two above the input capacity, then, on an overflow (over
-    every rank), once more at the power of two above it. Returns (C,
-    capacities tried)."""
-    cap = 1 << (max(A.capacity, 64) - 1).bit_length()
-    tried = []
-    for _ in range(2):
-        tried.append(cap)
-        C, over = summa_spgemm_mxu(sr, A, A, out_capacity=cap)
-        over = int(over)
-        if over <= 0:
-            return C, tried
-        cap = 1 << (cap + over - 1).bit_length()
-    raise AssertionError(f"summa_spgemm_mxu still overflows by {over} at {tried}")
-
-
 def multiproc_spmv(A: SpParMat, x: DistVec) -> dict:
     """``dist_spmv`` for plus_times and min_plus: a warm-up (its digest),
     then ``MULTIPROC_REPS`` calls on the host clock, synchronised, with
@@ -7269,7 +7252,8 @@ def multiproc_steps(grid: Grid, d: Path) -> dict:
     if coo_has_duplicates(A13):
         raise AssertionError("the scale-13 tiles hold duplicates after dedup")
     semiring_matmul.launches = 0
-    (C, tried), ms, _ = timed_call(lambda: mxu_with_rerun(MIN_PLUS, A13))
+    C, ms, _ = timed_call(lambda: spgemm_mxu(MIN_PLUS, A13, A13))
+    tried = list(spgemm_mxu.last_capacities)
     out["mxu"] = {"launches": semiring_matmul.launches, "capacities": tried, "ms": ms,
                   "digests": tile_digests(C), "nnz": int(C.getnnz())}
     del C

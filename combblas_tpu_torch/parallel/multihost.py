@@ -126,43 +126,36 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def make_global_grid(pr: int | None = None, pc: int | None = None, *,
-                     devices_per_rank: int | None = None) -> Grid:
+def make_global_grid(pr: int | None = None, pc: int | None = None) -> Grid:
     """The pr×pc grid over every rank (the squarest one when a dimension is
     missing), its tiles assigned in the reference's device order
-    (``multihost.py:60-79``). The reference's world is every process's
-    devices, process by process; here each rank stands for
-    ``devices_per_rank`` of them (default: pr·pc / world, rounded up, so
-    the grid spans the world). A grid that spans the world is laid out
-    process-major: tile t (row-major) on rank t // devices_per_rank. A
-    smaller subgrid takes its devices round-robin across processes, so
-    every rank holds tiles: with the reference's 4 devices a process, 2×2
-    over 2 ranks puts the tiles t on rank t % 2. A rank owns the same tiles
-    in both packages. Every rank must call this in the same order: it
-    creates the process groups of the grid's rows and columns."""
+    (``multihost.py:60-79``): process-major, tile t (row-major) on rank
+    ``t · world // (pr·pc)``, so that each rank holds a run of pr·pc /
+    world tiles as a reference process holds that many devices. The
+    reference takes a subgrid smaller than its device count round-robin
+    across processes so that every process holds tiles; here a rank is one
+    device, so such a grid would leave ranks without a tile, and it is
+    refused. Every rank must call this in the same order: it creates the
+    process groups of the grid's rows and columns."""
     if pr is None or pc is None:
         return Grid.make_default(device=device())
-    world, me = world_size(), rank()
+    world, need = world_size(), pr * pc
     if world == 1:
         return Grid.make(pr, pc, device=device())
-    need = pr * pc
-    dpr = devices_per_rank or -(-need // world)
-    if need > world * dpr:
-        raise ValueError(f"need {need} devices, have {world * dpr} ({world} ranks of {dpr})")
     if need < world:
         raise ValueError(f"a {pr}x{pc} grid leaves ranks of {world} without a tile")
-    if need == world * dpr:
-        owners = tuple(t // dpr for t in range(need))
-    else:
-        free = [dpr] * world
-        owners, k = [], 0
-        while len(owners) < need:
-            if free[k % world]:
-                free[k % world] -= 1
-                owners.append(k % world)
-            k += 1
-        owners = tuple(owners)
-    grid = Grid(pr=pr, pc=pc, device=device(), owners=owners, rank=me, world=world)
+    return grid_of_owners(pr, pc, tuple(t * world // need for t in range(need)))
+
+
+def grid_of_owners(pr: int, pc: int, owners: tuple) -> Grid:
+    """The pr×pc grid over every rank whose tile t (row-major) lives on rank
+    ``owners[t]``, with the process groups of its rows and columns (every
+    rank calls this in the same order). ``make_global_grid``'s layout is
+    one such; any other that gives each rank a tile runs the same code."""
+    world = world_size()
+    if sorted(set(owners)) != list(range(world)) or len(owners) != pr * pc:
+        raise ValueError(f"owners {owners} must give each of {world} ranks a tile of {pr}x{pc}")
+    grid = Grid(pr=pr, pc=pc, device=device(), owners=tuple(owners), rank=rank(), world=world)
     for members in ([grid.row_ranks(i) for i in range(pr)]
                     + [grid.col_ranks(j) for j in range(pc)]):
         key = tuple(members)
@@ -243,8 +236,11 @@ def _meta(x: torch.Tensor | None, grid, src: int) -> tuple:
 def gather_tiles(grid, fn) -> dict:
     """``fn(i, j)`` of every tile on every rank: each rank computes its own
     tiles' (tensors of one shape and dtype), then each rank's stack goes to
-    all (one ``broadcast`` a rank after the shape's). A dict by tile."""
+    all (one ``broadcast`` a rank after the shape's). A dict by tile. On
+    one process, ``fn`` of every tile and no exchange."""
     own = {t: fn(*t) for t in grid.owned_tiles()}
+    if not grid.is_distributed:
+        return own
     shape, dtype = _meta(own.get((0, 0)), grid, grid.owner(0, 0))
     out = {}
     for r in range(grid.world):

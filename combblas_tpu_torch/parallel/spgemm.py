@@ -217,6 +217,37 @@ def summa_spgemm_mxu(
     return C, worst[0]
 
 
+def spgemm_mxu(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | None = None,
+               max_retries: int = 3, mode: str = "f32") -> SpParMat:
+    """The mxu tier's entry (``spgemm_auto``'s ``"mxu"``): ``summa_spgemm_mxu``
+    at the next power of two of ``out_capacity`` (default ``max(A.capacity,
+    B.capacity, 64)``), rerun on overflow with the power of two above
+    ``out_capacity + overflow``, at most ``max_retries`` times. The
+    overflow is reduced over the ranks, so every rank of a grid over
+    several processes takes the same reruns. One readback an attempt;
+    ``spgemm_mxu.last_capacities`` lists the capacities tried."""
+    if out_capacity is None:
+        out_capacity = max(A.capacity, B.capacity, 64)
+    out_capacity = 1 << (int(out_capacity) - 1).bit_length()
+    over, tried = 0, []
+    for attempt in range(max_retries + 1):
+        tried.append(out_capacity)
+        spgemm_mxu.last_capacities = tried
+        C, overflow = summa_spgemm_mxu(sr, A, B, out_capacity=out_capacity, mode=mode)
+        over = int(overflow)
+        if over <= 0:
+            if obs.ENABLED:
+                obs.count("spgemm.mxu.overflow_retries", attempt)
+                _record_realized_nnz(C)
+            return C
+        out_capacity = 1 << (out_capacity + over - 1).bit_length()
+    raise ValueError(f"the mxu tier is still overflowing by {over} after {max_retries} "
+                     "retries; pass an explicit out_capacity")
+
+
+spgemm_mxu.last_capacities = None
+
+
 def coo_has_duplicates(M: SpParMat) -> bool:
     """True iff some tile holds a repeated (row, col) entry — the guard of
     the mxu tier's unique-entries precondition (``densify``). One host
@@ -377,48 +408,20 @@ def summa_stage_flops(A: SpParMat, B: SpParMat, padded: bool = True) -> torch.Te
     int64 and rounded to float32 once (the reference's float32 sums can
     round past 2^24). Reference: ``EstimateFLOP``.
 
-    On a grid over several processes each rank counts its own tiles' rows
-    of B (and columns of A) and the counts go to every rank
-    (``multihost.gather_tiles``), so that every rank holds the whole
-    ``[p, pr, pc]`` table, the one-process table exactly."""
+    ``out[s, i, j] = Σ_k hist_A(i, s)[k] · blen_B(s, j)[k]``: the histogram
+    of A's valid columns against B's row lengths, per tile. On a grid over
+    several processes each rank counts its own tiles and the counts go to
+    every rank (``multihost.gather_tiles``), so that every rank holds the
+    whole ``[p, pr, pc]`` table, the one-process table exactly."""
     _check_compat(A, B)
-    p = A.grid.pr
-    lrA, lrB = A.local_rows, B.local_rows
-    dev = A.grid.device
-    if A.grid.is_distributed:
-        return _stage_flops_distributed(A, B, padded)
-    blens = {}
-    for s in range(p):
-        for j in range(p):
-            t = B.local_tile(s, j)
-            n = torch.bincount(torch.clamp(t.rows, max=lrB).long(), minlength=lrB + 1)
-            n[lrB] = 0
-            blens[s, j] = -(-n // CHUNK_W) * CHUNK_W if padded else n
-    out = torch.zeros((p, p, p), dtype=torch.int64, device=dev)
-    for s in range(p):
-        for i in range(p):
-            t = A.local_tile(i, s)
-            k = torch.clamp(t.cols, max=lrB).long()
-            valid = t.rows < lrA
-            for j in range(p):
-                out[s, i, j] = torch.where(valid, blens[s, j][k], 0).sum()
-    return out.to(torch.float32)
-
-
-def _stage_flops_distributed(A: SpParMat, B: SpParMat, padded: bool) -> torch.Tensor:
-    """``summa_stage_flops`` across ranks: per tile, B's row lengths
-    (rounded to ``CHUNK_W`` when ``padded``) and the histogram of A's
-    valid columns, exchanged, then ``out[s, i, j] = Σ_k hist_a(i, s)[k] ·
-    blen(s, j)[k]`` on every rank, in int64 (the same integers as the
-    one-process walk)."""
     p, lrA, lrB = A.grid.pr, A.local_rows, B.local_rows
 
-    def blen(s, j):
+    def blen(s, j):  # B's row lengths in tile (s, j)
         t = B.local_tile(s, j)
         n = torch.bincount(torch.clamp(t.rows, max=lrB).long(), minlength=lrB + 1)[:lrB]
         return -(-n // CHUNK_W) * CHUNK_W if padded else n
 
-    def hist(i, s):
+    def hist(i, s):  # how often each column of A's tile (i, s) holds an entry
         t = A.local_tile(i, s)
         k = torch.where(t.rows < lrA, torch.clamp(t.cols, max=lrB).long(), lrB)
         return torch.bincount(k, minlength=lrB + 1)[:lrB]
@@ -1850,23 +1853,8 @@ def spgemm_auto(sr: Semiring, A: SpParMat, B: SpParMat, *, out_capacity: int | N
             return spgemm_windowed(sr, A, B, block_rows=block_rows, block_cols=block_cols,
                                    backend=backend, mode=mode, slack=slack, oracle=oracle,
                                    ring=ring, pipeline=pipeline, dispatch=dispatch)
-        if out_capacity is None:
-            out_capacity = max(A.capacity, B.capacity, 64)
-        out_capacity = 1 << (int(out_capacity) - 1).bit_length()
-        over = 0
-        for attempt in range(max_retries + 1):
-            C, overflow = summa_spgemm_mxu(sr, A, B, out_capacity=out_capacity, mode=mode)
-            over = int(overflow)
-            if over <= 0:
-                if obs.ENABLED:
-                    obs.count("spgemm.mxu.overflow_retries", attempt)
-                    _record_realized_nnz(C)
-                return C
-            out_capacity = 1 << (out_capacity + over - 1).bit_length()
-        raise ValueError(
-            f"spgemm_auto still overflowing by {over} after {max_retries} "
-            "retries; pass an explicit out_capacity"
-        )
+        return spgemm_mxu(sr, A, B, out_capacity=out_capacity, max_retries=max_retries,
+                          mode=mode)
 
 
 spgemm_auto.last_run = None

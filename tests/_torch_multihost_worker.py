@@ -5,10 +5,10 @@ in the port over ``torch.distributed`` (gloo, CPU tensors), with the rest
 of the slice beside it.
 
 ``compute(make_grid, mm_path)`` runs every step on the grids that
-``make_grid(pr, pc, devices_per_rank)`` makes and returns host values by
+``make_grid(pr, pc, owners)`` makes and returns host values by
 key; the test parent calls it with one-process grids, and each rank calls
 it (through ``job``, started by ``multihost.launch``) with
-``multihost.make_global_grid``. ``distributed_only`` adds what has no
+``global_grid``. ``distributed_only`` adds what has no
 one-process counterpart: the tiles a rank holds, ``axis_reduce``, and the
 calls that must raise ``LocalOnlyError``. Imports torch and the port only.
 """
@@ -48,8 +48,10 @@ from combblas_tpu_torch.parallel.spmat import CARRIED as SPMAT_CARRIED
 from combblas_tpu_torch.parallel.vec import CARRIED as VEC_CARRIED
 
 N = 48
-# name: (pr, pc, devices a rank stands for; None: the grid spans the world)
-GRIDS = {"2x4": (2, 4, None), "2x2": (2, 2, None), "2x2rr": (2, 2, 4)}
+# name: (pr, pc, the rank of each tile on two ranks; None: ``make_global_grid``'s).
+# "2x2rr" is the reference's 2x2 subgrid of two processes of 4 devices each,
+# taken round-robin across the processes (``multihost.py:60-79``).
+GRIDS = {"2x4": (2, 4, None), "2x2": (2, 2, None), "2x2rr": (2, 2, (0, 1, 0, 1))}
 # name: (semiring, value dtype)
 CASES = {"plus_times": (PLUS_TIMES, np.float32), "min_plus": (MIN_PLUS, np.float32),
          "int": (PLUS_TIMES, np.int32)}
@@ -166,8 +168,8 @@ def compute(make_grid, mm_path: str) -> dict:
     """Every step of the slice on ``make_grid``'s grids: host values by
     key."""
     out = {}
-    for gname, (pr, pc, dpr) in GRIDS.items():
-        grid = make_grid(pr, pc, dpr)
+    for gname, (pr, pc, owners) in GRIDS.items():
+        grid = make_grid(pr, pc, owners)
         for case, (sr, dt) in CASES.items():
             key = f"{gname}/{case}"
             r, c, v = matrix(case)
@@ -311,17 +313,27 @@ def distributed_only(grid) -> dict:
     return out
 
 
+def global_grid(pr: int, pc: int, owners) -> Grid:
+    """The grid over the ranks: ``owners`` where given, else
+    ``make_global_grid``'s layout."""
+    if owners is None:
+        return multihost.make_global_grid(pr, pc)
+    return multihost.grid_of_owners(pr, pc, owners)
+
+
 def job(mm_path: str) -> dict:
     """A rank's run: ``compute`` on the global grids, then
     ``distributed_only`` on the round-robin 2x2 grid; ``k1_launches`` counts
     the semiring GEMM's launches of ``compute`` (on a card)."""
     semiring_matmul.launches = 0
-    out = compute(lambda pr, pc, dpr: multihost.make_global_grid(pr, pc, devices_per_rank=dpr),
-                  mm_path)
+    out = compute(global_grid, mm_path)
     out["k1_launches"] = semiring_matmul.launches
-    for gname, (pr, pc, dpr) in GRIDS.items():
-        out[f"owners/{gname}"] = multihost.make_global_grid(pr, pc, devices_per_rank=dpr).owners
-    out.update(distributed_only(multihost.make_global_grid(2, 2, devices_per_rank=4)))
+    for gname, (pr, pc, owners) in GRIDS.items():
+        out[f"owners/{gname}"] = global_grid(pr, pc, owners).owners
+    out["owners/1x3"] = multihost.make_global_grid(1, 3).owners
+    out["refused/1x1"] = outcome(lambda: multihost.make_global_grid(1, 1))
+    out["refused/owners"] = outcome(lambda: multihost.grid_of_owners(2, 2, (0, 0, 0, 0)))
+    out.update(distributed_only(global_grid(2, 2, GRIDS["2x2rr"][2])))
     return out
 
 
@@ -334,7 +346,7 @@ def fail_on_rank_one() -> None:
 
 def one_process(mm_path: str, device: str = "cpu") -> dict:
     """``compute`` on one-process grids on ``device``."""
-    return compute(lambda pr, pc, dpr: Grid.make(pr, pc, device=device), mm_path)
+    return compute(lambda pr, pc, owners: Grid.make(pr, pc, device=device), mm_path)
 
 
 def loaded_jax() -> list:

@@ -214,16 +214,22 @@ def test_outside_the_slice_raises(runs, name):
 
 
 def test_each_rank_holds_only_its_tiles(runs):
-    """The tiles are laid out in the reference's device order (process-
-    major over the world, round-robin for a subgrid of the reference's 4
-    devices a process), and a rank's tile tensors hold its own tiles
-    only: ``[k, cap]`` for its k tiles."""
+    """``make_global_grid`` lays the tiles out process-major, as the
+    reference lays out a grid over all its devices, and refuses a grid that
+    leaves a rank without a tile; ``grid_of_owners`` gives the reference's
+    round-robin 2x2 subgrid, and refuses owners that leave a rank out. A
+    rank's tile tensors hold its own tiles only: ``[k, cap]`` for its k
+    tiles."""
     r0, r1 = runs["ranks"]
     assert r0["owners"] == r1["owners"] == (0, 1, 0, 1)
     assert r0["owned"] == [(0, 0), (1, 0)] and r1["owned"] == [(0, 1), (1, 1)]
     for gname, owners in (("2x4", (0, 0, 0, 0, 1, 1, 1, 1)), ("2x2", (0, 0, 1, 1)),
                           ("2x2rr", (0, 1, 0, 1))):
         assert r0[f"owners/{gname}"] == owners
+    assert r0["owners/1x3"] == r1["owners/1x3"] == (0, 0, 1)
+    for res in (r0, r1):
+        assert res["refused/1x1"][:2] == ("raised", "ValueError"), res["refused/1x1"]
+        assert res["refused/owners"][:2] == ("raised", "ValueError"), res["refused/owners"]
     cap = runs["one"]["2x2rr/plus_times/coo"][3]
     for res in (r0, r1):
         assert res["tile_shapes"] == ((2, cap), (2, cap), (2,))
